@@ -1,20 +1,16 @@
-"""Query options and result accumulators.
-
-Copies of the JAX-free option classes and ``ClassificationResults`` of
-metacache_tpu/classify/runner.py, whose module imports JAX when it
-loads.
-"""
+"""Query options and result accumulators: copies of the option classes
+and ``ClassificationResults`` of metacache_tpu/classify/runner.py."""
 from __future__ import annotations
 
 import dataclasses
 import sys
 from typing import Dict
 
-from metacache_tpu.classify.output import OutputFormatting
-from metacache_tpu.classify.stats import ClassificationStatistics
-from metacache_tpu.config import ClassificationOptions, SketchingOptions
-from metacache_tpu.seqio.reader import PairingMode
-from metacache_tpu.taxonomy.model import Rank, Taxon
+from ..config import ClassificationOptions, SketchingOptions
+from ..seqio.reader import PairingMode
+from ..taxonomy.model import Rank, Taxon
+from .output import OutputFormatting
+from .stats import ClassificationStatistics
 
 
 # copied from metacache_tpu/classify/runner.py:131-199

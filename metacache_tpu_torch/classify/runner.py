@@ -1,8 +1,10 @@
 """Query execution: stream reads, classify on the card, produce output.
 
 Port of metacache_tpu/classify/runner.py (QueryRunner) for single-end
-reads against a single-part u32 database staged in the dense slot-packed
-layout. Two paths, as in the JAX package:
+reads against a single-part u32 database staged in the dense layout,
+with packed slots when they fit int32 and (tgt, win) lane pairs when
+they do not (many targets, long genomes). Two paths, as in the JAX
+package:
 
 - summary only (``-no-map`` and no per-read analysis): the native
   reader's 2-bit packed short reads are stacked K batches deep and
@@ -28,23 +30,22 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from metacache_tpu import native
-from metacache_tpu.classify import abundance as abd
-from metacache_tpu.classify import classification as cls_mod
-from metacache_tpu.classify import output as out_mod
-from metacache_tpu.classify.output import MapViewMode
-from metacache_tpu.config import SketchingOptions, max_windows_in_range
-from metacache_tpu.db.database import Database
-from metacache_tpu.native import decode_header as _decode_header
-from metacache_tpu.ops import windows as win_ops
-from metacache_tpu.seqio.reader import PairingMode, QueryRecord, read_queries
-from metacache_tpu.taxonomy.model import NUM_RANKS, Rank, rank_from_name
-
+from .. import native
+from ..config import SketchingOptions, max_windows_in_range
+from ..db.database import Database
+from ..native import decode_header as _decode_header
+from ..ops import windows as win_ops
+from ..seqio.reader import PairingMode, QueryRecord, read_queries
+from ..taxonomy.model import NUM_RANKS, Rank, rank_from_name
 from ..db.state import tables_from_numpy
 from ..device import get_device, hbm_budget_bytes
 from ..ops.probe import make_bucket_index
 from ..ops.rows import query_step_rows, query_step_rows_scan
+from . import abundance as abd
+from . import classification as cls_mod
+from . import output as out_mod
 from .options import ClassificationResults, QueryOptions
+from .output import MapViewMode
 
 
 def rank_histogram(cls: torch.Tensor, n: int, taxid_sorted: torch.Tensor,
@@ -71,6 +72,20 @@ class _CodedBatch:
         return len(self.headers)
 
 
+def slot_pack_bits(target_count: int, max_window: int) -> int:
+    """Window bits of the packed slot pk = (tgt << wbits) | win, or 0
+    when slots stay unpacked (copied from
+    metacache_tpu/classify/runner.py:632-646). wbits carries one bit
+    more than the largest window, so the inter-target gap exceeds any
+    clamped mwir; packing needs the largest pk below I32_MAX (the
+    padding value). MC_PACK_SLOTS=0 turns packing off."""
+    if os.environ.get("MC_PACK_SLOTS", "1") == "0" or target_count <= 0:
+        return 0
+    wbits = max(1, (2 * max_window).bit_length())
+    pkmax = ((target_count - 1) << wbits) | max_window
+    return wbits if pkmax < 2**31 - 1 else 0
+
+
 def _unsupported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
@@ -94,9 +109,8 @@ class QueryRunner:
             _unsupported("-replicate / -table-shards", "queue A14")
         if opt.pairing != PairingMode.NONE:
             _unsupported("paired-end reads", "queue A12")
-        if len(db.parts) != 1 or getattr(db, "device_parts", None):
-            _unsupported("multi-part or device-built databases",
-                         "queue A9/A12")
+        if len(db.parts) != 1:
+            _unsupported("multi-part databases", "queue A12")
         if oa.show_all_hits or oa.show_locations:
             _unsupported("-allhits / -locations", "queue A5")
         if oa.show_alignment:
@@ -131,22 +145,12 @@ class QueryRunner:
             _unsupported("taxon merging (-lowest above sequence)",
                          "queue A5")
 
-        # dense slot-packed staging: the packed pk = (tgt << wbits) | win
-        # slot needs 2^wbits > 2 * max window and the largest pk < I32_MAX
-        # (copied from metacache_tpu/classify/runner.py:632-646)
+        # dense staging: packed pk slots when they fit int32, else
+        # (tgt, win) lane pairs (layout tag True)
         p = db.parts[0]
-        self._pack_bits = 0
-        if db.target_count > 0:
-            maxwin = 0
-            if p.num_locations:
-                maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max())
-            wbits = max(1, (2 * maxwin).bit_length())
-            pkmax = ((db.target_count - 1) << wbits) | maxwin
-            if pkmax < 2**31 - 1:
-                self._pack_bits = wbits
-        if not self._pack_bits:
-            _unsupported("databases whose (target, window) slots do not "
-                         "pack into int32", "queue B, B5")
+        maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max()) \
+            if p.num_locations else 0
+        self._pack_bits = slot_pack_bits(db.target_count, maxwin)
         spf = min(p.max_bucket_size, db.max_locations_per_feature) or 1
         kind, _head = p.choose_layout(spf, hbm_budget_bytes(self.device))
         if kind != "dense":

@@ -1,9 +1,8 @@
 """Command-line interface of the port: build, query, info, help.
 
-Same flags as metacache_tpu's CLI (and the reference binary). The flag
-parser helpers are imported from metacache_tpu.cli.main, whose module
-is JAX-free when it loads; the mode functions that reach JAX there are
-copied here onto the port's database and runner.
+Same flags as metacache_tpu's CLI (and the reference binary): the flag
+parser and the mode functions are copied from metacache_tpu/cli/main.py
+onto the port's database and runner.
 """
 from __future__ import annotations
 
@@ -11,24 +10,136 @@ import os
 import sys
 from typing import List
 
-from metacache_tpu.cli.help import MODES
-from metacache_tpu.cli.main import (Args, CliError, _apply_info_level,
-                                    _check_kmerlen, _expand, _parse_rank,
-                                    _parse_sketching)
-from metacache_tpu.config import SketchingOptions
-from metacache_tpu.seqio.reader import PairingMode
-
 from .. import __version__
+from ..config import SketchingOptions
+from ..seqio.reader import PairingMode
+from ..taxonomy.model import Rank, rank_from_name
+from .help import MODES
+
+
+# copied from metacache_tpu/cli/main.py:19-124 (the flag parser)
+class CliError(RuntimeError):
+    pass
+
+
+class Args:
+    """Sequential flag consumer over reference-style args."""
+
+    def __init__(self, argv: List[str]):
+        self.argv = list(argv)
+
+    def take_flag(self, *names) -> bool:
+        for n in names:
+            if n in self.argv:
+                self.argv.remove(n)
+                return True
+        return False
+
+    def take_value(self, *names, default=None):
+        for n in names:
+            if n in self.argv:
+                i = self.argv.index(n)
+                if i + 1 >= len(self.argv):
+                    raise CliError(f"missing value after '{n}'")
+                v = self.argv[i + 1]
+                del self.argv[i:i + 2]
+                return v
+        return default
+
+    def take_optional_value(self, *names, default=None, missing=""):
+        """Flag with optional value (e.g. -abundances [<file>])."""
+        for n in names:
+            if n in self.argv:
+                i = self.argv.index(n)
+                if i + 1 < len(self.argv) and \
+                        not self.argv[i + 1].startswith("-"):
+                    v = self.argv[i + 1]
+                    del self.argv[i:i + 2]
+                    return v
+                del self.argv[i]
+                return missing
+        return default
+
+    def take_values(self, *names) -> list[str]:
+        """Flag followed by one or more non-flag values."""
+        out = []
+        for n in names:
+            while n in self.argv:
+                i = self.argv.index(n)
+                del self.argv[i]
+                while i < len(self.argv) and \
+                        not self.argv[i].startswith("-"):
+                    out.append(self.argv.pop(i))
+        return out
+
+    def positionals(self) -> list[str]:
+        bad = [a for a in self.argv if a.startswith("-")]
+        if bad:
+            raise CliError(f"unknown option(s): {' '.join(bad)}")
+        return self.argv
+
+
+def _apply_info_level(a: Args) -> None:
+    """-silent / -verbose -> status verbosity (reference: info_level_cli,
+    src/options.cpp + io_options.hpp:27-33)."""
+    from ..utils import info as info_mod
+    if a.take_flag("-silent"):
+        info_mod.set_level(info_mod.SILENT)
+    if a.take_flag("-verbose"):
+        info_mod.set_level(info_mod.VERBOSE)
+    if a.take_flag("-no-info", "-noinfo"):
+        info_mod.set_level(info_mod.SILENT)
+    if a.take_flag("-no-err", "-noerr", "-no-errors"):
+        info_mod.set_show_errors(False)
+
+
+def _parse_rank(s: str) -> Rank:
+    r = rank_from_name(s)
+    if r == Rank.NONE and s.strip().lower() not in ("none",):
+        raise CliError(f"unknown taxonomic rank '{s}'")
+    return r
+
+
+def _check_kmerlen(k: int) -> int:
+    """k <= 16 uses the 32-bit kmer/feature config (the reference's
+    default MC_KMER_TYPE=uint32_t); 17 <= k <= 32 switches to the
+    64-bit config (the reference's -DMC_KMER_TYPE=uint64_t build,
+    src/config.hpp:45-60) with u64 features end-to-end."""
+    if k > 32 or k < 1:
+        raise CliError(
+            f"-kmerlen {k} is not supported: the kmer length must be "
+            "between 1 and 32 (k > 16 uses 64-bit kmers)")
+    return k
+
+
+def _parse_sketching(a: Args) -> SketchingOptions | None:
+    k = a.take_value("-kmerlen")
+    s = a.take_value("-sketchlen")
+    w = a.take_value("-winlen")
+    st = a.take_value("-winstride")
+    if k is None and s is None and w is None and st is None:
+        return None
+    return SketchingOptions(
+        kmerlen=_check_kmerlen(int(k)) if k else 16,
+        sketchlen=int(s) if s else 0,
+        winlen=int(w) if w else 0,
+        winstride=int(st) if st else 0)
+
+
+# copied from metacache_tpu/cli/main.py:486-488
+
+def _expand(paths):
+    from ..db.build import expand_input_paths
+    return expand_input_paths(paths)
 
 
 # copied from metacache_tpu/cli/main.py:128-219 (build only; modify,
 # device-resident tables and the reference file format are not ported)
 def mode_build(argv: List[str]) -> int:
-    from metacache_tpu.db.build import BuildOptions, build_database
-    from metacache_tpu.seqio.ids import SequenceIdType
-    from metacache_tpu.utils import info as info_mod
-
-    from ..db.database import TorchDatabase
+    from ..db.build import BuildOptions, build_database
+    from ..db.database import Database
+    from ..seqio.ids import SequenceIdType
+    from ..utils import info as info_mod
 
     a = Args(argv)
     opt = BuildOptions()
@@ -80,7 +191,7 @@ def mode_build(argv: List[str]) -> int:
     opt.dbfile = pos[0]
     opt.infiles = pos[1:]
     opt.device_tables = False       # host CSR build
-    db = build_database(opt, TorchDatabase(opt.sketching))
+    db = build_database(opt, Database(opt.sketching))
     db.save(opt.dbfile)
     info_mod.status(f"Database saved to {opt.dbfile}")
     return 0
@@ -88,9 +199,8 @@ def mode_build(argv: List[str]) -> int:
 
 # copied from metacache_tpu/cli/main.py:223-369
 def parse_query_options(a: Args):
-    from metacache_tpu.classify.output import MapViewMode
-
     from ..classify.options import QueryOptions
+    from ..classify.output import MapViewMode
 
     opt = QueryOptions()
     o = opt.output
@@ -231,8 +341,7 @@ def parse_query_options(a: Args):
 
 # copied from metacache_tpu/cli/main.py:372-415
 def run_query(db, infiles, opt, out_file=None, runner=None):
-    from metacache_tpu.classify import output as out_mod
-
+    from ..classify import output as out_mod
     from ..classify.options import ClassificationResults
     from ..classify.runner import map_queries_to_targets
 
@@ -278,8 +387,8 @@ def run_query(db, infiles, opt, out_file=None, runner=None):
 
 # copied from metacache_tpu/cli/main.py:418-459 (no interactive mode)
 def mode_query(argv: List[str]) -> int:
-    from metacache_tpu.config import MAX_SUPPORTED_LOCATIONS_PER_FEATURE
-    from metacache_tpu.db.database import Database
+    from ..config import MAX_SUPPORTED_LOCATIONS_PER_FEATURE
+    from ..db.database import Database
 
     a = Args(argv)
     part = a.take_value("-part")
@@ -351,7 +460,7 @@ def main(argv: List[str] | None = None) -> int:
         if mode == "query":
             return mode_query(rest)
         if mode == "info":
-            from metacache_tpu.cli.info import show_info
+            from .info import show_info
             return show_info(rest)
         print(HELP)
         print(f"unknown mode '{mode}'", file=sys.stderr)

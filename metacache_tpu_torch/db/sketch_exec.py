@@ -1,20 +1,25 @@
 """Batched sketching of reference windows for database builds.
 
-Port of metacache_tpu/db/sketch_exec.py onto the port's sketcher:
-``TorchSketchAccumulator`` keeps the JAX package's cross-target
-batching and queue order (so the emitted stream stays ascending in
-(tgt, win), which FeatureTable.build's presorted path relies on) and
-sketches each batch with kernel B1 on the card.
+Copied from metacache_tpu/db/sketch_exec.py:92-164 (``SketchAccumulator``)
+onto the port's sketcher: targets are batched across in queue order, so
+the emitted (feature, location) stream stays ascending in (tgt, win),
+which FeatureTable.build's presorted path relies on, and each batch is
+sketched by kernel B1 on the card (its plain version on the CPU). The
+device-resident accumulator (sketch_exec.py:167) feeds the device table
+builder, ROADMAP queue A9, and is not ported.
 """
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
 
-from metacache_tpu.db.sketch_exec import _BATCH, SketchAccumulator
-from metacache_tpu.ops.table import pack_locations
-
+from ..device import get_device
 from ..ops.sketch import sketch_windows
+from ..ops.table import pack_locations
+
+_BATCH = 65536  # windows per device call (sketch_exec.py:23)
 
 
 def sketch_windows_batched(wm: np.ndarray, vl: np.ndarray, k: int,
@@ -33,15 +38,51 @@ def sketch_windows_batched(wm: np.ndarray, vl: np.ndarray, k: int,
     return out
 
 
-class TorchSketchAccumulator(SketchAccumulator):
-    def __init__(self, k: int, sketchlen: int, device: torch.device,
-                 batch: int = _BATCH):
-        super().__init__(k, sketchlen, batch)
-        self.device = device
+class SketchAccumulator:
+    """Accumulates per-target window matrices and sketches them in large
+    cross-target device batches. ``device`` None means get_device() at
+    the first batch."""
 
-    # copied from metacache_tpu/db/sketch_exec.py:136-151, sketching
-    # through the port
+    def __init__(self, k: int, sketchlen: int,
+                 device: torch.device | None = None, batch: int = _BATCH):
+        self.k = k
+        self.sketchlen = sketchlen
+        self.device = device
+        self.batch = batch
+        # queue of (windows, valid, target_id, first_window_id)
+        self._q: collections.deque = collections.deque()
+        self._nwin = 0
+        self.features: list[np.ndarray] = []   # u32 chunks
+        self.locations: list[np.ndarray] = []  # u64 chunks
+
+    def add_target(self, wm: np.ndarray, vl: np.ndarray, tid: int):
+        """Queue one target's window matrix (nw, winlen)."""
+        if len(wm) == 0:
+            return
+        self._q.append((wm, vl, tid, 0))
+        self._nwin += len(wm)
+        while self._nwin >= self.batch:
+            self._flush(self.batch)
+
+    def _flush(self, nw: int):
+        """Sketch exactly nw queued windows (nw <= self._nwin)."""
+        take = []
+        left = nw
+        while left:
+            wm, vl, tid, win0 = self._q.popleft()
+            if len(wm) <= left:
+                take.append((wm, vl, tid, win0))
+                left -= len(wm)
+            else:
+                take.append((wm[:left], vl[:left], tid, win0))
+                self._q.appendleft((wm[left:], vl[left:], tid, win0 + left))
+                left = 0
+        self._nwin -= nw
+        self._sketch_and_emit(take)
+
     def _sketch_and_emit(self, take):
+        if self.device is None:
+            self.device = get_device()
         wm = np.concatenate([t[0] for t in take], axis=0)
         vl = np.concatenate([t[1] for t in take])
         feats = sketch_windows_batched(wm, vl, self.k, self.sketchlen,
@@ -57,3 +98,16 @@ class TorchSketchAccumulator(SketchAccumulator):
             self.features.append(f[mask])
             self.locations.append(pack_locations(
                 np.full(int(mask.sum()), tid, np.uint32), wid[mask]))
+
+    def finish(self):
+        """Sketch remaining windows; -> (features u32, locations u64)."""
+        if self._nwin:
+            self._flush(self._nwin)
+        if self.features:
+            f = np.concatenate(self.features)
+            l = np.concatenate(self.locations)
+        else:
+            f = np.zeros(0, np.uint32)
+            l = np.zeros(0, np.uint64)
+        self.features, self.locations = [], []
+        return f, l

@@ -53,8 +53,8 @@ def tables_from_numpy(unique_features: np.ndarray, offsets: np.ndarray,
                       bucket_bits: int, lineages: np.ndarray,
                       merge_tax: np.ndarray, spf: int, pack_bits: int,
                       device: torch.device) -> DeviceTables:
-    """Carry the JAX package's host state (numpy arrays; u32 seen as
-    int32 bit patterns) into the port. ``fused_rows`` must be
+    """Carry the database's host state (numpy arrays; u32 seen as
+    int32 bit patterns) to the device. ``fused_rows`` must be
     ``FeatureTable.fused_rows(spf, slot_bits=pack_bits)``: packed slots
     when ``pack_bits > 0``, (tgt, win) lanes when 0. The dense layout
     reads only the feature count, not the feature and offset arrays."""

@@ -1,11 +1,12 @@
 """Build, load and launch the hand-written Hopper kernels.
 
 The CUDA sources under ``csrc/`` expose a plain C interface. At first
-use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/metacache_tpu_torch/`` beside the package (a
-directory git ignores), named by a hash of the sources so that an edit
-rebuilds, and loaded with ``ctypes``. Nothing here is imported or built
-until a kernel is launched on a CUDA tensor.
+use each source is compiled with ``nvcc`` for ``sm_90a`` to an object,
+all of them at once in parallel, and the objects are linked into one
+shared library under ``build/metacache_tpu_torch/`` beside the package
+(a directory git ignores), named by a hash of the sources and headers so
+that an edit rebuilds, and loaded with ``ctypes``. Nothing here is
+imported or built until a kernel is launched on a CUDA tensor.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; a
 non-zero code raises. Each kernel keeps a plain-integer launch count,
@@ -22,10 +23,11 @@ import threading
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("sketch.cu", "candidates.cu")
+SOURCES = ("sketch.cu", "candidates.cu", "candidates_unpacked.cu")
+HEADERS = ("block.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "metacache_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -44,7 +46,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -58,16 +60,33 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    if verbose and r.stderr:
-        print(r.stderr)
+    objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+    procs = []
+    for src, obj in zip(SOURCES, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, src), "-o", obj]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((src, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for src, proc in procs:
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src} ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(err)
+    if not errors:
+        r = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            errors.append(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, path)
     return path
 
@@ -82,8 +101,11 @@ def _load():
             lib.mc_sort_packed.argtypes = [p, p, i64, i, i, p]
             lib.mc_candidates_packed.argtypes = [p, p, p, i64, i, i, i, i,
                                                  i, p]
+            lib.mc_candidates_unpacked.argtypes = [p, p, p, p, i64, i, i, i,
+                                                   i, i, p]
             for fn in (lib.mc_sketch_windows, lib.mc_sort_packed,
-                       lib.mc_candidates_packed):
+                       lib.mc_candidates_packed,
+                       lib.mc_candidates_unpacked):
                 fn.restype = ctypes.c_int
             lib.mc_error_string.argtypes = [i]
             lib.mc_error_string.restype = ctypes.c_char_p
@@ -123,7 +145,11 @@ SORT = Kernel("mc_sort_packed",
 CANDIDATES = Kernel("mc_candidates_packed",
                     "metacache_tpu/ops/candidates_pallas.py:429",
                     "metacache_tpu_torch/csrc/candidates.cu")
-ALL = {"sketch": SKETCH, "sort": SORT, "candidates": CANDIDATES}
+CANDIDATES_UNPACKED = Kernel("mc_candidates_unpacked",
+                             "metacache_tpu/ops/candidates_pallas.py:264",
+                             "metacache_tpu_torch/csrc/candidates_unpacked.cu")
+ALL = {"sketch": SKETCH, "sort": SORT, "candidates": CANDIDATES,
+       "candidates_unpacked": CANDIDATES_UNPACKED}
 
 
 def reset_counts() -> None:

@@ -1,18 +1,20 @@
 """Row-layout query step: one row of match slots per read.
 
 Port of metacache_tpu/ops/rows.py for the dense fused-row layout:
-sketch (B1) -> bucket-row probe + fused-row gather -> packed slots ->
-sort (B3) -> sweep + top-k (B4) -> ranked LCA. The port runs the fused
-candidate branch of ``rows_to_result`` whenever the result allows it;
-branches it does not carry yet raise NotImplementedError naming their
-ROADMAP item. A Python loop over the K stacked batches takes the place
-of ``lax.scan``.
+sketch (B1) -> bucket-row probe + fused-row gather -> match slots ->
+candidates -> ranked LCA. Slots that pack into int32 (pack_bits > 0) go
+through sort (B3) and sweep + top-k (B4); unpacked (tgt, win) slots go
+through the two-key kernel (B5). The port runs the fused candidate
+branch of ``rows_to_result`` whenever the result allows it; branches it
+does not carry yet raise NotImplementedError naming their ROADMAP item.
+A Python loop over the K stacked batches takes the place of
+``lax.scan``.
 """
 from __future__ import annotations
 
 import torch
 
-from .candidates import I32_MAX, candidates_packed
+from .candidates import I32_MAX, candidates_packed, candidates_unpacked
 from .pipeline import QueryResult, classify_candidates
 from .probe import probe_bucket, shift_right_logical
 from .sketch import sketch_windows
@@ -94,19 +96,17 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
     return tgts.reshape(b, f * c), wins.reshape(b, f * c)
 
 
-def rows_to_result(pk, mwir, merge_tax_of_target, lineages,
+def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
                    hits_min, hits_diff_frac, highest_rank, merge_rank,
                    *, max_candidates: int, walk_elems: int = 0,
                    dedup_walk: int = 0, fast_top2: bool = False,
                    emit_hits: bool = False, presorted_runs: int = 0,
                    pack_bits: int = 0) -> QueryResult:
-    """(B, L) packed match slots -> candidates + classification: the
-    fused branch of rows.py:134-179 (sort B3, sweep + top-k B4)."""
+    """(B, L) match slots -> candidates + classification: the fused
+    branch of rows.py:134-179. With ``pack_bits`` > 0, ``tgt`` holds the
+    packed slots (``win`` is ignored) for sort B3 and sweep + top-k B4;
+    with 0, (tgt, win) go to the two-key kernel B5."""
     kk = max_candidates
-    if not pack_bits:
-        raise NotImplementedError(
-            "unpacked (tgt, win) slots need the two-key candidates kernel "
-            "(ROADMAP queue B, B5)")
     if emit_hits:
         raise NotImplementedError(
             "per-hit lists (-allhits) need the non-fused result path "
@@ -119,12 +119,19 @@ def rows_to_result(pk, mwir, merge_tax_of_target, lineages,
         raise NotImplementedError(
             "contiguous ranges longer than 48 windows need the rank-join "
             "sweep (ROADMAP queue A5)")
-    # clamping mwir to 2^(wbits-1) is semantically identity and keeps
-    # the packed sweep's single-compare range test exact (rows.py:134-140)
-    mwir = torch.clamp(mwir.to(torch.int32), max=1 << (pack_bits - 1))
-    cand_tgt, cand_hits, cand_beg, cand_end = candidates_packed(
-        pk, mwir, pack_bits, walk_elems=0 if dedup_walk else walk_elems,
-        dedup_walk=dedup_walk, max_candidates=kk, presorted=presorted_runs)
+    walk = 0 if dedup_walk else walk_elems
+    if pack_bits:
+        # clamping mwir to 2^(wbits-1) is semantically identity and keeps
+        # the packed sweep's single-compare range test exact
+        # (rows.py:134-140)
+        mwir = torch.clamp(mwir.to(torch.int32), max=1 << (pack_bits - 1))
+        cand_tgt, cand_hits, cand_beg, cand_end = candidates_packed(
+            tgt, mwir, pack_bits, walk_elems=walk, dedup_walk=dedup_walk,
+            max_candidates=kk, presorted=presorted_runs)
+    else:
+        cand_tgt, cand_hits, cand_beg, cand_end = candidates_unpacked(
+            tgt, win, mwir, walk_elems=walk, dedup_walk=dedup_walk,
+            max_candidates=kk, presorted=presorted_runs)
     ntax = merge_tax_of_target.shape[0]
     cand_tax = torch.where(
         cand_tgt >= 0,
@@ -154,9 +161,9 @@ def query_step_rows(windows, valid, mwir, tables, hits_min, hits_diff_frac,
     feats = feats.reshape(b, wq * sketchlen)
     alt = _alt_runs(fast_top2, walk_elems, dedup_walk, wq * sketchlen,
                     tables.spf)
-    pk, _ = probe_rows(feats, tables, alt_runs=alt, pack_bits=pack_bits)
+    tgt, win = probe_rows(feats, tables, alt_runs=alt, pack_bits=pack_bits)
     return rows_to_result(
-        pk, mwir, tables.merge_tax, tables.lineages, hits_min,
+        tgt, win, mwir, tables.merge_tax, tables.lineages, hits_min,
         hits_diff_frac, highest_rank, merge_rank,
         max_candidates=max_candidates, walk_elems=walk_elems,
         dedup_walk=dedup_walk, fast_top2=fast_top2, emit_hits=emit_hits,
@@ -191,9 +198,10 @@ def query_step_rows_scan(windows_k, valid_k, mwir_k, tables, hits_min,
         feats = sketch_windows(wmat.reshape(b * wq, w),
                                valid_k[i].reshape(b * wq).to(torch.int32),
                                k, sketchlen).reshape(b, wq * sketchlen)
-        pk, _ = probe_rows(feats, tables, alt_runs=alt, pack_bits=pack_bits)
+        tgt, win = probe_rows(feats, tables, alt_runs=alt,
+                              pack_bits=pack_bits)
         res = rows_to_result(
-            pk, mwir_k[i], tables.merge_tax, tables.lineages, hits_min,
+            tgt, win, mwir_k[i], tables.merge_tax, tables.lineages, hits_min,
             hits_diff_frac, highest_rank, merge_rank,
             max_candidates=max_candidates, walk_elems=walk_elems,
             dedup_walk=dedup_walk, fast_top2=fast_top2,

@@ -1,7 +1,10 @@
 """metacache_tpu_torch's `build` and `query` CLI, in-process on the CPU:
-the build equals metacache_tpu's, and the query output equals the
-reference binary's goldens that lie on the port's slice (single-end,
--lowest sequence, up to 4 candidates, no per-hit lists)."""
+the build equals metacache_tpu's and each package loads the other's
+database, and the query output equals the reference binary's goldens
+that lie on the port's slice (single-end, -lowest sequence, up to 4
+candidates, no per-hit lists), with packed slots and, under
+MC_PACK_SLOTS=0, with unpacked (tgt, win) slots through kernel B5's
+plain version."""
 import contextlib
 import io
 import os
@@ -76,6 +79,32 @@ def test_build_matches_metacache_tpu(dbfile):
                                       err_msg=name)
 
 
+def test_database_of_metacache_tpu_loads_in_the_port(tmp_path):
+    """The converse: a database written by metacache_tpu loads in the
+    port with equal tables and taxonomy."""
+    from metacache_tpu_torch.db.database import Database as TorchDatabase
+    path = str(tmp_path / "refdb")
+    build_database(BuildOptions(
+        infiles=[f"{DATA}/genomes.fa"],
+        taxonomy_dir=f"{DATA}/taxonomy")).save(path)
+    ref, ours = Database.load(path), TorchDatabase.load(path)
+    assert ours.target_count == ref.target_count
+    assert vars(ours.sketching) == vars(ref.sketching)
+    for name in ("unique_features", "offsets", "locations"):
+        np.testing.assert_array_equal(getattr(ours.parts[0], name),
+                                      getattr(ref.parts[0], name),
+                                      err_msg=name)
+
+    def taxa(db):
+        db.taxa.update()
+        tx = db.taxa.taxonomy
+        return (sorted((t.id, t.parent_id, int(t.rank), t.name)
+                       for t in list(tx.taxa.values()) +
+                       list(tx.targets.values())),
+                db.taxa.target_lineages_array().tolist())
+    assert taxa(ours) == taxa(ref)
+
+
 @pytest.mark.parametrize("i", sorted(FMT_FLAGS))
 def test_formatting_goldens(dbfile, i):
     ours = _query(dbfile, [f"{DATA}/reads_single.fa"] + FMT_FLAGS[i])
@@ -88,12 +117,67 @@ def test_classified_single_fq_golden(dbfile):
     assert ours == _golden("classified_single_fq.txt")
 
 
+GOLDEN_CASES = [(f"fmt_{i}.txt", [f"{DATA}/reads_single.fa"] + FMT_FLAGS[i])
+                for i in sorted(FMT_FLAGS)] + [
+    ("classified_single_fq.txt", [f"{DATA}/reads_single.fq", "-precision",
+                                  "-ground-truth", "-tophits"])]
+
+
+@pytest.mark.parametrize("gold,args", GOLDEN_CASES,
+                         ids=[g for g, _ in GOLDEN_CASES])
+def test_goldens_with_unpacked_slots(dbfile, monkeypatch, gold, args):
+    """MC_PACK_SLOTS=0: the same goldens through (tgt, win) lane rows
+    and the two-key candidates (B5)."""
+    monkeypatch.setenv("MC_PACK_SLOTS", "0")
+    assert _query(dbfile, args) == _golden(gold)
+
+
+@pytest.mark.parametrize("packing", [None, "0"])
+def test_runner_stages_the_layout_of_its_slots(dbfile, monkeypatch,
+                                               packing):
+    from metacache_tpu_torch.classify.options import QueryOptions
+    from metacache_tpu_torch.classify.runner import QueryRunner
+    from metacache_tpu_torch.db.database import Database as TorchDatabase
+    if packing is None:
+        monkeypatch.delenv("MC_PACK_SLOTS", raising=False)
+    else:
+        monkeypatch.setenv("MC_PACK_SLOTS", packing)
+    runner = QueryRunner(TorchDatabase.load(dbfile), QueryOptions())
+    if packing is None:
+        assert runner._pack_bits > 0
+        assert runner.layout == f"pk{runner._pack_bits}"
+        assert runner.tables.fused_rows.shape[1] >= 2 + runner.tables.spf
+    else:
+        assert runner._pack_bits == 0 and runner.layout == "True"
+        assert runner.tables.fused_rows.shape[1] >= 2 + 2 * runner.tables.spf
+
+
+@pytest.mark.parametrize("targets,max_window,bits", [
+    (0, 0, 0),
+    (192, 177, 9),
+    (944, 8928, 15),          # the 944 Mbp RefSeq-skew database: pk15
+    (8192, 71427, 18),        # the most targets that still pack at 18 bits
+    (8193, 71427, 0),
+    (9217, 71428, 0),         # chip_smoke.py's many-target database
+    (2, 2**30, 0),
+])
+def test_slot_pack_bits(monkeypatch, targets, max_window, bits):
+    """The rule of metacache_tpu/classify/runner.py:632-646: window bits
+    (2 * max window).bit_length() when ((targets - 1) << bits) | max
+    window stays below I32_MAX; MC_PACK_SLOTS=0 turns packing off."""
+    from metacache_tpu_torch.classify.runner import slot_pack_bits
+    monkeypatch.delenv("MC_PACK_SLOTS", raising=False)
+    assert slot_pack_bits(targets, max_window) == bits
+    monkeypatch.setenv("MC_PACK_SLOTS", "0")
+    assert slot_pack_bits(targets, max_window) == 0
+
+
 @pytest.mark.parametrize("scan_k_env", ["1", None])
 def test_summary_scan_path_statistics(dbfile, monkeypatch, scan_k_env):
     """-no-map runs the packed-infeed scan path; its summary statistics
     equal those of the per-read run in the golden, and the stack is no
     deeper than the file's reads need."""
-    from metacache_tpu import native
+    from metacache_tpu_torch import native
     from metacache_tpu_torch.classify.runner import QueryRunner
     if scan_k_env is None:
         monkeypatch.delenv("MC_SCAN_K", raising=False)

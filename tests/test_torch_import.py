@@ -1,20 +1,25 @@
-"""metacache_tpu_torch imports and runs with JAX unavailable: the GPU
-host has no JAX, so no module of the port may reach it."""
+"""metacache_tpu_torch imports and runs with JAX and metacache_tpu
+unavailable: the GPU host has no JAX, and the port keeps its own copy of
+the host code it needs, so no module of the port may reach either."""
 import os
 import pkgutil
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "metacache_tpu_torch")
+DATA = os.path.join(REPO, "tests", "data")
 
 _BLOCKED = (
     "import sys, runpy, pkgutil, importlib\n"
     "sys.modules['jax'] = None\n"
+    "sys.modules['metacache_tpu'] = None\n"
     "sys.argv = ['metacache_tpu_torch'] + sys.argv[1:]\n")
+_CLI = "runpy.run_module('metacache_tpu_torch', run_name='__main__')"
 
 
 def _run(code, *args):
@@ -41,16 +46,78 @@ def test_every_module_imports_without_jax():
 
 @pytest.mark.parametrize("args", [["help"], ["help", "query"], ["info"]])
 def test_cli_runs_without_jax(args):
-    r = _run("runpy.run_module('metacache_tpu_torch', run_name='__main__')",
-             *args)
+    r = _run(_CLI, *args)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip()
 
 
+def _strip(text):
+    drop = ("# time:", "# speed:", "threads", DATA, "/tmp")
+    return [l for l in text.splitlines() if not any(d in l for d in drop)]
+
+
+def test_build_query_info_without_jax_or_metacache_tpu(tmp_path):
+    """The port's build, query and info on the fixture, in processes where
+    both packages are blocked; the query output equals the golden."""
+    db = str(tmp_path / "db")
+    r = _run(_CLI, "build", db, f"{DATA}/genomes.fa", "-taxonomy",
+             f"{DATA}/taxonomy")
+    assert r.returncode == 0, r.stderr[-2000:]
+    r = _run(_CLI, "query", db, f"{DATA}/reads_single.fa")
+    assert r.returncode == 0, r.stderr[-2000:]
+    with open(os.path.join(DATA, "golden", "fmt_0.txt")) as f:
+        assert _strip(r.stdout) == _strip(f.read())
+    r = _run(_CLI, "info", db)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "kmer size          16" in r.stdout
+
+
 def test_no_jax_import_in_the_port():
-    pat = re.compile(r"^\s*(import jax|from jax)\b", re.M)
-    for root, _dirs, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
-                    assert not pat.search(fh.read()), f
+    """Neither JAX nor metacache_tpu, in the port or in chip_smoke.py."""
+    pat = re.compile(
+        r"^\s*(import jax|from jax)\b|"
+        r"^\s*(import|from)\s+metacache_tpu(\.|\s|$)", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(PKG):
+        files += [os.path.join(root, f) for f in names if f.endswith(".py")]
+    for path in files:
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+
+
+def _reads_of(reader):
+    """-> (codes per read, headers, packed 2-bit codes per read) of the
+    first 4096 records; buffer bytes past each read are not data."""
+    codes, lens, hdrs = reader.read_batch_raw(4096)
+    return ([c[:n].tolist() for c, n in zip(codes, lens)],
+            [h.tobytes().split(b"\0")[0] for h in hdrs])
+
+
+def _packed_of(reader):
+    packed, plens, scodes, slens, shdrs, used = \
+        reader.read_batch_packed(4096, 127)
+    bases = ((packed[:, :, None] >> np.array([0, 2, 4, 6], np.uint8)) & 3) \
+        .reshape(len(packed), -1)
+    return ([b[:n].tolist() for b, n in zip(bases, plens)],
+            [c[:n].tolist() for c, n in zip(scodes, slens)],
+            [h.tobytes().split(b"\0")[0] for h in shdrs], used)
+
+
+def test_native_reader_matches_metacache_tpu():
+    """The port's native reader, built from its own sources, parses the
+    fixture's reads into the codes and headers of metacache_tpu.native."""
+    from metacache_tpu import native as ref
+    from metacache_tpu_torch import native as ours
+    assert ours.get_lib() is not None
+    assert os.path.dirname(ours.library_path()).endswith(
+        os.path.join("build", "metacache_tpu_torch"))
+    for name in ("reads_single.fa", "reads_single.fq"):
+        path = os.path.join(DATA, name)
+        assert ours.scan_file(path) == ref.scan_file(path)
+        for read in (_reads_of, _packed_of):
+            a = ours.NativeFastxReader(path, max_len=1024)
+            b = ref.NativeFastxReader(path, max_len=1024)
+            got, want = read(a), read(b)
+            a.close(), b.close()
+            assert len(got[0]) > 0
+            assert got == want

@@ -106,19 +106,33 @@ def test_probe_rows_matches_jax(strain_db, layout, pack, alt):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def _jax_tables(d):
+def _jax_tables(d, slot_bits):
     ft = d["ft"]
     return (jnp.asarray(ft.unique_features),
             jnp.asarray(ft.offsets.astype(np.int32)),
-            jnp.asarray(ft.fused_rows(d["spf"], slot_bits=d["wbits"])),
+            jnp.asarray(ft.fused_rows(d["spf"], slot_bits=slot_bits)),
             jnp.zeros((1,), jnp.int32), jnp.asarray(d["lin"][:, 0].copy()),
             jnp.asarray(d["lin"]))
+
+
+def _layout(bits):
+    """metacache_tpu's dense layout tag: packed slots or (tgt, win)."""
+    return f"pk{bits}" if bits else True
 
 
 def test_scan_matches_jax(strain_db):
     """K = 2 stacked batches, 2-bit packed infeed, fused candidates,
     fast_top2, walk sweep."""
-    d = strain_db
+    _scan_case(strain_db, strain_db["wbits"])
+
+
+def test_scan_unpacked_matches_jax(strain_db):
+    """The same scan with unpacked (tgt, win) slots (pack_bits = 0):
+    (tgt, win) lane rows, the two-key candidates (B5)."""
+    _scan_case(strain_db, 0)
+
+
+def _scan_case(d, bits):
     K, B = 2, 16
     reads = _reads(d, K * B, 100, seed=8)
     reads[3, 20] = 1                # every read stays ACGT-only
@@ -130,21 +144,21 @@ def test_scan_matches_jax(strain_db):
     lens[1, 5, 0] = 40              # a short read
     mwir = np.full((K, B), 2, np.uint8)
     hits_min, frac, highest = 5, 1.0, 19
-    tf, to, lt, lw, mt, lg = _jax_tables(d)
+    tf, to, lt, lw, mt, lg = _jax_tables(d, bits)
     want = jrows.query_step_rows_scan(
         jnp.asarray(packed), jnp.asarray(lens), jnp.asarray(mwir),
         tf, to, lt, lw, mt, lg, jnp.int32(hits_min), jnp.float32(frac),
         jnp.int32(highest), jnp.int32(0), jnp.asarray(d["brows"]),
         k=16, sketchlen=16, slots_per_feature=d["spf"],
         windows_per_query=1, max_candidates=2, prefix_bits=d["bits"],
-        dense=f"pk{d['wbits']}", walk_elems=32, fast_top2=True,
-        fused_candidates=True, pack_bits=d["wbits"], infeed_packed=True)
+        dense=_layout(bits), walk_elems=32, fast_top2=True,
+        fused_candidates=True, pack_bits=bits, infeed_packed=True)
     got = trows.query_step_rows_scan(
         torch.from_numpy(packed), torch.from_numpy(lens),
-        torch.from_numpy(mwir), _tables(d, d["wbits"]), hits_min, frac,
+        torch.from_numpy(mwir), _tables(d, bits), hits_min, frac,
         highest, 0, k=16, sketchlen=16, windows_per_query=1,
         max_candidates=2, walk_elems=32, fast_top2=True,
-        pack_bits=d["wbits"], infeed_packed=True)
+        pack_bits=bits, infeed_packed=True)
     want = np.asarray(want)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want != 0).sum() > K * B // 2      # most reads classify
@@ -153,7 +167,15 @@ def test_scan_matches_jax(strain_db):
 def test_step_two_windows_dedup_matches_jax(strain_db):
     """200 bp reads: two windows per read, the dedup sweep, and every
     candidate field of the QueryResult."""
-    d = strain_db
+    _step_case(strain_db, strain_db["wbits"])
+
+
+def test_step_two_windows_dedup_unpacked_matches_jax(strain_db):
+    """The per-read step with unpacked (tgt, win) slots (B5)."""
+    _step_case(strain_db, 0)
+
+
+def _step_case(d, bits):
     B = 16
     sk = SketchingOptions().resolved()
     reads = _reads(d, B, 200, seed=21)
@@ -164,20 +186,20 @@ def test_step_two_windows_dedup_matches_jax(strain_db):
         wmat[i, :len(w)] = w
         vmat[i, :len(v)] = v
     mwir = np.full(B, 2 + 200 // sk.winstride, np.int32)
-    tf, to, lt, lw, mt, lg = _jax_tables(d)
+    tf, to, lt, lw, mt, lg = _jax_tables(d, bits)
     want = jrows.query_step_rows(
         jnp.asarray(wmat), jnp.asarray(vmat), jnp.asarray(mwir),
         tf, to, lt, lw, mt, lg, jnp.int32(5), jnp.float32(1.0),
         jnp.int32(19), jnp.int32(0), jnp.asarray(d["brows"]),
         k=16, sketchlen=16, slots_per_feature=d["spf"],
         windows_per_query=2, max_candidates=2, prefix_bits=d["bits"],
-        dense=f"pk{d['wbits']}", dedup_walk=3, fast_top2=True,
-        fused_candidates=True, emit_hits=False, pack_bits=d["wbits"])
+        dense=_layout(bits), dedup_walk=3, fast_top2=True,
+        fused_candidates=True, emit_hits=False, pack_bits=bits)
     got = trows.query_step_rows(
         torch.from_numpy(wmat), torch.from_numpy(vmat),
-        torch.from_numpy(mwir), _tables(d, d["wbits"]), 5, 1.0, 19, 0,
+        torch.from_numpy(mwir), _tables(d, bits), 5, 1.0, 19, 0,
         k=16, sketchlen=16, windows_per_query=2, max_candidates=2,
-        dedup_walk=3, fast_top2=True, pack_bits=d["wbits"])
+        dedup_walk=3, fast_top2=True, pack_bits=bits)
     for nm in ("cand_tgt", "cand_tax", "cand_hits", "cand_beg",
                "cand_end", "cls_tax"):
         np.testing.assert_array_equal(getattr(got, nm).numpy(),
@@ -190,10 +212,10 @@ def test_result_rejects_paths_not_ported(strain_db):
     pk = torch.full((2, 128), 2**31 - 1, dtype=torch.int32)
     mw = torch.full((2,), 2, dtype=torch.int32)
     t = _tables(d, d["wbits"])
-    args = (pk, mw, t.merge_tax, t.lineages, 5, 1.0, 19, 0)
-    with pytest.raises(NotImplementedError, match="B5"):
+    args = (pk, pk, mw, t.merge_tax, t.lineages, 5, 1.0, 19, 0)
+    with pytest.raises(NotImplementedError, match="A5"):
         trows.rows_to_result(*args, max_candidates=2, walk_elems=8,
-                             fast_top2=True, pack_bits=0)
+                             fast_top2=True, emit_hits=True, pack_bits=0)
     with pytest.raises(NotImplementedError, match="rank-join"):
         trows.rows_to_result(*args, max_candidates=2, fast_top2=True,
                              pack_bits=d["wbits"])
