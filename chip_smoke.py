@@ -3,16 +3,23 @@
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
 holds each against its plain PyTorch version on the card, then drives
-the port's two query paths through its entry points, each at a scale
-its users run:
+the port's query paths through its entry points, each at a scale its
+users run:
 
-- packed slots: `build` of the RefSeq-skew database (64 unique +
-  12 x 52-strain + 1 x 256-strain genomes of 1 Mbp, 944 Mbp, buckets at
-  the 254 cap), whose (target, window) slots pack into int32, and
-  `query` through kernels B1, B3 and B4;
+- packed slots, dense rows: `build` of the RefSeq-skew database (64
+  unique + 12 x 52-strain + 1 x 256-strain genomes of 1 Mbp, 944 Mbp,
+  buckets at the 254 cap), whose (target, window) slots pack into int32,
+  and `query` through kernels B1, B3 and B4;
 - unpacked slots: `build` of a many-target database (one 8 Mbp genome
   plus 36 species x 256 strains of 50 kbp, 9217 targets, 469 Mbp), whose
-  slots do not pack into int32, and `query` through B1 and B5.
+  slots do not pack into int32, and `query` through B1 and B5; once more
+  with MC_DENSE_LIMIT=1, which stages it two-tier;
+- packed slots, two-tier rows: `build` of the 1456 Mbp database (the
+  RefSeq-skew generator with 576 unique genomes), whose dense rows exceed
+  the card's budget, and `query` with escalation: a head-only phase
+  through B1, B6, B3 and B4, and a full-depth redo of the reads that
+  touched a deeper bucket through B7, B3 and B4; once more with
+  MC_ESCALATE=0 (B7 on every batch), which must give the same result.
 
 Each path queries 2^20 100 bp reads on the summary path, 65,536 reads
 on the per-read path, and one batch of the scan step compared with the
@@ -79,6 +86,23 @@ def cuda_ms(fn, reps: int = 5) -> float:
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def device_ms(fn, reps: int = 4) -> float:
+    """Mean device milliseconds per call: the time of the kernels
+    themselves in a torch.profiler trace of ``reps`` calls after a
+    warm-up, without the gaps between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / reps
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -397,6 +421,91 @@ def phase_parity(results):
         max_abs_err=max(errs.values()), cases=errs, ms=ms, plain_ms=pms,
         bound_ms=b_ms, bound_by=by, dedup_case="(2048, 1024) dedup_walk=6")
 
+    phase_parity_decode(results, rng, dev)
+
+
+def two_tier_table(rng, nf: int, hsl: int = 61, spf: int = 254):
+    """Head rows [feature, count, ovf_idx, 61 slots] and overflow rows
+    built as tests/test_probe_pallas.py builds them, with 80% of the
+    counts at or below the head and 20% above it."""
+    feats = np.sort(rng.choice(2**31 - 2, nf, replace=False)) + 1
+    deep = rng.random(nf) < 0.2
+    cnts = np.where(deep, rng.integers(hsl + 1, spf + 1, nf),
+                    rng.integers(1, hsl + 1, nf))
+    head = np.empty((nf, 64), np.int32)
+    head[:, 0] = feats
+    head[:, 1] = cnts
+    head[:, 2] = 0
+    novf = int(deep.sum())
+    head[deep, 2] = np.arange(1, novf + 1)
+    head[:, 3:] = rng.integers(0, 2**30, (nf, 61), dtype=np.int32)
+    ovf = np.zeros((novf + 1, 200), np.int32)
+    ovf[1:, :spf - hsl] = rng.integers(0, 2**30, (novf, spf - hsl),
+                                       dtype=np.int32)
+    return feats, head, ovf
+
+
+def decode_probes(rng, feats, n: int):
+    """n probe rows: 30% misses, 1% sentinels, 1% indices past the
+    table."""
+    nf = len(feats)
+    idx = rng.integers(0, nf, n)
+    flat = feats[idx].copy()
+    miss = rng.random(n) < 0.3
+    flat[miss] = rng.integers(1, 2**31 - 1, int(miss.sum()))
+    flat[::97] = -1
+    idx[::101] = nf + 5
+    return idx.astype(np.int32), flat.astype(np.int32)
+
+
+def phase_parity_decode(results, rng, dev):
+    """B6 and B7 at the main path's 131,072 probes (8192 reads x 16
+    features) on a 2 M-feature table (512 MB of head rows, past the L2
+    cache), against their plain versions."""
+    from metacache_tpu_torch.ops import probe_decode as D
+    n, f, hsl, c = 131072, 16, 61, 254
+    feats, head_np, ovf_np = two_tier_table(rng, 1 << 21)
+    idx_np, flat_np = decode_probes(rng, feats, n)
+    head, ovf, idx, flat = (torch.from_numpy(a).to(dev) for a in
+                            (head_np, ovf_np, idx_np, flat_np))
+    # what the data needs: per probe its index and feature, the three
+    # meta lanes, the slots its count keeps; the outputs once
+    row = head_np[np.minimum(idx_np, len(feats) - 1)]
+    cnt = np.where((row[:, 0] == flat_np) & (flat_np != -1), row[:, 1], 0)
+    errs = []
+    for rl in (64, 256):
+        pk, cn = D.head_decode(head, idx, flat, hsl, rl, f)
+        wpk, wcn = D.head_decode_plain(head, idx, flat, hsl, rl, f)
+        errs += [check_equal(f"B6 rl={rl}", pk, wpk),
+                 check_equal(f"B6 cnt rl={rl}", cn, wcn)]
+    ms = cuda_ms(lambda: D.head_decode(head, idx, flat, hsl, 64, f))
+    pms = cuda_ms(lambda: D.head_decode_plain(head, idx, flat, hsl, 64, f))
+    kept = int(np.minimum(cnt, hsl).sum())
+    b_ms, by = _record(results, "head_decode", err=max(errs), ms=ms,
+                       plain_ms=pms, nbytes=n * (8 + 12 + 4 + 64 * 4)
+                       + kept * 4, nops=n * 64 * 2,
+                       shape="131072 probes, f=16, hsl=61, rl=64")
+    say("parity-B6", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
+        plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        deep_share=round(float((cnt > hsl).mean()), 4),
+        miss_share=round(float((cnt == 0).mean()), 4))
+
+    errs = []
+    for rl, ff in ((256, f), (512, f), (256, 1)):
+        got = D.full_decode(head, ovf, idx, flat, hsl, c, rl, ff)
+        want = D.full_decode_plain(head, ovf, idx, flat, hsl, c, rl, ff)
+        errs.append(check_equal(f"B7 rl={rl} f={ff}", got, want))
+    ms = cuda_ms(lambda: D.full_decode(head, ovf, idx, flat, hsl, c, 256, f))
+    pms = cuda_ms(lambda: D.full_decode_plain(head, ovf, idx, flat, hsl, c,
+                                              256, f))
+    b_ms, by = _record(results, "full_decode", err=max(errs), ms=ms,
+                       plain_ms=pms, nbytes=n * (8 + 12 + 256 * 4)
+                       + int(cnt.sum()) * 4, nops=n * 256 * 2,
+                       shape="131072 probes, f=16, hsl=61, c=254, rl=256")
+    say("parity-B7", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
+        plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        cases="rl 256/512 f=16, rl 256 f=1")
+
 
 def phase_build(tmp, name, genomes, species, gen_s):
     """`build` through the CLI; -> (database path, max window)."""
@@ -445,41 +554,53 @@ def _query(db_path, reads_path, args, out):
     return runner, res, stage_s
 
 
-def phase_query_summary(tmp, name, db, reads, layout, path_kernels):
+def phase_query_summary(tmp, name, db, reads, layout, expect):
     """A main path: counts are zeroed just before it and read just
-    after, so its launches are its own. Each kernel of ``path_kernels``
-    launches once per 8192-read batch, every other kernel never."""
+    after, so its launches are its own. ``expect(runner, batches)`` gives
+    the launches each kernel must show. ``reads``: the reads to write,
+    or the count of those an earlier phase wrote.
+    -> (runner, launches, results)"""
     from metacache_tpu_torch import kernels
     path = os.path.join(tmp, name, "reads.fa")
-    write_reads(path, reads)
+    if isinstance(reads, int):
+        nreads = reads
+    else:
+        nreads = len(reads)
+        write_reads(path, reads)
     kernels.reset_counts()
     runner, res, stage_s = _query(db, path, ["-no-map"], io.StringIO())
     grew = {k: v.launches for k, v in kernels.ALL.items()}
-    if runner.layout != layout or (runner._pack_bits == 0) != \
-            (layout == "True"):
+    if not layout(runner) if callable(layout) else runner.layout != layout:
         raise AssertionError(f"layout {runner.layout} with pack bits "
                              f"{runner._pack_bits}, expected {layout}")
-    batches = -(-len(reads) // SCAN_BATCH)
-    want = {k: batches if k in path_kernels else 0 for k in kernels.ALL}
+    want = expect(runner, -(-nreads // SCAN_BATCH))
     if grew != want:
         raise AssertionError(f"launches {grew}, expected {want}")
     n = res.statistics.total()
-    if n != len(reads):
-        raise AssertionError(f"classified {n} of {len(reads)} reads")
+    if n != nreads:
+        raise AssertionError(f"classified {n} of {nreads} reads")
     frac = res.statistics.assigned() / n
     rpm = n / (res.time_ms / 60000.0)
     say(f"query-summary-{name}", reads=n, reads_per_min=round(rpm),
         seconds=round(res.time_ms / 1000, 3),
-        classified_fraction=round(frac, 6), layout=runner.layout,
-        pack_bits=runner._pack_bits, spf=runner.tables.spf,
+        classified_fraction=round(frac, 6), layout=runner.layout.replace(
+            " ", ""), pack_bits=runner._pack_bits, spf=runner.tables.spf,
         staged_table_gib=round(runner.tables.nbytes() / 2**30, 3),
         staging_seconds=round(stage_s, 3), launches=grew)
     if not frac > 0.5:
         raise AssertionError(f"classified fraction {frac} too low")
-    return runner, grew
+    return runner, grew, res
 
 
-def phase_profile(tmp, name, runner):
+def path_of(*names):
+    """Launch expectation of a dense path: each named kernel once per
+    8192-read batch, every other kernel never."""
+    from metacache_tpu_torch import kernels
+    return lambda runner, batches: {
+        k: batches if k in names else 0 for k in kernels.ALL}
+
+
+def phase_profile(tmp, name, runner, tag=""):
     """Trace a second, warm summary query of the same reads: device time
     by kernel and the device's busy share of the query's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -496,7 +617,7 @@ def phase_profile(tmp, name, runner):
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in evs)
-    say(f"profile-{name}", wall_seconds=round(wall, 3),
+    say(f"profile-{name}{tag}", wall_seconds=round(wall, 3),
         device_busy_seconds=round(busy_us / 1e6, 3),
         device_idle_share=round(1 - busy_us / 1e6 / wall, 3))
     evs.sort(key=lambda e: -e.self_device_time_total)
@@ -522,7 +643,6 @@ def phase_query_per_read(tmp, name, db, reads):
 
 
 def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
-    from metacache_tpu_torch.db.state import DeviceTables
     from metacache_tpu_torch.ops.rows import query_step_rows_scan
     b = min(8192, len(reads))
     c4 = np.zeros((b, 128), np.uint8)
@@ -532,11 +652,7 @@ def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
     vmat = np.full((1, b, 1), READ_LEN, np.uint8)
     mwir = np.full((1, b), 2, np.uint8)
     t = runner.tables
-    cpu = DeviceTables(t.fused_rows.cpu(), t.bucket_rows.cpu(),
-                       t.lineages.cpu(), t.merge_tax.cpu(),
-                       num_features=t.num_features,
-                       bucket_bits=t.bucket_bits, spf=t.spf,
-                       slot_bits=t.slot_bits)
+    cpu = t.cpu_copy()
     kw = dict(k=16, sketchlen=16, windows_per_query=1, max_candidates=2,
               walk_elems=32, fast_top2=True, pack_bits=runner._pack_bits,
               infeed_packed=True)
@@ -554,11 +670,12 @@ def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
 
 def run_config(tmp, name, db, genomes, layout, path_kernels, profile):
     """Summary query (the main path), its profile, the scan step against
-    the plain path, and the per-read path; -> the summary's launches."""
+    the plain path, and the per-read path; -> the summary's launches and
+    rank histogram."""
     reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
     del genomes
-    runner, launches = phase_query_summary(tmp, name, db, reads, layout,
-                                           path_kernels)
+    runner, launches, res = phase_query_summary(
+        tmp, name, db, reads, layout, path_of(*path_kernels))
     if profile:
         phase_profile(tmp, name, runner)
     phase_e2e(name, runner, reads)
@@ -566,7 +683,7 @@ def run_config(tmp, name, db, genomes, layout, path_kernels, profile):
     torch.cuda.empty_cache()
     phase_query_per_read(tmp, name, db, reads[:65536])
     torch.cuda.empty_cache()
-    return launches
+    return launches, res.statistics.assigned_.copy()
 
 
 def refseq_skew_genomes():
@@ -584,6 +701,191 @@ def many_target_genomes():
     big, sp_big = make_strain_genomes(rng, [(1, 1, 0.0)], 8_000_000)
     strains, sp = make_strain_genomes(rng, [(36, 256, 0.003)], 50_000)
     return big + strains, np.concatenate([sp_big, sp + 1])
+
+
+def two_tier_genomes():
+    """The RefSeq-skew generator with 512 more unique genomes and its own
+    seed: 576 unique + 12 x 52-strain + 1 x 256-strain genomes of 1 Mbp,
+    1456 Mbp, whose dense rows (~80 M features of 1 KiB) exceed an 80 GB
+    card's ~63 GiB budget by ~20%."""
+    return make_strain_genomes(
+        np.random.default_rng(44),
+        [(576, 1, 0.0), (12, 52, 0.003), (1, 256, 0.003)], GENOME_LEN)
+
+
+def packed_stack(reads, b: int):
+    """The first b reads as one stack of 2-bit packed infeed rows (the
+    native reader's layout): (1, b, 1, 32) u8, lengths, mwir 2."""
+    c4 = np.zeros((b, 128), np.uint8)
+    c4[:, :READ_LEN] = reads[:b]
+    packed = (c4[:, 0::4] | (c4[:, 1::4] << 2) | (c4[:, 2::4] << 4) |
+              (c4[:, 3::4] << 6)).reshape(1, b, 1, 32)
+    return (torch.from_numpy(packed), torch.full((1, b, 1), READ_LEN,
+                                                 dtype=torch.uint8),
+            torch.full((1, b), 2, dtype=torch.uint8))
+
+
+def phase_e2e_two_tier(name, runner, reads, dev=torch.device("cuda")):
+    """The escalation steps on one 8192-read stack against the plain path
+    on CPU tensors of the same tables (the host holds the second copy):
+    phase 1 (B1, B6, B3, B4) and the redo of its flagged reads (B7, B3,
+    B4); their merge also equals the full-depth scan (B7) on the card.
+    Times one phase-1 batch and one full redo batch."""
+    from metacache_tpu_torch.ops import rows as R
+    b = SCAN_BATCH
+    stack = packed_stack(reads, b)
+    t = runner.tables
+    t0 = time.time()
+    cpu = t.cpu_copy()
+    copy_s = time.time() - t0
+    args = (runner.hits_min, 1.0, runner.highest_rank, runner.merge_rank)
+    kw = dict(k=16, sketchlen=16, max_candidates=2, walk_elems=32,
+              fast_top2=True, pack_bits=runner._pack_bits,
+              infeed_packed=True)
+    dstack = [x.to(dev) for x in stack]
+    got = [x.cpu() for x in R.query_step_rows_scan_head(*dstack, t, *args,
+                                                         **kw)]
+    want = R.query_step_rows_scan_head(*stack, cpu, *args, **kw)
+    err = max(check_equal(f"phase 1 {i}", g, w)
+              for i, (g, w) in enumerate(zip(got, want)))
+    bits = got[1].numpy().reshape(-1)
+    mask = ((bits[:, None] >> np.arange(32)) & 1).astype(bool).reshape(-1)
+    sel = torch.from_numpy(np.nonzero(mask)[0])
+    rkw = dict(max_candidates=2, walk_elems=32, fast_top2=True,
+               pack_bits=runner._pack_bits)
+    fk, ik = got[2].reshape(b, -1)[sel], got[3].reshape(b, -1)[sel]
+    mw = stack[2].reshape(-1)[sel]
+    red = R.query_step_rows_redo(fk.to(dev), ik.to(dev), mw.to(dev), t,
+                                 *args, **rkw).cpu()
+    err = max(err, check_equal("redo", red, R.query_step_rows_redo(
+        fk, ik, mw, cpu, *args, **rkw)))
+    merged = got[0].reshape(-1).clone()
+    merged[sel] = red
+    full = R.query_step_rows_scan(*dstack, t, *args, windows_per_query=1,
+                                  **kw).cpu()
+    err = max(err, check_equal("escalated vs full depth", merged,
+                               full.reshape(-1)))
+    del cpu
+    # one phase-1 batch, one redo batch of 8192 flagged reads and one
+    # full-depth batch: CUDA events around each call (launch gaps
+    # included), and the kernels' own device time
+    rep = torch.arange(b) % max(len(sel), 1)
+    fr, ir, mr = (x[rep].to(dev) for x in (fk, ik, mw))
+    steps = {
+        "phase1": lambda: R.query_step_rows_scan_head(*dstack, t, *args,
+                                                      **kw),
+        "redo": lambda: R.query_step_rows_redo(fr, ir, mr, t, *args, **rkw),
+        "full_depth": lambda: R.query_step_rows_scan(
+            *dstack, t, *args, windows_per_query=1, **kw)}
+    times = {}
+    for k, fn in steps.items():
+        times[f"{k}_batch_ms"] = cuda_ms(fn)
+        times[f"{k}_batch_device_ms"] = device_ms(fn)
+    say(f"e2e-parity-{name}", reads=b, tolerance=0, max_abs_err=err,
+        plain="CPU tensors of the same tables", cpu_copy_seconds=round(
+            copy_s, 3), flagged=len(sel), classified=int((merged != 0).sum()),
+        **times)
+
+
+def run_two_tier(tmp, profile):
+    """The 1456 Mbp database: dense rows above the card's budget, so it
+    stages two-tier (hsl 61, pk15). Summary query escalated (the main
+    path of B6 and B7), the same query with MC_ESCALATE=0, the steps
+    against the plain path, and the per-read path through B7."""
+    from metacache_tpu_torch import kernels
+    from metacache_tpu_torch.classify.options import ClassificationResults
+    from metacache_tpu_torch.classify.runner import map_queries_to_targets
+    name = "1456mbp-two-tier"
+    genomes, species, gen_s = generated(two_tier_genomes)
+    db, maxwin = phase_build(tmp, name, genomes, species, gen_s)
+    if (2 * maxwin).bit_length() != 15:
+        raise AssertionError(f"max window {maxwin}")
+    reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
+    del genomes
+    layout = "('two_tier', 61, False, False, 15)"
+
+    def escalated(runner, batches):
+        redo = -(-runner.esc_reads // SCAN_BATCH)
+        want = {k: 0 for k in kernels.ALL}
+        want.update(sketch=batches, head_decode=batches, full_decode=redo,
+                    sort=batches + redo, candidates=batches + redo)
+        return want
+    runner, launches, res = phase_query_summary(tmp, name, db, reads,
+                                                layout, escalated)
+    share = runner.esc_reads / len(reads)
+    if not (runner.dense_bytes > runner.budget_bytes and
+            runner.tables.head_slots == 61 and runner._pack_bits == 15 and
+            runner._escalation_ok() and 0 < share < 1):
+        raise AssertionError("the 1456 Mbp database did not stage two-tier "
+                             "and escalate")
+    say(f"staging-{name}", features=runner.tables.num_features,
+        dense_gib=round(runner.dense_bytes / 2**30, 3),
+        budget_gib=round(runner.budget_bytes / 2**30, 3),
+        dense_over_budget=round(runner.dense_bytes / runner.budget_bytes, 4),
+        staged_gib=round(runner.tables.nbytes() / 2**30, 3),
+        head_rows=tuple(runner.tables.fused_rows.shape),
+        overflow_rows=tuple(runner.tables.ovf_rows.shape),
+        escalated_reads=runner.esc_reads, escalated_share=round(share, 6),
+        redo_batches=launches["full_decode"])
+    if profile:
+        phase_profile(tmp, name, runner)
+
+    os.environ["MC_ESCALATE"] = "0"
+    try:
+        kernels.reset_counts()
+        res0 = ClassificationResults(io.StringIO(), io.StringIO(),
+                                     io.StringIO())
+        map_queries_to_targets([os.path.join(tmp, name, "reads.fa")],
+                               runner.db, runner.opt, res0, runner)
+        torch.cuda.synchronize()
+        grew = {k: v.launches for k, v in kernels.ALL.items()}
+    finally:
+        del os.environ["MC_ESCALATE"]
+    if not np.array_equal(res0.statistics.assigned_,
+                          res.statistics.assigned_):
+        raise AssertionError("MC_ESCALATE=0 changed the rank histogram")
+    if grew != path_of("sketch", "full_decode", "sort", "candidates")(
+            runner, -(-len(reads) // SCAN_BATCH)):
+        raise AssertionError(f"full-depth launches {grew}")
+    say(f"query-summary-{name}-full-depth", reads=res0.statistics.total(),
+        reads_per_min=round(res0.statistics.total() /
+                            (res0.time_ms / 60000.0)),
+        seconds=round(res0.time_ms / 1000, 3), histogram_equal=True,
+        launches=grew)
+    if profile:
+        os.environ["MC_ESCALATE"] = "0"
+        try:
+            phase_profile(tmp, name, runner, "-full-depth")
+        finally:
+            del os.environ["MC_ESCALATE"]
+    phase_e2e_two_tier(name, runner, reads)
+    del runner
+    torch.cuda.empty_cache()
+    phase_query_per_read(tmp, name, db, reads[:65536])
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dense_limit(tmp, name, db, dense_hist):
+    """The many-target database under MC_DENSE_LIMIT=1: two-tier (tgt,
+    win) lane rows, torch-op decode and B5, no escalation; its histogram
+    equals the dense run's."""
+    os.environ["MC_DENSE_LIMIT"] = "1"
+    try:
+        runner, _l, res = phase_query_summary(
+            tmp, name, db, 1 << 20,
+            lambda r: r.tables.head_slots > 0 and r._pack_bits == 0,
+            path_of("sketch", "candidates_unpacked"))
+    finally:
+        del os.environ["MC_DENSE_LIMIT"]
+    if not np.array_equal(res.statistics.assigned_, dense_hist):
+        raise AssertionError("the two-tier histogram differs from the "
+                             "dense one")
+    say(f"dense-limit-{name}", histogram_equal=True,
+        layout=runner.layout.replace(" ", ""),
+        staged_gib=round(runner.tables.nbytes() / 2**30, 3))
+    del runner
+    torch.cuda.empty_cache()
 
 
 def generated(make):
@@ -617,8 +919,9 @@ def main() -> int:
         layout = f"pk{(2 * maxwin).bit_length()}"
         if layout != "pk15":
             raise AssertionError(f"944 Mbp database packs as {layout}")
-        main_path = run_config(tmp, "944mbp", db, genomes, layout,
-                               ("sketch", "sort", "candidates"), a.profile)
+        main_path, _h = run_config(tmp, "944mbp", db, genomes, layout,
+                                   ("sketch", "sort", "candidates"),
+                                   a.profile)
         for k in ("sketch", "sort", "candidates"):
             launches[k] = main_path[k]
         shutil.rmtree(os.path.join(tmp, "944mbp"))
@@ -630,9 +933,16 @@ def main() -> int:
             raise AssertionError(f"{len(genomes)} targets, max window "
                                  f"{maxwin}")
         # slots do not pack: the dense layout of (tgt, win) lane pairs
-        main_path = run_config(tmp, "many-target", db, genomes, "True",
-                               ("sketch", "candidates_unpacked"), a.profile)
+        main_path, hist = run_config(tmp, "many-target", db, genomes, "True",
+                                     ("sketch", "candidates_unpacked"),
+                                     a.profile)
         launches["candidates_unpacked"] = main_path["candidates_unpacked"]
+        phase_dense_limit(tmp, "many-target", db, hist)
+        shutil.rmtree(os.path.join(tmp, "many-target"))
+
+        main_path = run_two_tier(tmp, a.profile)
+        for k in ("head_decode", "full_decode"):
+            launches[k] = main_path[k]
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
     rows = []

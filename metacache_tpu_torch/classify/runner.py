@@ -1,10 +1,9 @@
 """Query execution: stream reads, classify on the card, produce output.
 
 Port of metacache_tpu/classify/runner.py (QueryRunner) for single-end
-reads against a single-part u32 database staged in the dense layout,
-with packed slots when they fit int32 and (tgt, win) lane pairs when
-they do not (many targets, long genomes). Two paths, as in the JAX
-package:
+reads against a single-part u32 database, with packed slots when they
+fit int32 and (tgt, win) lane pairs when they do not (many targets,
+long genomes). Two paths, as in the JAX package:
 
 - summary only (``-no-map`` and no per-read analysis): the native
   reader's 2-bit packed short reads are stacked K batches deep and
@@ -13,9 +12,13 @@ package:
 - per-read output: coded read batches are bucketed by window count and
   classified by ``query_step_rows``, then formatted on the host.
 
-Options outside this slice raise NotImplementedError naming their
-ROADMAP item. The JAX runner's TPU-link workarounds (packed result
-fetches, fixed dispatch shapes, escalation) are not carried over.
+The database stages as dense fused rows when they fit the card's
+budget, else as two-tier head and overflow rows; with packed slots the
+summary path then classifies head-only and redoes at full depth only the
+reads that touched a deeper bucket (escalation). Options outside this
+slice raise NotImplementedError naming their ROADMAP item. The JAX
+runner's TPU-link workarounds (packed result fetches, fixed dispatch
+shapes) are not carried over.
 """
 from __future__ import annotations
 
@@ -40,7 +43,9 @@ from ..taxonomy.model import NUM_RANKS, Rank, rank_from_name
 from ..db.state import tables_from_numpy
 from ..device import get_device, hbm_budget_bytes
 from ..ops.probe import make_bucket_index
-from ..ops.rows import query_step_rows, query_step_rows_scan
+from ..ops.rows import (query_step_rows, query_step_rows_redo_scan,
+                        query_step_rows_scan, query_step_rows_scan_head)
+from ..ops.table import device_layout
 from . import abundance as abd
 from . import classification as cls_mod
 from . import output as out_mod
@@ -49,15 +54,22 @@ from .output import MapViewMode
 
 
 def rank_histogram(cls: torch.Tensor, n: int, taxid_sorted: torch.Tensor,
-                   rank_of: torch.Tensor) -> torch.Tensor:
+                   rank_of: torch.Tensor,
+                   over_bits: torch.Tensor | None = None) -> torch.Tensor:
     """Summary rank histogram on the card: (NUM_RANKS + 1,) counts of the
-    first ``n`` classified taxa by rank (runner.py:106-128)."""
+    first ``n`` classified taxa by rank (runner.py:106-128). Reads whose
+    bit is set in ``over_bits`` (32 reads a word, escalation phase 1) are
+    left out: the redo counts them (runner.py:76-102)."""
     cls = cls.reshape(-1)
     nt = taxid_sorted.shape[0]
     pos = torch.clamp(torch.searchsorted(taxid_sorted, cls), max=nt - 1)
     found = (taxid_sorted[pos] == cls) & (cls != 0)
     ranks = torch.where(found, rank_of[pos], NUM_RANKS)
     valid = torch.arange(cls.shape[0], device=cls.device) < n
+    if over_bits is not None:
+        sh = torch.arange(32, dtype=torch.int32, device=cls.device)
+        over = ((over_bits.reshape(-1, 1) >> sh) & 1).reshape(-1) == 1
+        valid &= ~over[:cls.shape[0]]
     ranks = torch.where(valid, ranks, NUM_RANKS + 1).to(torch.int64)
     return torch.bincount(ranks, minlength=NUM_RANKS + 2)[:NUM_RANKS + 1]
 
@@ -93,9 +105,10 @@ def _unsupported(what: str, item: str):
 class QueryRunner:
     """Holds the device-resident database state across query runs."""
 
-    # copied from metacache_tpu/classify/runner.py:700-701
+    # copied from metacache_tpu/classify/runner.py:700-701 and :722
     MAX_WALK_ELEMS = 64
     MAX_DEDUP_WALK = 48
+    FUSED_MIN_SLOTS = 1024
 
     def __init__(self, db: Database, opt: QueryOptions,
                  device: torch.device | None = None):
@@ -145,24 +158,39 @@ class QueryRunner:
             _unsupported("taxon merging (-lowest above sequence)",
                          "queue A5")
 
-        # dense staging: packed pk slots when they fit int32, else
-        # (tgt, win) lane pairs (layout tag True)
+        # staging (runner.py:481-487, 541-596): packed pk slots when they
+        # fit int32, else (tgt, win) lane pairs (layout tag True); dense
+        # fused rows when they fit the budget, else two-tier head and
+        # overflow rows. MC_DENSE_LIMIT caps only the dense option.
         p = db.parts[0]
         maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max()) \
             if p.num_locations else 0
         self._pack_bits = slot_pack_bits(db.target_count, maxwin)
         spf = min(p.max_bucket_size, db.max_locations_per_feature) or 1
-        kind, _head = p.choose_layout(spf, hbm_budget_bytes(self.device))
-        if kind != "dense":
-            _unsupported(f"the {kind} probe layout", "queue A10")
-        fused = p.fused_rows(spf, slot_bits=self._pack_bits)
+        try:
+            dense_cap = int(os.environ.get("MC_DENSE_LIMIT", 0)) or None
+        except ValueError:
+            dense_cap = None
+        self.budget_bytes = hbm_budget_bytes(self.device)
+        hsl, self.dense_bytes, self.staged_bytes = device_layout(
+            p, spf, self._pack_bits, self.budget_bytes,
+            allow_dense=dense_cap is None or
+            p.layout_bytes("dense", 0, spf) <= dense_cap)
+        if hsl == spf:
+            rows = p.fused_rows(spf, slot_bits=self._pack_bits)
+            ovf, hsl = None, 0
+        else:
+            rows, ovf = p.fused_rows_two_tier(spf, hsl,
+                                              slot_bits=self._pack_bits)
         brows, bits = make_bucket_index(p.unique_features)
         lineages = self.lineages if db.target_count else \
             np.zeros((1, NUM_RANKS), np.int32)
         self.tables = tables_from_numpy(
-            p.unique_features, p.offsets, fused, brows, bits, lineages,
-            merge_tax, spf, self._pack_bits, self.device)
-        del fused
+            p.unique_features, p.offsets, rows, brows, bits, lineages,
+            merge_tax, spf, self._pack_bits, self.device, ovf_rows=ovf,
+            head_slots=hsl)
+        del rows, ovf
+        self.esc_reads = 0          # reads escalated to the full-depth redo
 
         # copied from metacache_tpu/classify/runner.py:655-676
         ids, ranks = [], []
@@ -188,7 +216,8 @@ class QueryRunner:
 
     @property
     def layout(self) -> str:
-        """Probe layout tag of the staged table (e.g. "pk15")."""
+        """Probe layout tag of the staged table (e.g. "pk15", or
+        "('two_tier', 61, False, False, 15)")."""
         return str(self.tables.dense)
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -347,19 +376,26 @@ class QueryRunner:
             for rd_ in extra:
                 rd_.close()
 
-    # copied from metacache_tpu/classify/runner.py:957-1125 without the
-    # escalation branches (the dense layout never escalates)
+    # copied from metacache_tpu/classify/runner.py:957-1125 with the
+    # escalation branches of the feats-reuse redo (:975-1034); the row
+    # re-dispatch (:1035-1052) and the fused dispatch (MC_ESC_FUSED) serve
+    # routes the port does not take
     def _run_scan_native_packed(self, reader, batch_reads: int,
                                 scan_k: int, results, extra_readers=None):
         """Summary fast path fed by the native packed reader: clean short
         reads arrive 2-bit packed and are stacked scan_k batches deep;
         long/ambiguous reads ride the coded per-read path. The remainder
-        pads to a full stack whose payload carries the real read count."""
+        pads to a full stack whose payload carries the real read count.
+        On two-tier tables with packed slots the stacks classify
+        head-only and the flagged reads are redone at full depth."""
         opt = self.opt
         wl = self.sketching.winlen
         pending: collections.deque = collections.deque()
         DEPTH = 3   # dispatches in flight
         take = scan_k * batch_reads
+        esc = self._escalation_ok() and self._hist_dev is not None
+        self._esc_redo = []      # (feats, idx, lens) of flagged reads
+        self._esc_nredo = 0
 
         def flush(dispatched):
             while len(pending) >= DEPTH:
@@ -371,8 +407,22 @@ class QueryRunner:
             q = min(-(-int(la.max(initial=0)) // 16) * 4, pa.shape[1]) \
                 if n else 4
             pac = np.ascontiguousarray(pa[:, :max(q, 4)])
+            if esc:
+                return (None, ("scanesc", (n, la, *self._dispatch_scan_head(
+                    pac, la, scan_k, batch_reads))))
             return (None, ("scan", (n, self._dispatch_scan(
                 pac, la, scan_k, batch_reads))))
+
+        def flush_redo(final: bool = False):
+            # full-depth phase 2 on phase 1's sketches and bucket probes
+            # for the reads that touched a bucket deeper than the head;
+            # unlike the JAX runner's fixed-shape stacks, a redo stack is
+            # only as deep as its reads need
+            while self._esc_nredo >= take or (final and self._esc_nredo):
+                k2 = min(scan_k, -(-self._esc_nredo // batch_reads))
+                rf, ri, rlens, got = self._carve_redo(k2 * batch_reads)
+                flush((None, ("scan", (got, self._dispatch_redo(
+                    rf, ri, rlens, k2, batch_reads)))))
 
         buf: list = []
         nbuf = 0
@@ -426,6 +476,7 @@ class QueryRunner:
                 flush(scan_dispatch(pa[:take], la[:take], take))
                 buf = [(pa[take:], la[take:])]
                 nbuf -= take
+                flush_redo()
         if nbuf:
             pa = np.concatenate([c for c, _ in buf])
             la = np.concatenate([l for _, l in buf])
@@ -436,13 +487,15 @@ class QueryRunner:
             flush(scan_dispatch(pa, la, n))
         while pending:
             self._collect_batch(*pending.popleft(), results)
+        flush_redo(final=True)
+        while pending:
+            self._collect_batch(*pending.popleft(), results)
         for th in ths:
             th.join()
 
-    def _dispatch_scan(self, codes, lens, scan_k: int, bsz: int):
-        """One scan over scan_k stacked short-read batches of 2-bit packed
-        rows; -> (scan_k, bsz) classified taxa on the device (adapted from
-        metacache_tpu/classify/runner.py:1895-1932)."""
+    def _scan_inputs(self, codes, lens, scan_k: int, bsz: int):
+        """Stacked 2-bit packed rows -> (windows, valid, mwir) host arrays
+        of the scan steps (runner.py:1910-1921)."""
         sk = self.sketching
         opt = self.opt
         wl = sk.winlen
@@ -456,6 +509,15 @@ class QueryRunner:
             vdt).reshape(scan_k, bsz, 1)
         mwir = (2 + np.maximum(lens, opt.classify.insert_size_max)
                 // stride).astype(mdt).reshape(scan_k, bsz)
+        return wmat, vmat, mwir
+
+    def _dispatch_scan(self, codes, lens, scan_k: int, bsz: int):
+        """One scan over scan_k stacked short-read batches of 2-bit packed
+        rows; -> (scan_k, bsz) classified taxa on the device (adapted from
+        metacache_tpu/classify/runner.py:1895-1932)."""
+        sk = self.sketching
+        opt = self.opt
+        wmat, vmat, mwir = self._scan_inputs(codes, lens, scan_k, bsz)
         return query_step_rows_scan(
             self._to_dev(wmat), self._to_dev(vmat), self._to_dev(mwir),
             self.tables, self.hits_min, opt.classify.hits_diff_fraction,
@@ -465,6 +527,95 @@ class QueryRunner:
             pack_bits=self._pack_bits, infeed_packed=True,
             fast_top2=self._fast_top2,
             **self._sweep_params(mwir.reshape(-1).astype(np.int32), 1))
+
+    # copied from metacache_tpu/classify/runner.py:1671-1693 for single
+    # reads (wq = 1) and without the fused-candidates and part-count
+    # tests: the port always takes the fused candidate branch and stages
+    # one part
+    def _escalation_ok(self) -> bool:
+        """Escalation (head-only phase 1 + full-depth redo) is valid for
+        slot-packed two-tier layouts on the fused fast path; it pays off
+        when buckets can exceed the head. MC_ESCALATE=0 disables."""
+        if os.environ.get("MC_ESCALATE", "1") == "0" or \
+                not self._fast_top2 or not self._pack_bits:
+            return False
+        t = self.tables
+        sk = self.sketching
+        stride = self.db.sketching.winstride
+        m = 2 + max(sk.winlen, self.opt.classify.insert_size_max) // stride
+        sweep_ok = (m * sk.sketchlen <= self.MAX_WALK_ELEMS or
+                    m <= self.MAX_DEDUP_WALK)
+        return (t.head_slots > 0 and t.slot_bits == self._pack_bits and
+                t.spf > t.head_slots and sweep_ok and
+                sk.sketchlen * t.spf >= self.FUSED_MIN_SLOTS)
+
+    # copied from metacache_tpu/classify/runner.py:1695-1731
+    def _dispatch_scan_head(self, codes, lens, scan_k: int, bsz: int):
+        """Escalation phase 1 (head-only probe) over prepacked rows;
+        -> (cls (K, B), over_bits (K, B/32), feats (K, B, F), idx
+        (K, B, F)) device tensors."""
+        sk = self.sketching
+        opt = self.opt
+        wmat, vmat, mwir = self._scan_inputs(codes, lens, scan_k, bsz)
+        return query_step_rows_scan_head(
+            self._to_dev(wmat), self._to_dev(vmat), self._to_dev(mwir),
+            self.tables, self.hits_min, opt.classify.hits_diff_fraction,
+            self.highest_rank, self.merge_rank, k=sk.kmerlen,
+            sketchlen=sk.sketchlen,
+            max_candidates=opt.classify.max_candidates,
+            walk_elems=int(mwir.max()) * sk.sketchlen, fast_top2=True,
+            pack_bits=self._pack_bits, infeed_packed=True)
+
+    # copied from metacache_tpu/classify/runner.py:1733-1764
+    def _carve_redo(self, need: int):
+        """Take `need` flagged rows (feats, idx, lens) from the redo
+        buffer, padding with sentinel features when short.
+        -> (feats (need, F) dev, idx (need, F) dev, lens (need,) np,
+            real_count)."""
+        fparts, iparts, lparts = [], [], []
+        got = 0
+        left = []
+        for f_, i_, l_ in self._esc_redo:
+            use = min(len(l_), need - got)
+            if use:
+                fparts.append(f_[:use])
+                iparts.append(i_[:use])
+                lparts.append(l_[:use])
+                got += use
+            if use < len(l_):
+                left.append((f_[use:], i_[use:], l_[use:]))
+        self._esc_redo = left
+        self._esc_nredo -= got
+        pad = need - got
+        F = fparts[0].shape[1] if fparts else self.sketching.sketchlen
+        if pad:
+            fparts.append(torch.full((pad, F), -1, dtype=torch.int32,
+                                     device=self.device))
+            iparts.append(torch.zeros((pad, F), dtype=torch.int32,
+                                      device=self.device))
+            lparts.append(np.zeros(pad, np.int32))
+        return (torch.cat(fparts), torch.cat(iparts),
+                np.concatenate(lparts), got)
+
+    # copied from metacache_tpu/classify/runner.py:1853-1880
+    def _dispatch_redo(self, feats, idx, lens, scan_k: int, bsz: int):
+        """Escalation phase 2 over phase 1's device-resident sketches
+        (query_step_rows_redo_scan): full-depth probe + candidates with
+        no re-sketch and no bucket-row gather."""
+        sk = self.sketching
+        opt = self.opt
+        stride = self.db.sketching.winstride
+        mwir = (2 + np.maximum(lens, opt.classify.insert_size_max)
+                // stride).astype(np.int32)
+        F = feats.shape[-1]
+        wq = max(F // sk.sketchlen, 1)
+        return query_step_rows_redo_scan(
+            feats.reshape(scan_k, bsz, F), idx.reshape(scan_k, bsz, F),
+            self._to_dev(mwir.reshape(scan_k, bsz)), self.tables,
+            self.hits_min, opt.classify.hits_diff_fraction,
+            self.highest_rank, self.merge_rank,
+            max_candidates=opt.classify.max_candidates, fast_top2=True,
+            pack_bits=self._pack_bits, **self._sweep_params(mwir, wq))
 
     # copied from metacache_tpu/classify/runner.py:1456-1508
     def _dispatch_coded(self, codes, lens, headers):
@@ -526,6 +677,29 @@ class QueryRunner:
 
     def _collect_batch(self, batch, dispatched, results):
         kind, payload = dispatched
+        if kind == "scanesc":
+            # escalation phase 1 (runner.py:1617-1644): count the reads
+            # the head classified exactly, queue the flagged ones, with
+            # their sketches and bucket probes, for the full-depth redo
+            n, la, cls_dev, over_dev, fk, ik = payload
+            hist = rank_histogram(cls_dev, n, *self._hist_dev,
+                                  over_bits=over_dev)
+            bits = over_dev.cpu().numpy().reshape(-1)
+            mask = (((bits[:, None] >> np.arange(32)) & 1)
+                    .astype(bool).reshape(-1))
+            mask[n:] = False
+            idxs = np.nonzero(mask)[0]
+            if len(idxs):
+                F = fk.shape[-1]
+                sel = self._to_dev(idxs)
+                self._esc_redo.append((fk.reshape(-1, F)[sel],
+                                       ik.reshape(-1, F)[sel], la[idxs]))
+                self._esc_nredo += len(idxs)
+                self.esc_reads += len(idxs)
+            results.statistics.assigned_ += \
+                hist.cpu().numpy().astype(np.int64)
+            results.query_count += n - len(idxs)
+            return
         if kind == "scan":
             n, cls_dev = payload
             if self._hist_dev is not None:

@@ -23,7 +23,8 @@ import threading
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("sketch.cu", "candidates.cu", "candidates_unpacked.cu")
+SOURCES = ("sketch.cu", "candidates.cu", "candidates_unpacked.cu",
+           "probe_decode.cu")
 HEADERS = ("block.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "metacache_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -103,9 +104,14 @@ def _load():
                                                  i, p]
             lib.mc_candidates_unpacked.argtypes = [p, p, p, p, i64, i, i, i,
                                                    i, i, p]
+            lib.mc_head_decode.argtypes = [p, i64, i, p, p, i64, i, i, i, p,
+                                           p, p]
+            lib.mc_full_decode.argtypes = [p, i64, i, p, i64, i, p, p, i64,
+                                           i, i, i, i, p, p]
             for fn in (lib.mc_sketch_windows, lib.mc_sort_packed,
                        lib.mc_candidates_packed,
-                       lib.mc_candidates_unpacked):
+                       lib.mc_candidates_unpacked, lib.mc_head_decode,
+                       lib.mc_full_decode):
                 fn.restype = ctypes.c_int
             lib.mc_error_string.argtypes = [i]
             lib.mc_error_string.restype = ctypes.c_char_p
@@ -148,8 +154,15 @@ CANDIDATES = Kernel("mc_candidates_packed",
 CANDIDATES_UNPACKED = Kernel("mc_candidates_unpacked",
                              "metacache_tpu/ops/candidates_pallas.py:264",
                              "metacache_tpu_torch/csrc/candidates_unpacked.cu")
+HEAD_DECODE = Kernel("mc_head_decode",
+                     "metacache_tpu/ops/probe_pallas.py:279",
+                     "metacache_tpu_torch/csrc/probe_decode.cu")
+FULL_DECODE = Kernel("mc_full_decode",
+                     "metacache_tpu/ops/probe_pallas.py:356",
+                     "metacache_tpu_torch/csrc/probe_decode.cu")
 ALL = {"sketch": SKETCH, "sort": SORT, "candidates": CANDIDATES,
-       "candidates_unpacked": CANDIDATES_UNPACKED}
+       "candidates_unpacked": CANDIDATES_UNPACKED,
+       "head_decode": HEAD_DECODE, "full_decode": FULL_DECODE}
 
 
 def reset_counts() -> None:

@@ -1,22 +1,25 @@
 """Row-layout query step: one row of match slots per read.
 
-Port of metacache_tpu/ops/rows.py for the dense fused-row layout:
-sketch (B1) -> bucket-row probe + fused-row gather -> match slots ->
-candidates -> ranked LCA. Slots that pack into int32 (pack_bits > 0) go
-through sort (B3) and sweep + top-k (B4); unpacked (tgt, win) slots go
-through the two-key kernel (B5). The port runs the fused candidate
-branch of ``rows_to_result`` whenever the result allows it; branches it
-does not carry yet raise NotImplementedError naming their ROADMAP item.
-A Python loop over the K stacked batches takes the place of
-``lax.scan``.
+Port of metacache_tpu/ops/rows.py for the dense and two-tier fused-row
+layouts: sketch (B1) -> bucket-row probe + row gather -> match slots ->
+candidates -> ranked LCA. Two-tier rows with packed slots decode through
+B7 (head + overflow rows) or, in escalation phase 1, B6 (head rows
+only). Slots that pack into int32 (pack_bits > 0) go through sort (B3)
+and sweep + top-k (B4); unpacked (tgt, win) slots go through the
+two-key kernel (B5). The port runs the fused candidate branch of
+``rows_to_result`` whenever the result allows it; branches it does not
+carry yet raise NotImplementedError naming their ROADMAP item. A Python
+loop over the K stacked batches takes the place of ``lax.scan``.
 """
 from __future__ import annotations
 
 import torch
 
-from .candidates import I32_MAX, candidates_packed, candidates_unpacked
+from .candidates import (I32_MAX, candidates_packed, candidates_unpacked,
+                         padded_width)
 from .pipeline import QueryResult, classify_candidates
 from .probe import probe_bucket, shift_right_logical
+from .probe_decode import full_decode, head_decode
 from .sketch import sketch_windows
 
 
@@ -36,64 +39,119 @@ def _alt_runs(fast_top2: bool, walk_elems: int, dedup_walk: int,
     return 1 << (spf - 1).bit_length()
 
 
+def _bucket_idx(flat: torch.Tensor, tables) -> torch.Tensor:
+    idx, _found = probe_bucket(flat, tables.bucket_rows, tables.bucket_bits)
+    return torch.clamp(idx, 0, max(tables.num_features - 1, 0))
+
+
+def _encode(lanes, slot_bits: int, pack_bits: int):
+    """Slots as stored -> the caller's encoding: (pk,) packed with
+    ``pack_bits``, or (tgt, win) when 0 (rows.py:798-815)."""
+    if slot_bits:
+        pks = lanes[0]
+        if pack_bits == slot_bits:
+            return (pks,)
+        pad_ = pks == I32_MAX
+        tgts = torch.where(pad_, I32_MAX, shift_right_logical(pks, slot_bits))
+        wins = torch.where(pad_, I32_MAX, pks & ((1 << slot_bits) - 1))
+    else:
+        tgts, wins = lanes
+    if pack_bits:
+        return (torch.where(tgts != I32_MAX, (tgts << pack_bits) | wins,
+                            I32_MAX),)
+    return tgts, wins
+
+
+def _emit(lanes, b: int, f: int, alt_runs: int):
+    """(B*F, C) slot lanes -> (B, F*C) rows; with ``alt_runs=r`` each
+    feature's run is padded to r lanes and odd features' runs reversed
+    (rows.py:816-838). -> (pk, pk) or (tgt, win)."""
+    out = []
+    for x in lanes:
+        if alt_runs:
+            rl, c = alt_runs, x.shape[1]
+            if rl > c:
+                x = torch.cat([x, torch.full((b * f, rl - c), I32_MAX,
+                                             dtype=torch.int32,
+                                             device=x.device)], dim=1)
+            odd = ((torch.arange(b * f, device=x.device)[:, None] % f)
+                   & 1) == 1
+            x = torch.where(odd, x.flip(1), x)
+        out.append(x.reshape(b, -1))
+    return (out[0], out[0]) if len(out) == 1 else tuple(out)
+
+
 def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
-               pack_bits: int = 0):
+               pack_bits: int = 0, idx_pre: torch.Tensor | None = None):
     """(B, F) int32 features -> (B, F*C) match slots (rows.py:624-839,
-    dense branches). With ``pack_bits=w`` returns (pk, pk),
+    dense and two-tier branches). With ``pack_bits=w`` returns (pk, pk),
     pk = (tgt << w) | win with I32_MAX padding, else (tgt, win).
 
     ``alt_runs=r`` pads each feature's slots to r lanes and reverses
     odd features' segments, emitting alternating asc/desc sorted runs so
-    that the slot sort skips its first log2(r) phases."""
+    that the slot sort skips its first log2(r) phases. ``idx_pre``: the
+    feature rows, found by an earlier bucket probe (rows.py:665-669).
+
+    Two-tier tables with packed slots decode head and overflow rows
+    through B7; (tgt, win) lane rows decode as torch ops, as the JAX
+    package decodes them with XLA ops (rows.py:750-758)."""
     b, f = feats.shape
     c = tables.spf
     flat = feats.reshape(-1)
     slot_bits = tables.slot_bits
-    idx, _found = probe_bucket(flat, tables.bucket_rows, tables.bucket_bits)
-    idx_c = torch.clamp(idx, 0, max(tables.num_features - 1, 0))
+    idx_c = _bucket_idx(flat, tables) if idx_pre is None \
+        else idx_pre.reshape(-1)
+    hsl = tables.head_slots
+    if hsl and slot_bits:
+        rl = alt_runs or c
+        pks = full_decode(tables.fused_rows, tables.ovf_rows, idx_c, flat,
+                          hsl, c, rl, f if alt_runs else 1)
+        return _emit(_encode((pks,), slot_bits, pack_bits), b, f, 0)
     rows = tables.fused_rows[idx_c.to(torch.int64)]   # ONE row gather
     found = _meta_match(rows, flat)
     cnt = torch.where(found, rows[:, 1], 0)
     j = torch.arange(c, dtype=torch.int32, device=feats.device)[None, :]
     hit = j < cnt[:, None]
-    pks = None
-    if slot_bits:
-        pks = torch.where(hit, rows[:, 2:2 + c], I32_MAX)
+    if hsl:
+        # two-tier (tgt, win) lanes: head [feat, count, ovf_idx, tgt*H,
+        # win*H], overflow [tgt*(C-H), win*(C-H)]
+        ow = c - hsl
+        orow = tables.ovf_rows[torch.where(found, rows[:, 2], 0).to(
+            torch.int64)]
+        tgts = torch.cat([rows[:, 3:3 + hsl], orow[:, :ow]], dim=1)
+        wins = torch.cat([rows[:, 3 + hsl:3 + 2 * hsl], orow[:, ow:2 * ow]],
+                         dim=1)
+        lanes = (torch.where(hit, tgts, I32_MAX),
+                 torch.where(hit, wins, I32_MAX))
+    elif slot_bits:
+        lanes = (torch.where(hit, rows[:, 2:2 + c], I32_MAX),)
     else:
-        tgts = torch.where(hit, rows[:, 2:2 + c], I32_MAX)
-        wins = torch.where(hit, rows[:, 2 + c:2 + 2 * c], I32_MAX)
-    if pks is not None and not pack_bits:
-        pad_ = pks == I32_MAX
-        tgts = torch.where(pad_, I32_MAX, shift_right_logical(pks, slot_bits))
-        wins = torch.where(pad_, I32_MAX, pks & ((1 << slot_bits) - 1))
-    fidx = torch.arange(b * f, device=feats.device)[:, None] % f
-    odd = (fidx & 1) == 1
+        lanes = (torch.where(hit, rows[:, 2:2 + c], I32_MAX),
+                 torch.where(hit, rows[:, 2 + c:2 + 2 * c], I32_MAX))
+    return _emit(_encode(lanes, slot_bits, pack_bits), b, f, alt_runs)
 
-    def alternate(x):
-        rl = alt_runs
-        if rl > c:
-            x = torch.cat([x, torch.full((b * f, rl - c), I32_MAX,
-                                         dtype=torch.int32,
-                                         device=x.device)], dim=1)
-        return torch.where(odd, x.flip(1), x).reshape(b, f * rl)
 
-    if pack_bits:
-        if pks is None:
-            pk = torch.where(tgts != I32_MAX, (tgts << pack_bits) | wins,
-                             I32_MAX)
-        elif slot_bits == pack_bits:
-            pk = pks
-        else:
-            # re-base the storage encoding onto the caller's bits
-            pk = torch.where(
-                pks == I32_MAX, I32_MAX,
-                (shift_right_logical(pks, slot_bits) << pack_bits)
-                | (pks & ((1 << slot_bits) - 1)))
-        pk = alternate(pk) if alt_runs else pk.reshape(b, f * c)
-        return pk, pk
-    if alt_runs:
-        return alternate(tgts), alternate(wins)
-    return tgts.reshape(b, f * c), wins.reshape(b, f * c)
+def probe_rows_head(feats: torch.Tensor, tables, alt_runs: int,
+                    pack_bits: int, idx_pre: torch.Tensor | None = None):
+    """Head-only two-tier probe, escalation phase 1 (rows.py:545-621,
+    the non-classed branch): one head row per probe, decoded by B6;
+    slots past the head are dropped. -> (pk (B, F*rl) packed slots,
+    over (B,) bool: a probed bucket is deeper than the head, so the
+    read must be redone at full depth). Needs slot-packed two-tier
+    tables and pack_bits == slot_bits."""
+    b, f = feats.shape
+    hsl = tables.head_slots
+    if not (hsl and tables.slot_bits and tables.slot_bits == pack_bits):
+        raise ValueError("the head-only probe needs slot-packed two-tier "
+                         "tables whose slot bits equal pack_bits")
+    flat = feats.reshape(-1)
+    idx_c = _bucket_idx(flat, tables) if idx_pre is None \
+        else idx_pre.reshape(-1)
+    rl = alt_runs or hsl
+    pk, cnt = head_decode(tables.fused_rows, idx_c, flat, hsl, rl,
+                          f if alt_runs else 1)
+    over = (cnt > hsl).reshape(b, f).any(dim=1)
+    return pk.reshape(b, f * rl), over
 
 
 def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
@@ -170,6 +228,22 @@ def query_step_rows(windows, valid, mwir, tables, hits_min, hits_diff_frac,
         presorted_runs=alt, pack_bits=pack_bits)
 
 
+def _sketch_stage(wmat, vmat, k: int, sketchlen: int,
+                  infeed_packed: bool) -> torch.Tensor:
+    """(B, Wq, W) windows -> (B, Wq*s) features (rows.py:998-1009).
+    ``infeed_packed``: 2-bit codes, four bases per byte, low bits
+    first, unpacked here; content past a window's valid length is
+    ignored by the sketcher."""
+    b, wq, w = wmat.shape
+    if infeed_packed:
+        w = w * 4
+        shifts = torch.arange(4, dtype=torch.uint8, device=wmat.device) * 2
+        wmat = ((wmat[..., None] >> shifts) & 3).reshape(b, wq, w)
+    return sketch_windows(wmat.reshape(b * wq, w),
+                          vmat.reshape(b * wq).to(torch.int32),
+                          k, sketchlen).reshape(b, wq * sketchlen)
+
+
 def query_step_rows_scan(windows_k, valid_k, mwir_k, tables, hits_min,
                          hits_diff_frac, highest_rank, merge_rank, *,
                          k: int, sketchlen: int, windows_per_query: int,
@@ -181,23 +255,13 @@ def query_step_rows_scan(windows_k, valid_k, mwir_k, tables, hits_min,
     (rows.py:958). ``infeed_packed``: windows_k holds 2-bit codes, four
     bases per byte, low bits first, unpacked here; valid_k and mwir_k
     may arrive as uint8."""
-    nk, b, wq, w = windows_k.shape
-    if infeed_packed:
-        w = w * 4
-        shifts = torch.arange(4, dtype=torch.uint8,
-                              device=windows_k.device) * 2
+    wq = windows_k.shape[2]
     alt = _alt_runs(fast_top2, walk_elems, dedup_walk, wq * sketchlen,
                     tables.spf)
     out = []
-    for i in range(nk):
-        wmat = windows_k[i]
-        if infeed_packed:
-            # content past a window's valid length is ignored by the
-            # sketcher (rows.py:1000-1005)
-            wmat = ((wmat[..., None] >> shifts) & 3).reshape(b, wq, w)
-        feats = sketch_windows(wmat.reshape(b * wq, w),
-                               valid_k[i].reshape(b * wq).to(torch.int32),
-                               k, sketchlen).reshape(b, wq * sketchlen)
+    for i in range(windows_k.shape[0]):
+        feats = _sketch_stage(windows_k[i], valid_k[i], k, sketchlen,
+                              infeed_packed)
         tgt, win = probe_rows(feats, tables, alt_runs=alt,
                               pack_bits=pack_bits)
         res = rows_to_result(
@@ -208,3 +272,88 @@ def query_step_rows_scan(windows_k, valid_k, mwir_k, tables, hits_min,
             presorted_runs=alt, pack_bits=pack_bits)
         out.append(res.cls_tax)
     return torch.stack(out)
+
+
+def _pack_bits32(over: torch.Tensor) -> torch.Tensor:
+    """(B,) bool -> (ceil(B/32),) int32, read i in bit i % 32 of word
+    i // 32 (rows.py:1379-1383)."""
+    b = over.shape[0]
+    nw = -(-b // 32)
+    ob = torch.zeros(nw * 32, dtype=torch.int32, device=over.device)
+    ob[:b] = over.to(torch.int32)
+    sh = torch.arange(32, dtype=torch.int32, device=over.device)
+    return (ob.reshape(nw, 32) << sh).sum(dim=1, dtype=torch.int32)
+
+
+def query_step_rows_scan_head(windows_k, valid_k, mwir_k, tables, hits_min,
+                              hits_diff_frac, highest_rank, merge_rank, *,
+                              k: int, sketchlen: int, max_candidates: int,
+                              walk_elems: int = 0, dedup_walk: int = 0,
+                              fast_top2: bool = True, pack_bits: int = 0,
+                              infeed_packed: bool = False):
+    """Escalation phase 1 (rows.py:1314-1430): the scan of
+    ``query_step_rows_scan`` with one head row per probe (B6) and runs of
+    rl = pow2(hsl) lanes, so the slot sort works on F*rl lanes instead of
+    F*pow2(spf). -> (cls (K, B) int32, over (K, ceil(B/32)) int32 bit
+    words, feats (K, B, F) int32, idx (K, B, F) int32): reads whose bit
+    is set touched a bucket deeper than the head and must be redone at
+    full depth (``query_step_rows_redo_scan`` on their saved feats and
+    idx); the others are exact. The JAX function returns feats and idx
+    only with prefetch on, its device default; here they cost nothing."""
+    nk, b, wq = windows_k.shape[:3]
+    hsl = tables.head_slots
+    rl = 1 << max(int(hsl - 1).bit_length(), 0)
+    f = wq * sketchlen
+    presorted = rl if padded_width(f * rl) == f * rl else 0
+    cls, over, feats_k, idx_k = [], [], [], []
+    for i in range(nk):
+        feats = _sketch_stage(windows_k[i], valid_k[i], k, sketchlen,
+                              infeed_packed)
+        idx_c = _bucket_idx(feats.reshape(-1), tables)
+        pk, ov = probe_rows_head(feats, tables, alt_runs=rl,
+                                 pack_bits=pack_bits, idx_pre=idx_c)
+        res = rows_to_result(
+            pk, pk, mwir_k[i], tables.merge_tax, tables.lineages, hits_min,
+            hits_diff_frac, highest_rank, merge_rank,
+            max_candidates=max_candidates, walk_elems=walk_elems,
+            dedup_walk=dedup_walk, fast_top2=fast_top2,
+            presorted_runs=presorted, pack_bits=pack_bits)
+        cls.append(res.cls_tax)
+        over.append(_pack_bits32(ov))
+        feats_k.append(feats)
+        idx_k.append(idx_c.reshape(b, f))
+    return (torch.stack(cls), torch.stack(over), torch.stack(feats_k),
+            torch.stack(idx_k))
+
+
+def query_step_rows_redo(feats, idx_c, mwir, tables, hits_min,
+                         hits_diff_frac, highest_rank, merge_rank, *,
+                         max_candidates: int, walk_elems: int = 0,
+                         dedup_walk: int = 0, fast_top2: bool = True,
+                         pack_bits: int = 0) -> torch.Tensor:
+    """Escalation phase 2 (rows.py:1079-1117, the body of
+    ``_redo_body`` :1157): full-depth classification of (B, F) features
+    whose feature rows phase 1 already found, so neither the sketch nor
+    the bucket probe runs again. -> (B,) int32 classified taxa."""
+    f = feats.shape[1]
+    alt = _alt_runs(fast_top2, walk_elems, dedup_walk, f, tables.spf)
+    tgt, win = probe_rows(feats, tables, alt_runs=alt, pack_bits=pack_bits,
+                          idx_pre=idx_c)
+    return rows_to_result(
+        tgt, win, mwir.to(torch.int32), tables.merge_tax, tables.lineages,
+        hits_min, hits_diff_frac, highest_rank, merge_rank,
+        max_candidates=max_candidates, walk_elems=walk_elems,
+        dedup_walk=dedup_walk, fast_top2=fast_top2, presorted_runs=alt,
+        pack_bits=pack_bits).cls_tax
+
+
+def query_step_rows_redo_scan(feats_k, idx_k, mwir_k, tables, hits_min,
+                              hits_diff_frac, highest_rank, merge_rank,
+                              **kw) -> torch.Tensor:
+    """K stacked redo batches (rows.py:1126-1154): feats_k and idx_k
+    (K, B, F), mwir_k (K, B) -> (K, B) classified taxa."""
+    return torch.stack([
+        query_step_rows_redo(feats_k[i], idx_k[i], mwir_k[i], tables,
+                             hits_min, hits_diff_frac, highest_rank,
+                             merge_rank, **kw)
+        for i in range(feats_k.shape[0])])

@@ -1,5 +1,6 @@
 # copied from metacache_tpu/ops/table.py (prefix_index cut: it reaches
-# the JAX probe)
+# the JAX probe; choose_layout, the host rule, cut: the port stages by the
+# device builder's rule, device_layout below)
 """Feature -> location store, TPU-native layout.
 
 The reference uses a pointer-chasing open-addressing multimap on CPU
@@ -363,47 +364,6 @@ class FeatureTable:
         # csr: features + offsets + unpacked tgt/win i32 arrays
         return f * 4 + (f + 1) * 4 + 2 * self.num_locations * 4
 
-    def choose_layout(self, width: int, budget_bytes: int,
-                      allow_dense: bool = True):
-        """Pick the probe layout that fits a device-memory budget.
-
-        -> ("dense", 0) | ("two_tier", head) | ("csr", 0); raises
-        MemoryError when even CSR exceeds the budget (caller should
-        advise -table-shards / -parts / -remove-overpopulated-features).
-
-        The reference sizes its GPU tables from free VRAM minus a
-        reserve (src/gpu_hashmap.cu:1101-1141); here the same budget
-        instead selects among row layouts:
-        - dense (1 fused row gather/probe) whenever it fits;
-        - else two-tier (head + overflow row gathers): any head <= 30
-          pads to the same 64-lane row, so candidate heads start at 30
-          and step the pad boundaries; among fitting candidates the
-          smallest total bytes wins (probe cost is gather-count-bound,
-          identical for all heads);
-        - else plain CSR (per-slot gathers — slow but minimal memory).
-        """
-        if allow_dense and \
-                self.layout_bytes("dense", 0, width) <= budget_bytes:
-            return ("dense", 0)
-        best = None
-        h = min(30, width - 1) if width > 1 else 1
-        while 0 < h < width:
-            b = self.layout_bytes("two_tier", h, width)
-            if b <= budget_bytes and (best is None or b < best[0]):
-                best = (b, h)
-            h += 16           # next 64-lane pad boundary of 3+2h
-        if best is not None:
-            return ("two_tier", best[1])
-        if self.layout_bytes("csr", 0, width) <= budget_bytes:
-            return ("csr", 0)
-        raise MemoryError(
-            f"database part needs more device memory than the "
-            f"{budget_bytes / 2**30:.1f} GiB budget even in CSR layout "
-            f"({self.layout_bytes('csr', 0, width) / 2**30:.1f} GiB); "
-            "use -table-shards N (shard over devices), -parts N + "
-            "per-part query & merge, or cull with "
-            "-remove-overpopulated-features / -max-locations-per-feature")
-
     def location_list_size_statistics(self):
         """(mean, stddev, skewness, max) of bucket sizes (reference:
         host_hashmap.hpp:376-409 via statistics_accumulator,
@@ -416,3 +376,119 @@ class FeatureTable:
         acc = StatisticsAccumulator()
         acc.push_array(s)
         return acc.mean(), acc.stddev(), acc.skewness(), int(acc.max())
+
+
+# ---------------------------------------------------------------------
+# The device layout rule of metacache_tpu/ops/table_device.py
+# (_layout_and_fill, :975-991), with the port's row bytes: the card has
+# no 128-lane tiling, so a row of c lanes occupies 4 * pad64(c) bytes and
+# no row is pair-packed.
+
+CLASS_LADDER = (13, 29, 61)   # copied from ops/table_device.py:420
+
+
+# copied from metacache_tpu/ops/table_device.py:688-689
+def _pad64(c: int) -> int:
+    return max(64, ((c + 7) // 8) * 8)
+
+
+# copied from metacache_tpu/ops/table_device.py:790-797
+def _quantize(n: int, min_bits: int) -> int:
+    """Round n up to ~3 significant bits so static shapes (and their
+    multi-minute remote compiles) are shared across database sizes;
+    padding elements/rows are sentinels that never match a probe."""
+    if n <= 0:
+        return 1 << min_bits
+    q = 1 << max(min_bits, n.bit_length() - 4)
+    return -(-n // q) * q
+
+
+# copied from metacache_tpu/ops/table_device.py:801-815, with row_b the
+# port's unpadded, unpaired row bytes and without the u64 meta lane
+def _bytes_for_fn(nf_pad, spf, spl):
+    """Layout bytes for head width hd + n_over overflow rows; spl =
+    lanes per slot (1 when slot-packed, 2 otherwise)."""
+
+    def row_b(c):
+        return c * 4
+
+    def bytes_for(hd, n_over):
+        if hd == spf:                              # dense layout
+            return nf_pad * row_b(_pad64(2 + spl * spf)) + 512
+        return (nf_pad * row_b(_pad64(3 + spl * hd)) +
+                (_quantize(n_over, 10) + 1) *
+                row_b(_pad64(spl * (spf - hd))))
+    return bytes_for
+
+
+# copied from metacache_tpu/ops/table_device.py:759-787; ties go to the
+# deeper head (JAX keeps the first, then weighs its classed cells, which
+# the port does not carry, against it)
+def _choose_head(spf, cum_over, bytes_for, budget_bytes, what,
+                 slot_packed: bool = False):
+    """Smallest-footprint two-tier head width that fits the budget.
+
+    Sweeps narrow heads as well as a row-width ladder (61 + 32k slots
+    when slot-packed: 3 meta lanes + H slots fill 64-lane rows exactly;
+    30 + 16k otherwise) so a tight HBM budget can still fit a layout
+    instead of erroring."""
+    if slot_packed:
+        cands = [h for h in (13, 29, 45) if 0 < h < spf]
+        hcand, step = min(61, spf - 1), 32
+    else:
+        cands = [h for h in (6, 14, 22) if 0 < h < spf]
+        hcand, step = min(30, spf - 1), 16
+    while 0 < hcand < spf:
+        cands.append(hcand)
+        hcand += step
+    best = None
+    for hcand in cands:
+        n_over = int(cum_over[hcand + 1])
+        b = bytes_for(hcand, n_over)
+        if b <= budget_bytes and (best is None or b <= best[0]):
+            best = (b, hcand)
+    if best is None:
+        raise MemoryError(
+            f"device {what} needs more HBM than the "
+            f"{budget_bytes/2**30:.1f} GiB budget at any head "
+            "width; use -table-shards / -parts or cull features")
+    return best[1]
+
+
+def device_layout(table: FeatureTable, spf: int, slot_bits: int,
+                  budget_bytes: int, allow_dense: bool = True):
+    """The probe layout the JAX package's device builder picks for this
+    table (table_device.py:975-991), in the port's bytes. -> (head, dense
+    bytes, staged bytes): head == spf for the dense layout, else the
+    two-tier head width.
+
+    Raises NotImplementedError where that builder would stage a layout
+    the port does not carry: the size-classed cells (``MC_CLASSED=1``, or
+    a budget that pinches the head below the ladder's top class of 61
+    slots; table_device.py:423-442) and, when no two-tier head fits, the
+    CSR fallback. Buckets no deeper than 61 slots stage two-tier, where
+    JAX's rule would weigh the classed cells against it."""
+    import os
+    nf = max(table.num_features, 1)
+    bytes_for = _bytes_for_fn(nf, spf, 1 if slot_bits else 2)
+    dense_b = bytes_for(spf, 0)
+    if allow_dense and dense_b <= budget_bytes:
+        return spf, dense_b, dense_b
+    sizes = np.minimum(table.bucket_sizes(), spf) if table.num_features \
+        else np.zeros(1, np.int64)
+    hist = np.bincount(sizes, minlength=spf + 2)
+    cum_over = np.cumsum(hist[::-1])[::-1]      # #buckets size >= idx
+    try:
+        head = _choose_head(spf, cum_over, bytes_for, budget_bytes,
+                            "layout", slot_packed=bool(slot_bits))
+    except MemoryError as e:
+        raise NotImplementedError(
+            f"{e}: the CSR probe layout is not ported yet (ROADMAP queue "
+            "A10)") from None
+    mc = os.environ.get("MC_CLASSED", "")
+    if slot_bits and mc != "0" and (
+            mc == "1" or CLASS_LADDER[2] < spf and head < CLASS_LADDER[2]):
+        raise NotImplementedError(
+            "the size-classed head layout is not ported yet (ROADMAP "
+            "queue A9)")
+    return head, dense_b, bytes_for(head, int(cum_over[head + 1]))

@@ -1,7 +1,8 @@
 """metacache_tpu_torch's CUDA kernels on the card: each against its plain
 PyTorch version on the same CUDA tensors, and the port's query of the
 fixture against the reference goldens through the kernels, with packed
-and with unpacked slots; tolerance 0.
+and with unpacked slots, and through the two-tier layout with
+escalation; tolerance 0.
 
 Needs an NVIDIA GPU (marker `cuda`; skipped without one). Imports no
 JAX, so it also runs on a GPU host without JAX:
@@ -17,7 +18,9 @@ import torch
 
 from metacache_tpu_torch import kernels
 from metacache_tpu_torch.cli.main import main
+from metacache_tpu_torch.classify.runner import QueryRunner
 from metacache_tpu_torch.ops import candidates as C
+from metacache_tpu_torch.ops import probe_decode as D
 from metacache_tpu_torch.ops import sketch as S
 
 pytestmark = pytest.mark.cuda
@@ -146,3 +149,84 @@ def test_fixture_query_on_the_card_matches_golden(cuda, tmp_path,
                 if not any(d in l for d in drop)]
     with open(os.path.join(DATA, "golden", "fmt_0.txt")) as f:
         assert strip(buf.getvalue()) == strip(f.read())
+
+
+def _two_tier_case(rng, nf=4000, n=4096, hsl=61, spf=254):
+    """Head rows with counts 1..spf (the layout of
+    tests/test_probe_pallas.py), overflow rows, and probes with misses,
+    sentinels and indices past the table."""
+    feats = (np.sort(rng.choice(2**31 - 2, nf, replace=False)) + 1)
+    cnts = rng.integers(1, spf + 1, nf)
+    head = np.zeros((nf, 64), np.int32)
+    head[:, 0] = feats
+    head[:, 1] = cnts
+    novf = int((cnts > hsl).sum())
+    head[cnts > hsl, 2] = np.arange(1, novf + 1)
+    head[:, 3:] = rng.integers(0, 2**30, (nf, 61))
+    ovf = np.zeros((novf + 1, 200), np.int32)
+    ovf[1:, :spf - hsl] = rng.integers(0, 2**30, (novf, spf - hsl))
+    idx = rng.integers(0, nf, n)
+    flat = feats[idx]
+    miss = rng.random(n) < 0.3
+    flat[miss] = rng.integers(1, 2**31 - 1, int(miss.sum()))
+    flat[::97] = -1
+    idx[::101] = nf + 5
+    return [torch.from_numpy(a.astype(np.int32)) for a in
+            (head, ovf, idx, flat)]
+
+
+@pytest.mark.parametrize("f", [16, 1])
+@pytest.mark.parametrize("rl", [64, 256])
+def test_head_decode_kernel_matches_plain(cuda, rl, f):
+    head, _ovf, idx, flat = (t.to(cuda) for t in
+                             _two_tier_case(np.random.default_rng(21)))
+    pk, cnt = D.head_decode(head, idx, flat, 61, rl, f)
+    want_pk, want_cnt = D.head_decode_plain(head, idx, flat, 61, rl, f)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, want_pk) and torch.equal(cnt, want_cnt)
+    assert bool((cnt > 61).any()) and bool((cnt == 0).any())
+
+
+@pytest.mark.parametrize("f", [16, 1])
+@pytest.mark.parametrize("rl", [256, 512])
+def test_full_decode_kernel_matches_plain(cuda, rl, f):
+    head, ovf, idx, flat = (t.to(cuda) for t in
+                            _two_tier_case(np.random.default_rng(22)))
+    got = D.full_decode(head, ovf, idx, flat, 61, 254, rl, f)
+    want = D.full_decode_plain(head, ovf, idx, flat, 61, 254, rl, f)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fixture_two_tier_on_the_card_matches_golden(cuda, tmp_path,
+                                                     monkeypatch):
+    """MC_DENSE_LIMIT=1 stages the fixture two-tier (head 1 of 2 slots):
+    the per-read golden through B7, and the -no-map summary through
+    phase 1 (B6) and the redo, escalation forced on by lowering its slot
+    threshold."""
+    monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+    monkeypatch.delenv("MC_PACK_SLOTS", raising=False)
+    monkeypatch.setenv("MC_DENSE_LIMIT", "1")
+    monkeypatch.setattr(QueryRunner, "FUSED_MIN_SLOTS", 0)
+    db = str(tmp_path / "db")
+    assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
+                 f"{DATA}/taxonomy"]) == 0
+    drop = ("# time:", "# speed:", "threads", DATA, "/tmp")
+
+    def query(args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(["query", db, f"{DATA}/reads_single.fa"] + args) == 0
+        return [l for l in buf.getvalue().splitlines()
+                if not any(d in l for d in drop)]
+    with open(os.path.join(DATA, "golden", "fmt_0.txt")) as f:
+        gold = [l for l in f.read().splitlines()
+                if not any(d in l for d in drop)]
+    kernels.reset_counts()
+    assert query([]) == gold
+    assert kernels.FULL_DECODE.launches > 0
+    kernels.reset_counts()
+    summary = query(["-no-map"])
+    i = next(j for j, l in enumerate(gold) if "queries:" in l)
+    assert summary[-len(gold[i:]):] == gold[i:]
+    assert kernels.HEAD_DECODE.launches > 0
