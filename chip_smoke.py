@@ -14,6 +14,12 @@ users run:
   plus 36 species x 256 strains of 50 kbp, 9217 targets, 469 Mbp), whose
   slots do not pack into int32, and `query` through B1 and B5; once more
   with MC_DENSE_LIMIT=1, which stages it two-tier;
+- long windows: the same 944 Mbp genomes at `-winlen 255` (the
+  reference's 255 preset), built in two steps, `build` without the
+  256-strain group and `modify` with it, through kernel B2; `query` of
+  250 bp reads through B2, B3 and B4 (each stack of 250 bp reads is 256
+  characters wide); and `build+query` of all genomes in one step, whose
+  mapping lines must equal the per-read query's on the modified database;
 - packed slots, two-tier rows: `build` of the 1456 Mbp database (the
   RefSeq-skew generator with 576 unique genomes), whose dense rows exceed
   the card's budget, and `query` with escalation: a head-only phase
@@ -21,9 +27,10 @@ users run:
   touched a deeper bucket through B7, B3 and B4; once more with
   MC_ESCALATE=0 (B7 on every batch), which must give the same result.
 
-Each path queries 2^20 100 bp reads on the summary path, 65,536 reads
-on the per-read path, and one batch of the scan step compared with the
-plain path on CPU tensors of the same tables.
+Each path queries 2^20 reads (100 bp; 250 bp at winlen 255) on the
+summary path, 65,536 reads on the per-read path, and one batch of the
+scan step compared with the plain path on CPU tensors of the same
+tables.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 It exits non-zero without a CUDA device. Its last stdout line is
@@ -232,16 +239,25 @@ def make_strain_genomes(rng, specs, glen):
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
-def write_reference(tmp, genomes, species):
-    fa = os.path.join(tmp, "genomes.fa")
+def write_genomes(fa, genomes, species, lo: int = 0, hi: int | None = None):
+    """Genomes lo .. hi - 1 of the list as FASTA records."""
     with open(fa, "wb") as f:
-        for i, g in enumerate(genomes):
+        for i in range(lo, len(genomes) if hi is None else hi):
             f.write(b">GEN%05d.1 taxid|%d| strain genome\n"
                     % (i, 1000 + int(species[i])))
-            f.write(ACGT[g].tobytes() + b"\n")
+            f.write(ACGT[genomes[i]].tobytes() + b"\n")
+
+
+def write_reference(tmp, genomes, species):
+    fa = os.path.join(tmp, "genomes.fa")
+    write_genomes(fa, genomes, species)
     tax = os.path.join(tmp, "taxonomy")
-    os.makedirs(tax)
-    nsp = int(species.max()) + 1
+    write_taxonomy(tax, int(species.max()) + 1)
+    return fa, tax
+
+
+def write_taxonomy(tax, nsp: int):
+    os.makedirs(tax, exist_ok=True)
     with open(os.path.join(tax, "nodes.dmp"), "w") as f:
         f.write("1\t|\t1\t|\tno rank\t|\n2\t|\t1\t|\tsuperkingdom\t|\n")
         for s in range(nsp):
@@ -253,23 +269,22 @@ def write_reference(tmp, genomes, species):
             f.write(f"{1000 + s}\t|\tspecies {s}\t|\t\t|\t"
                     "scientific name\t|\n")
     open(os.path.join(tax, "merged.dmp"), "w").close()
-    return fa, tax
 
 
-def sample_reads(rng, genomes, n: int):
-    """n reads of READ_LEN from uniformly drawn genomes (of any lengths)
-    and positions, with Poisson(1) substitutions (the draw of
-    bench.py:149-159)."""
+def sample_reads(rng, genomes, n: int, read_len: int = READ_LEN):
+    """n reads of read_len from uniformly drawn genomes (of any lengths)
+    and positions, with Poisson(read_len / 100) substitutions, a 1% rate
+    (the draw of bench.py:149-159)."""
     glen = np.array([len(g) for g in genomes])
     gsel = rng.integers(0, len(genomes), n)
-    pos = rng.integers(0, glen[gsel] - READ_LEN)
-    reads = np.empty((n, READ_LEN), np.uint8)
+    pos = rng.integers(0, glen[gsel] - read_len)
+    reads = np.empty((n, read_len), np.uint8)
     for g in np.unique(gsel):
         sel = np.nonzero(gsel == g)[0]
-        reads[sel] = genomes[g][pos[sel, None] + np.arange(READ_LEN)]
-    nm = rng.poisson(READ_LEN / 100, n)
+        reads[sel] = genomes[g][pos[sel, None] + np.arange(read_len)]
+    nm = rng.poisson(read_len / 100, n)
     rows = np.repeat(np.arange(n), nm)
-    reads[rows, rng.integers(0, READ_LEN, len(rows))] = \
+    reads[rows, rng.integers(0, read_len, len(rows))] = \
         rng.integers(0, 4, len(rows), dtype=np.uint8)
     return reads
 
@@ -331,6 +346,7 @@ def phase_parity(results):
                        shape="(65536, 128) windows, k=16, s=16")
     say("parity-B1", windows=n, tolerance=0, max_abs_err=err, ms=ms,
         plain_ms=pms, bound_ms=b_ms, bound_by=by)
+    phase_parity_long(results, rng, dev)
 
     b, l2, r = 8192, 4096, 256
     alt = torch.from_numpy(alternating_runs(rng, b, 16, r)).to(dev)
@@ -422,6 +438,60 @@ def phase_parity(results):
         bound_ms=b_ms, bound_by=by, dedup_case="(2048, 1024) dedup_walk=6")
 
     phase_parity_decode(results, rng, dev)
+
+
+def long_sketch_inputs(rng, n: int, w: int, k: int, read_len: int):
+    """(n, w) windows for B2: 1% ambiguous codes, ambiguous runs across
+    the first chunk cut, all-ambiguous and repeated windows; valid mostly
+    ``read_len``, the rest random, below k, one chunk of starts (113),
+    just past one chunk (130) and 250."""
+    codes = rng.integers(0, 4, (n, w), dtype=np.uint8)
+    codes[rng.random((n, w)) < 0.01] = 4
+    codes[3::97, 100:180] = 4
+    codes[4::89] = 4
+    codes[5::83] = np.tile(np.array([0, 1, 2, 3], np.uint8), w)[:w]
+    valid = np.full(n, read_len, np.int32)
+    valid[1::7] = rng.integers(0, w + 1, len(valid[1::7]))
+    valid[2::13] = k - 1
+    valid[6::17] = 113
+    valid[8::19] = 130
+    valid[9::23] = min(250, w)
+    return codes, valid
+
+
+def phase_parity_long(results, rng, dev):
+    """B2 against its plain version, tolerance 0: at the build's shape
+    (65,536 windows of 255), a 250 bp scan batch (8192 x 256), 511-wide
+    windows and k = 12. Timed at the build's shape."""
+    from metacache_tpu_torch.ops import sketch as S
+    errs, rec = {}, {}
+    for n, w, k in ((65536, 255, 16), (8192, 256, 16), (8192, 511, 16),
+                    (8192, 255, 12)):
+        codes, valid = long_sketch_inputs(rng, n, w, k,
+                                          250 if w == 256 else w)
+        c = torch.from_numpy(codes).to(dev)
+        v = torch.from_numpy(valid).to(dev)
+        got = S.sketch_windows(c, v, k, 16)
+        want = S.sketch_windows_long_plain(c, v, k, 16)
+        key = f"{n}x{w}_k{k}"
+        errs[key] = check_equal(f"B2 sketch {key}", got, want)
+        if (n, w, k) in ((65536, 255, 16), (8192, 256, 16)):
+            rec[key] = (cuda_ms(lambda: S.sketch_windows(c, v, k, 16)),
+                        cuda_ms(lambda: S.sketch_windows_long_plain(
+                            c, v, k, 16)), codes, valid)
+    ms, pms, codes, valid = rec["65536x255_k16"]
+    n, w = codes.shape
+    # B1's operation model per k-mer position (phase_parity)
+    kpos = int(np.maximum(np.minimum(valid, w).astype(np.int64) - 15,
+                          0).sum())
+    b_ms, by = _record(results, "sketch_long", err=max(errs.values()),
+                       ms=ms, plain_ms=pms,
+                       nbytes=n * w + 4 * n + 4 * n * 16, nops=22 * kpos,
+                       shape="(65536, 255) windows, k=16, s=16")
+    say("parity-B2", tolerance=0, max_abs_err=max(errs.values()),
+        cases=errs, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        scan_8192x256_ms=rec["8192x256_k16"][0],
+        scan_8192x256_plain_ms=rec["8192x256_k16"][1])
 
 
 def two_tier_table(rng, nf: int, hsl: int = 61, spf: int = 254):
@@ -640,22 +710,30 @@ def phase_query_per_read(tmp, name, db, reads):
     say(f"query-per-read-{name}", reads=len(reads),
         mapping_lines=len(lines), seconds=round(res.time_ms / 1000, 3))
     del runner
+    return lines
 
 
 def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
+    """One stack of 8192 reads through the scan step on the card and the
+    plain path on CPU tensors of the same tables: rows of ceil(winlen / 4)
+    packed bytes (32 at winlen 127, 64 at 255), valid = the read length,
+    mwir = 2 + length // stride, the runner's sweep."""
     from metacache_tpu_torch.ops.rows import query_step_rows_scan
-    b = min(8192, len(reads))
-    c4 = np.zeros((b, 128), np.uint8)
-    c4[:, :READ_LEN] = reads[:b]
+    b, rl = min(8192, len(reads)), reads.shape[1]
+    nb = (runner.sketching.winlen + 3) // 4
+    c4 = np.zeros((b, 4 * nb), np.uint8)
+    c4[:, :rl] = reads[:b]
     packed = (c4[:, 0::4] | (c4[:, 1::4] << 2) | (c4[:, 2::4] << 4) |
-              (c4[:, 3::4] << 6)).reshape(1, b, 1, 32)
-    vmat = np.full((1, b, 1), READ_LEN, np.uint8)
-    mwir = np.full((1, b), 2, np.uint8)
+              (c4[:, 3::4] << 6)).reshape(1, b, 1, nb)
+    mw = 2 + rl // runner.db.sketching.winstride
+    vmat = np.full((1, b, 1), rl, np.uint8)
+    mwir = np.full((1, b), mw, np.uint8)
     t = runner.tables
     cpu = t.cpu_copy()
     kw = dict(k=16, sketchlen=16, windows_per_query=1, max_candidates=2,
-              walk_elems=32, fast_top2=True, pack_bits=runner._pack_bits,
-              infeed_packed=True)
+              fast_top2=True, pack_bits=runner._pack_bits,
+              infeed_packed=True,
+              **runner._sweep_params(np.array([mw], np.int32), 1))
     args = (runner.hits_min, 1.0, runner.highest_rank, runner.merge_rank)
     got = query_step_rows_scan(
         torch.from_numpy(packed).to(dev), torch.from_numpy(vmat).to(dev),
@@ -664,8 +742,8 @@ def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
         torch.from_numpy(packed), torch.from_numpy(vmat),
         torch.from_numpy(mwir), cpu, *args, **kw)
     err = check_equal("end-to-end cls", got, want)
-    say(f"e2e-parity-{name}", reads=b, tolerance=0, max_abs_err=err,
-        classified=int((got != 0).sum()))
+    say(f"e2e-parity-{name}", reads=b, packed_bytes=nb, valid=rl, mwir=mw,
+        tolerance=0, max_abs_err=err, classified=int((got != 0).sum()))
 
 
 def run_config(tmp, name, db, genomes, layout, path_kernels, profile):
@@ -888,6 +966,91 @@ def phase_dense_limit(tmp, name, db, dense_hist):
     torch.cuda.empty_cache()
 
 
+def run_long_windows(tmp, genomes, species, profile):
+    """The 944 Mbp genomes at -winlen 255 (stride 240), through B2: built
+    in two steps (`build` without the 256-strain group, then `modify`
+    with it), 2^20 250 bp reads on the summary path (the main path of
+    B2), the scan step against the plain path, 65,536 reads on the
+    per-read path, and `build+query` of all genomes in one step, whose
+    mapping lines must equal the per-read query's on the modified
+    database. -> the summary's launches."""
+    from metacache_tpu_torch import kernels
+    from metacache_tpu_torch.cli.main import main as cli
+    name = "944mbp-w255"
+    sub = os.path.join(tmp, name)
+    os.makedirs(sub)
+    t0 = time.time()
+    a, b = os.path.join(sub, "a.fa"), os.path.join(sub, "b.fa")
+    split = len(genomes) - 256
+    write_genomes(a, genomes, species, 0, split)
+    write_genomes(b, genomes, species, split)
+    tax = os.path.join(sub, "taxonomy")
+    write_taxonomy(tax, int(species.max()) + 1)
+    gen_s = time.time() - t0
+    db = os.path.join(sub, "db")
+    steps = {}
+    for step, args in (("build", ["build", db, a, "-winlen", "255",
+                                  "-taxonomy", tax]),
+                       ("modify", ["modify", db, b, "-taxonomy", tax])):
+        kernels.reset_counts()
+        t0 = time.time()
+        if cli(args) != 0:
+            raise AssertionError(f"{step} failed")
+        steps[step] = dict(seconds=round(time.time() - t0, 3),
+                           sketch_long=kernels.SKETCH_LONG.launches,
+                           sketch=kernels.SKETCH.launches)
+        if steps[step]["sketch_long"] <= 0 or steps[step]["sketch"]:
+            raise AssertionError(f"{step} launches {steps[step]}")
+    d = Database.load(db)
+    p = d.parts[0]
+    maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max())
+    if (d.target_count, len(d.parts), d.sketching.winlen,
+            d.sketching.winstride) != (len(genomes), 1, 255, 240):
+        raise AssertionError(f"{d.target_count} targets, {len(d.parts)} "
+                             f"parts, sketching {vars(d.sketching)}")
+    say(f"build-{name}", genomes=len(genomes), build_genomes=split,
+        modify_genomes=len(genomes) - split, features=p.num_features,
+        locations=p.num_locations, max_bucket=p.max_bucket_size,
+        max_window=maxwin, data_gen_seconds=round(gen_s, 3), **steps)
+    del d, p
+    reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20, 250)
+    layout = f"pk{(2 * maxwin).bit_length()}"
+    runner, launches, _res = phase_query_summary(
+        tmp, name, db, reads, layout,
+        path_of("sketch_long", "sort", "candidates"))
+    say(f"staging-{name}", layout=runner.layout,
+        dense_gib=round(runner.dense_bytes / 2**30, 3),
+        staged_gib=round(runner.tables.nbytes() / 2**30, 3),
+        rows=tuple(runner.tables.fused_rows.shape))
+    if profile:
+        phase_profile(tmp, name, runner)
+    phase_e2e(name, runner, reads)
+    del runner
+    torch.cuda.empty_cache()
+    lines = phase_query_per_read(tmp, name, db, reads[:65536])
+    torch.cuda.empty_cache()
+    out = os.path.join(sub, "buildquery.txt")
+    kernels.reset_counts()
+    t0 = time.time()
+    if cli(["build+query", "-targets", a, b, "-taxonomy", tax, "-winlen",
+            "255", "-query", os.path.join(sub, "reads_per_read.fa"),
+            "-out", out]) != 0:
+        raise AssertionError("build+query failed")
+    bq_s = time.time() - t0
+    with open(out) as f:
+        bq = [l for l in f if not l.startswith("#")]
+    if bq != lines:
+        diff = sum(x != y for x, y in zip(bq, lines))
+        raise AssertionError(f"build+query: {len(bq)} lines, {diff} differ "
+                             "from the per-read query on the modified "
+                             "database")
+    say(f"build+query-{name}", seconds=round(bq_s, 3), mapping_lines=len(bq),
+        equal_to_modified=True, sketch_long=kernels.SKETCH_LONG.launches,
+        sketch=kernels.SKETCH.launches)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def generated(make):
     t0 = time.time()
     genomes, species = make()
@@ -925,6 +1088,10 @@ def main() -> int:
         for k in ("sketch", "sort", "candidates"):
             launches[k] = main_path[k]
         shutil.rmtree(os.path.join(tmp, "944mbp"))
+        main_path = run_long_windows(tmp, genomes, species, a.profile)
+        launches["sketch_long"] = main_path["sketch_long"]
+        shutil.rmtree(os.path.join(tmp, "944mbp-w255"))
+        del genomes, species
 
         genomes, species, gen_s = generated(many_target_genomes)
         db, maxwin = phase_build(tmp, "many-target", genomes, species,

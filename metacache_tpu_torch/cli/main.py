@@ -1,4 +1,5 @@
-"""Command-line interface of the port: build, query, info, help.
+"""Command-line interface of the port: build, modify, query, build+query,
+info, help.
 
 Same flags as metacache_tpu's CLI (and the reference binary): the flag
 parser and the mode functions are copied from metacache_tpu/cli/main.py
@@ -133,9 +134,9 @@ def _expand(paths):
     return expand_input_paths(paths)
 
 
-# copied from metacache_tpu/cli/main.py:128-219 (build only; modify,
-# device-resident tables and the reference file format are not ported)
-def mode_build(argv: List[str]) -> int:
+# copied from metacache_tpu/cli/main.py:128-219 (tables built on the
+# host: device-resident tables are ROADMAP queue A9)
+def mode_build(argv: List[str], modify: bool = False) -> int:
     from ..db.build import BuildOptions, build_database
     from ..db.database import Database
     from ..seqio.ids import SequenceIdType
@@ -181,6 +182,7 @@ def mode_build(argv: List[str]) -> int:
         opt.num_threads = max(1, int(v))
     _apply_info_level(a)
     opt.reset_parents = a.take_flag("-reset-taxa", "-reset-parents")
+    ref_format = a.take_flag("-ref-format", "-reference-format")
     v = a.take_value("-sequence-id-format")
     if v:
         opt.seq_id_type = SequenceIdType(v.replace("-", "_"))
@@ -191,8 +193,24 @@ def mode_build(argv: List[str]) -> int:
     opt.dbfile = pos[0]
     opt.infiles = pos[1:]
     opt.device_tables = False       # host CSR build
-    db = build_database(opt, Database(opt.sketching))
-    db.save(opt.dbfile)
+    if modify:
+        # incremental build resume (reference: mode_build.cpp:74-87)
+        db = Database.load(opt.dbfile)
+        opt.sketching = db.sketching  # sketching is fixed by the database
+        if opt.reset_parents:
+            for t in db.taxa.target_taxa:
+                if t is not None:
+                    t.parent_id = 0
+            db.taxa._outdated = True
+    else:
+        db = Database(opt.sketching)
+    db = build_database(opt, db)
+    if ref_format:
+        # the reference MetaCache binary format (src/database.cpp:247-325)
+        from ..db.mcformat import save_reference_db
+        save_reference_db(db, opt.dbfile)
+    else:
+        db.save(opt.dbfile)
     info_mod.status(f"Database saved to {opt.dbfile}")
     return 0
 
@@ -423,6 +441,51 @@ def mode_query(argv: List[str]) -> int:
     return run_query(db, infiles, opt, out_file)
 
 
+# copied from metacache_tpu/cli/main.py:498-541 (tables built on the
+# host, as `build` builds them; no interactive mode)
+def mode_build_query(argv: List[str]) -> int:
+    """Build DB in memory, then query (reference: mode_build_query.cpp)."""
+    from ..db.build import BuildOptions, build_database
+
+    a = Args(argv)
+    save_db = a.take_value("-save-db")
+    taxonomy_dir = a.take_value("-taxonomy", default="")
+    taxpostmap = a.take_values("-taxpostmap")
+    bopt = BuildOptions(taxonomy_dir=taxonomy_dir, taxpostmap=taxpostmap)
+    v = a.take_value("-max-locations-per-feature")
+    if v:
+        bopt.max_locations_per_feature = int(v)
+
+    # reference syntax: -targets <files...> [-query <files...>]
+    # (src/options.cpp:1701-1712); everything after '-query' is query input
+    if "-query" in a.argv:
+        i = a.argv.index("-query")
+        build_args, query_args = a.argv[:i], a.argv[i + 1:]
+    else:
+        build_args, query_args = a.argv, []
+    ab = Args(build_args)
+    sk = _parse_sketching(ab)
+    if sk is not None:
+        bopt.sketching = SketchingOptions(
+            kmerlen=sk.kmerlen or 16, sketchlen=sk.sketchlen or 16,
+            winlen=sk.winlen or 127, winstride=sk.winstride)
+    bopt.infiles = ab.take_values("-targets")
+    bopt.infiles += ab.positionals()
+    if not bopt.infiles:
+        raise CliError("No reference sequence files provided or found!")
+    aq = Args(query_args)
+    opt, out_file, _split = parse_query_options(aq)
+    infiles = _expand(aq.positionals())
+    if not infiles:
+        raise NotImplementedError(
+            "the interactive query mode is not ported yet (ROADMAP "
+            "queue A7): give the read files after -query")
+    db = build_database(bopt)
+    if save_db:
+        db.save(save_db)
+    return run_query(db, infiles, opt, out_file)
+
+
 HELP = f"""metacache_tpu_torch {__version__} - metagenomic classifier on one
 NVIDIA GPU (PyTorch + hand-written CUDA kernels)
 
@@ -430,7 +493,9 @@ USAGE: python -m metacache_tpu_torch <MODE> [OPTION...]
 
 modes:
     build       build a new database from reference sequences
+    modify      add reference sequences/taxonomy to an existing database
     query       classify read sequences using an existing database
+    build+query build a database and query it immediately
     info        show database and taxonomy information
     help        show documentation
 """
@@ -457,8 +522,12 @@ def main(argv: List[str] | None = None) -> int:
     try:
         if mode == "build":
             return mode_build(rest)
+        if mode == "modify":
+            return mode_build(rest, modify=True)
         if mode == "query":
             return mode_query(rest)
+        if mode == "build+query":
+            return mode_build_query(rest)
         if mode == "info":
             from .info import show_info
             return show_info(rest)

@@ -5,9 +5,9 @@
 Re-design of the reference `database` class (src/database.hpp:119-532,
 src/database.cpp:36-375) around the TPU-native CSR feature table:
 
-- add_target sketches all windows of a reference sequence (kernel B1 on
-  the card, in batches; db/sketch_exec.py) and accumulates (feature,
-  location) pairs;
+- add_target sketches all windows of a reference sequence (kernel B1, or
+  B2 above 128 characters, on the card, in batches; db/sketch_exec.py)
+  and accumulates (feature, location) pairs;
 - finalize() sort-builds the CSR table (the XLA-natural equivalent of the
   hash-multimap insert path) honoring max_locations_per_feature;
 - on-disk format: `<db>.meta` (JSON header mirroring the reference's .meta

@@ -1,11 +1,12 @@
-# copied from metacache_tpu/db/mcformat.py:1-70 and :184-325 (the reader;
-# the writer save_reference_db is not ported)
-"""Reader for the reference MetaCache binary database format.
+# copied from metacache_tpu/db/mcformat.py (the writer without the
+# device-table export, ROADMAP queue A9)
+"""Reader and writer for the reference MetaCache binary database format.
 
 Databases built by the muellan/metacache CPU/GPU binary (.meta +
 .cacheN files) load directly into a :class:`Database`, so existing
-production databases classify here without a rebuild. The writer
-(``build -ref-format``) is not ported yet (ROADMAP queue A11).
+production databases classify here without a rebuild; databases built
+here can be written back in the same format (``build -ref-format``,
+save_reference_db) so the reference binary can query them.
 
 Format (all little-endian; reference sources):
   .meta   — database::read_meta (src/database.cpp:87-164):
@@ -67,6 +68,106 @@ class _Bin:
     def close(self):
         self.f.close()
 
+
+class _BinW:
+    def __init__(self, path: str):
+        self.f = open(path, "wb")
+
+    def u8(self, v: int):
+        self.f.write(bytes([v & 0xFF]))
+
+    def u32(self, v: int):
+        self.f.write(struct.pack("<I", v))
+
+    def u64(self, v: int):
+        self.f.write(struct.pack("<Q", v))
+
+    def i64(self, v: int):
+        self.f.write(struct.pack("<q", v))
+
+    def string(self, s: str):
+        data = s.encode()
+        self.u64(len(data))
+        self.f.write(data)
+
+    def array(self, a: np.ndarray):
+        self.f.write(np.ascontiguousarray(a).tobytes())
+
+    def close(self):
+        self.f.close()
+
+
+def save_reference_db(db, path: str):
+    """Write `db` as a reference-binary database (.meta + .cacheN) the
+    muellan/metacache CPU/GPU binary can read and query.
+
+    Field order mirrors database::write_meta (src/database.cpp:247-291)
+    and hash_multimap::serialize (src/hash_multimap.hpp:1037-1082); a
+    location serializes as {u32 win, u32 tgt} little-endian
+    (src/database.hpp:140-144), which is bit-identical to this package's
+    packed (tgt << 32 | win) u64. Values within a bucket are written in
+    ascending (tgt, win) order, the sorted-bucket invariant the GPU
+    serializer also maintains (src/gpu_hashmap.cu:490-606)."""
+    from ..config import feature_bits
+    fbits = feature_bits(db.sketching.kmerlen)
+    feature_size = 4 if fbits <= 32 else 8
+    b = _BinW(path + ".meta")
+    b.u64(MC_DB_VERSION)
+    for width in (feature_size, 4, 4, 1, 4, 8, 21):
+        b.u8(width)
+    sk = db.sketching
+    for _ in range(2):                # written twice (db v20200820)
+        for v in (sk.kmerlen, sk.sketchlen, sk.winlen, sk.winstride):
+            b.u64(int(v))
+    b.u64(int(db.max_locations_per_feature))
+    b.u32(int(db.target_count))
+    b.u32(len(db.parts))
+
+    # taxonomy: u64 total count, then non-target taxa, then targets
+    # (src/taxonomy.hpp:719-728)
+    tx = db.taxa.taxonomy
+    taxa = sorted(tx.taxa.values(), key=lambda t: t.id)
+    targets = [t for t in db.taxa.target_taxa if t is not None]
+    b.u64(len(taxa) + len(targets))
+    for t in taxa + targets:
+        b.i64(int(t.id))
+        b.i64(int(t.parent_id))
+        b.u8(int(t.rank))
+        b.string(t.name)
+        src = t.source
+        b.string(src.filename if src else "")
+        b.u64(int(src.index) if src else 0)
+        b.u64(int(src.windows) if src else 0)
+    b.close()
+
+    fdt = np.uint32 if feature_size == 4 else np.uint64
+    for i, p in enumerate(db.parts):
+        _write_cache(f"{path}.cache{i}", p, fdt)
+
+
+def _write_cache(path: str, table, fdt, batch: int = 1 << 20):
+    """One .cacheN part from a FeatureTable's CSR arrays."""
+    b = _BinW(path)
+    sizes = np.diff(table.offsets).astype(np.int64)
+    keep = sizes > 0                  # only non-empty buckets serialize
+    keys = table.unique_features[keep].astype(fdt)
+    sizes = sizes[keep]
+    nkeys = len(keys)
+    b.u64(nkeys)
+    b.u64(int(sizes.sum()))
+    b.u64(batch)
+    voffs = np.concatenate([[0], np.cumsum(sizes)])
+    locs = table.locations            # u64 (tgt << 32 | win) == {win,tgt} LE
+    src_off = table.offsets.astype(np.int64)[:-1][keep]
+    for k0 in range(0, nkeys, batch):
+        k1 = min(k0 + batch, nkeys)
+        b.array(keys[k0:k1])
+        b.array(sizes[k0:k1].astype(np.uint8))
+        # bucket value runs are contiguous in CSR order even after
+        # empty-bucket removal (empties contribute no values)
+        b.array(locs[src_off[k0]:src_off[k0] + int(voffs[k1] -
+                                                   voffs[k0])])
+    b.close()
 
 
 def is_reference_db(path: str) -> bool:

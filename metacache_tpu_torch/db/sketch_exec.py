@@ -4,9 +4,10 @@ Copied from metacache_tpu/db/sketch_exec.py:92-164 (``SketchAccumulator``)
 onto the port's sketcher: targets are batched across in queue order, so
 the emitted (feature, location) stream stays ascending in (tgt, win),
 which FeatureTable.build's presorted path relies on, and each batch is
-sketched by kernel B1 on the card (its plain version on the CPU). The
-device-resident accumulator (sketch_exec.py:167) feeds the device table
-builder, ROADMAP queue A9, and is not ported.
+sketched on the card by kernel B1, or B2 for windows wider than 128
+characters (their plain versions on the CPU). The device-resident
+accumulator (sketch_exec.py:167) feeds the device table builder, ROADMAP
+queue A9, and is not ported.
 """
 from __future__ import annotations
 

@@ -99,6 +99,8 @@ def _load():
             lib = ctypes.CDLL(build())
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.mc_sketch_windows.argtypes = [p, p, p, i64, i, i, p]
+            lib.mc_sketch_windows_long.argtypes = [p, p, p, i64, i, i64, i,
+                                                   i, p]
             lib.mc_sort_packed.argtypes = [p, p, i64, i, i, p]
             lib.mc_candidates_packed.argtypes = [p, p, p, i64, i, i, i, i,
                                                  i, p]
@@ -108,7 +110,8 @@ def _load():
                                            p, p]
             lib.mc_full_decode.argtypes = [p, i64, i, p, i64, i, p, p, i64,
                                            i, i, i, i, p, p]
-            for fn in (lib.mc_sketch_windows, lib.mc_sort_packed,
+            for fn in (lib.mc_sketch_windows, lib.mc_sketch_windows_long,
+                       lib.mc_sort_packed,
                        lib.mc_candidates_packed,
                        lib.mc_candidates_unpacked, lib.mc_head_decode,
                        lib.mc_full_decode):
@@ -145,6 +148,9 @@ class Kernel:
 SKETCH = Kernel("mc_sketch_windows",
                 "metacache_tpu/ops/sketch_pallas.py:247",
                 "metacache_tpu_torch/csrc/sketch.cu")
+SKETCH_LONG = Kernel("mc_sketch_windows_long",
+                     "metacache_tpu/ops/sketch_pallas.py:200",
+                     "metacache_tpu_torch/csrc/sketch.cu")
 SORT = Kernel("mc_sort_packed",
               "metacache_tpu/ops/candidates_pallas.py:395",
               "metacache_tpu_torch/csrc/candidates.cu")
@@ -160,8 +166,8 @@ HEAD_DECODE = Kernel("mc_head_decode",
 FULL_DECODE = Kernel("mc_full_decode",
                      "metacache_tpu/ops/probe_pallas.py:356",
                      "metacache_tpu_torch/csrc/probe_decode.cu")
-ALL = {"sketch": SKETCH, "sort": SORT, "candidates": CANDIDATES,
-       "candidates_unpacked": CANDIDATES_UNPACKED,
+ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sort": SORT,
+       "candidates": CANDIDATES, "candidates_unpacked": CANDIDATES_UNPACKED,
        "head_decode": HEAD_DECODE, "full_decode": FULL_DECODE}
 
 

@@ -1,8 +1,8 @@
 """Row-layout query step: one row of match slots per read.
 
 Port of metacache_tpu/ops/rows.py for the dense and two-tier fused-row
-layouts: sketch (B1) -> bucket-row probe + row gather -> match slots ->
-candidates -> ranked LCA. Two-tier rows with packed slots decode through
+layouts: sketch (B1, or B2 for windows wider than 128) -> bucket-row
+probe + row gather -> match slots -> candidates -> ranked LCA. Two-tier rows with packed slots decode through
 B7 (head + overflow rows) or, in escalation phase 1, B6 (head rows
 only). Slots that pack into int32 (pack_bits > 0) go through sort (B3)
 and sweep + top-k (B4); unpacked (tgt, win) slots go through the

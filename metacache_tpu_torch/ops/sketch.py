@@ -1,11 +1,13 @@
-"""Window sketcher: kernel B1 and its plain PyTorch version.
+"""Window sketchers: kernels B1 and B2 and their plain PyTorch versions.
 
 Port of metacache_tpu/ops/sketch_jax.py:34-152 (the sort-based
-sketcher) and of the Pallas kernel sketch_pallas.sketch_windows_pallas
-(csrc/sketch.cu). Features leave as int32 tensors holding the u32 bit
-patterns; the plain version computes in int64, where every u32 value is
-non-negative, so its sorts order them as unsigned and the sentinel
-0xFFFFFFFF sorts last.
+sketcher) and of the Pallas kernels sketch_pallas.sketch_windows_pallas
+(B1, windows of at most 128 characters) and
+sketch_pallas.sketch_windows_pallas_long (B2, wider windows: the 255 and
+511 presets), both in csrc/sketch.cu. Features leave as int32 tensors
+holding the u32 bit patterns; the plain versions compute in int64, where
+every u32 value is non-negative, so their sorts order them as unsigned
+and the sentinel 0xFFFFFFFF sorts last.
 """
 from __future__ import annotations
 
@@ -57,71 +59,133 @@ def to_i32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
-def sketch_windows_plain(codes: torch.Tensor, valid: torch.Tensor,
-                         k: int, sketchlen: int) -> torch.Tensor:
-    """Plain version of B1 (sketch_jax.sketch_windows): (N, W) u8 codes,
-    (N,) valid lengths -> (N, sketchlen) int32 u32-bit features,
-    ascending, deduplicated, sentinel padded."""
-    n, w = codes.shape
-    p = w - k + 1
-    kmers, ambig = window_kmers(codes, k)
-    pos = torch.arange(p, device=codes.device)[None, :]
-    nvalid = torch.clamp(valid.to(torch.int64) - (k - 1), min=0)[:, None]
-    invalid = ambig | (pos >= nvalid)
-    canon = torch.minimum(kmers, revcomp_2bit(kmers, k))
-    feats = torch.where(invalid, SENTINEL, thomas_mueller_hash(canon))
+def _sort_dedup_take(feats: torch.Tensor, sketchlen: int) -> torch.Tensor:
+    """(N, M) int64 u32 values -> the ``sketchlen`` smallest distinct
+    ones, ascending, duplicates and missing values as the sentinel."""
     feats = torch.sort(feats, dim=1).values
     dup = torch.zeros_like(feats, dtype=torch.bool)
     dup[:, 1:] = feats[:, 1:] == feats[:, :-1]
     feats = torch.sort(torch.where(dup, SENTINEL, feats), dim=1).values
     feats = feats[:, :sketchlen]
     if feats.shape[1] < sketchlen:
-        pad = torch.full((n, sketchlen - feats.shape[1]), SENTINEL,
-                         dtype=torch.int64, device=codes.device)
+        pad = torch.full((feats.shape[0], sketchlen - feats.shape[1]),
+                         SENTINEL, dtype=torch.int64, device=feats.device)
         feats = torch.cat([feats, pad], dim=1)
+    return feats
+
+
+def sketch_windows_plain(codes: torch.Tensor, valid: torch.Tensor,
+                         k: int, sketchlen: int) -> torch.Tensor:
+    """Plain version of B1 (sketch_jax.sketch_windows): (N, W) u8 codes,
+    (N,) valid lengths -> (N, sketchlen) int32 u32-bit features,
+    ascending, deduplicated, sentinel padded."""
+    p = codes.shape[1] - k + 1
+    kmers, ambig = window_kmers(codes, k)
+    pos = torch.arange(p, device=codes.device)[None, :]
+    nvalid = torch.clamp(valid.to(torch.int64) - (k - 1), min=0)[:, None]
+    invalid = ambig | (pos >= nvalid)
+    canon = torch.minimum(kmers, revcomp_2bit(kmers, k))
+    feats = torch.where(invalid, SENTINEL, thomas_mueller_hash(canon))
+    feats = _sort_dedup_take(feats, sketchlen)
     out_pos = torch.arange(sketchlen, device=codes.device)[None, :]
     feats = torch.where(out_pos >= nvalid, SENTINEL, feats)
     return to_i32_bits(feats)
+
+
+def sketch_windows_long_plain(codes: torch.Tensor, valid: torch.Tensor,
+                              k: int, sketchlen: int) -> torch.Tensor:
+    """Plain version of B2 (sketch_pallas.sketch_windows_pallas_long,
+    sketch_pallas.py:219-242): (N, W > 128) u8 codes, (N,) valid lengths
+    -> (N, sketchlen) int32 u32-bit features. Each 128-char chunk, the
+    last padded with code 4 and each with its valid length clipped to
+    [0, 128], is sketched by B1's plain version; the chunk sketches merge
+    by sort + dedup + take s, which equals the sketch of the whole
+    window (a value among the s smallest distinct of the window is among
+    the s smallest distinct of its own chunk)."""
+    n, w = codes.shape
+    # chunks at this stride partition the window's k-mer starts
+    stride = LANES - (k - 1)
+    nch = max(1, -(-max(w - (k - 1), 1) // stride))
+    chunks, vals = [], []
+    valid = valid.to(torch.int64)
+    for c in range(nch):
+        lo = c * stride
+        sl = codes[:, lo:lo + LANES]
+        if sl.shape[1] < LANES:
+            sl = torch.cat([sl, torch.full((n, LANES - sl.shape[1]),
+                                           PAD_CODE, dtype=torch.uint8,
+                                           device=codes.device)], dim=1)
+        chunks.append(sl)
+        vals.append(torch.clamp(valid - lo, 0, LANES))
+    big = torch.stack(chunks, 1).reshape(n * nch, LANES)
+    bval = torch.stack(vals, 1).reshape(n * nch)
+    sk = sketch_windows_plain(big, bval, k, sketchlen).reshape(
+        n, nch * sketchlen).to(torch.int64) & _M32
+    return to_i32_bits(_sort_dedup_take(sk, sketchlen))
 
 
 def pad_windows(codes: torch.Tensor) -> torch.Tensor:
     """Pad windows narrower than 128 lanes with the ambiguous code 4
     (metacache_tpu/ops/rows.py:45-47)."""
     w = codes.shape[1]
-    if w > LANES:
-        raise NotImplementedError(
-            f"windows of {w} > {LANES} characters need the long-window "
-            "sketcher (ROADMAP queue B, B2)")
-    if w == LANES:
+    if w >= LANES:
         return codes
     pad = torch.full((codes.shape[0], LANES - w), PAD_CODE,
                      dtype=torch.uint8, device=codes.device)
     return torch.cat([codes, pad], dim=1)
 
 
+def _check_launch(codes: torch.Tensor, valid: torch.Tensor):
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError("codes must be a (N, W) uint8 tensor")
+    valid = valid.to(device=codes.device, dtype=torch.int32).contiguous()
+    if valid.shape != (codes.shape[0],):
+        raise ValueError("valid must have shape (N,)")
+    return valid
+
+
 def sketch_windows(codes: torch.Tensor, valid: torch.Tensor, k: int,
                    sketchlen: int) -> torch.Tensor:
-    """(N, W <= 128) u8 windows + (N,) valid lengths -> (N, sketchlen)
-    int32 (u32 bits). A CUDA tensor launches kernel B1; a CPU tensor
-    takes the plain version."""
+    """(N, W) u8 windows + (N,) valid lengths -> (N, sketchlen) int32
+    (u32 bits), the dispatch of metacache_tpu/ops/rows.py:28-50. Windows
+    of at most 128 characters are padded to 128 and go to kernel B1,
+    wider ones to kernel B2, on a CUDA tensor; a CPU tensor takes the
+    kernel's plain version."""
     if k > 16:
         raise NotImplementedError(
             "k > 16 needs the 64-bit feature sketch (ROADMAP queue A, "
             "u64 features)")
+    if codes.shape[1] > LANES:
+        return _sketch_long(codes, valid, k, sketchlen)
     codes = pad_windows(codes)
     if not codes.is_cuda:
         return sketch_windows_plain(codes, valid, k, sketchlen)
-    if codes.dtype != torch.uint8 or codes.dim() != 2:
-        raise ValueError("codes must be a (N, 128) uint8 tensor")
+    valid = _check_launch(codes, valid)
     n = codes.shape[0]
     codes = codes.contiguous()
     if codes.data_ptr() % 4:            # the kernel loads 4 codes a lane
         codes = codes.clone()
-    valid = valid.to(device=codes.device, dtype=torch.int32).contiguous()
-    if valid.shape != (n,):
-        raise ValueError("valid must have shape (N,)")
     out = torch.empty((n, sketchlen), dtype=torch.int32, device=codes.device)
     if n:
         kernels.SKETCH(codes.data_ptr(), valid.data_ptr(), out.data_ptr(),
                        n, k, sketchlen)
+    return out
+
+
+def _sketch_long(codes: torch.Tensor, valid: torch.Tensor, k: int,
+                 sketchlen: int) -> torch.Tensor:
+    """W > 128: kernel B2 on a CUDA tensor, its plain version on a CPU
+    tensor. B2 loads codes a byte at a time with the row stride it is
+    given, so rows of any width and alignment go in uncopied."""
+    if not codes.is_cuda:
+        return sketch_windows_long_plain(codes, valid, k, sketchlen)
+    valid = _check_launch(codes, valid)
+    n, w = codes.shape
+    if codes.stride(1) != 1:
+        codes = codes.contiguous()
+    out = torch.empty((n, sketchlen), dtype=torch.int32, device=codes.device)
+    if n:
+        kernels.SKETCH_LONG(codes.data_ptr(), valid.data_ptr(),
+                            out.data_ptr(), n, w, codes.stride(0), k,
+                            sketchlen)
     return out

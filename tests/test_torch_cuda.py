@@ -1,8 +1,9 @@
 """metacache_tpu_torch's CUDA kernels on the card: each against its plain
 PyTorch version on the same CUDA tensors, and the port's query of the
 fixture against the reference goldens through the kernels, with packed
-and with unpacked slots, and through the two-tier layout with
-escalation; tolerance 0.
+and with unpacked slots, through the two-tier layout with escalation,
+and on a winlen-255 database through B2 against the CPU run; tolerance
+0.
 
 Needs an NVIDIA GPU (marker `cuda`; skipped without one). Imports no
 JAX, so it also runs on a GPU host without JAX:
@@ -62,6 +63,39 @@ def test_sketch_kernel_matches_plain(cuda, case):
         got = S.sketch_windows(c, v, k, s)
         torch.cuda.synchronize()
         assert torch.equal(got, S.sketch_windows_plain(c, v, k, s))
+
+
+@pytest.mark.parametrize("k", [16, 12])
+@pytest.mark.parametrize("w", [255, 256, 511])
+def test_long_sketch_kernel_matches_plain(cuda, w, k):
+    """B2 on rows w bytes apart (unaligned from row 1 at 255 and 511),
+    with ambiguous runs across chunk cuts, all-ambiguous and repeated
+    windows, and valid lengths below k, at chunk bounds and random."""
+    rng = np.random.default_rng(w + k)
+    n = 4096
+    codes = rng.integers(0, 4, (n, w), dtype=np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    codes[3::101, 100:180] = 4
+    codes[4::103] = 4
+    codes[5::107] = np.tile(np.array([0, 1, 2, 3], np.uint8), w)[:w]
+    valid = rng.integers(0, w + 1, n).astype(np.int32)
+    valid[::7] = w
+    valid[1::11] = k - 1
+    valid[2::13] = 113
+    valid[6::17] = 130
+    valid[8::19] = 250
+    c = torch.from_numpy(codes).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    before = kernels.SKETCH_LONG.launches
+    for s in (16, 8):
+        got = S.sketch_windows(c, v, k, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, S.sketch_windows_long_plain(c, v, k, s))
+    assert kernels.SKETCH_LONG.launches == before + 2
+    # a column slice: rows 2 w bytes apart, read in place
+    wide = torch.cat([c, c], dim=1)[:, :w]
+    assert torch.equal(S.sketch_windows(wide, v, k, 16),
+                       S.sketch_windows_long_plain(c, v, k, 16))
 
 
 @pytest.mark.parametrize("mode", ["walk", "dedup"])
@@ -149,6 +183,50 @@ def test_fixture_query_on_the_card_matches_golden(cuda, tmp_path,
                 if not any(d in l for d in drop)]
     with open(os.path.join(DATA, "golden", "fmt_0.txt")) as f:
         assert strip(buf.getvalue()) == strip(f.read())
+
+
+def test_winlen_255_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """`build -winlen 255` and its per-read and -no-map queries of 250 bp
+    reads on the card (B2 at W = 255 and 256) equal the same run on the
+    CPU (B2's plain version)."""
+    from metacache_tpu_torch.db.database import Database
+    rng = np.random.default_rng(17)
+    seqs = [l.strip() for l in open(f"{DATA}/genomes.fa")
+            if not l.startswith(">")]
+    genome = "".join(seqs)
+    reads = tmp_path / "r.fa"
+    with open(reads, "w") as f:
+        for i in range(2000):
+            p = int(rng.integers(0, len(genome) - 250))
+            f.write(f">q{i}\n{genome[p:p + 250]}\n")
+    drop = ("# time:", "# speed:", "threads", DATA, str(tmp_path))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cpu":
+            monkeypatch.setenv("MC_TORCH_DEVICE", "cpu")
+        else:
+            monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+        db = str(tmp_path / f"db_{dev}")
+        kernels.reset_counts()
+        assert main(["build", db, f"{DATA}/genomes.fa", "-winlen", "255",
+                     "-taxonomy", f"{DATA}/taxonomy"]) == 0
+        built = kernels.SKETCH_LONG.launches
+        texts = []
+        for args in ([], ["-no-map"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert main(["query", db, str(reads)] + args) == 0
+            texts.append([l for l in buf.getvalue().splitlines()
+                          if not any(d in l for d in drop)])
+        out[dev] = (Database.load(db).parts[0].locations, texts,
+                    built, kernels.SKETCH_LONG.launches - built,
+                    kernels.SKETCH.launches)
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    assert out["cuda"][1] == out["cpu"][1]
+    # build and queries through B2 only on the card, no kernel on the CPU
+    assert min(out["cuda"][2:4]) > 0
+    assert out["cuda"][4] == 0
+    assert out["cpu"][2:] == (0, 0, 0)
 
 
 def _two_tier_case(rng, nf=4000, n=4096, hsl=61, spf=254):

@@ -72,6 +72,31 @@ def test_build_query_info_without_jax_or_metacache_tpu(tmp_path):
     assert "kmer size          16" in r.stdout
 
 
+def test_long_window_modes_without_jax_or_metacache_tpu(tmp_path):
+    """`build -winlen 255` of the first three fixture genomes, `modify`
+    with the rest, and `build+query` of all of them, in processes where
+    both packages are blocked: the modified database answers the query
+    as build+query does."""
+    recs = open(os.path.join(DATA, "genomes.fa")).read().split(">")[1:]
+    a, b = tmp_path / "a.fa", tmp_path / "b.fa"
+    a.write_text("".join(">" + r for r in recs[:3]))
+    b.write_text("".join(">" + r for r in recs[3:]))
+    db = str(tmp_path / "db")
+    tax = ["-taxonomy", f"{DATA}/taxonomy"]
+    reads = f"{DATA}/reads_single.fa"
+    for args in (["build", db, str(a), "-winlen", "255"] + tax,
+                 ["modify", db, str(b)] + tax):
+        r = _run(_CLI, *args)
+        assert r.returncode == 0, r.stderr[-2000:]
+    q = _run(_CLI, "query", db, reads)
+    bq = _run(_CLI, "build+query", f"{DATA}/genomes.fa", "-winlen", "255",
+              *tax, "-query", reads)
+    assert q.returncode == 0 and bq.returncode == 0, bq.stderr[-2000:]
+    lines = [l for l in _strip(q.stdout) if not l.startswith("#")]
+    assert len(lines) > 100
+    assert lines == [l for l in _strip(bq.stdout) if not l.startswith("#")]
+
+
 def test_no_jax_import_in_the_port():
     """Neither JAX nor metacache_tpu, in the port or in chip_smoke.py."""
     pat = re.compile(

@@ -1,6 +1,6 @@
-"""metacache_tpu_torch's window sketcher (B1 and its plain version)
-against metacache_tpu's sketchers and the NumPy oracle; tolerance 0
-(integer features)."""
+"""metacache_tpu_torch's window sketchers (B1, B2 and their plain
+versions) against metacache_tpu's sketchers and the NumPy oracle;
+tolerance 0 (integer features)."""
 import numpy as np
 import pytest
 import torch
@@ -11,7 +11,8 @@ from jax.experimental.pallas import tpu as pltpu
 from metacache_tpu.config import SketchingOptions
 from metacache_tpu.core.sketch import sketch_codes
 from metacache_tpu.ops.sketch_jax import sketch_windows as jax_sketch
-from metacache_tpu.ops.sketch_pallas import sketch_windows_pallas
+from metacache_tpu.ops.sketch_pallas import (sketch_windows_pallas,
+                                             sketch_windows_pallas_long)
 from metacache_tpu_torch.ops import sketch as S
 
 torch.set_num_threads(2)
@@ -81,8 +82,48 @@ def test_sketch_matches_oracle(k, s):
         assert (row[len(want):] == 0xFFFFFFFF).all()
 
 
-def test_sketch_rejects_long_windows():
-    codes = torch.zeros((2, 129), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="B2"):
-        S.sketch_windows(codes, torch.full((2,), 129), 16, 16)
+def _long_windows(w, k, seed):
+    """The edge cases of tests/test_pallas.py:76-98 at width w: an
+    ambiguous run across the first chunk cut, an all-ambiguous window,
+    valid 130, k - 1, 113 and 250, repeated content, random lengths."""
+    rng = np.random.default_rng(seed)
+    n = 64
+    codes = rng.integers(0, 4, (n, w)).astype(np.uint8)
+    codes[3, 100:180] = 4
+    codes[4, :] = 4
+    codes[5] = np.tile(np.array([0, 1, 2, 3], np.uint8), w)[:w]
+    codes[rng.random((n, w)) < 0.01] = 4
+    valid = np.full(n, w, np.int32)
+    valid[7] = 130
+    valid[9] = k - 1
+    valid[11] = 113
+    valid[13] = 250
+    valid[16:32] = rng.integers(0, w + 1, 16)
+    return codes, valid
 
+
+LONG = [(200, 12), (255, 16), (256, 16), (511, 16), (512, 16)]
+
+
+@pytest.mark.parametrize("ref", ["pallas_long", "xla", "plain"])
+@pytest.mark.parametrize("w,k", LONG)
+def test_long_window_sketch_matches(w, k, ref):
+    """W > 128 through sketch_windows on CPU tensors (B2's plain version,
+    chunk and merge) == the interpreted Pallas kernel B2 replaces, the
+    XLA sketcher and B1's plain version over the whole window."""
+    codes, valid = _long_windows(w, k, seed=w + k)
+    got = _port(codes, valid, k, 16)
+    if ref == "pallas_long":
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(sketch_windows_pallas_long(
+                jnp.asarray(codes), jnp.asarray(valid), k=k, sketchlen=16,
+                tile=64))
+    elif ref == "xla":
+        want = np.asarray(jax_sketch(jnp.asarray(codes), jnp.asarray(valid),
+                                     k=k, sketchlen=16))
+    else:
+        want = S.sketch_windows_plain(
+            torch.from_numpy(codes), torch.from_numpy(valid), k, 16
+        ).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    assert (got[4] == 0xFFFFFFFF).all() and (got[9] == 0xFFFFFFFF).all()
