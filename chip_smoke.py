@@ -2,14 +2,22 @@
 """Smoke run of metacache_tpu_torch on one NVIDIA GPU.
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
-holds each against its plain PyTorch version on the card, then drives
-the port's query paths through its entry points, each at a scale its
-users run:
+holds each against its plain PyTorch version on the card, holds the
+device table builder on the card against the same builder on CPU
+tensors, then drives the port's query paths through its entry points,
+each at a scale its users run. `build` builds its tables on the card
+(the device builder) and saves them exported as CSR; `query` uploads the
+saved CSR and fills the probe rows on the card.
 
 - packed slots, dense rows: `build` of the RefSeq-skew database (64
   unique + 12 x 52-strain + 1 x 256-strain genomes of 1 Mbp, 944 Mbp,
   buckets at the 254 cap), whose (target, window) slots pack into int32,
-  and `query` through kernels B1, B3 and B4;
+  held equal to a host build of the same genomes, and `query` through
+  kernels B1, B3 and B4; the same query once more under each other
+  staging, all with the same rank histogram: host rows
+  (MC_DEVICE_LAYOUT=0), the bucket probe through B9
+  (MC_PROBE_PALLAS=bucket), and the size-classed cells with escalation
+  (MC_DENSE_LIMIT=1 MC_CLASSED=1);
 - unpacked slots: `build` of a many-target database (one 8 Mbp genome
   plus 36 species x 256 strains of 50 kbp, 9217 targets, 469 Mbp), whose
   slots do not pack into int32, and `query` through B1 and B5; once more
@@ -18,14 +26,17 @@ users run:
   reference's 255 preset), built in two steps, `build` without the
   256-strain group and `modify` with it, through kernel B2; `query` of
   250 bp reads through B2, B3 and B4 (each stack of 250 bp reads is 256
-  characters wide); and `build+query` of all genomes in one step, whose
-  mapping lines must equal the per-read query's on the modified database;
+  characters wide); and `build+query` of all genomes in one step (tables
+  kept on the card from its build), whose mapping lines must equal the
+  per-read query's on the modified database;
 - packed slots, two-tier rows: `build` of the 1456 Mbp database (the
   RefSeq-skew generator with 576 unique genomes), whose dense rows exceed
-  the card's budget, and `query` with escalation: a head-only phase
-  through B1, B6, B3 and B4, and a full-depth redo of the reads that
-  touched a deeper bucket through B7, B3 and B4; once more with
-  MC_ESCALATE=0 (B7 on every batch), which must give the same result.
+  the card's budget, so it stages pair-packed two-tier rows, and `query`
+  with escalation: a head-only phase through B1, B6, B3 and B4, and a
+  full-depth redo of the reads that touched a deeper bucket through B7,
+  B3 and B4; once more with MC_ESCALATE=0 (B7 on every batch) and with
+  MC_PROBE_PALLAS=1 (B9 for the bucket probe, B8 before B7), which must
+  give the same result, per read too.
 
 Each path queries 2^20 reads (100 bp; 250 bp at winlen 255) on the
 summary path, 65,536 reads on the per-read path, and one batch of the
@@ -39,6 +50,7 @@ It exits non-zero without a CUDA device. Its last stdout line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -61,12 +73,28 @@ I32_MAX = 2**31 - 1
 READ_LEN = 100
 GENOME_LEN = 1_000_000
 SCAN_BATCH = 8192      # reads per summary batch on the card (runner.py)
+PROBE_FEATURES = 1 << 21   # features of the B8/B9 parity table
 # the least time of a kernel: the larger of its bytes over the card's
 # memory rate and its integer operations over the 32-bit rate outside
 # the tensor cores (H100 SXM, NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12
 CARD = ""
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
 
 
 def card_line() -> str:
@@ -82,7 +110,9 @@ def say(phase: str, **kv):
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Mean milliseconds per call from CUDA events, after one warm-up."""
+    """Mean milliseconds per call from CUDA events, after one warm-up:
+    launch gaps included, so a kernel of a few tens of microseconds reads
+    its wrapper's host time (device_ms reads the kernel alone)."""
     fn()
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
@@ -438,6 +468,7 @@ def phase_parity(results):
         bound_ms=b_ms, bound_by=by, dedup_case="(2048, 1024) dedup_walk=6")
 
     phase_parity_decode(results, rng, dev)
+    phase_parity_probe(results, rng, dev)
 
 
 def long_sketch_inputs(rng, n: int, w: int, k: int, read_len: int):
@@ -549,6 +580,7 @@ def phase_parity_decode(results, rng, dev):
         errs += [check_equal(f"B6 rl={rl}", pk, wpk),
                  check_equal(f"B6 cnt rl={rl}", cn, wcn)]
     ms = cuda_ms(lambda: D.head_decode(head, idx, flat, hsl, 64, f))
+    dms = device_ms(lambda: D.head_decode(head, idx, flat, hsl, 64, f))
     pms = cuda_ms(lambda: D.head_decode_plain(head, idx, flat, hsl, 64, f))
     kept = int(np.minimum(cnt, hsl).sum())
     b_ms, by = _record(results, "head_decode", err=max(errs), ms=ms,
@@ -556,7 +588,7 @@ def phase_parity_decode(results, rng, dev):
                        + kept * 4, nops=n * 64 * 2,
                        shape="131072 probes, f=16, hsl=61, rl=64")
     say("parity-B6", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
-        plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        kernel_device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
         deep_share=round(float((cnt > hsl).mean()), 4),
         miss_share=round(float((cnt == 0).mean()), 4))
 
@@ -566,6 +598,8 @@ def phase_parity_decode(results, rng, dev):
         want = D.full_decode_plain(head, ovf, idx, flat, hsl, c, rl, ff)
         errs.append(check_equal(f"B7 rl={rl} f={ff}", got, want))
     ms = cuda_ms(lambda: D.full_decode(head, ovf, idx, flat, hsl, c, 256, f))
+    dms = device_ms(lambda: D.full_decode(head, ovf, idx, flat, hsl, c, 256,
+                                          f))
     pms = cuda_ms(lambda: D.full_decode_plain(head, ovf, idx, flat, hsl, c,
                                               256, f))
     b_ms, by = _record(results, "full_decode", err=max(errs), ms=ms,
@@ -573,12 +607,146 @@ def phase_parity_decode(results, rng, dev):
                        + int(cnt.sum()) * 4, nops=n * 256 * 2,
                        shape="131072 probes, f=16, hsl=61, c=254, rl=256")
     say("parity-B7", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
-        plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        kernel_device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
         cases="rl 256/512 f=16, rl 256 f=1")
 
 
-def phase_build(tmp, name, genomes, species, gen_s):
-    """`build` through the CLI; -> (database path, max window)."""
+def probe_stream(rng, nf: int):
+    """A (feature, tgt, win) build stream of nf distinct features: 80%
+    with 1..61 locations, 20% with 62..100 (deeper than a 61-slot head),
+    each feature's locations ascending in (tgt, win); int32 tensors."""
+    f = np.unique(rng.integers(0, 2**32 - 1, nf + nf // 8, dtype=np.uint64))
+    f = rng.permutation(f)[:nf].astype(np.uint32)
+    depth = np.where(rng.random(nf) < 0.2, rng.integers(62, 101, nf),
+                     rng.integers(1, 62, nf))
+    depth[0] = 100
+    feats = np.repeat(f, depth)
+    start = np.repeat(np.cumsum(depth) - depth, depth)
+    tgt = (np.arange(len(feats)) - start).astype(np.int32)
+    win = rng.integers(0, 4096, len(feats)).astype(np.int32)
+    return [torch.from_numpy(a) for a in (feats.view(np.int32), tgt, win)]
+
+
+def build_probe_table(stream, dev):
+    """The stream's two-tier table as the 1456 Mbp database stages it:
+    dense rows refused, head 61, pair-packed head rows (MC_PACK_ROWS=1),
+    built by the port's device builder on ``dev`` in 8 chunks."""
+    from metacache_tpu_torch.ops import table_device as T
+    f, t, w = (x.to(dev) for x in stream)
+    n = f.shape[0]
+    step = -(-n // 8)
+    chunks = [(f[i:i + step], t[i:i + step], w[i:i + step])
+              for i in range(0, n, step)]
+    del f, t, w
+    nf = int(np.unique(stream[0].numpy()).size)
+    with environ(MC_PACK_ROWS="1", MC_CLASSED="0"):
+        return T.build_device_table_chunked(
+            chunks, budget_bytes=T.dense_bytes(nf, 100, 13) - 1)
+
+
+def phase_parity_probe(results, rng, dev):
+    """B9 and B8 at the main path's 131,072 probes (8192 reads x 16
+    features) on a 2 M-feature table built on the card by the device
+    builder (pair-packed bucket rows and head rows, 512 MB of head rows),
+    with 29% misses and 1% sentinels, against their plain versions; then
+    the builder on the card against the builder on CPU tensors, on the
+    first 300,000 features of the stream: the two-tier rows and the
+    size-classed cells staged from their CSR, arrays equal."""
+    from metacache_tpu_torch.ops import probe_decode as D
+    from metacache_tpu_torch.ops import table_device as T
+    n = 131072
+    stream = probe_stream(rng, PROBE_FEATURES)
+    t0 = time.time()
+    dt = build_probe_table(stream, dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    if not (dt.packed and dt.head_slots == 61 and not dt.dense):
+        raise AssertionError(f"probe table: head {dt.head_slots}, packed "
+                             f"{dt.packed}")
+    sel = torch.from_numpy(rng.integers(0, dt.nf, n)).to(dev)
+    flat = dt.uniq[sel]
+    miss = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+    flat = torch.where(miss, torch.from_numpy(rng.integers(
+        -2**31, 2**31 - 1, n, dtype=np.int64).astype(np.int32)).to(dev),
+        flat)
+    flat[::100] = -1
+    errs = []
+    idx, found = D.bucket_decode(dt.brows, flat, dt.bbits)
+    widx, wfound = D.bucket_decode_plain(dt.brows, flat, dt.bbits)
+    errs += [check_equal("B9 idx", idx, widx),
+             check_equal("B9 found", found, wfound)]
+    ms = cuda_ms(lambda: D.bucket_decode(dt.brows, flat, dt.bbits))
+    dms = device_ms(lambda: D.bucket_decode(dt.brows, flat, dt.bbits))
+    pms = cuda_ms(lambda: D.bucket_decode_plain(dt.brows, flat, dt.bbits))
+    # per probe: the feature, its 64-lane (256 B) bucket row, idx + found
+    b_ms, by = _record(results, "bucket_decode", err=max(errs), ms=ms,
+                       plain_ms=pms, nbytes=n * (4 + 256 + 4 + 1),
+                       nops=n * 64 * 3,
+                       shape=f"131072 probes, {dt.bbits} bucket bits, "
+                             "2 M-feature table")
+    say("parity-B9", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
+        kernel_device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        found_share=round(float(found.float().mean()), 4),
+        table_build_seconds=round(build_s, 3), features=dt.nf,
+        locations=dt.num_locations, bucket_bits=dt.bbits,
+        head_rows=tuple(dt.head.shape))
+    head = dt.head.view(-1, 64)
+    ovf = dt.ovf
+    idx = torch.clamp(idx, 0, dt.nf - 1)
+    oidx = D.oidx_decode(head, idx, flat)
+    errs = [check_equal("B8", oidx, D.oidx_decode_plain(head, idx, flat))]
+    errs.append(check_equal(
+        "B7 with B8's oidx", D.full_decode(head, ovf, idx, flat, 61, dt.spf,
+                                           128, 16, oidx),
+        D.full_decode_plain(head, ovf, idx, flat, 61, dt.spf, 128, 16)))
+    ms = cuda_ms(lambda: D.oidx_decode(head, idx, flat))
+    dms = device_ms(lambda: D.oidx_decode(head, idx, flat))
+    pms = cuda_ms(lambda: D.oidx_decode_plain(head, idx, flat))
+    # per probe: its row index and feature, head lanes 0 and 2, oidx
+    b_ms, by = _record(results, "oidx_decode", err=max(errs), ms=ms,
+                       plain_ms=pms, nbytes=n * (4 + 4 + 8 + 4),
+                       nops=n * 4, shape="131072 probes, pair-packed head "
+                                         "rows, 2 M-feature table")
+    say("parity-B8", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
+        kernel_device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        deep_share=round(float((oidx > 0).float().mean()), 4))
+    del dt, head, ovf, flat, idx, oidx, found
+    torch.cuda.empty_cache()
+
+    # the builder on the card and on CPU tensors
+    nf = min(300_000, PROBE_FEATURES // 4)
+    f = stream[0].numpy().view(np.uint32)
+    cut = int(np.searchsorted(np.cumsum(np.r_[True, f[1:] != f[:-1]]),
+                              nf + 1))
+    sub = [x[:cut] for x in stream]
+    out = []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.time()
+        dt = build_probe_table(sub, d)
+        u, o, l = T.export_csr(dt)
+        with environ(MC_CLASSED="1"):
+            ct = T.device_layout_from_csr(
+                u, o, (l >> np.uint64(32)).astype(np.uint32),
+                (l & np.uint64(0xFFFFFFFF)).astype(np.uint32), device=d,
+                allow_dense=False, budget_bytes=dt.layout_bytes * 2)
+        out.append((dt, ct, time.time() - t0))
+    for i, what in ((0, "two-tier"), (1, "classed")):
+        a, b = out[0][i], out[1][i]
+        if not b.classed == (i == 1) or a[5:] != b[5:]:
+            raise AssertionError(f"builder {what}: {a[5:]} != {b[5:]}")
+        for name in ("uniq", "offsets", "head", "ovf", "brows"):
+            check_equal(f"builder {what} {name}", getattr(a, name).cpu(),
+                        getattr(b, name))
+    say("builder-card-vs-cpu", features=out[1][0].nf,
+        locations=out[1][0].num_locations, layouts="two-tier hpack, "
+        "classed from its CSR", arrays_equal=True,
+        card_seconds=round(out[0][2], 3), cpu_seconds=round(out[1][2], 3))
+
+
+def phase_build(tmp, name, genomes, species, gen_s, host_check=False):
+    """`build` through the CLI (the device builder); with ``host_check``
+    a host build of the same genomes must give the same features,
+    offsets and locations. -> (database path, max window)."""
     from metacache_tpu_torch import kernels
     from metacache_tpu_torch.cli.main import main as cli
     t0 = time.time()
@@ -593,27 +761,43 @@ def phase_build(tmp, name, genomes, species, gen_s):
     build_s = time.time() - t0
     if rc != 0:
         raise AssertionError(f"build exited with {rc}")
+    torch.cuda.empty_cache()
     launches = kernels.SKETCH.launches - before
     if launches <= 0:
         raise AssertionError("build did not launch the sketch kernel")
-    os.remove(fa)
     p = Database.load(db).parts[0]
+    host = {}
+    if host_check:
+        from metacache_tpu_torch.db.build import BuildOptions, build_database
+        t0 = time.time()
+        hp = build_database(BuildOptions(infiles=[fa], taxonomy_dir=tax))
+        host = dict(host_build_seconds=round(time.time() - t0, 3),
+                    host_build_equal=True)
+        if hp.device_parts or len(hp.parts) != 1:
+            raise AssertionError("the host build did not build on the host")
+        for k in ("unique_features", "offsets", "locations"):
+            if not np.array_equal(getattr(hp.parts[0], k), getattr(p, k)):
+                raise AssertionError(f"device build != host build: {k}")
+        del hp
+    os.remove(fa)
     maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max())
     say(f"build-{name}", genomes=len(genomes),
         bases=sum(len(g) for g in genomes), features=p.num_features,
         locations=p.num_locations, max_bucket=p.max_bucket_size,
         max_window=maxwin, seconds=round(build_s, 3),
-        data_gen_seconds=round(gen_s, 3), sketch_launches=launches)
+        data_gen_seconds=round(gen_s, 3), sketch_launches=launches, **host)
     return db, maxwin
 
 
 def _query(db_path, reads_path, args, out):
+    """A query through the runner; ``db_path``: a path or a loaded
+    Database. -> (runner, results, staging seconds)."""
     from metacache_tpu_torch.classify.options import ClassificationResults
     from metacache_tpu_torch.classify.runner import (QueryRunner,
                                                      map_queries_to_targets)
     from metacache_tpu_torch.cli.main import Args, parse_query_options
     opt, _, _ = parse_query_options(Args(list(args)))
-    db = Database.load(db_path)
+    db = Database.load(db_path) if isinstance(db_path, str) else db_path
     t0 = time.time()
     runner = QueryRunner(db, opt)
     torch.cuda.synchronize()
@@ -640,6 +824,7 @@ def phase_query_summary(tmp, name, db, reads, layout, expect):
     kernels.reset_counts()
     runner, res, stage_s = _query(db, path, ["-no-map"], io.StringIO())
     grew = {k: v.launches for k, v in kernels.ALL.items()}
+    runner.stage_s = stage_s
     if not layout(runner) if callable(layout) else runner.layout != layout:
         raise AssertionError(f"layout {runner.layout} with pack bits "
                              f"{runner._pack_bits}, expected {layout}")
@@ -696,7 +881,7 @@ def phase_profile(tmp, name, runner, tag=""):
               f"{e.count:7d} x  {e.key[:90]}")
 
 
-def phase_query_per_read(tmp, name, db, reads):
+def phase_query_per_read(tmp, name, db, reads, tag=""):
     path = os.path.join(tmp, name, "reads_per_read.fa")
     write_reads(path, reads)
     out_path = os.path.join(tmp, name, "mapping.txt")
@@ -707,7 +892,7 @@ def phase_query_per_read(tmp, name, db, reads):
     if len(lines) != len(reads):
         raise AssertionError(f"{len(lines)} mapping lines for "
                              f"{len(reads)} reads")
-    say(f"query-per-read-{name}", reads=len(reads),
+    say(f"query-per-read-{name}{tag}", reads=len(reads),
         mapping_lines=len(lines), seconds=round(res.time_ms / 1000, 3))
     del runner
     return lines
@@ -748,12 +933,13 @@ def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
 
 def run_config(tmp, name, db, genomes, layout, path_kernels, profile):
     """Summary query (the main path), its profile, the scan step against
-    the plain path, and the per-read path; -> the summary's launches and
-    rank histogram."""
+    the plain path, and the per-read path; -> the summary's launches,
+    rank histogram and staging seconds."""
     reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
     del genomes
     runner, launches, res = phase_query_summary(
         tmp, name, db, reads, layout, path_of(*path_kernels))
+    stage_s = runner.stage_s
     if profile:
         phase_profile(tmp, name, runner)
     phase_e2e(name, runner, reads)
@@ -761,7 +947,7 @@ def run_config(tmp, name, db, genomes, layout, path_kernels, profile):
     torch.cuda.empty_cache()
     phase_query_per_read(tmp, name, db, reads[:65536])
     torch.cuda.empty_cache()
-    return launches, res.statistics.assigned_.copy()
+    return launches, res.statistics.assigned_.copy(), stage_s
 
 
 def refseq_skew_genomes():
@@ -865,6 +1051,52 @@ def phase_e2e_two_tier(name, runner, reads, dev=torch.device("cuda")):
         **times)
 
 
+def run_stagings(tmp, name, db, hist, stage_s):
+    """The 944 Mbp summary query under the other stagings, each a main
+    path of its own, each with the default's rank histogram: host rows
+    filled in numpy and copied (MC_DEVICE_LAYOUT=0), the bucket probe
+    through B9 (MC_PROBE_PALLAS=bucket), and the size-classed cells
+    (MC_DENSE_LIMIT=1 MC_CLASSED=1) with escalation (phase 1 and the redo
+    as torch ops, then B3 and B4). -> B9's launches."""
+    from metacache_tpu_torch import kernels
+    n = 1 << 20
+    layout = "pk15"
+    dense = ("sketch", "sort", "candidates")
+    out = {"device_staging_seconds": round(stage_s, 3)}
+
+    def classed(runner, batches):
+        redo = -(-runner.esc_reads // SCAN_BATCH)
+        want = {k: 0 for k in kernels.ALL}
+        want.update(sketch=batches, sort=batches + redo,
+                    candidates=batches + redo)
+        return want
+    for tag, env, lay, expect in (
+            ("host-rows", {"MC_DEVICE_LAYOUT": "0"}, layout, path_of(*dense)),
+            ("b9", {"MC_PROBE_PALLAS": "bucket"}, layout,
+             path_of(*dense, "bucket_decode")),
+            ("classed", {"MC_DENSE_LIMIT": "1", "MC_CLASSED": "1"},
+             "('classed', 61, False, False, 15)", classed)):
+        with environ(**env):
+            runner, grew, res = phase_query_summary(tmp, name, db, n, lay,
+                                                    expect)
+        if not np.array_equal(res.statistics.assigned_, hist):
+            raise AssertionError(f"{tag}: the rank histogram differs from "
+                                 "the default staging's")
+        out[f"{tag}_staging_seconds"] = round(runner.stage_s, 3)
+        out[f"{tag}_staged_gib"] = round(runner.tables.nbytes() / 2**30, 3)
+        if tag == "b9":
+            b9 = grew["bucket_decode"]
+        if tag == "classed":
+            if not 0 < runner.esc_reads < n:
+                raise AssertionError("the classed query did not escalate")
+            out.update(classed_escalated_reads=runner.esc_reads,
+                       classed_redo_batches=grew["sort"] - n // SCAN_BATCH)
+        del runner
+        torch.cuda.empty_cache()
+    say(f"stagings-{name}", histograms_equal=True, **out)
+    return b9
+
+
 def run_two_tier(tmp, profile):
     """The 1456 Mbp database: dense rows above the card's budget, so it
     stages two-tier (hsl 61, pk15). Summary query escalated (the main
@@ -880,7 +1112,7 @@ def run_two_tier(tmp, profile):
         raise AssertionError(f"max window {maxwin}")
     reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
     del genomes
-    layout = "('two_tier', 61, False, False, 15)"
+    layout = "('two_tier', 61, True, False, 15)"       # pair-packed heads
 
     def escalated(runner, batches):
         redo = -(-runner.esc_reads // SCAN_BATCH)
@@ -890,7 +1122,8 @@ def run_two_tier(tmp, profile):
         return want
     runner, launches, res = phase_query_summary(tmp, name, db, reads,
                                                 layout, escalated)
-    share = runner.esc_reads / len(reads)
+    esc_reads = runner.esc_reads
+    share = esc_reads / len(reads)
     if not (runner.dense_bytes > runner.budget_bytes and
             runner.tables.head_slots == 61 and runner._pack_bits == 15 and
             runner._escalation_ok() and 0 < share < 1):
@@ -939,9 +1172,34 @@ def run_two_tier(tmp, profile):
     phase_e2e_two_tier(name, runner, reads)
     del runner
     torch.cuda.empty_cache()
-    phase_query_per_read(tmp, name, db, reads[:65536])
+    lines = phase_query_per_read(tmp, name, db, reads[:65536])
     torch.cuda.empty_cache()
-    return launches
+
+    # MC_PROBE_PALLAS=1: B9 in the bucket probe, B8 before B7 in the redo
+    def kernels_on(runner, batches):
+        want = escalated(runner, batches)
+        want.update(bucket_decode=batches,
+                    oidx_decode=want["full_decode"])
+        return want
+    with environ(MC_PROBE_PALLAS="1"):
+        runner, pallas, res1 = phase_query_summary(tmp, name, db, len(reads),
+                                                   layout, kernels_on)
+    if not np.array_equal(res1.statistics.assigned_,
+                          res.statistics.assigned_):
+        raise AssertionError("MC_PROBE_PALLAS=1 changed the rank histogram")
+    if runner.esc_reads != esc_reads or pallas["oidx_decode"] <= 0:
+        raise AssertionError("MC_PROBE_PALLAS=1 escalated otherwise")
+    del runner
+    torch.cuda.empty_cache()
+    with environ(MC_PROBE_PALLAS="1"):
+        lines1 = phase_query_per_read(tmp, name, db, reads[:65536],
+                                      tag="-probe-kernels")
+    if lines1 != lines:
+        raise AssertionError("MC_PROBE_PALLAS=1 changed the mapping lines")
+    say(f"probe-kernels-{name}", histogram_equal=True, lines_equal=True,
+        launches=pallas)
+    torch.cuda.empty_cache()
+    return launches, pallas
 
 
 def phase_dense_limit(tmp, name, db, dense_hist):
@@ -1078,15 +1336,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
         genomes, species, gen_s = generated(refseq_skew_genomes)
-        db, maxwin = phase_build(tmp, "944mbp", genomes, species, gen_s)
+        db, maxwin = phase_build(tmp, "944mbp", genomes, species, gen_s,
+                                 host_check=True)
         layout = f"pk{(2 * maxwin).bit_length()}"
         if layout != "pk15":
             raise AssertionError(f"944 Mbp database packs as {layout}")
-        main_path, _h = run_config(tmp, "944mbp", db, genomes, layout,
-                                   ("sketch", "sort", "candidates"),
-                                   a.profile)
+        main_path, hist, stage_s = run_config(
+            tmp, "944mbp", db, genomes, layout,
+            ("sketch", "sort", "candidates"), a.profile)
         for k in ("sketch", "sort", "candidates"):
             launches[k] = main_path[k]
+        run_stagings(tmp, "944mbp", Database.load(db), hist, stage_s)
         shutil.rmtree(os.path.join(tmp, "944mbp"))
         main_path = run_long_windows(tmp, genomes, species, a.profile)
         launches["sketch_long"] = main_path["sketch_long"]
@@ -1100,16 +1360,19 @@ def main() -> int:
             raise AssertionError(f"{len(genomes)} targets, max window "
                                  f"{maxwin}")
         # slots do not pack: the dense layout of (tgt, win) lane pairs
-        main_path, hist = run_config(tmp, "many-target", db, genomes, "True",
-                                     ("sketch", "candidates_unpacked"),
-                                     a.profile)
+        main_path, hist, _s = run_config(tmp, "many-target", db, genomes,
+                                         "True",
+                                         ("sketch", "candidates_unpacked"),
+                                         a.profile)
         launches["candidates_unpacked"] = main_path["candidates_unpacked"]
         phase_dense_limit(tmp, "many-target", db, hist)
         shutil.rmtree(os.path.join(tmp, "many-target"))
 
-        main_path = run_two_tier(tmp, a.profile)
+        main_path, pallas = run_two_tier(tmp, a.profile)
         for k in ("head_decode", "full_decode"):
             launches[k] = main_path[k]
+        for k in ("bucket_decode", "oidx_decode"):
+            launches[k] = pallas[k]
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
     rows = []

@@ -12,13 +12,18 @@ long genomes). Two paths, as in the JAX package:
 - per-read output: coded read batches are bucketed by window count and
   classified by ``query_step_rows``, then formatted on the host.
 
-The database stages as dense fused rows when they fit the card's
-budget, else as two-tier head and overflow rows; with packed slots the
-summary path then classifies head-only and redoes at full depth only the
-reads that touched a deeper bucket (escalation). Options outside this
-slice raise NotImplementedError naming their ROADMAP item. The JAX
-runner's TPU-link workarounds (packed result fetches, fixed dispatch
-shapes) are not carried over.
+The database stages on the card as the JAX runner stages it: a
+database built in this process (``build+query``) keeps the tables its
+build made there; a loaded one uploads its CSR stream and fills the
+probe rows on the card (ops/table_device.py::device_layout_from_csr);
+``MC_DEVICE_LAYOUT=0`` fills host rows in numpy and copies them. Dense
+fused rows when they fit the card's budget, else two-tier head and
+overflow rows or size-classed cells; with packed slots the summary path
+then classifies head-only and redoes at full depth only the reads that
+touched a deeper bucket (escalation). Options outside this slice raise
+NotImplementedError naming their ROADMAP item. The JAX runner's
+TPU-link workarounds (packed result fetches, fixed dispatch shapes) are
+not carried over.
 """
 from __future__ import annotations
 
@@ -40,12 +45,13 @@ from ..native import decode_header as _decode_header
 from ..ops import windows as win_ops
 from ..seqio.reader import PairingMode, QueryRecord, read_queries
 from ..taxonomy.model import NUM_RANKS, Rank, rank_from_name
-from ..db.state import tables_from_numpy
+from ..db.state import tables_from_device, tables_from_numpy
 from ..device import get_device, hbm_budget_bytes
 from ..ops.probe import make_bucket_index
 from ..ops.rows import (query_step_rows, query_step_rows_redo_scan,
                         query_step_rows_scan, query_step_rows_scan_head)
-from ..ops.table import device_layout
+from ..ops.table import device_layout, unpack_locations
+from ..ops.table_device import dense_bytes, device_layout_from_csr
 from . import abundance as abd
 from . import classification as cls_mod
 from . import output as out_mod
@@ -122,7 +128,7 @@ class QueryRunner:
             _unsupported("-replicate / -table-shards", "queue A14")
         if opt.pairing != PairingMode.NONE:
             _unsupported("paired-end reads", "queue A12")
-        if len(db.parts) != 1:
+        if len(db.parts) + len(db.device_parts) != 1:
             _unsupported("multi-part databases", "queue A12")
         if oa.show_all_hits or oa.show_locations:
             _unsupported("-allhits / -locations", "queue A5")
@@ -158,38 +164,18 @@ class QueryRunner:
             _unsupported("taxon merging (-lowest above sequence)",
                          "queue A5")
 
-        # staging (runner.py:481-487, 541-596): packed pk slots when they
-        # fit int32, else (tgt, win) lane pairs (layout tag True); dense
-        # fused rows when they fit the budget, else two-tier head and
-        # overflow rows. MC_DENSE_LIMIT caps only the dense option.
-        p = db.parts[0]
-        maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max()) \
-            if p.num_locations else 0
-        self._pack_bits = slot_pack_bits(db.target_count, maxwin)
-        spf = min(p.max_bucket_size, db.max_locations_per_feature) or 1
-        try:
-            dense_cap = int(os.environ.get("MC_DENSE_LIMIT", 0)) or None
-        except ValueError:
-            dense_cap = None
+        # staging (runner.py:481-565, 632-646): packed pk slots when they
+        # fit int32, else (tgt, win) lane pairs (layout tag True)
         self.budget_bytes = hbm_budget_bytes(self.device)
-        hsl, self.dense_bytes, self.staged_bytes = device_layout(
-            p, spf, self._pack_bits, self.budget_bytes,
-            allow_dense=dense_cap is None or
-            p.layout_bytes("dense", 0, spf) <= dense_cap)
-        if hsl == spf:
-            rows = p.fused_rows(spf, slot_bits=self._pack_bits)
-            ovf, hsl = None, 0
-        else:
-            rows, ovf = p.fused_rows_two_tier(spf, hsl,
-                                              slot_bits=self._pack_bits)
-        brows, bits = make_bucket_index(p.unique_features)
         lineages = self.lineages if db.target_count else \
             np.zeros((1, NUM_RANKS), np.int32)
-        self.tables = tables_from_numpy(
-            p.unique_features, p.offsets, rows, brows, bits, lineages,
-            merge_tax, spf, self._pack_bits, self.device, ovf_rows=ovf,
-            head_slots=hsl)
-        del rows, ovf
+        if db.device_parts:
+            # tables built on the card by this process (build+query)
+            dtab = db.device_parts[0]
+            self._pack_bits = slot_pack_bits(db.target_count, dtab.max_win)
+            self._take(dtab, lineages, merge_tax)
+        else:
+            self._stage_part(db.parts[0], lineages, merge_tax)
         self.esc_reads = 0          # reads escalated to the full-depth redo
 
         # copied from metacache_tpu/classify/runner.py:655-676
@@ -214,10 +200,64 @@ class QueryRunner:
                 torch.from_numpy(self._rank_of_taxid.astype(np.int32))
                 .to(self.device))
 
+    def _take(self, dtab, lineages, merge_tax):
+        """Probe through a DeviceTable (ops/table_device.py)."""
+        self.tables = tables_from_device(dtab, lineages, merge_tax)
+        self.dense_bytes = dense_bytes(dtab.nf, dtab.spf, dtab.slot_bits)
+        self.staged_bytes = dtab.layout_bytes
+
+    def _stage_part(self, p, lineages, merge_tax):
+        """Stage a loaded part: its CSR stream filled into probe rows on
+        the card (MC_DEVICE_LAYOUT=1, the default), or host rows copied
+        (MC_DEVICE_LAYOUT=0). MC_DENSE_LIMIT caps only the dense option.
+        Where no layout fits, the CSR probe it would need is not ported
+        (queue A10): the builder's MemoryError raises so."""
+        maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max()) \
+            if p.num_locations else 0
+        self._pack_bits = slot_pack_bits(self.db.target_count, maxwin)
+        spf = min(p.max_bucket_size, self.db.max_locations_per_feature) or 1
+        try:
+            dense_cap = int(os.environ.get("MC_DENSE_LIMIT", 0)) or None
+        except ValueError:
+            dense_cap = None
+        allow_dense = dense_cap is None or \
+            p.dense_rows_bytes(spf) <= dense_cap
+        if os.environ.get("MC_DEVICE_LAYOUT", "1") != "0" and \
+                p.num_features:
+            ltgt, lwin = unpack_locations(p.locations)
+            try:
+                dtab = device_layout_from_csr(
+                    p.unique_features, p.offsets, ltgt, lwin,
+                    device=self.device,
+                    cap=self.db.max_locations_per_feature or 254,
+                    budget_bytes=self.budget_bytes, allow_dense=allow_dense)
+            except MemoryError as e:
+                raise NotImplementedError(
+                    f"{e}: the CSR probe layout is not ported yet (ROADMAP "
+                    "queue A10)") from None
+            del ltgt, lwin
+            self._take(dtab, lineages, merge_tax)
+            return
+        hsl, self.dense_bytes, self.staged_bytes = device_layout(
+            p, spf, self._pack_bits, self.budget_bytes,
+            allow_dense=allow_dense)
+        if hsl == spf:
+            rows = p.fused_rows(spf, slot_bits=self._pack_bits)
+            ovf, hsl = None, 0
+        else:
+            rows, ovf = p.fused_rows_two_tier(spf, hsl,
+                                              slot_bits=self._pack_bits)
+        brows, bits = make_bucket_index(p.unique_features)
+        self.tables = tables_from_numpy(
+            p.unique_features, p.offsets, rows, brows, bits, lineages,
+            merge_tax, spf, self._pack_bits, self.device, ovf_rows=ovf,
+            head_slots=hsl)
+
     @property
     def layout(self) -> str:
-        """Probe layout tag of the staged table (e.g. "pk15", or
-        "('two_tier', 61, False, False, 15)")."""
+        """Probe layout tag of the staged table (e.g. "pk15",
+        "('two_tier', 61, True, False, 15)" or "('classed', 61, False,
+        False, 15)")."""
         return str(self.tables.dense)
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -534,8 +574,9 @@ class QueryRunner:
     # one part
     def _escalation_ok(self) -> bool:
         """Escalation (head-only phase 1 + full-depth redo) is valid for
-        slot-packed two-tier layouts on the fused fast path; it pays off
-        when buckets can exceed the head. MC_ESCALATE=0 disables."""
+        slot-packed two-tier and classed layouts on the fused fast path;
+        it pays off when buckets can exceed the head. MC_ESCALATE=0
+        disables."""
         if os.environ.get("MC_ESCALATE", "1") == "0" or \
                 not self._fast_top2 or not self._pack_bits:
             return False

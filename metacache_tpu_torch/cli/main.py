@@ -134,8 +134,7 @@ def _expand(paths):
     return expand_input_paths(paths)
 
 
-# copied from metacache_tpu/cli/main.py:128-219 (tables built on the
-# host: device-resident tables are ROADMAP queue A9)
+# copied from metacache_tpu/cli/main.py:128-219
 def mode_build(argv: List[str], modify: bool = False) -> int:
     from ..db.build import BuildOptions, build_database
     from ..db.database import Database
@@ -192,7 +191,10 @@ def mode_build(argv: List[str], modify: bool = False) -> int:
         raise CliError("database filename missing")
     opt.dbfile = pos[0]
     opt.infiles = pos[1:]
-    opt.device_tables = False       # host CSR build
+    # on-card table construction whenever eligible (single part, no
+    # culls, 32-bit features: build_database gates); save() exports the
+    # tables as CSR
+    opt.device_tables = True
     if modify:
         # incremental build resume (reference: mode_build.cpp:74-87)
         db = Database.load(opt.dbfile)
@@ -441,8 +443,7 @@ def mode_query(argv: List[str]) -> int:
     return run_query(db, infiles, opt, out_file)
 
 
-# copied from metacache_tpu/cli/main.py:498-541 (tables built on the
-# host, as `build` builds them; no interactive mode)
+# copied from metacache_tpu/cli/main.py:498-541 (no interactive mode)
 def mode_build_query(argv: List[str]) -> int:
     """Build DB in memory, then query (reference: mode_build_query.cpp)."""
     from ..db.build import BuildOptions, build_database
@@ -480,6 +481,10 @@ def mode_build_query(argv: List[str]) -> int:
         raise NotImplementedError(
             "the interactive query mode is not ported yet (ROADMAP "
             "queue A7): give the read files after -query")
+    # build the tables on the card whenever the query config allows;
+    # -save-db exports them as CSR parts
+    bopt.device_tables = (opt.num_replicas == 1
+                          and opt.table_shards == 1)
     db = build_database(bopt)
     if save_db:
         db.save(save_db)

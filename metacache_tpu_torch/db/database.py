@@ -1,5 +1,5 @@
-# copied from metacache_tpu/db/database.py, without the device table
-# build (ROADMAP queue A9) and the unused host sketcher fallback
+# copied from metacache_tpu/db/database.py, without the unused host
+# sketcher fallback
 """The database: feature store + taxonomy + sketching metadata.
 
 Re-design of the reference `database` class (src/database.hpp:119-532,
@@ -9,16 +9,17 @@ src/database.cpp:36-375) around the TPU-native CSR feature table:
   B2 above 128 characters, on the card, in batches; db/sketch_exec.py)
   and accumulates (feature, location) pairs;
 - finalize() sort-builds the CSR table (the XLA-natural equivalent of the
-  hash-multimap insert path) honoring max_locations_per_feature;
+  hash-multimap insert path) honoring max_locations_per_feature; after
+  enable_device_build() it builds the probe tables on the card instead
+  (ops/table_device.py: the stream never leaves it), kept in
+  ``device_parts`` until save() exports them as CSR parts;
 - on-disk format: `<db>.meta` (JSON header mirroring the reference's .meta
   version/type-width/sketching gates), `<db>.tax.npz` (taxonomy + target
   metadata), `<db>.cache<p>.npz` (table arrays per part);
 - partitioned databases keep one FeatureTable per part (reference: "parts",
   database.hpp:274-314); queries probe every part and merge matches.
 
-The device-resident table build (ops/table_device.py) is not ported
-(ROADMAP queue A9); neither is the host oracle sketcher fallback, which
-nothing reaches.
+The host oracle sketcher fallback, which nothing reaches, is not ported.
 """
 from __future__ import annotations
 
@@ -55,17 +56,26 @@ class Database:
         self.parts: list[FeatureTable] = []
         self.max_locations_per_feature = MAX_SUPPORTED_LOCATIONS_PER_FEATURE
         # build-time accumulators, one per part
+        self._device_build = False
+        self.device_parts: list = []     # ops.table_device.DeviceTable
         self._pending = [self._new_accumulator()]
 
     def _new_accumulator(self):
-        from .sketch_exec import SketchAccumulator
+        from .sketch_exec import DeviceSketchAccumulator, SketchAccumulator
         s = self.sketching
-        return SketchAccumulator(s.kmerlen, s.sketchlen, self.device)
+        acc = DeviceSketchAccumulator if self._device_build else \
+            SketchAccumulator
+        return acc(s.kmerlen, s.sketchlen, self.device)
 
     def enable_device_build(self):
-        raise NotImplementedError(
-            "device-resident table builds are not ported yet (ROADMAP "
-            "queue A9)")
+        """Keep the whole build on the card: sketches feed
+        ops/table_device.py::build_device_table_chunked directly (no host
+        CSR, no host rows). save() exports the tables as CSR parts;
+        modify, culls and multi-part builds need the host tables and do
+        not take this path (db/build.py)."""
+        assert not self.parts and len(self._pending) == 1
+        self._device_build = True
+        self._pending = [self._new_accumulator()]
 
     # -- properties ------------------------------------------------------
     @property
@@ -78,11 +88,13 @@ class Database:
 
     @property
     def feature_count(self) -> int:
-        return sum(p.num_features for p in self.parts)
+        return (sum(p.num_features for p in self.parts) +
+                sum(p.nf for p in self.device_parts))
 
     @property
     def location_count(self) -> int:
-        return sum(p.num_locations for p in self.parts)
+        return (sum(p.num_locations for p in self.parts) +
+                sum(p.num_locations for p in self.device_parts))
 
     def initialize_parts(self, n: int):
         self._pending = [self._new_accumulator() for _ in range(max(1, n))]
@@ -115,6 +127,19 @@ class Database:
         (reference: modify mode = incremental build resume,
         src/mode_build.cpp:74-87).
         """
+        if self._device_build:
+            from ..device import hbm_budget_bytes
+            from ..ops.table_device import build_device_table_chunked
+            for acc in self._pending:
+                chunks = acc.finish_chunks()
+                if chunks:
+                    self.device_parts.append(build_device_table_chunked(
+                        chunks, cap=self.max_locations_per_feature,
+                        budget_bytes=hbm_budget_bytes(acc.device)))
+                del chunks
+            self._pending = [self._new_accumulator()
+                             for _ in self._pending]
+            return
         new_parts = []
         for acc in self._pending:
             feats, locs = acc.finish()
@@ -177,8 +202,24 @@ class Database:
                    for p in self.parts)
 
     # -- persistence -----------------------------------------------------
+    def export_device_parts(self):
+        """Read the tables built on the card back as CSR parts (12 B a
+        location fetched once; database.py:216-226), so a device build
+        saves in device-build time plus serialization."""
+        if not self.device_parts:
+            return
+        from ..ops.table_device import export_csr
+        from ..utils import info as info_mod
+        info_mod.status("Exporting device tables ...")
+        for dtab in self.device_parts:
+            uniq, offs, locs = export_csr(dtab)
+            self.parts.append(FeatureTable(
+                uniq, offs, locs, self.max_locations_per_feature))
+        self.device_parts = []
+
     def save(self, path: str):
         from ..utils import info as info_mod
+        self.export_device_parts()
         info_mod.status(f"Writing database to {path} ...")
         from ..config import feature_bits
         meta = {

@@ -1,5 +1,4 @@
-# copied from metacache_tpu/db/mcformat.py (the writer without the
-# device-table export, ROADMAP queue A9)
+# copied from metacache_tpu/db/mcformat.py
 """Reader and writer for the reference MetaCache binary database format.
 
 Databases built by the muellan/metacache CPU/GPU binary (.meta +
@@ -109,6 +108,7 @@ def save_reference_db(db, path: str):
     ascending (tgt, win) order, the sorted-bucket invariant the GPU
     serializer also maintains (src/gpu_hashmap.cu:490-606)."""
     from ..config import feature_bits
+    db.export_device_parts()      # tables built on the card (mcformat.py:113-121)
     fbits = feature_bits(db.sketching.kmerlen)
     feature_size = 4 if fbits <= 32 else 8
     b = _BinW(path + ".meta")

@@ -5,9 +5,9 @@ onto the port's sketcher: targets are batched across in queue order, so
 the emitted (feature, location) stream stays ascending in (tgt, win),
 which FeatureTable.build's presorted path relies on, and each batch is
 sketched on the card by kernel B1, or B2 for windows wider than 128
-characters (their plain versions on the CPU). The device-resident
-accumulator (sketch_exec.py:167) feeds the device table builder, ROADMAP
-queue A9, and is not ported.
+characters (their plain versions on the CPU). ``DeviceSketchAccumulator``
+(sketch_exec.py:167-269) keeps the (feature, target, window) stream on
+the card for the device table builder (ops/table_device.py).
 """
 from __future__ import annotations
 
@@ -112,3 +112,45 @@ class SketchAccumulator:
             l = np.zeros(0, np.uint64)
         self.features, self.locations = [], []
         return f, l
+
+
+# sketch_exec.py:167-269: the SketchAccumulator above, its stream left on
+# the card
+class DeviceSketchAccumulator(SketchAccumulator):
+    """SketchAccumulator whose (feature, tgt, win) stream stays on the
+    device, for ops/table_device.py::build_device_table_chunked: a
+    build never copies its sketches or its probe rows through the host.
+    Sentinel feature slots (empty sketch lanes) are kept; the builder
+    drops them."""
+
+    def __init__(self, k: int, sketchlen: int,
+                 device: torch.device | None = None, batch: int = _BATCH):
+        super().__init__(k, sketchlen, device, batch)
+        self.chunks: list = []    # (features, tgt, win) flat int32 tensors
+
+    def _sketch_and_emit(self, take):
+        if self.device is None:
+            self.device = get_device()
+        wm = np.concatenate([t[0] for t in take], axis=0)
+        vl = np.concatenate([t[1] for t in take]).astype(np.int32)
+        tid = np.concatenate([np.full(len(m), t_, np.int32)
+                              for (m, _v, t_, _w0) in take])
+        wid = np.concatenate([w0 + np.arange(len(m), dtype=np.int32)
+                              for (m, _v, _t, w0) in take])
+        s = self.sketchlen
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        f = sketch_windows(dev(wm), dev(vl), self.k, s)
+        self.chunks.append((f.reshape(-1),
+                            dev(tid).repeat_interleave(s),
+                            dev(wid).repeat_interleave(s)))
+
+    def finish_chunks(self) -> list:
+        """Sketch the remaining windows; -> the list of (features int32
+        bit patterns, tgt int32, win int32) flat device chunks. Never
+        concatenates: the builder consumes the list chunk by chunk."""
+        if self._nwin:
+            self._flush(self._nwin)
+        chunks, self.chunks = self.chunks, []
+        return chunks

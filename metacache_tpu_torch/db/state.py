@@ -1,16 +1,25 @@
 """Device-resident query state of one database part.
 
 ``DeviceTables`` holds the probe layout and the taxonomy arrays as
-module buffers, so ``.to(device)`` moves them together. Two layouts of
-metacache_tpu/ops/table.py, each probed through the 64-lane bucket-row
-index of ops/probe.py::make_bucket_index:
+module buffers, so ``.to(device)`` moves them together. The layouts, as
+the device builder (ops/table_device.py) stages them, or the host rows
+of ops/table.py under ``MC_DEVICE_LAYOUT=0``:
 
-- dense: ``fused_rows`` from ``fused_rows``, one row per feature
-  [feature, count, slots...];
-- two-tier (``head_slots`` > 0): ``fused_rows`` holds the head rows of
-  ``fused_rows_two_tier``, [feature, count, ovf_idx, hsl slots...], and
-  ``ovf_rows`` the overflow rows of the features whose buckets are
-  deeper than the head (row 0 a dummy).
+- dense: ``fused_rows`` holds one row per feature [feature, count,
+  slots...];
+- two-tier (``head_slots`` > 0): ``fused_rows`` holds the head rows
+  [feature, count, ovf_idx, hsl slots...] and ``ovf_rows`` the overflow
+  rows of the features whose buckets are deeper than the head (row 0 a
+  dummy);
+- size-classed (``classed``): ``fused_rows`` is the (P, 128) array of
+  16/32/64-lane cells, [feature, count(, ovf_idx), slots...], and
+  ``ovf_rows`` the overflow rows of the class-C features deeper than
+  ``head_slots``.
+
+Rows the builder pair-packs (two 64-lane rows a 128-lane row) are kept
+as their 64-lane view, the same memory; ``packed``/``ovf_packed`` only
+record it for the layout tag. ``bucket_rows`` is the host's 64-lane
+bucket-row index or the builder's pair-packed (2^bits / 2, 128) one.
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ class DeviceTables(torch.nn.Module):
                  lineages: torch.Tensor, merge_tax: torch.Tensor, *,
                  num_features: int, bucket_bits: int, spf: int,
                  slot_bits: int, ovf_rows: torch.Tensor | None = None,
-                 head_slots: int = 0):
+                 head_slots: int = 0, packed: bool = False,
+                 ovf_packed: bool = False, classed: bool = False):
         super().__init__()
         if (ovf_rows is None) != (head_slots == 0):
             raise ValueError("two-tier tables need both overflow rows and "
@@ -38,16 +48,26 @@ class DeviceTables(torch.nn.Module):
         self.spf = spf              # slots per feature (row depth)
         self.slot_bits = slot_bits  # pk window bits of the row slots
         self.head_slots = head_slots  # two-tier head slots, 0 = dense
+        self.packed = packed
+        self.ovf_packed = ovf_packed
+        self.classed = classed
 
     @property
     def dense(self):
-        """metacache_tpu's probe layout tag: True for dense (tgt, win)
-        lanes, "pk<bits>" for dense packed slots, ("two_tier", hsl,
-        False, False, bits) for unpaired two-tier rows (runner.py:297-312)."""
-        if self.head_slots:
-            return ("two_tier", self.head_slots, False, False,
+        """metacache_tpu's probe layout tag (runner.py:297-312): True or
+        "packed" for dense (tgt, win) lanes, "pk<bits>" or "pk<bits>p"
+        for dense packed slots, ("two_tier", hsl, hpack, opack, bits) or
+        ("classed", hsl, False, opack, bits)."""
+        p = "p" if self.packed else ""
+        if self.classed:
+            return ("classed", self.head_slots, False, self.ovf_packed,
                     self.slot_bits)
-        return f"pk{self.slot_bits}" if self.slot_bits else True
+        if self.head_slots:
+            return ("two_tier", self.head_slots, self.packed,
+                    self.ovf_packed, self.slot_bits)
+        if self.slot_bits:
+            return f"pk{self.slot_bits}{p}"
+        return "packed" if self.packed else True
 
     @property
     def device(self) -> torch.device:
@@ -65,7 +85,8 @@ class DeviceTables(torch.nn.Module):
             num_features=self.num_features, bucket_bits=self.bucket_bits,
             spf=self.spf, slot_bits=self.slot_bits,
             ovf_rows=None if self.ovf_rows is None else self.ovf_rows.cpu(),
-            head_slots=self.head_slots)
+            head_slots=self.head_slots, packed=self.packed,
+            ovf_packed=self.ovf_packed, classed=self.classed)
 
 
 def _i32(a: np.ndarray) -> torch.Tensor:
@@ -81,8 +102,8 @@ def tables_from_numpy(unique_features: np.ndarray, offsets: np.ndarray,
                       merge_tax: np.ndarray, spf: int, pack_bits: int,
                       device: torch.device, ovf_rows: np.ndarray | None = None,
                       head_slots: int = 0) -> DeviceTables:
-    """Carry the database's host state (numpy arrays; u32 seen as
-    int32 bit patterns) to the device. ``fused_rows`` must be
+    """Carry the database's host rows (numpy arrays; u32 seen as int32
+    bit patterns) to the device. ``fused_rows`` must be
     ``FeatureTable.fused_rows(spf, slot_bits=pack_bits)``, or with
     ``head_slots = hsl`` the head rows of
     ``fused_rows_two_tier(spf, hsl, slot_bits=pack_bits)`` whose
@@ -98,3 +119,21 @@ def tables_from_numpy(unique_features: np.ndarray, offsets: np.ndarray,
                      ovf_rows=None if ovf_rows is None else _i32(ovf_rows),
                      head_slots=head_slots)
     return t.to(device)
+
+
+def tables_from_device(dt, lineages: np.ndarray,
+                       merge_tax: np.ndarray) -> DeviceTables:
+    """DeviceTables over a DeviceTable's arrays (ops/table_device.py),
+    on their device, without a copy: pair-packed rows as their 64-lane
+    views, the dense layout without overflow rows."""
+    def logical(rows, pack):
+        return rows.view(-1, 64) if pack else rows
+    dev = dt.head.device
+    two_tier = not dt.dense
+    return DeviceTables(
+        dt.head if dt.classed else logical(dt.head, dt.packed), dt.brows,
+        _i32(lineages).to(dev), _i32(merge_tax).to(dev), num_features=dt.nf,
+        bucket_bits=dt.bbits, spf=dt.spf, slot_bits=dt.slot_bits,
+        ovf_rows=logical(dt.ovf, dt.ovf_packed) if two_tier else None,
+        head_slots=dt.head_slots if two_tier else 0, packed=dt.packed,
+        ovf_packed=dt.ovf_packed, classed=dt.classed)

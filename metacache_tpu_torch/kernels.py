@@ -108,13 +108,16 @@ def _load():
                                                    i, i, p]
             lib.mc_head_decode.argtypes = [p, i64, i, p, p, i64, i, i, i, p,
                                            p, p]
-            lib.mc_full_decode.argtypes = [p, i64, i, p, i64, i, p, p, i64,
-                                           i, i, i, i, p, p]
+            lib.mc_full_decode.argtypes = [p, i64, i, p, i64, i, p, p, p,
+                                           i64, i, i, i, i, p, p]
+            lib.mc_oidx_decode.argtypes = [p, i64, i, p, p, i64, p, p]
+            lib.mc_bucket_decode.argtypes = [p, i, p, i64, p, p, p]
             for fn in (lib.mc_sketch_windows, lib.mc_sketch_windows_long,
                        lib.mc_sort_packed,
                        lib.mc_candidates_packed,
                        lib.mc_candidates_unpacked, lib.mc_head_decode,
-                       lib.mc_full_decode):
+                       lib.mc_full_decode, lib.mc_oidx_decode,
+                       lib.mc_bucket_decode):
                 fn.restype = ctypes.c_int
             lib.mc_error_string.argtypes = [i]
             lib.mc_error_string.restype = ctypes.c_char_p
@@ -166,9 +169,16 @@ HEAD_DECODE = Kernel("mc_head_decode",
 FULL_DECODE = Kernel("mc_full_decode",
                      "metacache_tpu/ops/probe_pallas.py:356",
                      "metacache_tpu_torch/csrc/probe_decode.cu")
+OIDX_DECODE = Kernel("mc_oidx_decode",
+                     "metacache_tpu/ops/probe_pallas.py:209",
+                     "metacache_tpu_torch/csrc/probe_decode.cu")
+BUCKET_DECODE = Kernel("mc_bucket_decode",
+                       "metacache_tpu/ops/probe_pallas.py:151",
+                       "metacache_tpu_torch/csrc/probe_decode.cu")
 ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sort": SORT,
        "candidates": CANDIDATES, "candidates_unpacked": CANDIDATES_UNPACKED,
-       "head_decode": HEAD_DECODE, "full_decode": FULL_DECODE}
+       "head_decode": HEAD_DECODE, "full_decode": FULL_DECODE,
+       "bucket_decode": BUCKET_DECODE, "oidx_decode": OIDX_DECODE}
 
 
 def reset_counts() -> None:

@@ -1,10 +1,14 @@
 """Row-layout query step: one row of match slots per read.
 
-Port of metacache_tpu/ops/rows.py for the dense and two-tier fused-row
-layouts: sketch (B1, or B2 for windows wider than 128) -> bucket-row
-probe + row gather -> match slots -> candidates -> ranked LCA. Two-tier rows with packed slots decode through
-B7 (head + overflow rows) or, in escalation phase 1, B6 (head rows
-only). Slots that pack into int32 (pack_bits > 0) go through sort (B3)
+Port of metacache_tpu/ops/rows.py for the dense, two-tier and
+size-classed fused-row layouts, plain or pair-packed: sketch (B1, or B2
+for windows wider than 128) -> bucket-row probe (B9 when
+``MC_PROBE_PALLAS`` names its stage) + row gather -> match slots ->
+candidates -> ranked LCA. Two-tier rows with packed slots decode
+through B7 (head + overflow rows; B8 finds the overflow rows first
+where JAX runs it) or, in escalation phase 1, B6 (head rows only);
+classed cells decode as torch ops, as the JAX package decodes them with
+XLA ops. Slots that pack into int32 (pack_bits > 0) go through sort (B3)
 and sweep + top-k (B4); unpacked (tgt, win) slots go through the
 two-key kernel (B5). The port runs the fused candidate branch of
 ``rows_to_result`` whenever the result allows it; branches it does not
@@ -18,8 +22,9 @@ import torch
 from .candidates import (I32_MAX, candidates_packed, candidates_unpacked,
                          padded_width)
 from .pipeline import QueryResult, classify_candidates
-from .probe import probe_bucket, shift_right_logical
-from .probe_decode import full_decode, head_decode
+from .probe import probe_bucket, probe_bucket_classed, shift_right_logical
+from .probe_decode import (_rows, full_decode, head_decode, oidx_decode,
+                           probe_pallas_enabled)
 from .sketch import sketch_windows
 
 
@@ -40,8 +45,62 @@ def _alt_runs(fast_top2: bool, walk_elems: int, dedup_walk: int,
 
 
 def _bucket_idx(flat: torch.Tensor, tables) -> torch.Tensor:
+    """The bucket-probe stage: feature rows, or classed cell addresses
+    (pidx), of (N,) features (rows.py:1035-1047)."""
+    if tables.classed:
+        return probe_bucket_classed(flat, tables.bucket_rows,
+                                    tables.bucket_bits)[0]
     idx, _found = probe_bucket(flat, tables.bucket_rows, tables.bucket_bits)
     return torch.clamp(idx, 0, max(tables.num_features - 1, 0))
+
+
+# rows.py:469-494
+def _classed_window(cells: torch.Tensor, pidx: torch.Tensor):
+    """Each probe's classed cell as a 64-lane window -> (window, cls).
+
+    pidx = (addr16 << 2) | cls; cells = the (P, 128) cell array. Cell
+    bases are 8-unit aligned per class and widths 1/2/4 units at
+    width-aligned offsets, so no cell crosses a 64-lane half: read the
+    half, then shift it left by the cell's 16-lane offset, zero filled.
+    Lanes past the cell's width hold neighbour cells; callers mask by
+    the bucket count, which never exceeds the cell's slots."""
+    a16 = shift_right_logical(pidx, 2)
+    row = cells.view(-1, 64)[(a16 >> 2).to(torch.int64)]
+    src = torch.arange(64, device=pidx.device)[None, :] + \
+        16 * (a16 & 3).to(torch.int64)[:, None]
+    window = torch.where(src < 64,
+                         torch.gather(row, 1, torch.clamp(src, max=63)), 0)
+    return window, pidx & 3
+
+
+# rows.py:497-515
+def _classed_head_slots(flat, cells, hsl: int, idx_c):
+    """One classed head cell per probe -> (window (N, 64), found, cnt,
+    isC class-C mask, slots (N, hsl) head slot lanes); hsl <= 61."""
+    window, clsv = _classed_window(cells, idx_c)
+    found = (window[:, 0] == flat) & (flat != -1)
+    cnt = torch.where(found, window[:, 1], 0)
+    isC = clsv == 2
+    slots = torch.where(isC[:, None], window[:, 3:3 + hsl],
+                        window[:, 2:2 + hsl])
+    return window, found, cnt, isC, slots
+
+
+# rows.py:518-542
+def _classed_probe(flat, tables, c: int, idx_c):
+    """Classed head + overflow slots -> pks (N, c) packed slots masked
+    to the bucket count."""
+    hsl = tables.head_slots
+    window, found, cnt, isC, slots = _classed_head_slots(
+        flat, tables.fused_rows, hsl, idx_c)
+    if c > hsl:
+        orow = _rows(tables.ovf_rows, torch.where(found & isC, window[:, 2],
+                                                  0))
+        pks = torch.cat([slots, orow[:, :c - hsl]], dim=1)
+    else:
+        pks = slots[:, :c]
+    j = torch.arange(c, dtype=torch.int32, device=flat.device)[None, :]
+    return torch.where(j < cnt[:, None], pks, I32_MAX)
 
 
 def _encode(lanes, slot_bits: int, pack_bits: int):
@@ -84,17 +143,20 @@ def _emit(lanes, b: int, f: int, alt_runs: int):
 def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
                pack_bits: int = 0, idx_pre: torch.Tensor | None = None):
     """(B, F) int32 features -> (B, F*C) match slots (rows.py:624-839,
-    dense and two-tier branches). With ``pack_bits=w`` returns (pk, pk),
-    pk = (tgt << w) | win with I32_MAX padding, else (tgt, win).
+    dense, two-tier and classed branches). With ``pack_bits=w`` returns
+    (pk, pk), pk = (tgt << w) | win with I32_MAX padding, else (tgt, win).
 
     ``alt_runs=r`` pads each feature's slots to r lanes and reverses
     odd features' segments, emitting alternating asc/desc sorted runs so
     that the slot sort skips its first log2(r) phases. ``idx_pre``: the
-    feature rows, found by an earlier bucket probe (rows.py:665-669).
+    feature rows (classed: cell addresses), found by an earlier bucket
+    probe (rows.py:665-669).
 
     Two-tier tables with packed slots decode head and overflow rows
-    through B7; (tgt, win) lane rows decode as torch ops, as the JAX
-    package decodes them with XLA ops (rows.py:750-758)."""
+    through B7, with the overflow rows found by B8 first where JAX runs
+    its oidx kernel (pair-packed heads, full runs; rows.py:716-738);
+    (tgt, win) lane rows and classed cells decode as torch ops, as the
+    JAX package decodes them with XLA ops (rows.py:699-701, 750-758)."""
     b, f = feats.shape
     c = tables.spf
     flat = feats.reshape(-1)
@@ -102,10 +164,18 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
     idx_c = _bucket_idx(flat, tables) if idx_pre is None \
         else idx_pre.reshape(-1)
     hsl = tables.head_slots
+    if tables.classed:
+        pks = _classed_probe(flat, tables, c, idx_c)
+        return _emit(_encode((pks,), slot_bits, pack_bits), b, f, alt_runs)
     if hsl and slot_bits:
         rl = alt_runs or c
+        oidx = None
+        if (tables.packed and not tables.ovf_packed and
+                slot_bits == pack_bits and hsl <= 61 and alt_runs >= c and
+                probe_pallas_enabled("oidx")):
+            oidx = oidx_decode(tables.fused_rows, idx_c, flat)
         pks = full_decode(tables.fused_rows, tables.ovf_rows, idx_c, flat,
-                          hsl, c, rl, f if alt_runs else 1)
+                          hsl, c, rl, f if alt_runs else 1, oidx)
         return _emit(_encode((pks,), slot_bits, pack_bits), b, f, 0)
     rows = tables.fused_rows[idx_c.to(torch.int64)]   # ONE row gather
     found = _meta_match(rows, flat)
@@ -133,12 +203,12 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
 
 def probe_rows_head(feats: torch.Tensor, tables, alt_runs: int,
                     pack_bits: int, idx_pre: torch.Tensor | None = None):
-    """Head-only two-tier probe, escalation phase 1 (rows.py:545-621,
-    the non-classed branch): one head row per probe, decoded by B6;
-    slots past the head are dropped. -> (pk (B, F*rl) packed slots,
-    over (B,) bool: a probed bucket is deeper than the head, so the
-    read must be redone at full depth). Needs slot-packed two-tier
-    tables and pack_bits == slot_bits."""
+    """Head-only probe, escalation phase 1 (rows.py:545-621): one head
+    row (two-tier, decoded by B6) or head cell (classed, torch ops) per
+    probe; slots past the head are dropped. -> (pk (B, F*rl) packed
+    slots, over (B,) bool: a probed bucket is deeper than the head, so
+    the read must be redone at full depth). Needs slot-packed two-tier
+    or classed tables and pack_bits == slot_bits."""
     b, f = feats.shape
     hsl = tables.head_slots
     if not (hsl and tables.slot_bits and tables.slot_bits == pack_bits):
@@ -148,8 +218,16 @@ def probe_rows_head(feats: torch.Tensor, tables, alt_runs: int,
     idx_c = _bucket_idx(flat, tables) if idx_pre is None \
         else idx_pre.reshape(-1)
     rl = alt_runs or hsl
-    pk, cnt = head_decode(tables.fused_rows, idx_c, flat, hsl, rl,
-                          f if alt_runs else 1)
+    if tables.classed:
+        _w, _found, cnt, _isC, slots = _classed_head_slots(
+            flat, tables.fused_rows, hsl, idx_c)
+        j = torch.arange(hsl, dtype=torch.int32, device=flat.device)
+        pk = torch.where(j[None, :] < torch.clamp(cnt, max=hsl)[:, None],
+                         slots, I32_MAX)
+        pk = _emit((pk,), b, f, alt_runs)[0]
+    else:
+        pk, cnt = head_decode(tables.fused_rows, idx_c, flat, hsl, rl,
+                              f if alt_runs else 1)
     over = (cnt > hsl).reshape(b, f).any(dim=1)
     return pk.reshape(b, f * rl), over
 

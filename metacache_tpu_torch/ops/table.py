@@ -1,6 +1,8 @@
-# copied from metacache_tpu/ops/table.py (prefix_index cut: it reaches
-# the JAX probe; choose_layout, the host rule, cut: the port stages by the
-# device builder's rule, device_layout below)
+# copied from metacache_tpu/ops/table.py: the host CSR table (build,
+# merge, culls) and the host rows that MC_DEVICE_LAYOUT=0 stages; the
+# device layout rule is table_device.py's in the port's bytes
+# (device_layout below). Cut: the CSR probe's prefix_index (ROADMAP queue
+# A10), the host choose_layout rule and the helpers nothing calls.
 """Feature -> location store, TPU-native layout.
 
 The reference uses a pointer-chasing open-addressing multimap on CPU
@@ -215,33 +217,6 @@ class FeatureTable:
         self.offsets = np.zeros(self.num_features + 1, np.int64)
         np.cumsum(keep_counts, out=self.offsets[1:])
 
-    # ------------------------------------------------------------------
-    def dense_locations(self, width: int):
-        """Padded 2D location matrix (F, width) for row-gather probing.
-
-        TPU gathers of whole rows lower ~1000x better than per-element
-        gathers, so when F*width is affordable the locations are stored
-        densely; buckets larger than `width` are truncated to their first
-        `width` (lowest (tgt,win)) entries — callers choose
-        width >= max_bucket to keep exactness.
-        """
-        from .table import unpack_locations as _up
-        f = self.num_features
-        lt2 = np.zeros((max(f, 1), width), np.int32)
-        lw2 = np.zeros((max(f, 1), width), np.int32)
-        ltgt, lwin = _up(self.locations)
-        sizes = np.minimum(np.diff(self.offsets), width).astype(np.int64)
-        if f and sizes.sum():
-            rows = np.repeat(np.arange(f, dtype=np.int64), sizes)
-            starts = np.zeros(f, np.int64)
-            np.cumsum(sizes[:-1], out=starts[1:])
-            cols = np.arange(int(sizes.sum()), dtype=np.int64) - \
-                np.repeat(starts, sizes)
-            src = np.repeat(self.offsets[:-1], sizes) + cols
-            lt2[rows, cols] = ltgt[src]
-            lw2[rows, cols] = lwin[src]
-        return lt2, lw2
-
     def _fill_rows(self, out, col_t: int, col_w: int, width: int,
                    skip: int = 0, rows_sel=None, slot_bits: int = 0):
         """Scatter CSR locations [skip, skip+width) of selected buckets
@@ -340,52 +315,21 @@ class FeatureTable:
                             slot_bits=slot_bits)
         return head, ovf
 
-    def prefix_index(self, bits: int | None = None):
-        """Prefix-offset acceleration for device probing: the CSR probe
-        layout is not ported (the port probes through the bucket-row
-        index of ops/probe.py::make_bucket_index)."""
-        raise NotImplementedError(
-            "the CSR probe's prefix index is not ported yet (ROADMAP "
-            "queue A10)")
-
-    def layout_bytes(self, kind, head: int, width: int) -> int:
-        """Device bytes a staged layout would occupy (without building it)."""
-        f = max(self.num_features, 1)
-        if kind == "dense":
-            return f * max(64, ((2 + 2 * width + 7) // 8) * 8) * 4
-        if kind == "two_tier":
-            sizes = np.diff(self.offsets) if self.num_features else \
-                np.zeros(1, np.int64)
-            n_over = int(np.count_nonzero(
-                np.minimum(sizes, width) > head))
-            ow = width - head
-            return (f * max(64, ((3 + 2 * head + 7) // 8) * 8) * 4 +
-                    (n_over + 1) * max(64, ((2 * ow + 7) // 8) * 8) * 4)
-        # csr: features + offsets + unpacked tgt/win i32 arrays
-        return f * 4 + (f + 1) * 4 + 2 * self.num_locations * 4
-
-    def location_list_size_statistics(self):
-        """(mean, stddev, skewness, max) of bucket sizes (reference:
-        host_hashmap.hpp:376-409 via statistics_accumulator,
-        src/stat_combined.hpp:36-112 — exact formulas incl. the n-1
-        variance divisor)."""
-        from ..utils.moments import StatisticsAccumulator
-        s = np.diff(self.offsets).astype(np.float64)
-        if len(s) == 0:
-            return 0.0, 0.0, 0.0, 0
-        acc = StatisticsAccumulator()
-        acc.push_array(s)
-        return acc.mean(), acc.stddev(), acc.skewness(), int(acc.max())
+    def dense_rows_bytes(self, width: int) -> int:
+        """Bytes of the dense rows of ``width`` (tgt, win) lane pairs, as
+        metacache_tpu's layout_bytes("dense") counts them: the measure
+        MC_DENSE_LIMIT caps (runner.py:541-542)."""
+        return max(self.num_features, 1) * \
+            max(64, ((2 + 2 * width + 7) // 8) * 8) * 4
 
 
 # ---------------------------------------------------------------------
 # The device layout rule of metacache_tpu/ops/table_device.py
 # (_layout_and_fill, :975-991), with the port's row bytes: the card has
-# no 128-lane tiling, so a row of c lanes occupies 4 * pad64(c) bytes and
-# no row is pair-packed.
-
-CLASS_LADDER = (13, 29, 61)   # copied from ops/table_device.py:420
-
+# no 128-lane tiling, so a row of c lanes occupies 4 * pad64(c) bytes
+# whether or not it is pair-packed. The device builder
+# (ops/table_device.py) and the host rows of MC_DEVICE_LAYOUT=0
+# (device_layout below) both choose by it.
 
 # copied from metacache_tpu/ops/table_device.py:688-689
 def _pad64(c: int) -> int:
@@ -404,7 +348,10 @@ def _quantize(n: int, min_bits: int) -> int:
 
 
 # copied from metacache_tpu/ops/table_device.py:801-815, with row_b the
-# port's unpadded, unpaired row bytes and without the u64 meta lane
+# port's unpadded, unpaired row bytes and without the u64 meta lane. JAX's
+# row bytes equal these for rows of at most 64 lanes and for multiples of
+# 128; for other widths above 64 lanes a budget can pick another head or
+# layout than JAX does.
 def _bytes_for_fn(nf_pad, spf, spl):
     """Layout bytes for head width hd + n_over overflow rows; spl =
     lanes per slot (1 when slot-packed, 2 otherwise)."""
@@ -421,9 +368,7 @@ def _bytes_for_fn(nf_pad, spf, spl):
     return bytes_for
 
 
-# copied from metacache_tpu/ops/table_device.py:759-787; ties go to the
-# deeper head (JAX keeps the first, then weighs its classed cells, which
-# the port does not carry, against it)
+# copied from metacache_tpu/ops/table_device.py:759-787
 def _choose_head(spf, cum_over, bytes_for, budget_bytes, what,
                  slot_packed: bool = False):
     """Smallest-footprint two-tier head width that fits the budget.
@@ -445,7 +390,7 @@ def _choose_head(spf, cum_over, bytes_for, budget_bytes, what,
     for hcand in cands:
         n_over = int(cum_over[hcand + 1])
         b = bytes_for(hcand, n_over)
-        if b <= budget_bytes and (best is None or b <= best[0]):
+        if b <= budget_bytes and (best is None or b < best[0]):
             best = (b, hcand)
     if best is None:
         raise MemoryError(
@@ -457,18 +402,13 @@ def _choose_head(spf, cum_over, bytes_for, budget_bytes, what,
 
 def device_layout(table: FeatureTable, spf: int, slot_bits: int,
                   budget_bytes: int, allow_dense: bool = True):
-    """The probe layout the JAX package's device builder picks for this
-    table (table_device.py:975-991), in the port's bytes. -> (head, dense
-    bytes, staged bytes): head == spf for the dense layout, else the
-    two-tier head width.
-
-    Raises NotImplementedError where that builder would stage a layout
-    the port does not carry: the size-classed cells (``MC_CLASSED=1``, or
-    a budget that pinches the head below the ladder's top class of 61
-    slots; table_device.py:423-442) and, when no two-tier head fits, the
-    CSR fallback. Buckets no deeper than 61 slots stage two-tier, where
-    JAX's rule would weigh the classed cells against it."""
-    import os
+    """The dense or two-tier layout of the host rows that
+    ``MC_DEVICE_LAYOUT=0`` stages (``fused_rows``/``fused_rows_two_tier``),
+    chosen by the device builder's rule (table_device.py:975-983) in the
+    port's bytes. -> (head, dense bytes, staged bytes): head == spf for
+    the dense layout, else the two-tier head width. The host rows have no
+    size-classed cells; where no two-tier head fits, the CSR layout is
+    not ported and this raises NotImplementedError (ROADMAP queue A10)."""
     nf = max(table.num_features, 1)
     bytes_for = _bytes_for_fn(nf, spf, 1 if slot_bits else 2)
     dense_b = bytes_for(spf, 0)
@@ -485,10 +425,4 @@ def device_layout(table: FeatureTable, spf: int, slot_bits: int,
         raise NotImplementedError(
             f"{e}: the CSR probe layout is not ported yet (ROADMAP queue "
             "A10)") from None
-    mc = os.environ.get("MC_CLASSED", "")
-    if slot_bits and mc != "0" and (
-            mc == "1" or CLASS_LADDER[2] < spf and head < CLASS_LADDER[2]):
-        raise NotImplementedError(
-            "the size-classed head layout is not ported yet (ROADMAP "
-            "queue A9)")
     return head, dense_b, bytes_for(head, int(cum_over[head + 1]))

@@ -1,10 +1,14 @@
 """metacache_tpu_torch's `build` and `query` CLI, in-process on the CPU:
-the build equals metacache_tpu's and each package loads the other's
-database, and the query output equals the reference binary's goldens
-that lie on the port's slice (single-end, -lowest sequence, up to 4
-candidates, no per-hit lists), with packed slots and, under
-MC_PACK_SLOTS=0, with unpacked (tgt, win) slots through kernel B5's
-plain version."""
+the build (through the device table builder) equals metacache_tpu's and
+each package loads the other's database, and the query output equals the
+reference binary's goldens that lie on the port's slice (single-end,
+-lowest sequence, up to 4 candidates, no per-hit lists), with packed
+slots and, under MC_PACK_SLOTS=0, with unpacked (tgt, win) slots through
+kernel B5's plain version; under each staging: the tables filled from
+the CSR by the device builder (the default), host rows
+(MC_DEVICE_LAYOUT=0), the size-classed cells (MC_DENSE_LIMIT=1
+MC_CLASSED=1), B8's and B9's plain versions (MC_PROBE_PALLAS=1), and
+`build+query`'s tables kept from its build."""
 import contextlib
 import io
 import os
@@ -79,6 +83,23 @@ def test_build_matches_metacache_tpu(dbfile):
                                       err_msg=name)
 
 
+def test_build_takes_the_device_builder(tmp_path, monkeypatch):
+    """`build` builds its tables with the device builder and saves them
+    exported as CSR; `modify` (a loaded database) takes the host CSR."""
+    from metacache_tpu_torch.ops import table_device
+    built = []
+    real = table_device.build_device_table_chunked
+    monkeypatch.setattr(table_device, "build_device_table_chunked",
+                        lambda *a, **kw: built.append(1) or real(*a, **kw))
+    db = str(tmp_path / "db")
+    assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
+                 f"{DATA}/taxonomy"]) == 0
+    assert built == [1]
+    assert main(["modify", db, f"{DATA}/genomes.fa", "-taxonomy",
+                 f"{DATA}/taxonomy"]) == 0
+    assert built == [1]
+
+
 def test_database_of_metacache_tpu_loads_in_the_port(tmp_path):
     """The converse: a database written by metacache_tpu loads in the
     port with equal tables and taxonomy."""
@@ -126,10 +147,63 @@ GOLDEN_CASES = [(f"fmt_{i}.txt", [f"{DATA}/reads_single.fa"] + FMT_FLAGS[i])
 @pytest.mark.parametrize("gold,args", GOLDEN_CASES,
                          ids=[g for g, _ in GOLDEN_CASES])
 def test_goldens_with_unpacked_slots(dbfile, monkeypatch, gold, args):
-    """MC_PACK_SLOTS=0: the same goldens through (tgt, win) lane rows
-    and the two-key candidates (B5)."""
+    """MC_PACK_SLOTS=0 (and MC_PACK_STORE=0, so the builder stores lane
+    pairs too): the same goldens through (tgt, win) lane rows and the
+    two-key candidates (B5)."""
     monkeypatch.setenv("MC_PACK_SLOTS", "0")
+    monkeypatch.setenv("MC_PACK_STORE", "0")
     assert _query(dbfile, args) == _golden(gold)
+
+
+STAGINGS = {
+    "host-rows": {"MC_DEVICE_LAYOUT": "0"},
+    "classed": {"MC_DENSE_LIMIT": "1", "MC_CLASSED": "1"},
+    "probe-kernels": {"MC_PROBE_PALLAS": "1", "MC_PACK_ROWS": "1"},
+    "unpacked-from-pk": {"MC_PACK_SLOTS": "0"},
+}
+
+
+@pytest.mark.parametrize("staging", sorted(STAGINGS))
+@pytest.mark.parametrize("gold,args", GOLDEN_CASES,
+                         ids=[g for g, _ in GOLDEN_CASES])
+def test_goldens_under_each_staging(dbfile, monkeypatch, staging, gold,
+                                    args):
+    """The goldens through host rows, the classed cells, pair-packed rows
+    probed by B9's plain version, and pk storage decoded to (tgt, win)
+    for B5."""
+    for k, v in STAGINGS[staging].items():
+        monkeypatch.setenv(k, v)
+    assert _query(dbfile, args) == _golden(gold)
+
+
+def test_stagings_take_their_layouts(dbfile, monkeypatch):
+    """Each staging of test_goldens_under_each_staging stages what it
+    names, and the probe kernels' stages launch their plain versions."""
+    from metacache_tpu_torch.classify.options import QueryOptions
+    from metacache_tpu_torch.classify.runner import QueryRunner
+    from metacache_tpu_torch.db.database import Database as TorchDatabase
+    from metacache_tpu_torch.ops import probe_decode
+    calls = []
+    plain = probe_decode.bucket_decode_plain
+    monkeypatch.setattr(probe_decode, "bucket_decode_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    layouts = {}
+    for name, env in sorted(STAGINGS.items()):
+        with monkeypatch.context() as m:
+            for k, v in env.items():
+                m.setenv(k, v)
+            r = QueryRunner(TorchDatabase.load(dbfile), QueryOptions())
+            layouts[name] = (r.layout, r._pack_bits > 0,
+                             tuple(r.tables.bucket_rows.shape[1:]))
+            if name == "probe-kernels":
+                _query(dbfile, [f"{DATA}/reads_single.fa"])
+    bits = r.tables.slot_bits
+    assert layouts == {
+        "host-rows": (f"pk{bits}", True, (64,)),
+        "classed": (f"('classed', 2, False, False, {bits})", True, (128,)),
+        "probe-kernels": (f"pk{bits}p", True, (128,)),
+        "unpacked-from-pk": (f"pk{bits}", False, (128,))}
+    assert calls
 
 
 @pytest.mark.parametrize("packing", [None, "0"])
@@ -148,8 +222,27 @@ def test_runner_stages_the_layout_of_its_slots(dbfile, monkeypatch,
         assert runner.layout == f"pk{runner._pack_bits}"
         assert runner.tables.fused_rows.shape[1] >= 2 + runner.tables.spf
     else:
+        # the device builder keeps its own slot packing (MC_PACK_STORE),
+        # as JAX's does; the probe decodes the slots to (tgt, win)
+        assert runner._pack_bits == 0
+        assert runner.layout == f"pk{runner.tables.slot_bits}"
+        monkeypatch.setenv("MC_DEVICE_LAYOUT", "0")
+        runner = QueryRunner(TorchDatabase.load(dbfile), QueryOptions())
         assert runner._pack_bits == 0 and runner.layout == "True"
         assert runner.tables.fused_rows.shape[1] >= 2 + 2 * runner.tables.spf
+
+
+def test_staging_that_fits_no_layout_names_the_csr_layout(dbfile,
+                                                          monkeypatch):
+    """A budget no dense, two-tier or classed layout fits: the device
+    builder's MemoryError raises NotImplementedError naming the CSR
+    layout (A10), with no quiet switch to host rows."""
+    from metacache_tpu_torch.classify import runner as R
+    from metacache_tpu_torch.classify.options import QueryOptions
+    from metacache_tpu_torch.db.database import Database as TorchDatabase
+    monkeypatch.setattr(R, "hbm_budget_bytes", lambda device: 1 << 16)
+    with pytest.raises(NotImplementedError, match="A10"):
+        R.QueryRunner(TorchDatabase.load(dbfile), QueryOptions())
 
 
 @pytest.mark.parametrize("targets,max_window,bits", [

@@ -1,9 +1,10 @@
 """metacache_tpu_torch's CUDA kernels on the card: each against its plain
-PyTorch version on the same CUDA tensors, and the port's query of the
-fixture against the reference goldens through the kernels, with packed
-and with unpacked slots, through the two-tier layout with escalation,
-and on a winlen-255 database through B2 against the CPU run; tolerance
-0.
+PyTorch version on the same CUDA tensors, the device table builder on
+the card against the same builder on the CPU, and the port's query of
+the fixture against the reference goldens through the kernels, with
+packed and with unpacked slots, through the two-tier layout with
+escalation, the classed cells and the pair-packed rows probed by B9, and
+on a winlen-255 database through B2 against the CPU run; tolerance 0.
 
 Needs an NVIDIA GPU (marker `cuda`; skipped without one). Imports no
 JAX, so it also runs on a GPU host without JAX:
@@ -285,6 +286,7 @@ def test_fixture_two_tier_on_the_card_matches_golden(cuda, tmp_path,
     monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
     monkeypatch.delenv("MC_PACK_SLOTS", raising=False)
     monkeypatch.setenv("MC_DENSE_LIMIT", "1")
+    monkeypatch.setenv("MC_CLASSED", "0")     # else the classed cells
     monkeypatch.setattr(QueryRunner, "FUSED_MIN_SLOTS", 0)
     db = str(tmp_path / "db")
     assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
@@ -308,3 +310,95 @@ def test_fixture_two_tier_on_the_card_matches_golden(cuda, tmp_path,
     i = next(j for j, l in enumerate(gold) if "queries:" in l)
     assert summary[-len(gold[i:]):] == gold[i:]
     assert kernels.HEAD_DECODE.launches > 0
+
+
+def test_oidx_decode_kernel_matches_plain(cuda):
+    head, ovf, idx, flat = (t.to(cuda) for t in
+                            _two_tier_case(np.random.default_rng(23)))
+    got = D.oidx_decode(head, idx, flat)
+    want = D.oidx_decode_plain(head, idx, flat)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool((got > 0).any())
+    full = D.full_decode(head, ovf, idx, flat, 61, 254, 256, 16, got)
+    assert torch.equal(full, D.full_decode_plain(head, ovf, idx, flat, 61,
+                                                 254, 256, 16))
+
+
+def _device_table(dev, budget=1 << 40, n=60_000):
+    from metacache_tpu_torch.ops import table_device as T
+    rng = np.random.default_rng(31)
+    pool = rng.integers(0, 2**32, 4000, dtype=np.uint64)
+    f = pool[np.minimum(rng.zipf(1.3, n), 4000) - 1].astype(np.uint32)
+    f[::50] = 0xFFFFFFFF
+    t = np.repeat(np.arange(n // 500, dtype=np.int32), 500)
+    w = np.tile(np.arange(500, dtype=np.int32), n // 500)
+    arrs = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                             else a).to(dev) for a in (f, t, w)]
+    return T.build_device_table_chunked(
+        [tuple(x[i:i + 7000] for x in arrs) for i in range(0, n, 7000)],
+        cap=254, budget_bytes=budget, gbits=2)
+
+
+def test_bucket_decode_kernel_matches_plain(cuda):
+    dt = _device_table(cuda)
+    rng = np.random.default_rng(24)
+    flat = dt.uniq[torch.from_numpy(rng.integers(0, dt.nf, 8192)).to(cuda)]
+    miss = torch.from_numpy(rng.random(8192) < 0.3).to(cuda)
+    flat = torch.where(miss, flat ^ 0x5A5A5, flat)
+    flat[::97] = -1
+    idx, found = D.bucket_decode(dt.brows, flat, dt.bbits)
+    widx, wfound = D.bucket_decode_plain(dt.brows, flat, dt.bbits)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, widx) and torch.equal(found, wfound)
+    assert bool(found.any()) and not bool(found.all())
+
+
+@pytest.mark.parametrize("case", ["dense", "two_tier", "classed"])
+def test_device_builder_on_the_card_matches_cpu(cuda, monkeypatch, case):
+    """The builder's arrays from the same stream on the card and on the
+    CPU; the CSR staging and export likewise."""
+    from metacache_tpu_torch.ops import table_device as T
+    monkeypatch.setenv("MC_CLASSED", "1" if case == "classed" else "0")
+    budget = 1 << 40 if case == "dense" else 2 << 20
+    got, want = (_device_table(d, budget) for d in (cuda, torch.device("cpu")))
+    assert (got.dense, got.classed) == (case == "dense", case == "classed")
+    for name in ("uniq", "offsets", "head", "ovf", "brows"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    uniq, offs, locs = T.export_csr(got)
+    for a, b in zip((uniq, offs, locs), T.export_csr(want)):
+        np.testing.assert_array_equal(a, b)
+    tgt = (locs >> np.uint64(32)).astype(np.uint32)
+    win = (locs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    staged = [T.device_layout_from_csr(uniq, offs, tgt, win, device=d,
+                                       budget_bytes=budget, gbits=1)
+              for d in (cuda, torch.device("cpu"))]
+    for name in ("uniq", "offsets", "head", "ovf", "brows"):
+        assert torch.equal(getattr(staged[0], name).cpu(),
+                           getattr(staged[1], name)), name
+
+
+@pytest.mark.parametrize("staging", ["classed", "probe-kernels"])
+def test_fixture_stagings_on_the_card_match_golden(cuda, tmp_path,
+                                                   monkeypatch, staging):
+    """The fixture query through the classed cells, and through
+    pair-packed rows with B9 on (MC_PROBE_PALLAS=1)."""
+    monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+    env = {"classed": {"MC_DENSE_LIMIT": "1", "MC_CLASSED": "1"},
+           "probe-kernels": {"MC_PROBE_PALLAS": "1", "MC_PACK_ROWS": "1"}}
+    for k, v in env[staging].items():
+        monkeypatch.setenv(k, v)
+    db = str(tmp_path / "db")
+    assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
+                 f"{DATA}/taxonomy"]) == 0
+    drop = ("# time:", "# speed:", "threads", DATA, "/tmp")
+    buf = io.StringIO()
+    kernels.reset_counts()
+    with contextlib.redirect_stdout(buf):
+        assert main(["query", db, f"{DATA}/reads_single.fa"]) == 0
+    with open(os.path.join(DATA, "golden", "fmt_0.txt")) as f:
+        gold = [l for l in f.read().splitlines()
+                if not any(d in l for d in drop)]
+    assert [l for l in buf.getvalue().splitlines()
+            if not any(d in l for d in drop)] == gold
+    if staging == "probe-kernels":
+        assert kernels.BUCKET_DECODE.launches > 0

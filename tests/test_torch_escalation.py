@@ -1,10 +1,12 @@
-"""metacache_tpu_torch on two-tier tables: the escalation steps (head-only
-phase 1, B6; full-depth redo on phase 1's sketches and bucket probes,
-B7) against the port's own full-depth scan and against metacache_tpu's
-twins, and the query CLI on a database forced into the two-tier layout
-(MC_DENSE_LIMIT=1) against metacache_tpu's runner and the reference
-goldens, with escalation on and off, packed and unpacked slots. Plain
-kernel versions on the CPU; tolerance 0 (integer outputs)."""
+"""metacache_tpu_torch on two-tier and size-classed tables: the escalation
+steps (head-only phase 1, B6; full-depth redo on phase 1's sketches and
+bucket probes, B7) against the port's own full-depth scan and against
+metacache_tpu's twins, and the query CLI on a database whose dense rows
+are refused (MC_DENSE_LIMIT=1) against metacache_tpu's runner and the
+reference goldens, with escalation on and off, packed and unpacked
+slots, through the classed cells the device builder then stages, its
+two-tier rows (MC_CLASSED=0) and host two-tier rows (MC_DEVICE_LAYOUT=0).
+Plain kernel versions on the CPU; tolerance 0 (integer outputs)."""
 import contextlib
 import io
 import os
@@ -217,15 +219,49 @@ def test_cli_two_tier_matches_jax_runner(deep_db, monkeypatch, mode,
     args = ["-no-map", "-batch-size", "512"] if mode == "summary" else []
     assert _run(main, ["query", db, reads] + args) == want[mode]
     r = launches["runner"]
-    # the head ladders: 61 packed slots, or 30 (tgt, win) lane pairs, in
-    # a 64-lane row
-    assert r.tables.head_slots == (61 if packing == "1" else 30)
+    # the device builder, as JAX's, breaks the two-tier tie of heads 13
+    # to 61 (all 64-lane rows) at 13, below the ladder's top class, so it
+    # stages the classed cells: class C holds 61 slots; it keeps its pk
+    # slots whatever MC_PACK_SLOTS says (the probe decodes them)
+    assert r.tables.classed and r.tables.head_slots == 61
     assert r.tables.spf == 70
     escalated = mode == "summary" and escalate == "1" and packing == "1"
     assert r._escalation_ok() == (escalate == "1" and packing == "1")
     assert (r.esc_reads > 0) == escalated
     if escalated:
         assert r.esc_reads < 1500
+
+
+@pytest.mark.parametrize("mode", ["summary", "per-read"])
+@pytest.mark.parametrize("packing", ["1", "0"])
+@pytest.mark.parametrize("staging", ["device", "host"])
+def test_cli_two_tier_rows_match_jax_runner(deep_db, monkeypatch, mode,
+                                            packing, staging):
+    """The same queries through two-tier rows: the device builder's with
+    the classed cells refused (MC_CLASSED=0), or host rows
+    (MC_DEVICE_LAYOUT=0); escalated (B6, then B7) when slots pack."""
+    db, reads, want = deep_db
+    monkeypatch.setenv("MC_DENSE_LIMIT", "1")
+    monkeypatch.setenv("MC_PACK_SLOTS", packing)
+    monkeypatch.setenv("MC_CLASSED", "0")
+    if staging == "host":
+        monkeypatch.setenv("MC_DEVICE_LAYOUT", "0")
+    runners = []
+    init = QueryRunner.__init__
+
+    def spy(self, *a, **kw):
+        init(self, *a, **kw)
+        runners.append(self)
+    monkeypatch.setattr(QueryRunner, "__init__", spy)
+    args = ["-no-map", "-batch-size", "512"] if mode == "summary" else []
+    assert _run(main, ["query", db, reads] + args) == want[mode]
+    r = runners[0]
+    # head ladders: 13 packed slots (the first of the tied 64-lane heads),
+    # or 30 (tgt, win) lane pairs in a 64-lane host row
+    lanes = staging == "host" and packing == "0"
+    assert r.layout == str(("two_tier", 30 if lanes else 13, False, False,
+                            0 if lanes else r.tables.slot_bits))
+    assert (r.esc_reads > 0) == (mode == "summary" and packing == "1")
 
 
 @pytest.mark.parametrize("escalate", [True, False])
@@ -238,6 +274,7 @@ def test_fixture_golden_through_two_tier(tmp_path, monkeypatch, escalate):
     assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
                  f"{DATA}/taxonomy"]) == 0
     monkeypatch.setenv("MC_DENSE_LIMIT", "1")
+    monkeypatch.setenv("MC_CLASSED", "0")    # else the classed cells
     if escalate:
         monkeypatch.setattr(QueryRunner, "FUSED_MIN_SLOTS", 0)
     runners, heads = [], []
@@ -263,13 +300,16 @@ def test_fixture_golden_through_two_tier(tmp_path, monkeypatch, escalate):
     assert bool(heads) == escalate
 
 
-@pytest.mark.parametrize("case,item", [("classed", "A9"), ("csr", "A10"),
+@pytest.mark.parametrize("case,item", [("classed", None), ("csr", "A10"),
                                        ("two_tier", None)])
 def test_device_layout_choice(monkeypatch, case, item):
-    """The port's layout rule on a table with 100-deep buckets: two-tier at
-    head 61 when dense rows are ruled out; the size-classed cells
-    (MC_CLASSED=1) and a budget no two-tier head fits (the CSR fallback)
-    raise NotImplementedError naming their ROADMAP items."""
+    """The port's layout rule for host rows (MC_DEVICE_LAYOUT=0) on a
+    table with 100-deep buckets: when dense rows are ruled out, two-tier
+    at head 45, the first of the heads whose rows cost the least (45 and
+    61: 64-lane heads and overflow rows), as JAX's tie rule keeps it;
+    MC_CLASSED=1 changes nothing (host rows have no classed cells); a
+    budget no two-tier head fits (the CSR fallback) raises
+    NotImplementedError naming its ROADMAP item."""
     from metacache_tpu_torch.ops.table import FeatureTable as TFT
     from metacache_tpu_torch.ops.table import device_layout
     rng = np.random.default_rng(9)
@@ -287,7 +327,7 @@ def test_device_layout_choice(monkeypatch, case, item):
         head, dense_b, _staged = device_layout(ft, spf, 10, budget,
                                                allow_dense=False)
         # dense rows: 2 meta lanes + spf slots, padded to 8 lanes
-        assert head == 61 and dense_b == ft.num_features * 104 * 4 + 512
+        assert head == 45 and dense_b == ft.num_features * 104 * 4 + 512
         assert device_layout(ft, spf, 10, budget)[0] == spf
         return
     with pytest.raises(NotImplementedError, match=item):

@@ -97,6 +97,33 @@ def test_long_window_modes_without_jax_or_metacache_tpu(tmp_path):
     assert lines == [l for l in _strip(bq.stdout) if not l.startswith("#")]
 
 
+def test_device_builder_runs_without_jax():
+    """ops/table_device.py imports, builds and exports a table and stages
+    it again as classed cells, in a process where JAX and metacache_tpu
+    are blocked."""
+    code = (
+        "import os, numpy as np, torch\n"
+        "from metacache_tpu_torch.ops import table_device as T\n"
+        "rng = np.random.default_rng(1)\n"
+        "pool = rng.integers(0, 2**32, 700, dtype=np.int64)\n"
+        "f = torch.from_numpy(pool[rng.integers(0, 700, 5000)]"
+        ".astype(np.uint32).view(np.int32))\n"
+        "t = torch.arange(5000, dtype=torch.int32) // 100\n"
+        "w = torch.arange(5000, dtype=torch.int32) % 100\n"
+        "dt = T.build_device_table(f, t, w)\n"
+        "u, o, l = T.export_csr(dt)\n"
+        "os.environ['MC_CLASSED'] = '1'\n"
+        "st = T.device_layout_from_csr(u, o, (l >> np.uint64(32))"
+        ".astype(np.uint32), (l & np.uint64(0xFFFFFFFF)).astype(np.uint32),"
+        " device=torch.device('cpu'), budget_bytes=2 << 20,"
+        " allow_dense=False)\n"
+        "assert dt.dense and st.classed and st.nf == dt.nf == len(u)\n"
+        "print('ok', sys.modules['jax'] is None)\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.split() == ["ok", "True"]
+
+
 def test_no_jax_import_in_the_port():
     """Neither JAX nor metacache_tpu, in the port or in chip_smoke.py."""
     pat = re.compile(

@@ -223,12 +223,23 @@ def _from_mappings(lines):
     return lines
 
 
-def test_build_query_matches_golden():
-    """The twin of tests/test_golden_parity.py::test_build_query_parity."""
+def test_build_query_matches_golden(monkeypatch):
+    """The twin of tests/test_golden_parity.py::test_build_query_parity;
+    the query probes the tables the build made with the device builder,
+    without a CSR in between."""
+    from metacache_tpu_torch.classify.runner import QueryRunner
+    staged = []
+    init = QueryRunner.__init__
+
+    def spy(self, db, *a, **kw):
+        staged.append((len(db.device_parts), len(db.parts)))
+        init(self, db, *a, **kw)
+    monkeypatch.setattr(QueryRunner, "__init__", spy)
     ours = _run(main, ["build+query", "-targets", f"{DATA}/genomes.fa"]
                 + TAX + ["-query", f"{DATA}/reads_single.fa", "-tophits"])
     with open(os.path.join(GOLD, "buildquery.txt")) as f:
         assert _from_mappings(ours) == _from_mappings(_strip(f.read()))
+    assert staged == [(1, 0)]
 
 
 def test_build_query_at_winlen_255_equals_build_then_query(db255, reads250):

@@ -1,11 +1,11 @@
-"""metacache_tpu_torch's two-tier probe decode (kernels B6 and B7, plain
-versions on the CPU) against metacache_tpu's Pallas head_decode /
-full_decode in interpret mode and against its XLA decode in
-probe_rows_head / probe_rows (MC_PROBE_PALLAS=0), on the layout of
-tests/test_probe_pallas.py: 4000 features with counts 1..254, head 61,
-18 window bits, misses and sentinels among the probes. The port's head
-rows are that file's pair-packed rows un-paired to (F, 64). Tolerance 0
-(integer outputs)."""
+"""metacache_tpu_torch's probe decode (kernels B6 to B9, plain versions
+on the CPU) against metacache_tpu's Pallas head_decode / full_decode /
+oidx_decode / bucket_decode in interpret mode and against its XLA decode
+in probe_bucket / probe_rows_head / probe_rows (MC_PROBE_PALLAS=0), on
+the layout of tests/test_probe_pallas.py: 4000 features with counts
+1..254, head 61, 18 window bits, misses and sentinels among the probes.
+The port's head rows are that file's pair-packed rows un-paired to
+(F, 64), the same memory. Tolerance 0 (integer outputs)."""
 import numpy as np
 import pytest
 import torch
@@ -169,6 +169,98 @@ def test_two_tier_lane_rows_match_xla(monkeypatch):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _pairpack_np(rows):
+    return np.ascontiguousarray(rows.reshape(-1, 128))
+
+
+def test_bucket_decode_plain_matches_pallas(layout):
+    """B9's plain version on the pair-packed bucket rows against JAX's
+    bucket_decode in interpret mode and probe_bucket's XLA decode; the
+    port's probe_bucket takes B9 only when MC_PROBE_PALLAS names it."""
+    import os
+    d = layout
+    flat = d["flat"].copy()
+    flat[5::7] ^= np.uint32(0x10)           # more misses in real buckets
+    bp = _pairpack_np(d["brows"])
+    h = (flat >> np.uint32(32 - d["bits"])).astype(np.int32)
+    want_i, want_f = jpp.bucket_decode(jnp.asarray(bp)[h >> 1],
+                                       jnp.asarray(h & 1),
+                                       jnp.asarray(flat), tile=64)
+    os.environ["MC_PROBE_PALLAS"] = "0"
+    try:
+        xla_i, xla_f = probe_bucket(jnp.asarray(flat), jnp.asarray(bp),
+                                    d["bits"])
+    finally:
+        del os.environ["MC_PROBE_PALLAS"]
+    idx, found = D.bucket_decode(_t(bp), _t(flat), d["bits"])
+    for got, w1, w2 in ((idx, want_i, xla_i), (found, want_f, xla_f)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w1))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w2))
+    assert found.numpy().any() and not found.numpy().all()
+    assert (h & 1).any() and not (h & 1).all()
+
+
+@pytest.mark.parametrize("gate", ["0", "bucket", "1"])
+def test_probe_bucket_128_lanes(layout, gate, monkeypatch):
+    """probe_bucket on 128-lane rows equals it on the 64-lane rows they
+    pack, with the gate off (torch ops on the view) and on (B9)."""
+    from metacache_tpu_torch.ops import probe as tprobe
+    d = layout
+    calls = []
+    plain = D.bucket_decode_plain
+    monkeypatch.setattr(D, "bucket_decode_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    monkeypatch.setenv("MC_PROBE_PALLAS", gate)
+    got = tprobe.probe_bucket(_t(d["flat"]), _t(_pairpack_np(d["brows"])),
+                              d["bits"])
+    want = tprobe.probe_bucket(_t(d["flat"]), _t(d["brows"]), d["bits"])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert bool(calls) == (gate != "0")
+
+
+def test_oidx_decode_plain_matches_pallas(layout):
+    """B8's plain version (lane 2 of the matching logical head row, else
+    0) against JAX's oidx_decode in interpret mode, both parities."""
+    d = layout
+    idx = d["idx"]
+    want = jpp.oidx_decode(_pairpack(d["hl"])[idx >> 1],
+                           jnp.asarray(idx & 1), jnp.asarray(d["flat"]),
+                           tile=64)
+    got = D.oidx_decode(_t(d["hl"]), _t(idx), _t(d["flat"]))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() > 0).any() and (got.numpy() == 0).any()
+    assert (idx & 1).any() and not (idx & 1).all()
+
+
+@pytest.mark.parametrize("gate", ["0", "oidx"])
+@pytest.mark.parametrize("alt", [256, 0])
+def test_probe_rows_pair_packed_matches_xla(layout, gate, alt, monkeypatch):
+    """probe_rows on pair-packed head rows (tag hpack): B8 then B7 where
+    JAX runs oidx_decode (the oidx stage named, full runs), else B7 alone,
+    against JAX's XLA decode of the (F / 2, 128) rows."""
+    d = layout
+    calls = []
+    plain = D.oidx_decode_plain
+    monkeypatch.setattr(D, "oidx_decode_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    monkeypatch.setenv("MC_PROBE_PALLAS", "0")
+    tag = ("two_tier", HSL, True, False, SB)
+    want = jrows.probe_rows(
+        jnp.asarray(d["flat"].reshape(-1, F)), jnp.asarray(d["feats"]),
+        None, _pairpack(d["hl"]), jnp.asarray(d["ovf"]), SPF,
+        prefix_starts=jnp.asarray(d["brows"]), prefix_bits=d["bits"],
+        dense=tag, alt_runs=alt, pack_bits=SB)
+    monkeypatch.setenv("MC_PROBE_PALLAS", gate)
+    t = _tables(d)
+    t.packed = True
+    assert t.dense == tag
+    got = trows.probe_rows(_t(d["flat"].reshape(-1, F)), t, alt_runs=alt,
+                           pack_bits=SB)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert bool(calls) == (gate == "oidx" and alt > 0)
+
+
 def test_decode_wrappers_check_shapes(layout):
     d = layout
     head, idx, flat = _t(d["hl"]), _t(d["idx"]), _t(d["flat"])
@@ -178,3 +270,7 @@ def test_decode_wrappers_check_shapes(layout):
         D.full_decode(head, _t(d["ovf"]), idx, flat, HSL, SPF, 128, F)
     with pytest.raises(ValueError):
         D.head_decode(head, idx[:-1], flat, HSL, 64, F)
+    with pytest.raises(ValueError):
+        D.oidx_decode(head[:, :2], idx, flat)          # no lane 2
+    with pytest.raises(ValueError):
+        D.bucket_decode(_t(d["brows"]), flat, d["bits"])   # 64-lane rows
