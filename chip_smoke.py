@@ -382,21 +382,37 @@ def phase_parity(results):
     alt = torch.from_numpy(alternating_runs(rng, b, 16, r)).to(dev)
     rnd = torch.from_numpy(
         rng.permuted(slot_rows(rng, b, l2), axis=1)).to(dev)
-    errs = []
-    for name, pk, pre in (("presorted256", alt, r), ("unsorted", rnd, 0)):
+    # the 1456 Mbp phase-1 shape (16 features x 64 lanes) and the widest
+    # row the kernel takes
+    alt1k = torch.from_numpy(alternating_runs(rng, b, 16, 64)).to(dev)
+    wide = torch.from_numpy(alternating_runs(rng, 1024, 128, r)).to(dev)
+    wrnd = torch.from_numpy(
+        rng.permuted(slot_rows(rng, 1024, 32768), axis=1)).to(dev)
+    errs = {}
+    for name, pk, pre in (("presorted256", alt, r), ("unsorted", rnd, 0),
+                          ("8192x1024_presorted64", alt1k, 64),
+                          ("1024x32768_presorted256", wide, r),
+                          ("1024x32768_unsorted", wrnd, 0)):
         got = C.sort_packed(pk, pre)
-        errs.append(check_equal(f"B3 sort {name}", got,
-                                C.sort_packed_plain(pk, pre)))
+        errs[name] = check_equal(f"B3 sort {name}", got,
+                                 C.sort_packed_plain(pk, pre))
+    del wide, wrnd
+    ms1k = cuda_ms(lambda: C.sort_packed(alt1k, 64))
     ms = cuda_ms(lambda: C.sort_packed(alt, r))
     pms = cuda_ms(lambda: C.sort_packed_plain(alt, r))
     lib = cuda_ms(lambda: torch.sort(alt, dim=1))
-    b_ms, by = _record(results, "sort", err=max(errs), ms=ms, plain_ms=pms,
-                       library_ms=lib, nbytes=2 * alt.numel() * 4,
+    b_ms, by = _record(results, "sort", err=max(errs.values()), ms=ms,
+                       plain_ms=pms, library_ms=lib,
+                       nbytes=2 * alt.numel() * 4,
                        nops=sort_ops(b, l2, r, 1),
                        shape="(8192, 4096) slots, presorted=256")
-    say("parity-B3", rows=b, width=l2, tolerance=0, max_abs_err=max(errs),
-        ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b_ms, bound_by=by,
-        unsorted_case_err=errs[1])
+    say("parity-B3", rows=b, width=l2, tolerance=0,
+        max_abs_err=max(errs.values()), cases=errs, ms=ms, plain_ms=pms,
+        library_ms=lib, bound_ms=b_ms, bound_by=by,
+        ms_8192x1024_presorted64=ms1k,
+        bound_ms_8192x1024_presorted64=bound(
+            2 * alt1k.numel() * 4, sort_ops(b, 1024, 64, 1))[0])
+    del alt1k
 
     srt = torch.from_numpy(slot_rows(rng, b, l2)).to(dev)
     mw = torch.full((b,), 2, dtype=torch.int32, device=dev)
@@ -432,10 +448,13 @@ def phase_parity(results):
     at, aw = (torch.from_numpy(x).to(dev)
               for x in alternating_pairs(rng, b, 16, r))
     st, sw = (torch.from_numpy(x).to(dev) for x in slot_pairs(rng, b, l2))
-    mw = torch.full((b,), 2, dtype=torch.int32, device=dev)
+    wt, ww_ = (torch.from_numpy(x).to(dev)
+               for x in alternating_pairs(rng, 1024, 64, r))
     errs = {}
     for name, (tt, ww, pre) in (("alt256", (at, aw, r)),
-                                ("shuffled", (st, sw, 0))):
+                                ("shuffled", (st, sw, 0)),
+                                ("1024x16384_alt256", (wt, ww_, r))):
+        mw = torch.full((tt.shape[0],), 2, dtype=torch.int32, device=dev)
         for kk in (2, 4):
             got = torch.stack(C.candidates_unpacked(
                 tt, ww, mw, walk_elems=32, max_candidates=kk,
@@ -451,6 +470,8 @@ def phase_parity(results):
     want = C.candidates_unpacked_plain(dt_, dw_, dmw, dedup_walk=6,
                                        max_candidates=2)
     errs["dedup"] = check_equal("B5 dedup", got, want)
+    del wt, ww_
+    mw = torch.full((b,), 2, dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: C.candidates_unpacked(
         at, aw, mw, walk_elems=32, max_candidates=2, presorted=r))
     pms = cuda_ms(lambda: C.candidates_unpacked_plain(
@@ -465,7 +486,8 @@ def phase_parity(results):
                              " walk 32, K=2")
     say("parity-B5", rows=b, width=l2, tolerance=0,
         max_abs_err=max(errs.values()), cases=errs, ms=ms, plain_ms=pms,
-        bound_ms=b_ms, bound_by=by, dedup_case="(2048, 1024) dedup_walk=6")
+        bound_ms=b_ms, bound_by=by, dedup_case="(2048, 1024) dedup_walk=6",
+        wide_case="(1024, 16384) presorted=256")
 
     phase_parity_decode(results, rng, dev)
     phase_parity_probe(results, rng, dev)

@@ -4,13 +4,16 @@
 // B3 replaces metacache_tpu/ops/candidates_pallas.py::sort_pallas_packed
 // (_sort_kernel / _sort1_lanes): ascending per-row sort of (B, L2) i32
 // slots. The probe emits each feature's slots as sorted runs of r lanes
-// in alternating directions (the bitonic invariant after phase r), so
-// with presorted = r the network starts at phase 2r, as _sort1_lanes
-// does. One block per row; the row sits in shared memory (16 KB at
-// L2 = 4096) for the whole network, so device memory sees one read and
-// one write of the slot matrix. Bound: shared-memory compare-exchange
-// traffic and one __syncthreads per stage (42 stages at L2 = 4096,
-// r = 256).
+// in alternating directions (presorted = r); the TPU kernel starts its
+// bitonic network at phase 2r. Here one block of L2 / E threads sorts a
+// row by the block merge sort of row_sort.cuh between a coalesced load,
+// which reverses the odd runs into shared memory, and a coalesced store:
+// log2(L2 / r) merge levels (a register network first when r < E).
+// Bound: device memory sees one read and one write of the slot matrix
+// (~80 us at 8192 x 4096 on 3.35 TB/s). What the card spends beyond it:
+// the merge levels' shared-memory reads (a binary search a thread and
+// level, then one read a key) and one barrier pair a level (8 barriers
+// at L2 = 4096, r = 256, where the bitonic network took 42).
 //
 // B4 replaces candidates_pallas_packed's sweep + top-k
 // (_packed_kernel with the sort skipped, _compact_runs_packed) and
@@ -30,40 +33,39 @@
 // Bound: the sweep's walk_elems shared-memory reads per lane and K
 // block reductions; device memory sees one read of the sorted slots and
 // a (B, K, 4) result.
-#include "block.cuh"
+#include "row_sort.cuh"
 
 using namespace mc;
 
 namespace {
 
-constexpr int kMaxSortL2 = 32768;       // 128 KB of shared memory
+constexpr int kMaxSortL2 = 32768;       // 132 KB of shared memory
 constexpr int kMaxCandL2 = 16384;       // two 64 KB row arrays
 constexpr int kMaxPerThread = kMaxCandL2 / kMaxThreads;
 
+template <int E>
 __global__ void __launch_bounds__(kMaxThreads)
 sort_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-            int l2, int kstart) {
+            int l2, int r) {
   extern __shared__ int32_t sm[];
   const int64_t row = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < l2; i += nt) sm[i] = in[row * l2 + i];
+  for (int i = tid; i < l2; i += nt)
+    sm[slot<int32_t>(run_lane(i, r))] = in[row * l2 + i];
+  if (tid == 0) sm[slot<int32_t>(l2)] = 0;
   __syncthreads();
-  for (int k = kstart; k <= l2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = tid; t < (l2 >> 1); t += nt) {
-        const int lo = 2 * t - (t & (j - 1));
-        const int hi = lo + j;
-        const int32_t a = sm[lo], b = sm[hi];
-        const bool asc = (lo & k) == 0;
-        if ((a > b) == asc) {
-          sm[lo] = b;
-          sm[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = tid; i < l2; i += nt) out[row * l2 + i] = sm[i];
+  block_sort_row<int32_t, E>(sm, l2, r > 0 ? r : 1);
+  for (int i = tid; i < l2; i += nt) out[row * l2 + i] = sm[slot<int32_t>(i)];
+}
+
+template <int E>
+cudaError_t launch_sort(const int32_t* in, int32_t* out, int64_t b, int l2,
+                        int r, cudaStream_t stream) {
+  const size_t smem = row_bytes<int32_t>(l2);
+  cudaError_t err = set_smem((const void*)sort_kernel<E>, smem);
+  if (err != cudaSuccess) return err;
+  sort_kernel<E><<<(unsigned)b, l2 / E, smem, stream>>>(in, out, l2, r);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -178,14 +180,14 @@ extern "C" int mc_sort_packed(const void* in, void* out, int64_t b, int l2,
   if (!pow2_in(l2, 128, kMaxSortL2) ||
       (presorted && !pow2_in(presorted, 1, l2)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)l2 * sizeof(int32_t);
-  cudaError_t err = set_smem((const void*)sort_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = l2 / 2 < kMaxThreads ? l2 / 2 : kMaxThreads;
-  const int kstart = presorted ? 2 * presorted : 2;
-  sort_kernel<<<(unsigned)b, threads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)in, (int32_t*)out, l2, kstart);
-  return (int)cudaGetLastError();
+  // E = 16 lanes a thread (256 threads at L2 = 4096), 32 at the widest
+  // row so that the block stays within 1024 threads
+  const auto* src = (const int32_t*)in;
+  auto* dst = (int32_t*)out;
+  const auto st = (cudaStream_t)stream;
+  return (int)(l2 <= 16 * kMaxThreads
+                   ? launch_sort<16>(src, dst, b, l2, presorted, st)
+                   : launch_sort<32>(src, dst, b, l2, presorted, st));
 }
 
 extern "C" int mc_candidates_packed(const void* pk, const void* mwir,

@@ -9,42 +9,44 @@
 // (I32_MAX, I32_MAX), L2 a power of two >= 128, (B,) i32 mwir ->
 // (B, K, 4) i32 [tgt, hits, beg, end] per round, tgt -1 when empty.
 //
-// Design: the code of B3 + B4 (candidates.cu) on one 64-bit key per
-// slot, k = (tgt ^ 2^31) << 32 | (win ^ 2^31). Flipping the sign bits
-// makes the unsigned order of k the signed lexicographic (tgt, win)
-// order of _sort2_lanes for every i32 input, so one u64 compare-exchange
-// replaces the TPU kernel's two-array select chain. One block per row;
-// the keys (8 B/slot) and one i32 word per slot (run starts and counts,
-// then lane keys) sit in shared memory for the whole kernel: 48 KB at
-// L2 = 4096, 192 KB at the limit L2 = 16384.
-// - sort: the bitonic network from phase 2r when the probe emits
-//   alternating sorted runs of r lanes (presorted = r), as _sort2_lanes;
-//   presorted = L2 skips it for rows that arrive sorted;
-// - walk sweep: lane i counts the earlier lanes i - e (e < walk) of its
-//   own target whose window is >= win[i] - (mwir - 1); the begin window
-//   is that of the last such lane. The test keeps the TPU kernel's two
-//   compares (target equal, window in range), so it is exact for any
-//   mwir and needs no slot-packing bound;
+// Each slot is one 64-bit key k = (tgt ^ 2^31) << 32 | (win ^ 2^31):
+// flipping the sign bits makes the unsigned order of k the signed
+// lexicographic (tgt, win) order of _sort2_lanes for every i32 input.
+// One block of L2 / E threads per row, E consecutive lanes a thread:
+// - sort: the block merge sort of row_sort.cuh on the u64 keys (the
+//   load reverses the probe's odd runs; log2(L2 / presorted) merge
+//   levels; presorted = L2 skips it), the sorted keys left in shared
+//   memory in lane order;
+// - walk sweep as a search: lane i counts the lanes j, i - walk < j < i,
+//   of its own target whose window is >= wrap_sub(win, mwir - 1). Along
+//   the sorted row that test is false and then true, wrap-around
+//   included (key(j1) <= key(j2) <= key(i)), so those lanes form one run
+//   ending at i - 1 whose first lane f a binary search finds (5 probes
+//   at walk 32, where the scan read 31 keys): hits = 1 + i - f, and the
+//   begin window is win(f);
 // - dedup sweep: runs of equal keys are compacted with a block prefix
-//   sum to (key, count), then the same sweep adds counts over at most
-//   dedup_walk distinct entries;
+//   sum to (key, run start); the same search over the compacted keys
+//   (at most dedup_walk of them) gives f, and hits is the difference
+//   of two run starts, the exclusive prefix sum of the run counts;
 // - top-k: K rounds of a block max over hits * L2 + (L2 - 1 - lane) of
-//   matching lanes, gated best > 0; the winner's begin window is
-//   recomputed at its lane, and its whole target group is masked.
-//
+//   matching lanes, held in registers, gated best > 0; the winner's
+//   begin window is searched again at its lane, and its whole target
+//   group is masked.
 // Bound on the card: device memory sees one read of both slot matrices
-// (8 B/slot) and a (B, K, 4) result, so HBM bounds it at 3.35 TB/s
-// (~80 us at 8192 x 4096); the bitonic stages (42 at L2 = 4096,
-// r = 256), each ending in __syncthreads, are what the kernel spends
-// its time on.
-#include "block.cuh"
+// (8 B/slot) and a (B, K, 4) result, ~80 us at 8192 x 4096 on
+// 3.35 TB/s. Beyond it the card spends its time on the merge levels'
+// shared-memory reads of 8-byte keys (one barrier pair a level) and the
+// sweep's binary searches: on an H100 SXM at 700 W, at 8192 x 4096 and
+// walk 32, the load and sort take 0.26 ms of 0.37, the sweep 0.09 and
+// the top-k 0.03 (chip_smoke.py --split). Shared memory: the padded keys
+// and one i32 run start a lane, 51 KB at L2 = 4096, 200 KB at 16384.
+#include "row_sort.cuh"
 
 using namespace mc;
 
 namespace {
 
-constexpr int kMaxL2 = 16384;           // 12 B/slot: 192 KB of shared memory
-constexpr int kMaxPerThread = kMaxL2 / kMaxThreads;
+constexpr int kMaxL2 = 16384;           // 12.5 B/slot: 200 KB of shared memory
 constexpr uint32_t kSign = 0x80000000u;
 
 __device__ __forceinline__ uint64_t key_of(int32_t t, int32_t w) {
@@ -59,138 +61,129 @@ __device__ __forceinline__ int32_t win_of(uint64_t k) {
   return (int32_t)((uint32_t)k ^ kSign);
 }
 
-// hits of the slot at lane i: earlier lanes of the same target whose
-// window reaches win - (mwir - 1); dedup adds their run counts. *beg
-// receives the window of the last such lane (its own window if none).
-__device__ __forceinline__ int32_t sweep(const uint64_t* A, const int32_t* C,
-                                         int i, int ne, bool dedup,
-                                         int32_t mw1, int32_t* beg) {
-  const uint64_t p = A[i];
-  const int32_t t = tgt_of(p), w = win_of(p);
-  const int32_t lo = wrap_sub(w, mw1);
-  int32_t hits = dedup ? C[i] : 1;
-  int32_t b = w;
-  for (int e = 1; e < ne && e <= i; ++e) {
-    const uint64_t q = A[i - e];
-    if (tgt_of(q) == t && win_of(q) >= lo) {
-      hits += dedup ? C[i - e] : 1;
-      b = win_of(q);
-    }
+// First lane f of the run that lane i of the sorted keys A counts: the
+// lanes j, max(0, i - ne + 1) <= j < i, of p's target whose window is
+// >= wrap_sub(win(p), mw1); i when there are none.
+__device__ __forceinline__ int run_first(const uint64_t* A, int i, uint64_t p,
+                                         int ne, int32_t mw1) {
+  const int32_t t = tgt_of(p), lo = wrap_sub(win_of(p), mw1);
+  int a = max(0, i - ne + 1), b = i;
+  while (a < b) {
+    const int m = (a + b) >> 1;
+    const uint64_t q = A[slot<uint64_t>(m)];
+    if (tgt_of(q) == t && win_of(q) >= lo)
+      b = m;
+    else
+      a = m + 1;
   }
-  *beg = b;
-  return hits;
+  return a;
 }
 
+template <int E>
 __global__ void __launch_bounds__(kMaxThreads)
 candidates_unpacked_kernel(const int32_t* __restrict__ tgt,
                            const int32_t* __restrict__ win,
                            const int32_t* __restrict__ mwir,
                            int32_t* __restrict__ out, int l2, int lshift,
-                           int kstart, int walk, int dwalk, int kk) {
+                           int r, int walk, int dwalk, int kk) {
   extern __shared__ uint64_t smu[];
   __shared__ int red[33];
-  uint64_t* A = smu;                          // slot keys
-  int32_t* B = (int32_t*)(smu + l2);          // run starts / counts, lane keys
+  uint64_t* A = smu;                                  // keys, lane i at slot(i)
+  int32_t* S = (int32_t*)(smu + slot<uint64_t>(l2) + 1);   // run starts
   const int64_t row = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x, nt = blockDim.x, t0 = tid * E;
   for (int i = tid; i < l2; i += nt)
-    A[i] = key_of(tgt[row * l2 + i], win[row * l2 + i]);
+    A[slot<uint64_t>(run_lane(i, r))] =
+        key_of(tgt[row * l2 + i], win[row * l2 + i]);
+  if (tid == 0) A[slot<uint64_t>(l2)] = 0;
   const int32_t mw1 = wrap_sub(mwir[row], 1);
   __syncthreads();
+  block_sort_row<uint64_t, E>(A, l2, r > 0 ? r : 1);
 
-  for (int k = kstart; k <= l2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = tid; t < (l2 >> 1); t += nt) {
-        const int lo = 2 * t - (t & (j - 1));
-        const int hi = lo + j;
-        const uint64_t a = A[lo], b = A[hi];
-        const bool asc = (lo & k) == 0;
-        if ((a > b) == asc) {
-          A[lo] = b;
-          A[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  const uint64_t pad = key_of(kI32Max, kI32Max);
+  // per lane t0 + k: its target and its key for the top-k rounds
+  int32_t lt[E], lk[E];
   if (dwalk) {
-    // contiguous lane chunk per thread, so the scan order is lane order
-    const int per = l2 / nt;
-    const int base = tid * per;
-    int ns = 0;
-    for (int q = 0; q < per; ++q) {
-      const int i = base + q;
-      ns += (i == 0 || A[i] != A[i - 1]);
-    }
+    // lane i starts a run when i == 0 or key(i) != key(i - 1); the
+    // starts are compacted in lane order to A[c] (key) and S[c] (lane)
+    uint64_t v[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) v[k] = A[slot<uint64_t>(t0 + k)];
+    const uint64_t before = t0 ? A[slot<uint64_t>(t0 - 1)] : ~v[0];
+    unsigned starts = 0;
+#pragma unroll
+    for (int k = 0; k < E; ++k)
+      starts |= (unsigned)(v[k] != (k ? v[k - 1] : before)) << k;
     int total;
-    int off = block_excl_scan(ns, red, &total);
-    for (int q = 0; q < per; ++q) {
-      const int i = base + q;
-      if (i == 0 || A[i] != A[i - 1]) B[off++] = i;
-    }
-    __syncthreads();
-    uint64_t cpv[kMaxPerThread];
-    int32_t ccv[kMaxPerThread];
-    for (int q = 0; q < per; ++q) {
-      const int c = base + q;
-      if (c < total) {
-        const int st = B[c];
-        const int nx = c + 1 < total ? B[c + 1] : l2;
-        cpv[q] = A[st];
-        ccv[q] = nx - st;
-      } else {
-        cpv[q] = pad;
-        ccv[q] = 0;
+    int c = block_excl_scan(__popc(starts), red, &total);
+    // the scan's barriers: every thread has read its neighbour's key
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      if ((starts >> k) & 1) {
+        A[slot<uint64_t>(c)] = v[k];
+        S[c++] = t0 + k;
       }
     }
+    if (tid == 0) S[total] = l2;
     __syncthreads();
-    for (int q = 0; q < per; ++q) {
-      A[base + q] = cpv[q];
-      B[base + q] = ccv[q];
+    // compacted lane i < total: count S[i + 1] - S[i], and the counts of
+    // lanes f .. i add up to S[i + 1] - S[f]
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int i = t0 + k;
+      const uint64_t p = i < total ? A[slot<uint64_t>(i)] : ~0ull;
+      lt[k] = tgt_of(p);
+      lk[k] = -1;
+      if (lt[k] != kI32Max) {
+        const int f = run_first(A, i, p, dwalk, mw1);
+        lk[k] = (S[i + 1] - S[f]) * l2 + (l2 - 1 - i);
+      }
     }
-    __syncthreads();
-    int32_t keyv[kMaxPerThread];
-    for (int q = 0; q < per; ++q) {
-      const int i = base + q;
-      int32_t beg;
-      const bool match = tgt_of(A[i]) != kI32Max;
-      const int32_t hits = match ? sweep(A, B, i, dwalk, true, mw1, &beg) : 0;
-      keyv[q] = match ? hits * l2 + (l2 - 1 - i) : -1;
-    }
-    __syncthreads();
-    for (int q = 0; q < per; ++q) B[base + q] = keyv[q];
-    __syncthreads();
   } else {
-    for (int i = tid; i < l2; i += nt) {
-      int32_t beg;
-      const int32_t hits = sweep(A, nullptr, i, walk, false, mw1, &beg);
-      B[i] = tgt_of(A[i]) != kI32Max ? hits * l2 + (l2 - 1 - i) : -1;
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const int i = t0 + k;
+      const uint64_t p = A[slot<uint64_t>(i)];
+      lt[k] = tgt_of(p);
+      lk[k] = -1;
+      if (lt[k] != kI32Max)
+        lk[k] = (1 + i - run_first(A, i, p, walk, mw1)) * l2 + (l2 - 1 - i);
     }
-    __syncthreads();
   }
 
-  for (int r = 0; r < kk; ++r) {
+  for (int rd = 0; rd < kk; ++rd) {
     int m = INT_MIN;
-    for (int i = tid; i < l2; i += nt) m = max(m, B[i]);
+#pragma unroll
+    for (int k = 0; k < E; ++k) m = max(m, lk[k]);
     const int best = block_max(m, red);
     const bool ok = best > 0;
     const int bc = ok ? (l2 - 1) - (best & (l2 - 1)) : 0;
-    const int32_t tbest = ok ? tgt_of(A[bc]) : -1;
+    const uint64_t pb = A[slot<uint64_t>(bc)];
+    const int32_t tbest = ok ? tgt_of(pb) : -1;
     if (tid == 0) {
-      int32_t beg = 0;
-      if (ok) sweep(A, B, bc, dwalk ? dwalk : walk, false, mw1, &beg);
-      int32_t* o = out + (row * kk + r) * 4;
+      const int f = run_first(A, bc, pb, dwalk ? dwalk : walk, mw1);
+      int32_t* o = out + (row * kk + rd) * 4;
       o[0] = tbest;
       o[1] = ok ? best >> lshift : 0;
-      o[2] = beg;
-      o[3] = ok ? win_of(A[bc]) : 0;
+      o[2] = ok ? win_of(A[slot<uint64_t>(f)]) : 0;
+      o[3] = ok ? win_of(pb) : 0;
     }
-    for (int i = tid; i < l2; i += nt)
-      if (tgt_of(A[i]) == tbest) B[i] = -1;
-    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < E; ++k)
+      if (lt[k] == tbest) lk[k] = -1;
   }
+}
+
+template <int E>
+cudaError_t launch_unpacked(const int32_t* tgt, const int32_t* win,
+                            const int32_t* mwir, int32_t* out, int64_t b,
+                            int l2, int lshift, int r, int walk, int dwalk,
+                            int kk, cudaStream_t stream) {
+  const size_t smem = row_bytes<uint64_t>(l2) + (l2 + 1) * sizeof(int32_t);
+  cudaError_t err = set_smem((const void*)candidates_unpacked_kernel<E>, smem);
+  if (err != cudaSuccess) return err;
+  candidates_unpacked_kernel<E><<<(unsigned)b, l2 / E, smem, stream>>>(
+      tgt, win, mwir, out, l2, lshift, r, walk, dwalk, kk);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -203,16 +196,24 @@ extern "C" int mc_candidates_unpacked(const void* tgt, const void* win,
   if (!pow2_in(l2, 128, kMaxL2) || (presorted && !pow2_in(presorted, 1, l2)) ||
       kk < 1 || kk > 4 || walk < 0 || dwalk < 0 || (walk == 0 && dwalk == 0))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)l2 * (sizeof(uint64_t) + sizeof(int32_t));
-  cudaError_t err = set_smem((const void*)candidates_unpacked_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = l2 < kMaxThreads ? l2 : kMaxThreads;
   int lshift = 0;
   while ((1 << lshift) < l2) ++lshift;
-  const int kstart = presorted ? 2 * presorted : 2;
-  candidates_unpacked_kernel<<<(unsigned)b, threads, smem,
-                               (cudaStream_t)stream>>>(
-      (const int32_t*)tgt, (const int32_t*)win, (const int32_t*)mwir,
-      (int32_t*)out, l2, lshift, kstart, walk, dwalk, kk);
-  return (int)cudaGetLastError();
+  // E = 16 lanes a thread (256 threads at L2 = 4096); narrower rows take
+  // fewer, so that the block keeps a whole warp for its reductions
+  const auto* t = (const int32_t*)tgt;
+  const auto* w = (const int32_t*)win;
+  const auto* mw = (const int32_t*)mwir;
+  auto* o = (int32_t*)out;
+  const auto st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (l2 >= 512)
+    err = launch_unpacked<16>(t, w, mw, o, b, l2, lshift, presorted, walk,
+                              dwalk, kk, st);
+  else if (l2 == 256)
+    err = launch_unpacked<8>(t, w, mw, o, b, l2, lshift, presorted, walk,
+                             dwalk, kk, st);
+  else
+    err = launch_unpacked<4>(t, w, mw, o, b, l2, lshift, presorted, walk,
+                             dwalk, kk, st);
+  return (int)err;
 }

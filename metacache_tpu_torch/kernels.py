@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("sketch.cu", "candidates.cu", "candidates_unpacked.cu",
            "probe_decode.cu")
-HEADERS = ("block.cuh",)
+HEADERS = ("block.cuh", "row_sort.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "metacache_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC")

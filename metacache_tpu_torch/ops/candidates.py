@@ -27,7 +27,7 @@ from .. import kernels
 I32_MAX = 2**31 - 1
 MAX_SORT_L2 = 32768
 MAX_CAND_L2 = 16384
-MAX_UNPACKED_L2 = 16384   # csrc/candidates_unpacked.cu: 12 B/slot of smem
+MAX_UNPACKED_L2 = 16384   # csrc/candidates_unpacked.cu: 12.5 B/slot of smem
 
 
 def padded_width(l: int) -> int:

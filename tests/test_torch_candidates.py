@@ -295,3 +295,207 @@ def test_unpacked_candidates_reject_bad_arguments():
         C.candidates_unpacked(t, t[:, :64], mw, walk_elems=4)
     with pytest.raises(ValueError):
         C.candidates_unpacked(t, t, mw, walk_elems=4, presorted=3)
+
+
+# ------------------------------------------------ the kernels' algebra
+# numpy models of the CUDA kernels' own steps (csrc/row_sort.cuh, and
+# B5's sweep in csrc/candidates_unpacked.cu), held against the plain
+# versions on adversarial rows
+def _run_lane(i, r):
+    """row_sort.cuh::run_lane: odd runs of r lanes reversed."""
+    return np.where((r > 1) & ((i & r) != 0), i ^ (r - 1), i)
+
+
+def _sort_regs(v):
+    """row_sort.cuh::sort_regs on (threads, E) keys: the bitonic
+    network with the kernel's compare-exchange indices."""
+    v = v.copy()
+    e = v.shape[1]
+    size = 2
+    while size <= e:
+        stride = size >> 1
+        while stride:
+            for i in range(e):
+                j = i ^ stride
+                if j > i:
+                    a, b = v[:, i].copy(), v[:, j].copy()
+                    up = (i & size) == 0
+                    v[:, i] = np.where((a < b) == up, a, b)
+                    v[:, j] = np.where((a < b) == up, b, a)
+            stride >>= 1
+        size <<= 1
+    return v
+
+
+def _merge_runs(sm, run, t0, e):
+    """row_sort.cuh::merge_runs for the thread whose first lane is t0."""
+    a0 = t0 & ~(2 * run - 1)
+    b0 = a0 + run
+    diag = t0 - a0
+    lo, hi = max(0, diag - run), min(diag, run)
+    while lo < hi:
+        m = (lo + hi) >> 1
+        if sm[b0 + diag - 1 - m] < sm[a0 + m]:
+            hi = m
+        else:
+            lo = m + 1
+    ia, ib = a0 + lo, b0 + diag - lo
+    out = []
+    for _ in range(e):
+        tb = ib < b0 + run and (ia >= b0 or sm[ib] < sm[ia])
+        out.append(sm[ib] if tb else sm[ia])
+        ib, ia = ib + tb, ia + (not tb)
+    return out
+
+
+def _block_sort_model(row, presorted, e):
+    """row_sort.cuh::block_sort_row on one row loaded as the kernels load
+    it: the register network below E, then the merge levels."""
+    l2 = len(row)
+    sm = np.empty(l2 + 1, row.dtype)
+    sm[_run_lane(np.arange(l2), presorted)] = row
+    run = max(presorted, 1)
+    if run < e:
+        sm[:l2] = _sort_regs(sm[:l2].reshape(-1, e)).reshape(-1)
+        run = e
+    while run < l2:
+        sm[:l2] = np.concatenate([_merge_runs(sm, run, t0, e)
+                                  for t0 in range(0, l2, e)])
+        run <<= 1
+    return sm[:l2]
+
+
+def _edge_rows(rng, l2, dtype):
+    """Random keys, many duplicates, all padding, one key repeated and
+    keys at the i32 (u64) limits."""
+    info = np.iinfo(dtype)
+    top = info.max if dtype == np.int32 else I32_MAX
+    return [rng.integers(info.min, info.max, l2, dtype=dtype,
+                         endpoint=True),
+            rng.choice(np.array([info.min, -1 if info.min else 1, 0, 7,
+                                 top - 1, top], dtype), l2),
+            np.full(l2, top, dtype), np.full(l2, 5, dtype)]
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint64])
+@pytest.mark.parametrize("l2,e", [(128, 16), (128, 4), (256, 8),
+                                  (1024, 16), (2048, 32)])
+def test_block_merge_sort_model_sorts(dtype, l2, e):
+    """The block merge sort's index arithmetic (merge-path search,
+    serial merge, odd-run reversal, register network) sorts every
+    presorted form the kernels take: 0, runs shorter and longer than E,
+    and the whole row."""
+    rng = np.random.default_rng(l2 + e)
+    for r in sorted({0, 1, 2, e // 2, e, 4 * e, 64, l2} - {l2 * 2}):
+        for row in _edge_rows(rng, l2, dtype):
+            src = row.copy()
+            if r > 1:
+                runs = np.sort(src.reshape(-1, r), axis=1)
+                runs[1::2] = runs[1::2, ::-1]
+                src = runs.reshape(-1)
+            np.testing.assert_array_equal(_block_sort_model(src, r, e),
+                                          np.sort(row), err_msg=f"r={r}")
+
+
+def _wrap(x):
+    return ((np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31)
+
+
+def _run_first(key, i, ne, mw1):
+    """candidates_unpacked.cu::run_first on sorted (tgt, win) pairs."""
+    t, w = key[i]
+    lo = _wrap(w - mw1)
+    a, b = max(0, i - ne + 1), i
+    while a < b:
+        m = (a + b) >> 1
+        if key[m][0] == t and key[m][1] >= lo:
+            b = m
+        else:
+            a = m + 1
+    return a
+
+
+def _sweep_model(tgt, win, mwir, walk, dedup, kk):
+    """B5's sweep as the kernel computes it: sort, then per lane the
+    binary search for the first lane f of the run it counts: hits
+    1 + i - f (walk), or the difference of two run starts over the
+    compacted keys (dedup), begin window win(f); then the top-k
+    rounds."""
+    b, l2 = tgt.shape
+    res = np.zeros((b, kk, 4), np.int64)
+    for r in range(b):
+        key = sorted(zip(tgt[r].tolist(), win[r].tolist()))
+        mw1 = int(_wrap(int(mwir[r]) - 1))
+        lanes = key
+        starts = list(range(l2))
+        if dedup:
+            starts = [i for i in range(l2) if i == 0 or key[i] != key[i - 1]]
+            lanes = [key[s] for s in starts]
+            lanes += [(I32_MAX, I32_MAX)] * (l2 - len(lanes))
+        starts = starts + [l2]
+        ne = dedup or walk
+        lk = np.full(l2, -1, np.int64)
+        for i, (t, _w) in enumerate(lanes):
+            if t == I32_MAX:
+                continue
+            f = _run_first(lanes, i, ne, mw1)
+            hits = starts[i + 1] - starts[f] if dedup else 1 + i - f
+            lk[i] = hits * l2 + (l2 - 1 - i)
+        for k in range(kk):
+            best = int(lk.max())
+            if best <= 0:
+                res[r, k] = (-1, 0, 0, 0)
+                continue
+            bc = (l2 - 1) - (best & (l2 - 1))
+            tb, we = lanes[bc]
+            f = _run_first(lanes, bc, ne, mw1)
+            res[r, k] = (tb, best >> (l2.bit_length() - 1), lanes[f][1], we)
+            lk[[i for i, (t, _) in enumerate(lanes) if t == tb]] = -1
+    return res.astype(np.int32)
+
+
+def _sweep_rows(rng, l2):
+    """Adversarial (tgt, win) rows: duplicates, target changes inside a
+    walk window, windows at the i32 limits (a window I32_MAX with
+    mwir 0 wraps its range to INT32_MIN), negative values, an all
+    padding row and a row without padding."""
+    big = np.array([0, 1, 2, I32_MAX - 2, I32_MAX - 1, I32_MAX, -2**31,
+                    -2**31 + 1, -1], np.int64)
+    rows = []
+    t = rng.integers(0, 4, l2)
+    rows.append((t, rng.integers(0, 6, l2)))                  # dense dups
+    rows.append((rng.integers(0, 3, l2) * 5 + 3,
+                 rng.choice(big, l2)))                        # limits
+    rows.append((rng.choice(np.array([-2**31, -1, 0, I32_MAX - 1]), l2),
+                 rng.choice(big, l2)))
+    rows.append((np.repeat(np.arange(l2 // 4), 4),
+                 np.tile([I32_MAX - 1, I32_MAX, 0, 1], l2 // 4)))
+    rows.append((np.full(l2, I32_MAX), np.full(l2, I32_MAX)))  # padding
+    rows.append((np.sort(rng.integers(0, 40, l2)),
+                 rng.integers(I32_MAX - 40, I32_MAX, l2, endpoint=True)))
+    tgt = np.stack([r[0] for r in rows])
+    win = np.stack([r[1] for r in rows])
+    n = rng.integers(l2 // 2, l2, len(rows))
+    n[-1] = l2                                                # no padding
+    pad = np.arange(l2)[None, :] >= n[:, None]
+    pad[4] = True
+    tgt = np.where(pad, I32_MAX, tgt)
+    win = np.where(pad, I32_MAX, win)
+    return tgt.astype(np.int32), win.astype(np.int32)
+
+
+@pytest.mark.parametrize("walk,dedup", [(1, 0), (2, 0), (32, 0), (48, 0),
+                                        (0, 1), (0, 6)])
+@pytest.mark.parametrize("mwir", [0, 1, 2, 7, 2**31 - 1])
+def test_unpacked_sweep_model_matches_plain(walk, dedup, mwir):
+    """B5's sweep by binary search over the sorted row equals the plain
+    version's walk over shifted lanes, K = 4 (and so every K below)."""
+    rng = np.random.default_rng(walk * 7 + dedup * 3 + mwir % 97)
+    tgt, win = _sweep_rows(rng, 128)
+    mw = np.full(len(tgt), mwir, np.int32)
+    mw[::2] = rng.choice(np.array([0, 1, 2, 7]), len(mw[::2]))
+    want = C.candidates_unpacked_plain(
+        torch.from_numpy(tgt), torch.from_numpy(win), torch.from_numpy(mw),
+        walk, dedup, 4).numpy()
+    np.testing.assert_array_equal(_sweep_model(tgt, win, mw, walk, dedup, 4),
+                                  want)

@@ -138,6 +138,37 @@ def test_classified_single_fq_golden(dbfile):
     assert ours == _golden("classified_single_fq.txt")
 
 
+def test_custom_sketch_golden(dbfile):
+    """Query-side -sketchlen 8 -winlen 96."""
+    ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-sketchlen", "8",
+                           "-winlen", "96"])
+    assert ours == _golden("custom_sketch.txt")
+
+
+def test_highest_genus_golden(dbfile):
+    ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-highest", "genus",
+                           "-taxids"])
+    assert ours == _golden("highest_genus.txt")
+
+
+def test_reference_db_import_golden():
+    """The reference binary's own database files (tests/data/refdb)
+    load in the port and classify as the reference does."""
+    ours = _query(f"{DATA}/refdb/refdb",
+                  [f"{DATA}/reads_single.fa", "-mapped-only", "-precision",
+                   "-ground-truth", "-tophits"])
+    assert ours == _golden("refdb_import.txt")
+
+
+def test_info_golden(dbfile):
+    """`info <db>`, byte for byte (no line is dropped)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["info", dbfile]) == 0
+    with open(os.path.join(GOLD, "info_basic.txt")) as f:
+        assert buf.getvalue().splitlines() == f.read().splitlines()
+
+
 GOLDEN_CASES = [(f"fmt_{i}.txt", [f"{DATA}/reads_single.fa"] + FMT_FLAGS[i])
                 for i in sorted(FMT_FLAGS)] + [
     ("classified_single_fq.txt", [f"{DATA}/reads_single.fq", "-precision",

@@ -99,20 +99,54 @@ def test_long_sketch_kernel_matches_plain(cuda, w, k):
                        S.sketch_windows_long_plain(c, v, k, 16))
 
 
+def _alternate(key, r):
+    """(B, L) keys as the probe emits them for alt_runs = r: sorted runs
+    of r lanes, odd runs reversed."""
+    b, l = key.shape
+    runs = np.sort(key.reshape(b, l // r, r), axis=2)
+    runs[:, 1::2] = runs[:, 1::2, ::-1]
+    return np.ascontiguousarray(runs.reshape(b, l))
+
+
+def _edge_slots(rng, l):
+    """B3 rows of all padding, of one key repeated, and of keys at
+    INT32_MIN, -1 and I32_MAX - 1 among random ones."""
+    lim = np.array([-2**31, -1, I32_MAX - 1, 0, I32_MAX], np.int64)
+    return np.stack([
+        np.full(l, I32_MAX), np.full(l, 12345),
+        rng.choice(lim, l),
+        np.where(rng.random(l) < 0.2, rng.choice(lim, l),
+                 rng.integers(-2**31, 2**31, l)),
+        rng.integers(-2**31, 2**31, l)]).astype(np.int32)
+
+
+SORT_CASES = [(l2, r) for l2 in (128, 1024, 4096, 32768)
+              for r in (0, 1, 64, 256, l2) if r <= l2]
+
+
 @pytest.mark.parametrize("mode", ["walk", "dedup"])
-@pytest.mark.parametrize("presorted", [0, 64])
-def test_sort_and_candidates_kernels_match_plain(cuda, mode, presorted):
-    rng = np.random.default_rng(11)
-    pk = _slots(rng, 256, 1024, 40, 300, 10, dup=mode == "dedup")
-    if presorted:
-        runs = np.sort(pk.reshape(256, -1, presorted), axis=2)
-        runs[:, 1::2] = runs[:, 1::2, ::-1]
-        pk = np.ascontiguousarray(runs.reshape(256, 1024))
+@pytest.mark.parametrize("l2,presorted", SORT_CASES)
+def test_sort_and_candidates_kernels_match_plain(cuda, mode, l2, presorted):
+    """B3 at every width class and presorted form (0, 1, runs of 64 and
+    256, the whole row), with edge rows; B4 on the sorted rows where the
+    width fits it."""
+    rng = np.random.default_rng(11 + l2 + presorted)
+    b = 256
+    pk = np.concatenate([_slots(rng, b, l2, 40, 300, 10,
+                                dup=mode == "dedup"), _edge_slots(rng, l2)])
+    if presorted > 1:
+        pk = _alternate(pk, presorted)
     p = torch.from_numpy(pk).to(cuda)
+    before = kernels.SORT.launches
     srt = C.sort_packed(p, presorted)
+    torch.cuda.synchronize()
+    assert kernels.SORT.launches == before + 1
     assert torch.equal(srt, C.sort_packed_plain(p))
+    if l2 > C.MAX_CAND_L2:
+        return
+    srt = srt[:b].contiguous()
     walk, dwalk = (10, 0) if mode == "walk" else (0, 6)
-    mw = torch.full((256,), 3, dtype=torch.int32, device=cuda)
+    mw = torch.full((b,), 3, dtype=torch.int32, device=cuda)
     for kk in (2, 4):
         got = torch.stack(C.candidates_packed(
             srt, mw, 10, walk_elems=walk, dedup_walk=dwalk,
@@ -122,33 +156,50 @@ def test_sort_and_candidates_kernels_match_plain(cuda, mode, presorted):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("mode", ["walk", "dedup"])
-@pytest.mark.parametrize("presorted", [0, 64])
-def test_unpacked_candidates_kernel_matches_plain(cuda, mode, presorted):
-    """B5 on (tgt, win) rows past the packing bound (9217 targets,
-    windows up to 71427), K = 1-4."""
-    rng = np.random.default_rng(13)
-    b, l = 256, 1024
-    tgt = rng.integers(9000, 9217, (b, l))
-    win = rng.integers(71300, 71428, (b, l))
-    if mode == "dedup":
-        d = rng.random((b, l)) < 0.5
-        tgt = np.where(d, np.roll(tgt, 1, 1), tgt)
-        win = np.where(d, np.roll(win, 1, 1), win)
-    n = rng.integers(0, l + 1, (b, 1))
-    keep = np.arange(l) < n
-    tgt = np.where(keep, tgt, I32_MAX)
-    win = np.where(keep, win, I32_MAX)
-    if presorted:
-        key = (tgt << 32 | win).reshape(b, -1, presorted)
-        key = np.sort(key, axis=2)
-        key[:, 1::2] = key[:, 1::2, ::-1]
-        key = key.reshape(b, l)
+def _pair_rows(rng, b, l):
+    """(tgt, win) rows past the packing bound (9217 targets, windows up
+    to 71427), with windows near 0 and near I32_MAX, few targets at close
+    windows (target boundaries inside a walk window), duplicate slots,
+    and (I32_MAX, I32_MAX) padding at the end."""
+    kind = (np.arange(b) % 4)[:, None]
+    tgt = np.where(kind == 3, rng.integers(0, 6, (b, l)),
+                   rng.integers(9000, 9217, (b, l)))
+    win = np.select([kind == 1, kind == 2, kind == 3],
+                    [rng.integers(0, 40, (b, l)),
+                     I32_MAX - rng.integers(0, 40, (b, l)),
+                     rng.integers(0, 10, (b, l))],
+                    rng.integers(71300, 71428, (b, l)))
+    d = rng.random((b, l)) < 0.3
+    tgt = np.where(d, np.roll(tgt, 1, 1), tgt)
+    win = np.where(d, np.roll(win, 1, 1), win)
+    keep = np.arange(l) < rng.integers(0, l + 1, (b, 1))
+    keep[1] = True
+    return np.where(keep, tgt, I32_MAX), np.where(keep, win, I32_MAX)
+
+
+UNPACKED_CASES = [(l2, r) for l2 in (128, 1024, 4096, 16384)
+                  for r in (0, 1, 64, 256, l2) if r <= l2]
+
+
+@pytest.mark.parametrize("mode", ["walk10", "walk32", "walk48", "dedup6"])
+@pytest.mark.parametrize("l2,presorted", UNPACKED_CASES)
+def test_unpacked_candidates_kernel_matches_plain(cuda, mode, l2, presorted):
+    """B5 at the narrowest, a middle, the main path's and the widest row,
+    each presorted form (0, 1, runs of 64 and 256, the whole row), walk
+    10 (mwir 1-6), walk 32 and 48 and dedup 6 (mwir 0, 1, 2 and 7),
+    K = 1-4."""
+    rng = np.random.default_rng(13 + l2 + presorted)
+    b = 256
+    tgt, win = _pair_rows(rng, b, l2)
+    if presorted > 1:
+        key = _alternate(tgt << 32 | win, presorted)
         tgt, win = key >> 32, key & 0xFFFFFFFF
     t = torch.from_numpy(tgt.astype(np.int32)).to(cuda)
     w = torch.from_numpy(win.astype(np.int32)).to(cuda)
-    walk, dwalk = (10, 0) if mode == "walk" else (0, 6)
-    mw = torch.from_numpy(rng.integers(1, 7, b).astype(np.int32)).to(cuda)
+    walk, dwalk = (int(mode[4:]), 0) if mode.startswith("walk") else (0, 6)
+    mwir = (rng.integers(1, 7, b) if walk == 10
+            else rng.choice(np.array([0, 1, 2, 7]), b))
+    mw = torch.from_numpy(mwir.astype(np.int32)).to(cuda)
     for kk in (1, 2, 3, 4):
         got = torch.stack(C.candidates_unpacked(
             t, w, mw, walk, dwalk, kk, presorted), 2)
