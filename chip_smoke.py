@@ -13,8 +13,10 @@ saved CSR and fills the probe rows on the card.
   unique + 12 x 52-strain + 1 x 256-strain genomes of 1 Mbp, 944 Mbp,
   buckets at the 254 cap), whose (target, window) slots pack into int32,
   held equal to a host build of the same genomes, and `query` through
-  kernels B1, B3 and B4; the same query once more under each other
-  staging, all with the same rank histogram: host rows
+  kernels B1 and B4, which sorts each row itself (or B1, B3 and B4 on
+  the split route, MC_SPLIT_CAND=1); the same query once more on the
+  other route, and under each other staging, all with the same rank
+  histogram: host rows
   (MC_DEVICE_LAYOUT=0), the bucket probe through B9
   (MC_PROBE_PALLAS=bucket), and the size-classed cells with escalation
   (MC_DENSE_LIMIT=1 MC_CLASSED=1);
@@ -25,19 +27,20 @@ saved CSR and fills the probe rows on the card.
 - long windows: the same 944 Mbp genomes at `-winlen 255` (the
   reference's 255 preset), built in two steps, `build` without the
   256-strain group and `modify` with it, through kernel B2; `query` of
-  250 bp reads through B2, B3 and B4 (each stack of 250 bp reads is 256
+  250 bp reads through B2 and B4 (each stack of 250 bp reads is 256
   characters wide); and `build+query` of all genomes in one step (tables
   kept on the card from its build), whose mapping lines must equal the
   per-read query's on the modified database;
 - packed slots, two-tier rows: `build` of the 1456 Mbp database (the
   RefSeq-skew generator with 576 unique genomes), whose dense rows exceed
   the card's budget, so it stages pair-packed two-tier rows, and `query`
-  with escalation: a head-only phase through B1, B6, B3 and B4, and a
-  full-depth redo of the reads that touched a deeper bucket through B7,
-  B3 and B4; once more with MC_ESCALATE=0 (B7 on every batch) and with
+  with escalation: a head-only phase through B1, B6 and B4, and a
+  full-depth redo of the reads that touched a deeper bucket through B7
+  and B4; once more with MC_ESCALATE=0 (B7 on every batch) and with
   MC_PROBE_PALLAS=1 (B9 for the bucket probe, B8 before B7), which must
   give the same result, per read too.
 
+B3 runs ahead of B4 wherever MC_SPLIT_CAND=1 selects the split route.
 Each path queries 2^20 reads (100 bp; 250 bp at winlen 255) on the
 summary path, 65,536 reads on the per-read path, and one batch of the
 scan step compared with the plain path on CPU tensors of the same
@@ -374,8 +377,17 @@ def phase_parity(results):
                        nbytes=codes.nbytes + valid.nbytes + n * 16 * 4,
                        nops=22 * kpos,
                        shape="(65536, 128) windows, k=16, s=16")
+    # the scan batch's shape: 8192 windows of a 100 bp read stack
+    c8, v8 = c[:SCAN_BATCH], v[:SCAN_BATCH]
+    kpos8 = int(np.maximum(valid[:SCAN_BATCH].astype(np.int64) - 15,
+                           0).sum())
     say("parity-B1", windows=n, tolerance=0, max_abs_err=err, ms=ms,
-        plain_ms=pms, bound_ms=b_ms, bound_by=by)
+        plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        scan_8192x128_ms=cuda_ms(lambda: S.sketch_windows(c8, v8, 16, 16)),
+        scan_8192x128_plain_ms=cuda_ms(
+            lambda: S.sketch_windows_plain(c8, v8, 16, 16)),
+        scan_8192x128_bound_ms=bound(SCAN_BATCH * (128 + 4 + 16 * 4),
+                                     22 * kpos8)[0])
     phase_parity_long(results, rng, dev)
 
     b, l2, r = 8192, 4096, 256
@@ -396,7 +408,7 @@ def phase_parity(results):
         got = C.sort_packed(pk, pre)
         errs[name] = check_equal(f"B3 sort {name}", got,
                                  C.sort_packed_plain(pk, pre))
-    del wide, wrnd
+    del wrnd
     ms1k = cuda_ms(lambda: C.sort_packed(alt1k, 64))
     ms = cuda_ms(lambda: C.sort_packed(alt, r))
     pms = cuda_ms(lambda: C.sort_packed_plain(alt, r))
@@ -412,38 +424,8 @@ def phase_parity(results):
         ms_8192x1024_presorted64=ms1k,
         bound_ms_8192x1024_presorted64=bound(
             2 * alt1k.numel() * 4, sort_ops(b, 1024, 64, 1))[0])
-    del alt1k
-
-    srt = torch.from_numpy(slot_rows(rng, b, l2)).to(dev)
-    mw = torch.full((b,), 2, dtype=torch.int32, device=dev)
-    errs = []
-    for kk in (2, 4):
-        got = torch.stack(C.candidates_packed(
-            srt, mw, 15, walk_elems=32, max_candidates=kk,
-            sorted_input=True), dim=2)
-        want = C.candidates_sorted_plain(srt, mw, 15, walk_elems=32,
-                                         max_candidates=kk)
-        errs.append(check_equal(f"B4 walk K={kk}", got, want))
-    dsr = torch.from_numpy(slot_rows(rng, 2048, 1024)).to(dev)
-    dmw = torch.full((2048,), 6, dtype=torch.int32, device=dev)
-    got = torch.stack(C.candidates_packed(
-        dsr, dmw, 15, dedup_walk=6, max_candidates=2, sorted_input=True),
-        dim=2)
-    want = C.candidates_sorted_plain(dsr, dmw, 15, dedup_walk=6,
-                                     max_candidates=2)
-    errs.append(check_equal("B4 dedup", got, want))
-    ms = cuda_ms(lambda: C.candidates_packed(
-        srt, mw, 15, walk_elems=32, max_candidates=2, sorted_input=True))
-    pms = cuda_ms(lambda: C.candidates_sorted_plain(
-        srt, mw, 15, walk_elems=32, max_candidates=2))
-    # a two-pointer sweep (~4 ops per lane) and K = 2 max + mask rounds
-    b_ms, by = _record(results, "candidates", err=max(errs), ms=ms,
-                       plain_ms=pms, nbytes=srt.numel() * 4 + b * 4
-                       + b * 2 * 16, nops=srt.numel() * (4 + 2 * 2),
-                       shape="(8192, 4096) sorted slots, walk 32, K=2")
-    say("parity-B4", rows=b, width=l2, tolerance=0, max_abs_err=max(errs),
-        ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
-        dedup_case="(2048, 1024) dedup_walk=6")
+    phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r)
+    del alt1k, wide
 
     at, aw = (torch.from_numpy(x).to(dev)
               for x in alternating_pairs(rng, b, 16, r))
@@ -465,6 +447,7 @@ def phase_parity(results):
                 f"B5 walk {name} K={kk}", got, want)
     dt_, dw_ = (torch.from_numpy(x).to(dev)
                 for x in slot_pairs(rng, 2048, 1024))
+    dmw = torch.full((2048,), 6, dtype=torch.int32, device=dev)
     got = torch.stack(C.candidates_unpacked(
         dt_, dw_, dmw, dedup_walk=6, max_candidates=2), dim=2)
     want = C.candidates_unpacked_plain(dt_, dw_, dmw, dedup_walk=6,
@@ -493,6 +476,121 @@ def phase_parity(results):
     phase_parity_probe(results, rng, dev)
 
 
+def turns(fa, fb):
+    """Two calls timed in turns, a, b, b, a (cuda_ms each) -> their
+    mean ms and the four readings."""
+    r = [cuda_ms(fa), cuda_ms(fb), cuda_ms(fb), cuda_ms(fa)]
+    return (r[0] + r[3]) / 2, (r[1] + r[2]) / 2, r
+
+
+def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):
+    """B4 in both forms against its plain version (the plain sort, then
+    the plain sweep), tolerance 0: the split form (rows as B3 leaves
+    them, sorted: presorted = L2) at walk 32 with K 2 and 4, walk 48 and
+    dedup 6; the fused form on unsorted rows, on alternating runs of 256
+    and of 64 (the 1456 Mbp phase-1 shape, 8192 x 1024) and on sorted
+    rows; the split route (B3, then B4) on the same runs; the widest row,
+    1024 x 32768, in both. Times the split form alone, the fused form and
+    the split route in turns at 8192 x 4096 (presorted 256) and
+    8192 x 1024 (presorted 64), each beside its bound. The kernels
+    line's row is the form that MC_SPLIT_CAND's default runs."""
+    from metacache_tpu_torch.ops import candidates as C
+    from metacache_tpu_torch.ops.rows import split_candidates
+    b, l2 = alt.shape
+    srt = torch.from_numpy(slot_rows(rng, b, l2)).to(dev)
+    dsr = torch.from_numpy(slot_rows(rng, 2048, 1024)).to(dev)
+    drnd = torch.from_numpy(rng.permuted(dsr.cpu().numpy(), axis=1)).to(dev)
+
+    def mwir(pk, m):
+        return torch.full((pk.shape[0],), m, dtype=torch.int32, device=dev)
+
+    def plain(pk, mw, walk_elems=0, dedup_walk=0, max_candidates=2, **_):
+        return C.candidates_sorted_plain(C.sort_packed_plain(pk), mw, 15,
+                                         walk_elems, dedup_walk,
+                                         max_candidates)
+    errs = {}
+    for name, pk, m, kw in (
+            ("split_walk32_K2", srt, 2, dict(walk_elems=32)),
+            ("split_walk32_K4", srt, 2, dict(walk_elems=32,
+                                             max_candidates=4)),
+            ("split_walk48", srt, 3, dict(walk_elems=48)),
+            ("split_dedup6", dsr, 6, dict(dedup_walk=6)),
+            ("fused_presorted0", rnd, 2, dict(walk_elems=32, presorted=0)),
+            ("fused_presorted256", alt, 2, dict(walk_elems=32,
+                                                presorted=r)),
+            ("fused_presorted256_K4_walk48", alt, 3, dict(
+                walk_elems=48, max_candidates=4, presorted=r)),
+            ("fused_8192x1024_presorted64", alt1k, 2, dict(
+                walk_elems=32, presorted=64)),
+            ("fused_presortedL2", srt, 2, dict(walk_elems=32,
+                                               presorted=l2)),
+            ("fused_dedup6_presorted0", drnd, 6, dict(dedup_walk=6)),
+            ("split_route_presorted256", alt, 2, dict(
+                walk_elems=32, presorted=r, split=True)),
+            ("fused_1024x32768_presorted256", wide, 2, dict(
+                walk_elems=32, max_candidates=4, presorted=r)),
+            ("split_route_1024x32768_dedup6", wide, 6, dict(
+                dedup_walk=6, presorted=r, split=True))):
+        kw.setdefault("max_candidates", 2)
+        if name.startswith("split_") and "split" not in kw:
+            kw["sorted_input"] = True
+        mw = mwir(pk, m)
+        got = torch.stack(C.candidates_packed(pk, mw, 15, **kw), dim=2)
+        errs[name] = check_equal(f"B4 {name}", got, plain(pk, mw, **kw))
+    del drnd, dsr
+    mw, mw3, mw1k = mwir(srt, 2), mwir(srt, 3), mwir(alt1k, 2)
+    kw = dict(walk_elems=32, max_candidates=2)
+    split_ms = cuda_ms(lambda: C.candidates_packed(
+        srt, mw, 15, sorted_input=True, **kw))
+    split48_ms = cuda_ms(lambda: C.candidates_packed(
+        srt, mw3, 15, walk_elems=48, max_candidates=2, sorted_input=True))
+    fused_ms, route_ms, reads = turns(
+        lambda: C.candidates_packed(alt, mw, 15, presorted=r, **kw),
+        lambda: C.candidates_packed(alt, mw, 15, presorted=r, split=True,
+                                    **kw))
+    fused1k_ms, route1k_ms, reads1k = turns(
+        lambda: C.candidates_packed(alt1k, mw1k, 15, presorted=64, **kw),
+        lambda: C.candidates_packed(alt1k, mw1k, 15, presorted=64,
+                                    split=True, **kw))
+    sweep_plain_ms = cuda_ms(lambda: C.candidates_sorted_plain(
+        srt, mw, 15, 32, 0, 2))
+    fused_plain_ms = cuda_ms(lambda: plain(alt, mw, **kw))
+    # a two-pointer sweep (~4 ops per lane) and K = 2 max + mask rounds;
+    # the fused form adds B3's merge of runs. Each input read once, the
+    # (B, K, 4) result written once: B3 + B4 computes the fused form's
+    # function, so the two share a bound
+    out_bytes = b * 4 + b * 2 * 16
+    sweep_ops = srt.numel() * (4 + 2 * 2)
+    split_b = bound(srt.numel() * 4 + out_bytes, sweep_ops)
+    fused_b = bound(alt.numel() * 4 + out_bytes,
+                    sort_ops(b, l2, r, 1) + sweep_ops)
+    fused1k_b = bound(alt1k.numel() * 4 + out_bytes,
+                      sort_ops(b, 1024, 64, 1) + alt1k.numel() * 8)
+    if split_candidates():
+        row = dict(ms=split_ms, plain_ms=sweep_plain_ms,
+                   nbytes=srt.numel() * 4 + out_bytes, nops=sweep_ops,
+                   shape="(8192, 4096) sorted slots, walk 32, K=2 "
+                         "(split route: after B3)")
+    else:
+        row = dict(ms=fused_ms, plain_ms=fused_plain_ms,
+                   nbytes=alt.numel() * 4 + out_bytes,
+                   nops=sort_ops(b, l2, r, 1) + sweep_ops,
+                   shape="(8192, 4096) slots, presorted=256, walk 32, K=2 "
+                         "(fused: B4 sorts)")
+    b_ms, by = _record(results, "candidates", err=max(errs.values()), **row)
+    say("parity-B4", rows=b, width=l2, tolerance=0,
+        max_abs_err=max(errs.values()), cases=errs,
+        default_route="split" if split_candidates() else "fused",
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=b_ms, bound_by=by,
+        split_ms=split_ms, split_bound_ms=split_b[0],
+        split_plain_ms=sweep_plain_ms, split_walk48_ms=split48_ms,
+        fused_ms=fused_ms, fused_bound_ms=fused_b[0],
+        fused_plain_ms=fused_plain_ms, b3_b4_ms=route_ms,
+        b3_b4_bound_ms=fused_b[0], turns_fused_b3b4_fused=reads,
+        fused_8192x1024_ms=fused1k_ms, b3_b4_8192x1024_ms=route1k_ms,
+        bound_8192x1024_ms=fused1k_b[0], turns_8192x1024=reads1k)
+
+
 def long_sketch_inputs(rng, n: int, w: int, k: int, read_len: int):
     """(n, w) windows for B2: 1% ambiguous codes, ambiguous runs across
     the first chunk cut, all-ambiguous and repeated windows; valid mostly
@@ -515,36 +613,39 @@ def long_sketch_inputs(rng, n: int, w: int, k: int, read_len: int):
 def phase_parity_long(results, rng, dev):
     """B2 against its plain version, tolerance 0: at the build's shape
     (65,536 windows of 255), a 250 bp scan batch (8192 x 256), 511-wide
-    windows and k = 12. Timed at the build's shape."""
+    windows, k = 12, s = 128, and 1000-wide windows (spans above 512:
+    512-char chunks and a running sketch). Timed at the build's and the
+    scan batch's shape, each beside its bound."""
     from metacache_tpu_torch.ops import sketch as S
     errs, rec = {}, {}
-    for n, w, k in ((65536, 255, 16), (8192, 256, 16), (8192, 511, 16),
-                    (8192, 255, 12)):
+    for n, w, k, sl in ((65536, 255, 16, 16), (8192, 256, 16, 16),
+                        (8192, 511, 16, 16), (8192, 255, 12, 16),
+                        (8192, 511, 12, 128), (4096, 1000, 16, 16)):
         codes, valid = long_sketch_inputs(rng, n, w, k,
                                           250 if w == 256 else w)
         c = torch.from_numpy(codes).to(dev)
         v = torch.from_numpy(valid).to(dev)
-        got = S.sketch_windows(c, v, k, 16)
-        want = S.sketch_windows_long_plain(c, v, k, 16)
-        key = f"{n}x{w}_k{k}"
+        got = S.sketch_windows(c, v, k, sl)
+        want = S.sketch_windows_long_plain(c, v, k, sl)
+        key = f"{n}x{w}_k{k}_s{sl}"
         errs[key] = check_equal(f"B2 sketch {key}", got, want)
-        if (n, w, k) in ((65536, 255, 16), (8192, 256, 16)):
-            rec[key] = (cuda_ms(lambda: S.sketch_windows(c, v, k, 16)),
-                        cuda_ms(lambda: S.sketch_windows_long_plain(
-                            c, v, k, 16)), codes, valid)
-    ms, pms, codes, valid = rec["65536x255_k16"]
-    n, w = codes.shape
-    # B1's operation model per k-mer position (phase_parity)
-    kpos = int(np.maximum(np.minimum(valid, w).astype(np.int64) - 15,
-                          0).sum())
+        if (n, w, k, sl) in ((65536, 255, 16, 16), (8192, 256, 16, 16)):
+            # B1's operation model per k-mer position (phase_parity)
+            kpos = int(np.maximum(np.minimum(valid, w).astype(np.int64)
+                                  - 15, 0).sum())
+            rec[(n, w)] = (cuda_ms(lambda: S.sketch_windows(c, v, k, 16)),
+                           cuda_ms(lambda: S.sketch_windows_long_plain(
+                               c, v, k, 16)),
+                           n * w + 4 * n + 4 * n * 16, 22 * kpos)
+    ms, pms, nbytes, nops = rec[(65536, 255)]
     b_ms, by = _record(results, "sketch_long", err=max(errs.values()),
-                       ms=ms, plain_ms=pms,
-                       nbytes=n * w + 4 * n + 4 * n * 16, nops=22 * kpos,
+                       ms=ms, plain_ms=pms, nbytes=nbytes, nops=nops,
                        shape="(65536, 255) windows, k=16, s=16")
+    sms, spms, sbytes, sops = rec[(8192, 256)]
     say("parity-B2", tolerance=0, max_abs_err=max(errs.values()),
         cases=errs, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
-        scan_8192x256_ms=rec["8192x256_k16"][0],
-        scan_8192x256_plain_ms=rec["8192x256_k16"][1])
+        scan_8192x256_ms=sms, scan_8192x256_plain_ms=spms,
+        scan_8192x256_bound_ms=bound(sbytes, sops)[0])
 
 
 def two_tier_table(rng, nf: int, hsl: int = 61, spf: int = 254):
@@ -869,6 +970,13 @@ def phase_query_summary(tmp, name, db, reads, layout, expect):
     return runner, grew, res
 
 
+def cand_kernels():
+    """The packed path's candidate kernels on the route MC_SPLIT_CAND
+    selects: B4 alone (it sorts the rows), or B3 and then B4."""
+    from metacache_tpu_torch.ops.rows import split_candidates
+    return ("sort", "candidates") if split_candidates() else ("candidates",)
+
+
 def path_of(*names):
     """Launch expectation of a dense path: each named kernel once per
     8192-read batch, every other kernel never."""
@@ -953,10 +1061,49 @@ def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
         tolerance=0, max_abs_err=err, classified=int((got != 0).sum()))
 
 
-def run_config(tmp, name, db, genomes, layout, path_kernels, profile):
-    """Summary query (the main path), its profile, the scan step against
-    the plain path, and the per-read path; -> the summary's launches,
-    rank histogram and staging seconds."""
+def phase_other_route(tmp, name, runner, res):
+    """The summary query once more on the same staged tables under the
+    other MC_SPLIT_CAND route, a main path of its own (counts zeroed
+    just before it, read just after): the same rank histogram.
+    -> its launches."""
+    from metacache_tpu_torch import kernels
+    from metacache_tpu_torch.classify.options import ClassificationResults
+    from metacache_tpu_torch.classify.runner import map_queries_to_targets
+    from metacache_tpu_torch.ops.rows import split_candidates
+    other = "0" if split_candidates() else "1"
+    nreads = res.statistics.total()
+    with environ(MC_SPLIT_CAND=other):
+        kernels.reset_counts()
+        res1 = ClassificationResults(io.StringIO(), io.StringIO(),
+                                     io.StringIO())
+        map_queries_to_targets([os.path.join(tmp, name, "reads.fa")],
+                               runner.db, runner.opt, res1, runner)
+        torch.cuda.synchronize()
+        grew = {k: v.launches for k, v in kernels.ALL.items()}
+        want = path_of("sketch", *cand_kernels())(
+            runner, -(-nreads // SCAN_BATCH))
+    if grew != want:
+        raise AssertionError(f"MC_SPLIT_CAND={other}: launches {grew}, "
+                             f"expected {want}")
+    if not np.array_equal(res1.statistics.assigned_,
+                          res.statistics.assigned_):
+        raise AssertionError(f"MC_SPLIT_CAND={other} changed the rank "
+                             "histogram")
+    say(f"query-summary-{name}-split{other}", reads=res1.statistics.total(),
+        reads_per_min=round(res1.statistics.total() /
+                            (res1.time_ms / 60000.0)),
+        seconds=round(res1.time_ms / 1000, 3), histogram_equal=True,
+        launches=grew)
+    return grew
+
+
+def run_config(tmp, name, db, genomes, layout, path_kernels, profile,
+               other_route=False):
+    """Summary query (the main path), its profile, with ``other_route``
+    the same query under the other MC_SPLIT_CAND route, the scan step
+    against the plain path, and the per-read path; -> the summary's
+    launches, rank histogram, staging seconds and the other route's
+    launches (None without it)."""
     reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
     del genomes
     runner, launches, res = phase_query_summary(
@@ -964,12 +1111,14 @@ def run_config(tmp, name, db, genomes, layout, path_kernels, profile):
     stage_s = runner.stage_s
     if profile:
         phase_profile(tmp, name, runner)
+    other = phase_other_route(tmp, name, runner, res) if other_route \
+        else None
     phase_e2e(name, runner, reads)
     del runner
     torch.cuda.empty_cache()
     phase_query_per_read(tmp, name, db, reads[:65536])
     torch.cuda.empty_cache()
-    return launches, res.statistics.assigned_.copy(), stage_s
+    return launches, res.statistics.assigned_.copy(), stage_s, other
 
 
 def refseq_skew_genomes():
@@ -1014,8 +1163,8 @@ def packed_stack(reads, b: int):
 def phase_e2e_two_tier(name, runner, reads, dev=torch.device("cuda")):
     """The escalation steps on one 8192-read stack against the plain path
     on CPU tensors of the same tables (the host holds the second copy):
-    phase 1 (B1, B6, B3, B4) and the redo of its flagged reads (B7, B3,
-    B4); their merge also equals the full-depth scan (B7) on the card.
+    phase 1 (B1, B6, B4) and the redo of its flagged reads (B7, B4);
+    their merge also equals the full-depth scan (B7) on the card.
     Times one phase-1 batch and one full redo batch."""
     from metacache_tpu_torch.ops import rows as R
     b = SCAN_BATCH
@@ -1079,18 +1228,18 @@ def run_stagings(tmp, name, db, hist, stage_s):
     filled in numpy and copied (MC_DEVICE_LAYOUT=0), the bucket probe
     through B9 (MC_PROBE_PALLAS=bucket), and the size-classed cells
     (MC_DENSE_LIMIT=1 MC_CLASSED=1) with escalation (phase 1 and the redo
-    as torch ops, then B3 and B4). -> B9's launches."""
+    as torch ops, then B4). -> B9's launches."""
     from metacache_tpu_torch import kernels
     n = 1 << 20
     layout = "pk15"
-    dense = ("sketch", "sort", "candidates")
+    dense = ("sketch", *cand_kernels())
     out = {"device_staging_seconds": round(stage_s, 3)}
 
     def classed(runner, batches):
         redo = -(-runner.esc_reads // SCAN_BATCH)
         want = {k: 0 for k in kernels.ALL}
-        want.update(sketch=batches, sort=batches + redo,
-                    candidates=batches + redo)
+        want.update({k: batches + redo for k in cand_kernels()},
+                    sketch=batches)
         return want
     for tag, env, lay, expect in (
             ("host-rows", {"MC_DEVICE_LAYOUT": "0"}, layout, path_of(*dense)),
@@ -1112,7 +1261,8 @@ def run_stagings(tmp, name, db, hist, stage_s):
             if not 0 < runner.esc_reads < n:
                 raise AssertionError("the classed query did not escalate")
             out.update(classed_escalated_reads=runner.esc_reads,
-                       classed_redo_batches=grew["sort"] - n // SCAN_BATCH)
+                       classed_redo_batches=grew["candidates"]
+                       - n // SCAN_BATCH)
         del runner
         torch.cuda.empty_cache()
     say(f"stagings-{name}", histograms_equal=True, **out)
@@ -1139,8 +1289,8 @@ def run_two_tier(tmp, profile):
     def escalated(runner, batches):
         redo = -(-runner.esc_reads // SCAN_BATCH)
         want = {k: 0 for k in kernels.ALL}
-        want.update(sketch=batches, head_decode=batches, full_decode=redo,
-                    sort=batches + redo, candidates=batches + redo)
+        want.update({k: batches + redo for k in cand_kernels()},
+                    sketch=batches, head_decode=batches, full_decode=redo)
         return want
     runner, launches, res = phase_query_summary(tmp, name, db, reads,
                                                 layout, escalated)
@@ -1177,7 +1327,7 @@ def run_two_tier(tmp, profile):
     if not np.array_equal(res0.statistics.assigned_,
                           res.statistics.assigned_):
         raise AssertionError("MC_ESCALATE=0 changed the rank histogram")
-    if grew != path_of("sketch", "full_decode", "sort", "candidates")(
+    if grew != path_of("sketch", "full_decode", *cand_kernels())(
             runner, -(-len(reads) // SCAN_BATCH)):
         raise AssertionError(f"full-depth launches {grew}")
     say(f"query-summary-{name}-full-depth", reads=res0.statistics.total(),
@@ -1297,7 +1447,7 @@ def run_long_windows(tmp, genomes, species, profile):
     layout = f"pk{(2 * maxwin).bit_length()}"
     runner, launches, _res = phase_query_summary(
         tmp, name, db, reads, layout,
-        path_of("sketch_long", "sort", "candidates"))
+        path_of("sketch_long", *cand_kernels()))
     say(f"staging-{name}", layout=runner.layout,
         dense_gib=round(runner.dense_bytes / 2**30, 3),
         staged_gib=round(runner.tables.nbytes() / 2**30, 3),
@@ -1363,11 +1513,13 @@ def main() -> int:
         layout = f"pk{(2 * maxwin).bit_length()}"
         if layout != "pk15":
             raise AssertionError(f"944 Mbp database packs as {layout}")
-        main_path, hist, stage_s = run_config(
+        main_path, hist, stage_s, other = run_config(
             tmp, "944mbp", db, genomes, layout,
-            ("sketch", "sort", "candidates"), a.profile)
-        for k in ("sketch", "sort", "candidates"):
+            ("sketch", *cand_kernels()), a.profile, other_route=True)
+        for k in ("sketch", "candidates"):
             launches[k] = main_path[k]
+        # B3 runs on whichever of the two routes splits
+        launches["sort"] = main_path["sort"] or other["sort"]
         run_stagings(tmp, "944mbp", Database.load(db), hist, stage_s)
         shutil.rmtree(os.path.join(tmp, "944mbp"))
         main_path = run_long_windows(tmp, genomes, species, a.profile)
@@ -1382,10 +1534,9 @@ def main() -> int:
             raise AssertionError(f"{len(genomes)} targets, max window "
                                  f"{maxwin}")
         # slots do not pack: the dense layout of (tgt, win) lane pairs
-        main_path, hist, _s = run_config(tmp, "many-target", db, genomes,
-                                         "True",
-                                         ("sketch", "candidates_unpacked"),
-                                         a.profile)
+        main_path, hist, _s, _o = run_config(
+            tmp, "many-target", db, genomes, "True",
+            ("sketch", "candidates_unpacked"), a.profile)
         launches["candidates_unpacked"] = main_path["candidates_unpacked"]
         phase_dense_limit(tmp, "many-target", db, hist)
         shutil.rmtree(os.path.join(tmp, "many-target"))

@@ -274,8 +274,10 @@ ENVIRONMENT
     MC_PREFETCH=0           disable the software-pipelined scan.
     MC_SKETCH_MODE=extract  swap the Pallas sketcher's in-kernel sort
                             for iterative min-extraction (bit-exact).
-    MC_SPLIT_CAND=<0|1>     run the candidates sort as its own kernel
-                            (default: on for rows <= 2048 lanes).
+    MC_SPLIT_CAND=<0|1>     1: sort the packed match slots with
+                            their own kernel, then sweep them; 0
+                            (default): the sweep kernel sorts each
+                            row itself (one pass less over memory).
     MC_PROBE_PALLAS=<0|1|list>
                             Pallas probe-decode kernels: 0 none,
                             1 all, or a comma list of stages from

@@ -103,7 +103,7 @@ def _load():
                                                    i, p]
             lib.mc_sort_packed.argtypes = [p, p, i64, i, i, p]
             lib.mc_candidates_packed.argtypes = [p, p, p, i64, i, i, i, i,
-                                                 i, p]
+                                                 i, i, p]
             lib.mc_candidates_unpacked.argtypes = [p, p, p, p, i64, i, i, i,
                                                    i, i, p]
             lib.mc_head_decode.argtypes = [p, i64, i, p, p, i64, i, i, i, p,

@@ -2,13 +2,14 @@
 
 Port of metacache_tpu/ops/candidates_pallas.py.
 
-Packed slots (sort_pallas_packed, candidates_pallas_packed with
-split=True): int32 pk = (tgt << pack_bits) | win with I32_MAX padding;
-the caller guarantees 2^pack_bits > 2 * max window and
-mwir <= 2^(pack_bits-1), so one compare pe >= pk - (mwir - 1) tests
-target and window range. ``sort_packed`` (B3) sorts each row
-ascending; ``candidates_packed`` pads rows to a power of two, sorts them
-with B3 unless they arrive sorted, and runs the sweep + top-k (B4).
+Packed slots (sort_pallas_packed, candidates_pallas_packed): int32
+pk = (tgt << pack_bits) | win with I32_MAX padding; the caller
+guarantees 2^pack_bits > 2 * max window and mwir <= 2^(pack_bits-1),
+so one compare pe >= pk - (mwir - 1) tests target and window range.
+``sort_packed`` (B3) sorts each row ascending; ``candidates_packed``
+pads rows to a power of two and runs B4, which sorts each row itself
+before its sweep + top-k (JAX's split=False), or, with ``split`` (B3
+first) or ``sorted_input``, sweeps rows that arrive sorted.
 
 Unpacked slots (candidates_pallas), for databases whose slots do not
 pack into int32: ``candidates_unpacked`` (B5) sorts each row by
@@ -26,7 +27,7 @@ from .. import kernels
 
 I32_MAX = 2**31 - 1
 MAX_SORT_L2 = 32768
-MAX_CAND_L2 = 16384
+MAX_CAND_L2 = 32768      # csrc/candidates.cu: one row array, u16 run starts
 MAX_UNPACKED_L2 = 16384   # csrc/candidates_unpacked.cu: 12.5 B/slot of smem
 
 
@@ -65,6 +66,8 @@ def sort_packed(pk: torch.Tensor, presorted: int = 0) -> torch.Tensor:
             f"rows of {l2} > {MAX_SORT_L2} slots do not fit the sort "
             "kernel's shared memory (ROADMAP queue B, wide rows)")
     pk = pk.contiguous()
+    if pk.data_ptr() % 16:              # the kernel loads 16 bytes a lane
+        pk = pk.clone()
     out = torch.empty_like(pk)
     if b:
         kernels.SORT(pk.data_ptr(), out.data_ptr(), b, l2, presorted)
@@ -156,14 +159,16 @@ def candidates_sorted_plain(p: torch.Tensor, mwir: torch.Tensor,
 def candidates_packed(pk: torch.Tensor, mwir: torch.Tensor, pack_bits: int,
                       walk_elems: int = 0, dedup_walk: int = 0,
                       max_candidates: int = 2, presorted: int = 0,
-                      sorted_input: bool = False):
+                      sorted_input: bool = False, split: bool = False):
     """(B, L) packed slots + (B,) mwir -> per-row top-k candidates
     (cand_tgt, cand_hits, cand_beg, cand_end), each (B, K) int32,
     cand_tgt == -1 for empty slots (candidates_pallas_packed :429-490).
 
-    Rows are padded with I32_MAX to max(128, next power of two) lanes;
-    unless ``sorted_input``, B3 sorts them (phases below ``presorted``
-    skipped), then B4 sweeps. Walk mode when ``dedup_walk`` is 0."""
+    Rows are padded with I32_MAX to max(128, next power of two) lanes.
+    B4 sorts them itself (phases below ``presorted`` skipped) and sweeps;
+    with ``split`` B3 sorts them first and B4 only sweeps, and with
+    ``sorted_input`` they arrive sorted. Walk mode when ``dedup_walk``
+    is 0. CPU tensors take the plain sort and sweep on every route."""
     _check(pk, "pk", 2)
     b, l = pk.shape
     kk = max_candidates
@@ -179,12 +184,15 @@ def candidates_packed(pk: torch.Tensor, mwir: torch.Tensor, pack_bits: int,
         pad = torch.full((b, l2 - l), I32_MAX, dtype=torch.int32,
                          device=pk.device)
         pk = torch.cat([pk, pad], dim=1)
-    if not sorted_input:
-        pk = sort_packed(pk, presorted)
+    if presorted and (presorted & (presorted - 1) or l2 % presorted):
+        raise ValueError(f"presorted={presorted} must be a power of two "
+                         f"dividing {l2}")
     mwir = mwir.to(device=pk.device, dtype=torch.int32).contiguous()
     if mwir.shape != (b,):
         raise ValueError(f"mwir must have shape ({b},)")
     if not pk.is_cuda:
+        if not sorted_input:
+            pk = sort_packed_plain(pk, presorted)
         res = candidates_sorted_plain(pk, mwir, pack_bits, walk, dedup_walk,
                                       kk)
     else:
@@ -193,12 +201,18 @@ def candidates_packed(pk: torch.Tensor, mwir: torch.Tensor, pack_bits: int,
                 f"rows of {l2} > {MAX_CAND_L2} slots do not fit the "
                 "candidates kernel's shared memory (ROADMAP queue B, "
                 "wide rows)")
+        if sorted_input:
+            presorted = l2
+        elif split:
+            pk, presorted = sort_packed(pk, presorted), l2
         pk = pk.contiguous()
+        if pk.data_ptr() % 16:          # the kernel loads 16 bytes a lane
+            pk = pk.clone()
         res = torch.empty((b, kk, 4), dtype=torch.int32, device=pk.device)
         if b:
             kernels.CANDIDATES(pk.data_ptr(), mwir.data_ptr(),
-                               res.data_ptr(), b, l2, pack_bits, walk,
-                               dedup_walk, kk)
+                               res.data_ptr(), b, l2, presorted, pack_bits,
+                               walk, dedup_walk, kk)
     return res[:, :, 0], res[:, :, 1], res[:, :, 2], res[:, :, 3]
 
 

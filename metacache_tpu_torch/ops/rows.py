@@ -8,14 +8,18 @@ candidates -> ranked LCA. Two-tier rows with packed slots decode
 through B7 (head + overflow rows; B8 finds the overflow rows first
 where JAX runs it) or, in escalation phase 1, B6 (head rows only);
 classed cells decode as torch ops, as the JAX package decodes them with
-XLA ops. Slots that pack into int32 (pack_bits > 0) go through sort (B3)
-and sweep + top-k (B4); unpacked (tgt, win) slots go through the
+XLA ops. Slots that pack into int32 (pack_bits > 0) go through B4, which
+sorts each row itself before its sweep + top-k, or, with
+``MC_SPLIT_CAND=1``, through sort B3 and then B4's sweep + top-k
+(``split_candidates``); unpacked (tgt, win) slots go through the
 two-key kernel (B5). The port runs the fused candidate branch of
 ``rows_to_result`` whenever the result allows it; branches it does not
 carry yet raise NotImplementedError naming their ROADMAP item. A Python
 loop over the K stacked batches takes the place of ``lax.scan``.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -26,6 +30,20 @@ from .probe import probe_bucket, probe_bucket_classed, shift_right_logical
 from .probe_decode import (_rows, full_decode, head_decode, oidx_decode,
                            probe_pallas_enabled)
 from .sketch import sketch_windows
+
+
+# the route of packed slots when MC_SPLIT_CAND is unset: "0" sorts inside
+# B4. JAX splits by default only to give its sort a larger VMEM row tile
+# (candidates_pallas.py:387-390); on the card the fused form was timed
+# against B3 + B4 at the main path's shapes (PERF.md §6)
+SPLIT_CAND_DEFAULT = "0"
+
+
+def split_candidates() -> bool:
+    """MC_SPLIT_CAND as JAX's rows.py:156 reads it: "0" runs B4 with the
+    sort fused in, any other value B3 and then B4's sweep; unset, the
+    port's default ``SPLIT_CAND_DEFAULT``."""
+    return os.environ.get("MC_SPLIT_CAND", SPLIT_CAND_DEFAULT) != "0"
 
 
 def _meta_match(rows: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
@@ -240,8 +258,9 @@ def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
                    pack_bits: int = 0) -> QueryResult:
     """(B, L) match slots -> candidates + classification: the fused
     branch of rows.py:134-179. With ``pack_bits`` > 0, ``tgt`` holds the
-    packed slots (``win`` is ignored) for sort B3 and sweep + top-k B4;
-    with 0, (tgt, win) go to the two-key kernel B5."""
+    packed slots (``win`` is ignored) for B4, fused or after B3 as
+    ``split_candidates`` says; with 0, (tgt, win) go to the two-key
+    kernel B5."""
     kk = max_candidates
     if emit_hits:
         raise NotImplementedError(
@@ -263,7 +282,8 @@ def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
         mwir = torch.clamp(mwir.to(torch.int32), max=1 << (pack_bits - 1))
         cand_tgt, cand_hits, cand_beg, cand_end = candidates_packed(
             tgt, mwir, pack_bits, walk_elems=walk, dedup_walk=dedup_walk,
-            max_candidates=kk, presorted=presorted_runs)
+            max_candidates=kk, presorted=presorted_runs,
+            split=split_candidates())
     else:
         cand_tgt, cand_hits, cand_beg, cand_end = candidates_unpacked(
             tgt, win, mwir, walk_elems=walk, dedup_walk=dedup_walk,

@@ -79,7 +79,7 @@ def test_candidates_match_pallas(mode, kk, presorted, split):
     want = _jax(pk, mwir, wbits, max_candidates=kk, presorted=presorted,
                 split=split, **kw)
     got = _port(pk, mwir, wbits, max_candidates=kk, presorted=presorted,
-                **kw)
+                split=split, **kw)
     for w, g, nm in zip(want, got, ("tgt", "hits", "beg", "end")):
         np.testing.assert_array_equal(g, w, err_msg=nm)
 
@@ -499,3 +499,136 @@ def test_unpacked_sweep_model_matches_plain(walk, dedup, mwir):
         walk, dedup, 4).numpy()
     np.testing.assert_array_equal(_sweep_model(tgt, win, mw, walk, dedup, 4),
                                   want)
+
+
+def _lift(val, i, lim, lo, top):
+    """candidates.cu::sweep's binary lifting: the first lane f >= lim of
+    the run of lanes j < i with val(j) >= lo that ends at i - 1 (i when
+    there is none), by steps top, top / 2, .., 1."""
+    f, step = i, top
+    while step:
+        j = f - step
+        if j >= lim and val(j) >= lo:
+            f = j
+        step >>= 1
+    return f
+
+
+def _packed_sweep_model(pk, mwir, wbits, walk, dedup, kk):
+    """B4 as the kernel computes it on each sorted row: binary lifting
+    for the first lane f that lane i counts (walk: hits 1 + i - f; dedup:
+    over the compacted run starts S, hits S[i + 1] - S[f]); per lane its
+    key and target; K rounds whose winner's begin slot comes from its
+    own f, recovered from its key (walk: lane bc + 1 - hits; dedup: lane
+    S[bc + 1] - hits), masking the lanes of the winner's target."""
+    b, l2 = pk.shape
+    wmask = (1 << wbits) - 1
+    ne = dedup or walk
+    top = 1 << ((ne - 1).bit_length() - 1) if ne > 1 else 0
+    res = np.zeros((b, kk, 4), np.int64)
+    for r in range(b):
+        a = np.sort(pk[r]).astype(np.int64)
+        mw1 = int(_wrap(int(mwir[r]) - 1))
+        if dedup:
+            starts = [i for i in range(l2) if i == 0 or a[i] != a[i - 1]]
+            n = len(starts)
+            starts.append(l2)
+            val = lambda c: int(a[starts[c]])                 # noqa: E731
+            hits = lambda i, f: starts[i + 1] - starts[f]     # noqa: E731
+            begin = lambda c, h: int(a[starts[c + 1] - h])    # noqa: E731
+        else:
+            n = l2
+            val = lambda i: int(a[i])                         # noqa: E731
+            hits = lambda i, f: 1 + i - f                     # noqa: E731
+            begin = lambda c, h: int(a[c + 1 - h])            # noqa: E731
+        lk = np.full(l2, -1, np.int64)
+        lt = np.full(l2, (I32_MAX >> wbits), np.int64)
+        for i in range(n):
+            p = val(i)
+            lt[i] = (p & 0xFFFFFFFF) >> wbits
+            if p != I32_MAX:
+                f = _lift(val, i, max(0, i - ne + 1), int(_wrap(p - mw1)),
+                          top)
+                lk[i] = hits(i, f) * l2 + (l2 - 1 - i)
+        for k in range(kk):
+            best = int(lk.max())
+            if best <= 0:
+                res[r, k] = (-1, 0, 0, 0)
+                continue
+            bc = (l2 - 1) - (best & (l2 - 1))
+            h = best >> (l2.bit_length() - 1)
+            tb = (val(bc) & 0xFFFFFFFF) >> wbits
+            res[r, k] = (tb, h, begin(bc, h) & wmask, val(bc) & wmask)
+            lk[lt == tb] = -1
+    return res.astype(np.int32)
+
+
+def _packed_sweep_rows(rng, l2, wbits):
+    """Adversarial packed rows: runs of equal slots; targets whose
+    windows end at 2^wbits - 1 beside the next target's window 0 (a carry
+    into the target bits inside a walk); slots near I32_MAX and negative
+    slots; an all-padding row and a row without padding."""
+    top = 1 << wbits
+    tmax = (1 << (31 - wbits)) - 1
+    rows = [rng.integers(0, 4, l2) << wbits | rng.integers(0, 6, l2),
+            rng.integers(0, 5, l2) << wbits |
+            rng.choice(np.array([0, 1, 2, top - 3, top - 2, top - 1]), l2),
+            np.repeat(rng.integers(0, 50, l2 // 8), 8) << wbits |
+            np.repeat(rng.integers(0, top, l2 // 8), 8),
+            (tmax - rng.integers(0, 3, l2)) << wbits |
+            rng.integers(top - 8, top, l2),
+            rng.choice(np.array([-2**31, -2**31 + 1, -1, 0, 1,
+                                 I32_MAX - 1]), l2),
+            np.full(l2, I32_MAX),
+            rng.integers(0, 40, l2) << wbits | rng.integers(0, top, l2)]
+    pk = np.stack(rows)
+    n = rng.integers(l2 // 2, l2, len(rows))
+    n[-1] = l2                                                # no padding
+    pad = np.arange(l2)[None, :] >= n[:, None]
+    pad[5] = True
+    return np.where(pad, I32_MAX, pk).astype(np.int32)
+
+
+@pytest.mark.parametrize("l2", [128, 1024])
+@pytest.mark.parametrize("walk,dedup", [(1, 0), (2, 0), (32, 0), (48, 0),
+                                        (0, 1), (0, 6)])
+@pytest.mark.parametrize("mwir", [0, 1, 2, 7, "half", 2**31 - 1])
+def test_packed_sweep_model_matches_plain(l2, walk, dedup, mwir):
+    """B4's sweep by binary lifting, its top-k keys and targets held per
+    lane and the winner's begin slot from its own key equal the plain
+    version's walk over shifted lanes, K = 4 (and so every K below), for
+    mwir 0 (mwir - 1 wraps every padding lane's bound to INT32_MIN), 1,
+    2, 7, 2^(wbits - 1) and 2^31 - 1."""
+    wbits = 10
+    mwir = 1 << (wbits - 1) if mwir == "half" else mwir
+    rng = np.random.default_rng(l2 + walk * 7 + dedup * 3 + mwir % 97)
+    pk = _packed_sweep_rows(rng, l2, wbits)
+    mw = np.full(len(pk), mwir, np.int32)
+    mw[::2] = rng.choice(np.array([0, 1, 2, 7]), len(mw[::2]))
+    srt = torch.sort(torch.from_numpy(pk), dim=1).values
+    want = C.candidates_sorted_plain(srt, torch.from_numpy(mw), wbits,
+                                     walk, dedup, 4).numpy()
+    np.testing.assert_array_equal(
+        _packed_sweep_model(pk, mw, wbits, walk, dedup, 4), want)
+
+
+@pytest.mark.parametrize("value,split", [(None, False), ("0", False),
+                                         ("1", True), ("yes", True)])
+def test_split_route_reads_mc_split_cand(monkeypatch, value, split):
+    """MC_SPLIT_CAND as JAX's rows.py reads it ("0" fuses the sort into
+    B4, any other value splits it out), the fused form when unset; on
+    CPU tensors both routes give the plain sort and sweep's result."""
+    from metacache_tpu_torch.ops.rows import split_candidates
+    if value is None:
+        monkeypatch.delenv("MC_SPLIT_CAND", raising=False)
+    else:
+        monkeypatch.setenv("MC_SPLIT_CAND", value)
+    assert split_candidates() is split
+    rng = np.random.default_rng(8)
+    pk = _alternating(_slots(rng, 8, 512, 24, 60, 7), 64)
+    mwir = np.full(8, 3, np.int32)
+    got = _port(pk, mwir, 7, walk_elems=10, presorted=64,
+                split=split_candidates())
+    want = _jax(pk, mwir, 7, walk_elems=10, presorted=64, split=split)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)

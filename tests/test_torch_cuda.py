@@ -67,11 +67,13 @@ def test_sketch_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.parametrize("k", [16, 12])
-@pytest.mark.parametrize("w", [255, 256, 511])
+@pytest.mark.parametrize("w", [129, 255, 256, 511, 512, 600, 1000])
 def test_long_sketch_kernel_matches_plain(cuda, w, k):
-    """B2 on rows w bytes apart (unaligned from row 1 at 255 and 511),
-    with ambiguous runs across chunk cuts, all-ambiguous and repeated
-    windows, and valid lengths below k, at chunk bounds and random."""
+    """B2 on rows w bytes apart (unaligned from row 1 at odd w), and on
+    rows read in place from an unaligned start, with ambiguous runs
+    across chunk cuts, all-ambiguous and repeated windows, and valid
+    lengths below k, at chunk bounds (113, 128, 130, 512), past w and
+    random, s = 8, 16 and 128."""
     rng = np.random.default_rng(w + k)
     n = 4096
     codes = rng.integers(0, 4, (n, w), dtype=np.uint8)
@@ -85,18 +87,25 @@ def test_long_sketch_kernel_matches_plain(cuda, w, k):
     valid[2::13] = 113
     valid[6::17] = 130
     valid[8::19] = 250
+    valid[9::23] = 128
+    valid[10::29] = 512
+    valid[12::31] = w + 40
     c = torch.from_numpy(codes).to(cuda)
     v = torch.from_numpy(valid).to(cuda)
     before = kernels.SKETCH_LONG.launches
-    for s in (16, 8):
+    for s in (16, 8, 128):
         got = S.sketch_windows(c, v, k, s)
         torch.cuda.synchronize()
         assert torch.equal(got, S.sketch_windows_long_plain(c, v, k, s))
-    assert kernels.SKETCH_LONG.launches == before + 2
-    # a column slice: rows 2 w bytes apart, read in place
+    assert kernels.SKETCH_LONG.launches == before + 3
+    # column slices: rows 2 w bytes apart, and rows w + 1 bytes apart
+    # from an odd address, read in place
     wide = torch.cat([c, c], dim=1)[:, :w]
-    assert torch.equal(S.sketch_windows(wide, v, k, 16),
-                       S.sketch_windows_long_plain(c, v, k, 16))
+    odd = torch.cat([c[:, :1], c], dim=1)[:, 1:]
+    assert odd.data_ptr() % 2 == 1 and odd.stride(0) == w + 1
+    want = S.sketch_windows_long_plain(c, v, k, 16)
+    assert torch.equal(S.sketch_windows(wide, v, k, 16), want)
+    assert torch.equal(S.sketch_windows(odd, v, k, 16), want)
 
 
 def _alternate(key, r):
@@ -120,16 +129,18 @@ def _edge_slots(rng, l):
         rng.integers(-2**31, 2**31, l)]).astype(np.int32)
 
 
-SORT_CASES = [(l2, r) for l2 in (128, 1024, 4096, 32768)
-              for r in (0, 1, 64, 256, l2) if r <= l2]
+SORT_CASES = [(1 << e, r) for e in range(7, 16)
+              for r in (0, 1, 64, 256, 1 << e) if r <= 1 << e]
 
 
 @pytest.mark.parametrize("mode", ["walk", "dedup"])
 @pytest.mark.parametrize("l2,presorted", SORT_CASES)
 def test_sort_and_candidates_kernels_match_plain(cuda, mode, l2, presorted):
-    """B3 at every width class and presorted form (0, 1, runs of 64 and
-    256, the whole row), with edge rows; B4 on the sorted rows where the
-    width fits it."""
+    """B3 at every width from 128 to 32,768 lanes and every presorted
+    form (0, 1, runs of 64 and 256, the whole row), with edge rows; B4
+    on the same rows in both forms, sorting them itself (fused) and
+    after B3 (split), and on rows that arrive sorted, walk 10 or dedup 6
+    with mwir 0-7, K = 1-4."""
     rng = np.random.default_rng(11 + l2 + presorted)
     b = 256
     pk = np.concatenate([_slots(rng, b, l2, 40, 300, 10,
@@ -142,18 +153,22 @@ def test_sort_and_candidates_kernels_match_plain(cuda, mode, l2, presorted):
     torch.cuda.synchronize()
     assert kernels.SORT.launches == before + 1
     assert torch.equal(srt, C.sort_packed_plain(p))
-    if l2 > C.MAX_CAND_L2:
-        return
-    srt = srt[:b].contiguous()
     walk, dwalk = (10, 0) if mode == "walk" else (0, 6)
-    mw = torch.full((b,), 3, dtype=torch.int32, device=cuda)
-    for kk in (2, 4):
-        got = torch.stack(C.candidates_packed(
-            srt, mw, 10, walk_elems=walk, dedup_walk=dwalk,
-            max_candidates=kk, sorted_input=True), 2)
+    mw = torch.from_numpy(rng.integers(0, 8, len(pk)).astype(np.int32)
+                          ).to(cuda)
+    for kk in (1, 2, 3, 4):
         want = C.candidates_sorted_plain(srt, mw, 10, walk, dwalk, kk)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
+        for kw in ({}, {"split": True}, {"sorted_input": True}):
+            sorts = kernels.SORT.launches
+            cands = kernels.CANDIDATES.launches
+            got = torch.stack(C.candidates_packed(
+                srt if kw.get("sorted_input") else p, mw, 10,
+                walk_elems=walk, dedup_walk=dwalk, max_candidates=kk,
+                presorted=presorted, **kw), 2)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), kw
+            assert kernels.SORT.launches == sorts + ("split" in kw)
+            assert kernels.CANDIDATES.launches == cands + 1
 
 
 def _pair_rows(rng, b, l):
@@ -208,15 +223,24 @@ def test_unpacked_candidates_kernel_matches_plain(cuda, mode, l2, presorted):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("packing", [None, "0"])
+@pytest.mark.parametrize("packing,split", [(None, None), (None, "0"),
+                                           (None, "1"), ("0", None)])
 def test_fixture_query_on_the_card_matches_golden(cuda, tmp_path,
-                                                  monkeypatch, packing):
-    """The golden through B1, B3 and B4 (packed slots), or through B1 and
-    B5 under MC_PACK_SLOTS=0."""
+                                                  monkeypatch, packing,
+                                                  split):
+    """The golden through B1 and B4 (packed slots; B4 sorts the rows
+    itself, under MC_SPLIT_CAND=1 after B3), or through B1 and B5 under
+    MC_PACK_SLOTS=0: so both routes give the same lines."""
+    from metacache_tpu_torch.ops.rows import split_candidates
     monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+    if split is None:
+        monkeypatch.delenv("MC_SPLIT_CAND", raising=False)
+    else:
+        monkeypatch.setenv("MC_SPLIT_CAND", split)
     if packing is None:
         monkeypatch.delenv("MC_PACK_SLOTS", raising=False)
-        path = ("sketch", "sort", "candidates")
+        path = ("sketch", "sort", "candidates") if split_candidates() \
+            else ("sketch", "candidates")
     else:
         monkeypatch.setenv("MC_PACK_SLOTS", packing)
         path = ("sketch", "candidates_unpacked")
@@ -228,6 +252,7 @@ def test_fixture_query_on_the_card_matches_golden(cuda, tmp_path,
     with contextlib.redirect_stdout(buf):
         assert main(["query", db, f"{DATA}/reads_single.fa"]) == 0
     assert min(kernels.ALL[k].launches for k in path) > 0
+    assert kernels.SORT.launches == 0 or "sort" in path
     drop = ("# time:", "# speed:", "threads", DATA, "/tmp")
 
     def strip(text):

@@ -127,3 +127,84 @@ def test_long_window_sketch_matches(w, k, ref):
         ).numpy().view(np.uint32)
     np.testing.assert_array_equal(got, want)
     assert (got[4] == 0xFFFFFFFF).all() and (got[9] == 0xFFFFFFFF).all()
+
+
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _tm_hash(x):
+    """thomas_mueller on uint64 arrays of u32 values."""
+    m = np.uint64(0x45D9F3B)
+    x = (((x >> np.uint64(16)) ^ x) * m) & _M32
+    x = (((x >> np.uint64(16)) ^ x) * m) & _M32
+    return (x >> np.uint64(16)) ^ x
+
+
+def _take_s(vals, s):
+    """The s smallest distinct values, sentinel padded."""
+    u = np.unique(vals)[:s]
+    return np.concatenate([u, np.full(s - len(u), 0xFFFFFFFF, np.uint64)])
+
+
+def _whole_window_model(codes, valid, k, s):
+    """B2 as the kernel computes it: per window the span min(valid, W);
+    the k-mer and its reverse complement rolled one code a step, and the
+    position of the last ambiguous code; a hash at each start p with
+    p + k <= span and no ambiguous code, else the sentinel; spans up to
+    512 in one sort + dedup + take s, wider ones in 512-char chunks at
+    stride 512 - (k - 1), each chunk's s smallest distinct merged into a
+    running sketch by sort + dedup + take s."""
+    n, w = codes.shape
+    span = np.clip(valid.astype(np.int64), 0, w)
+    kmask = np.uint64((1 << (2 * k)) - 1)
+    fw = np.zeros(n, np.uint64)
+    rc = np.zeros(n, np.uint64)
+    last = np.full(n, -1)
+    hashes = np.full((n, w), 0xFFFFFFFF, np.uint64)
+    for t in range(w):
+        amb = codes[:, t] >= 4
+        c = np.where(amb, 0, codes[:, t]).astype(np.uint64)
+        fw = ((fw << np.uint64(2)) | c) & kmask
+        rc = (rc >> np.uint64(2)) | ((np.uint64(3) - c) <<
+                                     np.uint64(2 * k - 2))
+        last = np.where(amb, t, last)
+        p = t - (k - 1)
+        if p >= 0:
+            ok = (last < p) & (t < span)
+            hashes[:, p] = np.where(ok, _tm_hash(np.minimum(fw, rc)),
+                                    0xFFFFFFFF)
+    out = np.empty((n, s), np.uint64)
+    stride = 512 - (k - 1)
+    for i in range(n):
+        nv = max(int(span[i]) - (k - 1), 0)
+        if span[i] <= 512:
+            out[i] = _take_s(hashes[i, :max(nv, 1)], s)
+            continue
+        run = np.full(s, 0xFFFFFFFF, np.uint64)
+        for lo in range(0, nv, stride):
+            cnt = min(int(span[i]) - lo, 512) - (k - 1)   # starts in chunk
+            chunk = _take_s(hashes[i, lo:lo + cnt], s)
+            run = _take_s(np.concatenate([run, chunk]), s)
+        out[i] = run
+    return out.astype(np.uint32)
+
+
+@pytest.mark.parametrize("s", [8, 16, 128])
+@pytest.mark.parametrize("k", [12, 16])
+@pytest.mark.parametrize("w", [129, 200, 255, 256, 511, 512, 600, 1000])
+def test_whole_window_model_matches(w, k, s):
+    """B2's whole-window definition (rolling k-mers, ambiguity by the
+    last ambiguous position, one sort, dedup and take s; 512-char chunks
+    and a running sketch above 512) equals its plain version and the
+    interpreted Pallas kernel it replaces, with valid lengths below k, at
+    113, 128, 130 and 250, at W, past W and random."""
+    codes, valid = _long_windows(w, k, seed=w + k + s)
+    valid[17] = 128
+    valid[18] = w + 37
+    want = _whole_window_model(codes, valid, k, s)
+    np.testing.assert_array_equal(_port(codes, valid, k, s), want)
+    with pltpu.force_tpu_interpret_mode():
+        jx = np.asarray(sketch_windows_pallas_long(
+            jnp.asarray(codes), jnp.asarray(valid), k=k, sketchlen=s,
+            tile=64))
+    np.testing.assert_array_equal(jx, want)
