@@ -41,6 +41,8 @@ saved CSR and fills the probe rows on the card.
   give the same result, per read too.
 
 B3 runs ahead of B4 wherever MC_SPLIT_CAND=1 selects the split route.
+At winlen 127 the summary path hands B1 the runner's 2-bit packed rows,
+which B1 reads itself.
 Each path queries 2^20 reads (100 bp; 250 bp at winlen 255) on the
 summary path, 65,536 reads on the per-read path, and one batch of the
 scan step compared with the plain path on CPU tensors of the same
@@ -128,10 +130,37 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return s.elapsed_time(e) / reps
 
 
+def kernel_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds of a call that launches one kernel:
+    ``reps`` calls captured in one CUDA graph, replayed 5 times between
+    CUDA events, so the kernels run back to back without the wrappers'
+    host time (the graph's launch gap between them included). Used in
+    place of torch.profiler's kernel durations, which short traces here
+    report wrongly (events lost, or read at half their time)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(5):
+        g.replay()
+    e.record()
+    torch.cuda.synchronize()
+    del g
+    return s.elapsed_time(e) / (5 * reps)
+
+
 def device_ms(fn, reps: int = 4) -> float:
-    """Mean device milliseconds per call: the time of the kernels
-    themselves in a torch.profiler trace of ``reps`` calls after a
-    warm-up, without the gaps between launches."""
+    """Mean device milliseconds of a call of many kernels (a query step):
+    the time of the kernels themselves in a torch.profiler trace of
+    ``reps`` calls after a warm-up, without the gaps between launches;
+    low by any kernel event the trace loses."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -192,6 +221,14 @@ def sketch_inputs(rng, n: int):
     valid[2::19] = rng.integers(16, 128, len(valid[2::19]))
     codes[:, 127] = 4
     return codes, valid
+
+
+def pack_2bit(codes: np.ndarray) -> np.ndarray:
+    """(n, 4 m) codes 0..3 -> (n, m) bytes, four a byte, low bits first
+    (the runner's infeed)."""
+    return np.ascontiguousarray(
+        codes[:, 0::4] | (codes[:, 1::4] << 2) | (codes[:, 2::4] << 4) |
+        (codes[:, 3::4] << 6)).astype(np.uint8)
 
 
 def slot_pairs(rng, b: int, l: int, ntgt: int = 9217, nwin: int = 71428):
@@ -344,10 +381,11 @@ def phase_kernels():
 
 
 def _record(results, name, *, err, ms, plain_ms, nbytes, nops, shape,
-            library_ms=None):
+            host_us, device_ms=None, library_ms=None):
     b_ms, by = bound(nbytes, nops)
     results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=by, library_ms=library_ms,
+                         device_ms=device_ms, host_us_per_call=host_us,
                          shape=shape)
     return b_ms, by
 
@@ -357,37 +395,10 @@ def phase_parity(results):
     tolerance 0 (integer outputs). The launches made here are not the
     main path's: the counts are zeroed before each query."""
     from metacache_tpu_torch.ops import candidates as C
-    from metacache_tpu_torch.ops import sketch as S
     dev = torch.device("cuda")
     rng = np.random.default_rng(1234)
 
-    n = 65536
-    codes, valid = sketch_inputs(rng, n)
-    c = torch.from_numpy(codes).to(dev)
-    v = torch.from_numpy(valid).to(dev)
-    got = S.sketch_windows(c, v, 16, 16)
-    want = S.sketch_windows_plain(c, v, 16, 16)
-    err = check_equal("B1 sketch", got, want)
-    ms = cuda_ms(lambda: S.sketch_windows(c, v, 16, 16))
-    pms = cuda_ms(lambda: S.sketch_windows_plain(c, v, 16, 16))
-    # per k-mer position: 2-bit update, reverse complement, canonical
-    # min and hash (~20 ops), plus ~2 to keep the s smallest
-    kpos = int(np.maximum(valid.astype(np.int64) - 15, 0).sum())
-    b_ms, by = _record(results, "sketch", err=err, ms=ms, plain_ms=pms,
-                       nbytes=codes.nbytes + valid.nbytes + n * 16 * 4,
-                       nops=22 * kpos,
-                       shape="(65536, 128) windows, k=16, s=16")
-    # the scan batch's shape: 8192 windows of a 100 bp read stack
-    c8, v8 = c[:SCAN_BATCH], v[:SCAN_BATCH]
-    kpos8 = int(np.maximum(valid[:SCAN_BATCH].astype(np.int64) - 15,
-                           0).sum())
-    say("parity-B1", windows=n, tolerance=0, max_abs_err=err, ms=ms,
-        plain_ms=pms, bound_ms=b_ms, bound_by=by,
-        scan_8192x128_ms=cuda_ms(lambda: S.sketch_windows(c8, v8, 16, 16)),
-        scan_8192x128_plain_ms=cuda_ms(
-            lambda: S.sketch_windows_plain(c8, v8, 16, 16)),
-        scan_8192x128_bound_ms=bound(SCAN_BATCH * (128 + 4 + 16 * 4),
-                                     22 * kpos8)[0])
+    phase_parity_b1(results, rng, dev)
     phase_parity_long(results, rng, dev)
 
     b, l2, r = 8192, 4096, 256
@@ -413,15 +424,18 @@ def phase_parity(results):
     ms = cuda_ms(lambda: C.sort_packed(alt, r))
     pms = cuda_ms(lambda: C.sort_packed_plain(alt, r))
     lib = cuda_ms(lambda: torch.sort(alt, dim=1))
+    hus = host_us(lambda: C.sort_packed(alt, r))
+    dms = kernel_ms(lambda: C.sort_packed(alt, r))
     b_ms, by = _record(results, "sort", err=max(errs.values()), ms=ms,
-                       plain_ms=pms, library_ms=lib,
+                       plain_ms=pms, library_ms=lib, host_us=hus,
+                       device_ms=dms,
                        nbytes=2 * alt.numel() * 4,
                        nops=sort_ops(b, l2, r, 1),
                        shape="(8192, 4096) slots, presorted=256")
     say("parity-B3", rows=b, width=l2, tolerance=0,
         max_abs_err=max(errs.values()), cases=errs, ms=ms, plain_ms=pms,
-        library_ms=lib, bound_ms=b_ms, bound_by=by,
-        ms_8192x1024_presorted64=ms1k,
+        library_ms=lib, bound_ms=b_ms, bound_by=by, host_us_per_call=hus,
+        kernel_device_ms=dms, ms_8192x1024_presorted64=ms1k,
         bound_ms_8192x1024_presorted64=bound(
             2 * alt1k.numel() * 4, sort_ops(b, 1024, 64, 1))[0])
     phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r)
@@ -461,15 +475,21 @@ def phase_parity(results):
         at, aw, mw, walk_elems=32, max_candidates=2))
     # the (tgt, win) merge of B3's model on two-word keys, then B4's
     # sweep with the target and window compares apart
+    hus = host_us(lambda: C.candidates_unpacked(
+        at, aw, mw, walk_elems=32, max_candidates=2, presorted=r))
+    dms = kernel_ms(lambda: C.candidates_unpacked(
+        at, aw, mw, walk_elems=32, max_candidates=2, presorted=r))
     b_ms, by = _record(results, "candidates_unpacked",
                        err=max(errs.values()), ms=ms, plain_ms=pms,
+                       host_us=hus, device_ms=dms,
                        nbytes=2 * at.numel() * 4 + b * 4 + b * 2 * 16,
                        nops=sort_ops(b, l2, r, 2) + at.numel() * (6 + 4),
                        shape="(8192, 4096) (tgt, win) slots, presorted=256,"
                              " walk 32, K=2")
     say("parity-B5", rows=b, width=l2, tolerance=0,
         max_abs_err=max(errs.values()), cases=errs, ms=ms, plain_ms=pms,
-        bound_ms=b_ms, bound_by=by, dedup_case="(2048, 1024) dedup_walk=6",
+        bound_ms=b_ms, bound_by=by, host_us_per_call=hus,
+        kernel_device_ms=dms, dedup_case="(2048, 1024) dedup_walk=6",
         wide_case="(1024, 16384) presorted=256")
 
     phase_parity_decode(results, rng, dev)
@@ -481,6 +501,107 @@ def turns(fa, fb):
     mean ms and the four readings."""
     r = [cuda_ms(fa), cuda_ms(fb), cuda_ms(fb), cuda_ms(fa)]
     return (r[0] + r[3]) / 2, (r[1] + r[2]) / 2, r
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Mean host microseconds a call over ``reps`` unsynchronised calls:
+    the wrapper's checks, allocations and launch, not the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def phase_parity_b1(results, rng, dev):
+    """B1 against its plain version, tolerance 0: on the build's
+    (65536, 128) and the scan batch's (8192, 128) codes, and on the scan
+    batch's packed rows, which B1 reads itself, of 32 bytes and of 28
+    (the summary path's: the runner crops a stack's rows to its
+    longest read, 100 bp), the same windows with every ambiguous code
+    made 2 (the infeed holds none; the reference is the unpack and
+    padding, then the plain version), at k 16 and 12 and s 16, 8 and
+    128. Its event, device and host times at each shape; the kernels
+    line's row is (65536, 128)."""
+    from metacache_tpu_torch.ops import sketch as S
+    n = 65536
+    codes, valid = sketch_inputs(rng, n)
+    clean = np.where(codes < 4, codes, 2).astype(np.uint8)
+    c = torch.from_numpy(codes).to(dev)
+    v = torch.from_numpy(valid).to(dev)
+    c8, v8 = c[:SCAN_BATCH], v[:SCAN_BATCH]
+    p8 = torch.from_numpy(pack_2bit(clean[:SCAN_BATCH])).to(dev)
+    p7 = torch.from_numpy(pack_2bit(clean[:SCAN_BATCH, :112])).to(dev)
+    u8 = S.unpack_2bit(p8)
+    u7 = S.pad_windows(S.unpack_2bit(p7))
+    errs = {}
+    for k, s in ((16, 16), (16, 8), (16, 128), (12, 16), (12, 8),
+                 (12, 128)):
+        for name, got, want in (
+                ("65536x128", lambda: S.sketch_windows(c, v, k, s),
+                 lambda: S.sketch_windows_plain(c, v, k, s)),
+                ("8192x128", lambda: S.sketch_windows(c8, v8, k, s),
+                 lambda: S.sketch_windows_plain(c8, v8, k, s)),
+                ("8192x32_packed",
+                 lambda: S.sketch_windows_packed(p8, v8, k, s),
+                 lambda: S.sketch_windows_plain(u8, v8, k, s)),
+                ("8192x28_packed",
+                 lambda: S.sketch_windows_packed(p7, v8, k, s),
+                 lambda: S.sketch_windows_plain(u7, v8, k, s))):
+            key = f"{name}_k{k}_s{s}"
+            errs[key] = check_equal(f"B1 {key}", got(), want())
+    # per k-mer position: 2-bit update, reverse complement, canonical
+    # min and hash (~20 ops), plus ~2 to keep the s smallest
+    kpos = int(np.maximum(valid.astype(np.int64) - 15, 0).sum())
+    kpos8 = int(np.maximum(valid[:SCAN_BATCH].astype(np.int64) - 15,
+                           0).sum())
+
+    def full():
+        return S.sketch_windows(c, v, 16, 16)
+
+    def scan():
+        return S.sketch_windows(c8, v8, 16, 16)
+
+    def packed():
+        return S.sketch_windows_packed(p8, v8, 16, 16)
+
+    def cropped():
+        return S.sketch_windows_packed(p7, v8, 16, 16)
+    ms, hus = cuda_ms(full), host_us(full)
+    b_ms, by = _record(results, "sketch", err=max(errs.values()), ms=ms,
+                       plain_ms=cuda_ms(lambda: S.sketch_windows_plain(
+                           c, v, 16, 16)),
+                       nbytes=codes.nbytes + valid.nbytes + n * 16 * 4,
+                       nops=22 * kpos, device_ms=kernel_ms(full),
+                       host_us=hus,
+                       shape="(65536, 128) windows, k=16, s=16")
+    scan_b = bound(SCAN_BATCH * (128 + 4 + 16 * 4), 22 * kpos8)[0]
+    packed_b = bound(SCAN_BATCH * (32 + 4 + 16 * 4), 22 * kpos8)[0]
+    say("parity-B1", windows=n, tolerance=0, max_abs_err=max(errs.values()),
+        cases=len(errs), ms=ms,
+        kernel_device_ms=results["sketch"]["device_ms"], host_us_per_call=hus,
+        plain_ms=results["sketch"]["plain_ms"], bound_ms=b_ms, bound_by=by,
+        scan_8192x128_ms=cuda_ms(scan),
+        scan_8192x128_device_ms=kernel_ms(scan),
+        scan_8192x128_host_us=host_us(scan),
+        scan_8192x128_plain_ms=cuda_ms(
+            lambda: S.sketch_windows_plain(c8, v8, 16, 16)),
+        scan_8192x128_bound_ms=scan_b,
+        packed_8192x32_ms=cuda_ms(packed),
+        packed_8192x32_device_ms=kernel_ms(packed),
+        packed_8192x32_host_us=host_us(packed),
+        packed_8192x32_plain_ms=cuda_ms(
+            lambda: S.sketch_windows_plain(S.unpack_2bit(p8), v8, 16, 16)),
+        packed_8192x32_bound_ms=packed_b,
+        packed_8192x28_ms=cuda_ms(cropped),
+        packed_8192x28_device_ms=kernel_ms(cropped),
+        packed_8192x28_host_us=host_us(cropped),
+        packed_8192x28_bound_ms=bound(
+            SCAN_BATCH * (28 + 4 + 16 * 4), 22 * int(np.maximum(np.minimum(
+                valid[:SCAN_BATCH], 112).astype(np.int64) - 15, 0).sum()))[0])
 
 
 def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):
@@ -566,13 +687,23 @@ def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):
                     sort_ops(b, l2, r, 1) + sweep_ops)
     fused1k_b = bound(alt1k.numel() * 4 + out_bytes,
                       sort_ops(b, 1024, 64, 1) + alt1k.numel() * 8)
+    split_hus = host_us(lambda: C.candidates_packed(
+        srt, mw, 15, sorted_input=True, **kw))
+    fused_hus = host_us(lambda: C.candidates_packed(alt, mw, 15, presorted=r,
+                                                    **kw))
+    split_dms = kernel_ms(lambda: C.candidates_packed(
+        srt, mw, 15, sorted_input=True, **kw))
+    fused_dms = kernel_ms(lambda: C.candidates_packed(alt, mw, 15,
+                                                      presorted=r, **kw))
     if split_candidates():
-        row = dict(ms=split_ms, plain_ms=sweep_plain_ms,
+        row = dict(ms=split_ms, plain_ms=sweep_plain_ms, host_us=split_hus,
+                   device_ms=split_dms,
                    nbytes=srt.numel() * 4 + out_bytes, nops=sweep_ops,
                    shape="(8192, 4096) sorted slots, walk 32, K=2 "
                          "(split route: after B3)")
     else:
-        row = dict(ms=fused_ms, plain_ms=fused_plain_ms,
+        row = dict(ms=fused_ms, plain_ms=fused_plain_ms, host_us=fused_hus,
+                   device_ms=fused_dms,
                    nbytes=alt.numel() * 4 + out_bytes,
                    nops=sort_ops(b, l2, r, 1) + sweep_ops,
                    shape="(8192, 4096) slots, presorted=256, walk 32, K=2 "
@@ -582,7 +713,10 @@ def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):
         max_abs_err=max(errs.values()), cases=errs,
         default_route="split" if split_candidates() else "fused",
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=b_ms, bound_by=by,
-        split_ms=split_ms, split_bound_ms=split_b[0],
+        host_us_per_call=row["host_us"], split_host_us=split_hus,
+        fused_host_us=fused_hus, split_device_ms=split_dms,
+        fused_device_ms=fused_dms, split_ms=split_ms,
+        split_bound_ms=split_b[0],
         split_plain_ms=sweep_plain_ms, split_walk48_ms=split48_ms,
         fused_ms=fused_ms, fused_bound_ms=fused_b[0],
         fused_plain_ms=fused_plain_ms, b3_b4_ms=route_ms,
@@ -636,14 +770,19 @@ def phase_parity_long(results, rng, dev):
             rec[(n, w)] = (cuda_ms(lambda: S.sketch_windows(c, v, k, 16)),
                            cuda_ms(lambda: S.sketch_windows_long_plain(
                                c, v, k, 16)),
-                           n * w + 4 * n + 4 * n * 16, 22 * kpos)
-    ms, pms, nbytes, nops = rec[(65536, 255)]
+                           n * w + 4 * n + 4 * n * 16, 22 * kpos,
+                           host_us(lambda: S.sketch_windows(c, v, k, 16)),
+                           kernel_ms(lambda: S.sketch_windows(c, v, k, 16)))
+    ms, pms, nbytes, nops, hus, dms = rec[(65536, 255)]
     b_ms, by = _record(results, "sketch_long", err=max(errs.values()),
                        ms=ms, plain_ms=pms, nbytes=nbytes, nops=nops,
+                       host_us=hus, device_ms=dms,
                        shape="(65536, 255) windows, k=16, s=16")
-    sms, spms, sbytes, sops = rec[(8192, 256)]
+    sms, spms, sbytes, sops, shus, sdms = rec[(8192, 256)]
     say("parity-B2", tolerance=0, max_abs_err=max(errs.values()),
         cases=errs, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        host_us_per_call=hus, kernel_device_ms=dms,
+        scan_8192x256_host_us=shus, scan_8192x256_device_ms=sdms,
         scan_8192x256_ms=sms, scan_8192x256_plain_ms=spms,
         scan_8192x256_bound_ms=bound(sbytes, sops)[0])
 
@@ -685,7 +824,9 @@ def decode_probes(rng, feats, n: int):
 def phase_parity_decode(results, rng, dev):
     """B6 and B7 at the main path's 131,072 probes (8192 reads x 16
     features) on a 2 M-feature table (512 MB of head rows, past the L2
-    cache), against their plain versions."""
+    cache), against their plain versions. B6 also at rl 64, 128 and 256,
+    f 16 and 1, on 131,072 + 17 probes (not a multiple of 32), and on a
+    head view 4 bytes past 16-byte alignment (its 4-byte path)."""
     from metacache_tpu_torch.ops import probe_decode as D
     n, f, hsl, c = 131072, 16, 61, 254
     feats, head_np, ovf_np = two_tier_table(rng, 1 << 21)
@@ -696,23 +837,40 @@ def phase_parity_decode(results, rng, dev):
     # meta lanes, the slots its count keeps; the outputs once
     row = head_np[np.minimum(idx_np, len(feats) - 1)]
     cnt = np.where((row[:, 0] == flat_np) & (flat_np != -1), row[:, 1], 0)
-    errs = []
-    for rl in (64, 256):
-        pk, cn = D.head_decode(head, idx, flat, hsl, rl, f)
-        wpk, wcn = D.head_decode_plain(head, idx, flat, hsl, rl, f)
-        errs += [check_equal(f"B6 rl={rl}", pk, wpk),
-                 check_equal(f"B6 cnt rl={rl}", cn, wcn)]
-    ms = cuda_ms(lambda: D.head_decode(head, idx, flat, hsl, 64, f))
-    dms = device_ms(lambda: D.head_decode(head, idx, flat, hsl, 64, f))
+    # a separate generator: the later phases' data stay as they were
+    idx17, flat17 = (torch.from_numpy(a).to(dev) for a in decode_probes(
+        np.random.default_rng(4321), feats, n + 17))
+    shifted = torch.cat([head.new_zeros(1), head.reshape(-1)])[1:].view(
+        head.shape)
+    assert shifted.data_ptr() % 16 == 4
+    errs = {}
+    for name, h, ii, ff_ in (("", head, idx, flat),
+                             ("n+17_", head, idx17, flat17),
+                             ("4byte_", shifted, idx, flat)):
+        for rl in (64, 128, 256):
+            for ff in (16, 1):
+                pk, cn = D.head_decode(h, ii, ff_, hsl, rl, ff)
+                wpk, wcn = D.head_decode_plain(h, ii, ff_, hsl, rl, ff)
+                key = f"{name}rl{rl}_f{ff}"
+                errs[key] = max(check_equal(f"B6 {key}", pk, wpk),
+                                check_equal(f"B6 cnt {key}", cn, wcn))
+    del idx17, flat17
+    def call():
+        return D.head_decode(head, idx, flat, hsl, 64, f)
+    ms, dms, hus = cuda_ms(call), kernel_ms(call), host_us(call)
+    dms4 = kernel_ms(lambda: D.head_decode(shifted, idx, flat, hsl, 64, f))
+    del shifted
     pms = cuda_ms(lambda: D.head_decode_plain(head, idx, flat, hsl, 64, f))
     kept = int(np.minimum(cnt, hsl).sum())
-    b_ms, by = _record(results, "head_decode", err=max(errs), ms=ms,
-                       plain_ms=pms, nbytes=n * (8 + 12 + 4 + 64 * 4)
-                       + kept * 4, nops=n * 64 * 2,
+    b_ms, by = _record(results, "head_decode", err=max(errs.values()), ms=ms,
+                       plain_ms=pms, device_ms=dms, host_us=hus,
+                       nbytes=n * (8 + 12 + 4 + 64 * 4) + kept * 4,
+                       nops=n * 64 * 2,
                        shape="131072 probes, f=16, hsl=61, rl=64")
-    say("parity-B6", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
-        kernel_device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
-        deep_share=round(float((cnt > hsl).mean()), 4),
+    say("parity-B6", probes=n, tolerance=0, max_abs_err=max(errs.values()),
+        cases=errs, ms=ms, kernel_device_ms=dms, host_us_per_call=hus,
+        four_byte_path_device_ms=dms4, plain_ms=pms, bound_ms=b_ms,
+        bound_by=by, deep_share=round(float((cnt > hsl).mean()), 4),
         miss_share=round(float((cnt == 0).mean()), 4))
 
     errs = []
@@ -720,18 +878,19 @@ def phase_parity_decode(results, rng, dev):
         got = D.full_decode(head, ovf, idx, flat, hsl, c, rl, ff)
         want = D.full_decode_plain(head, ovf, idx, flat, hsl, c, rl, ff)
         errs.append(check_equal(f"B7 rl={rl} f={ff}", got, want))
-    ms = cuda_ms(lambda: D.full_decode(head, ovf, idx, flat, hsl, c, 256, f))
-    dms = device_ms(lambda: D.full_decode(head, ovf, idx, flat, hsl, c, 256,
-                                          f))
+    def call():
+        return D.full_decode(head, ovf, idx, flat, hsl, c, 256, f)
+    ms, dms, hus = cuda_ms(call), kernel_ms(call), host_us(call)
     pms = cuda_ms(lambda: D.full_decode_plain(head, ovf, idx, flat, hsl, c,
                                               256, f))
     b_ms, by = _record(results, "full_decode", err=max(errs), ms=ms,
-                       plain_ms=pms, nbytes=n * (8 + 12 + 256 * 4)
+                       plain_ms=pms, device_ms=dms, host_us=hus,
+                       nbytes=n * (8 + 12 + 256 * 4)
                        + int(cnt.sum()) * 4, nops=n * 256 * 2,
                        shape="131072 probes, f=16, hsl=61, c=254, rl=256")
     say("parity-B7", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
-        kernel_device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
-        cases="rl 256/512 f=16, rl 256 f=1")
+        kernel_device_ms=dms, host_us_per_call=hus, plain_ms=pms,
+        bound_ms=b_ms, bound_by=by, cases="rl 256/512 f=16, rl 256 f=1")
 
 
 def probe_stream(rng, nf: int):
@@ -799,16 +958,19 @@ def phase_parity_probe(results, rng, dev):
     errs += [check_equal("B9 idx", idx, widx),
              check_equal("B9 found", found, wfound)]
     ms = cuda_ms(lambda: D.bucket_decode(dt.brows, flat, dt.bbits))
-    dms = device_ms(lambda: D.bucket_decode(dt.brows, flat, dt.bbits))
+    dms = kernel_ms(lambda: D.bucket_decode(dt.brows, flat, dt.bbits))
     pms = cuda_ms(lambda: D.bucket_decode_plain(dt.brows, flat, dt.bbits))
     # per probe: the feature, its 64-lane (256 B) bucket row, idx + found
+    hus = host_us(lambda: D.bucket_decode(dt.brows, flat, dt.bbits))
     b_ms, by = _record(results, "bucket_decode", err=max(errs), ms=ms,
-                       plain_ms=pms, nbytes=n * (4 + 256 + 4 + 1),
+                       plain_ms=pms, device_ms=dms, host_us=hus,
+                       nbytes=n * (4 + 256 + 4 + 1),
                        nops=n * 64 * 3,
                        shape=f"131072 probes, {dt.bbits} bucket bits, "
                              "2 M-feature table")
     say("parity-B9", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
-        kernel_device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        kernel_device_ms=dms, host_us_per_call=hus, plain_ms=pms,
+        bound_ms=b_ms, bound_by=by,
         found_share=round(float(found.float().mean()), 4),
         table_build_seconds=round(build_s, 3), features=dt.nf,
         locations=dt.num_locations, bucket_bits=dt.bbits,
@@ -823,15 +985,18 @@ def phase_parity_probe(results, rng, dev):
                                            128, 16, oidx),
         D.full_decode_plain(head, ovf, idx, flat, 61, dt.spf, 128, 16)))
     ms = cuda_ms(lambda: D.oidx_decode(head, idx, flat))
-    dms = device_ms(lambda: D.oidx_decode(head, idx, flat))
+    dms = kernel_ms(lambda: D.oidx_decode(head, idx, flat))
     pms = cuda_ms(lambda: D.oidx_decode_plain(head, idx, flat))
     # per probe: its row index and feature, head lanes 0 and 2, oidx
+    hus = host_us(lambda: D.oidx_decode(head, idx, flat))
     b_ms, by = _record(results, "oidx_decode", err=max(errs), ms=ms,
-                       plain_ms=pms, nbytes=n * (4 + 4 + 8 + 4),
+                       plain_ms=pms, device_ms=dms, host_us=hus,
+                       nbytes=n * (4 + 4 + 8 + 4),
                        nops=n * 4, shape="131072 probes, pair-packed head "
                                          "rows, 2 M-feature table")
     say("parity-B8", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
-        kernel_device_ms=dms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        kernel_device_ms=dms, host_us_per_call=hus, plain_ms=pms,
+        bound_ms=b_ms, bound_by=by,
         deep_share=round(float((oidx > 0).float().mean()), 4))
     del dt, head, ovf, flat, idx, oidx, found
     torch.cuda.empty_cache()
@@ -1038,8 +1203,7 @@ def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
     nb = (runner.sketching.winlen + 3) // 4
     c4 = np.zeros((b, 4 * nb), np.uint8)
     c4[:, :rl] = reads[:b]
-    packed = (c4[:, 0::4] | (c4[:, 1::4] << 2) | (c4[:, 2::4] << 4) |
-              (c4[:, 3::4] << 6)).reshape(1, b, 1, nb)
+    packed = pack_2bit(c4).reshape(1, b, 1, nb)
     mw = 2 + rl // runner.db.sketching.winstride
     vmat = np.full((1, b, 1), rl, np.uint8)
     mwir = np.full((1, b), mw, np.uint8)
@@ -1153,8 +1317,7 @@ def packed_stack(reads, b: int):
     native reader's layout): (1, b, 1, 32) u8, lengths, mwir 2."""
     c4 = np.zeros((b, 128), np.uint8)
     c4[:, :READ_LEN] = reads[:b]
-    packed = (c4[:, 0::4] | (c4[:, 1::4] << 2) | (c4[:, 2::4] << 4) |
-              (c4[:, 3::4] << 6)).reshape(1, b, 1, 32)
+    packed = pack_2bit(c4).reshape(1, b, 1, 32)
     return (torch.from_numpy(packed), torch.full((1, b, 1), READ_LEN,
                                                  dtype=torch.uint8),
             torch.full((1, b), 2, dtype=torch.uint8))
@@ -1556,7 +1719,10 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"], "shape": r["shape"]})
+                     "library_ms": r["library_ms"],
+                     "device_ms": r["device_ms"],
+                     "host_us_per_call": r["host_us_per_call"],
+                     "shape": r["shape"]})
     if min(r["launches"] for r in rows) <= 0:
         raise AssertionError("a kernel of the main path never launched")
     say("done", seconds=round(time.time() - t_start, 3))

@@ -244,52 +244,64 @@ I/O
 
 ENVIRONMENT
 
-    MC_JAX_PLATFORM=cpu     force the CPU backend.
-    MC_SCAN_K=<k>           batches fused per device dispatch on the
-                            summary-only fast path (default 8).
-    MC_GOLDEN_TPU=1         run the golden test suite on the real chip.
+    MC_TORCH_DEVICE=cpu     run on the CPU, every kernel through its
+                            plain PyTorch version; without it the port
+                            needs a CUDA device.
+    MC_SCAN_K=<k>           batches stacked per device dispatch on the
+                            summary-only fast path (default 32, fewer
+                            when the input holds fewer batches).
     MC_NATIVE=0             disable the native C++ reader fast paths.
     MC_DEVICE_LAYOUT=0      stage probe layouts on the host instead of
                             building them on device.
-    MC_HBM_GB=<n>           override the device-memory budget used for
+    MC_HBM_GB=<n>           override the device-memory total used for
                             probe-layout selection.
+    MC_DENSE_LIMIT=<bytes>  stage dense rows only when they take at
+                            most this many bytes (1 refuses them).
     MC_CLASSED=<0|1>        size-classed head layout: 0 never, 1 always.
                             Unset = auto: uniform two-tier heads when
                             the memory budget allows a full 61-slot
-                            head (~12% faster probes), size-classed
-                            cells when the budget would otherwise pinch
-                            the head (deeper heads + ~2.4x capacity for
-                            the same bytes).
+                            head, size-classed cells when the budget
+                            would otherwise pinch the head.
+    MC_PACK_ROWS=<0|1>      pair-pack 64-lane rows (unset: auto).
+    MC_PACK_SLOTS=0         keep (target, window) slots unpacked.
+    MC_PACK_STORE=0         with unpacked slots, keep lane rows.
     MC_ESCALATE=0           disable adaptive bucket-depth escalation
                             (every read pays worst-case bucket depth).
-    MC_ESC_FUSED=0          run escalation phase 2 as separate redo
-                            dispatches instead of inside the phase-1
-                            scan (the fused default interleaves the
-                            redo's sort under phase 1's row gathers,
-                            measured ~5% faster).
-    MC_ESC_B2=<n>           flagged-read slice width per fused dispatch
-                            (default: half the batch size).
-    MC_NATIVE_FMT=0         disable the native per-read line formatter
-                            (fall back to the Python writer).
-    MC_PREFETCH=0           disable the software-pipelined scan.
-    MC_SKETCH_MODE=extract  swap the Pallas sketcher's in-kernel sort
-                            for iterative min-extraction (bit-exact).
+    MC_SKETCH_MODE=<sort|extract>
+                            the JAX package's choice of sketch
+                            selection; both give the same sketches.
+                            The port's sketch kernel of windows up to
+                            128 characters (B1) always takes s warp
+                            minima (extract), which was faster than
+                            the sort on an H100, so either value
+                            changes nothing; any other value is
+                            refused.
     MC_SPLIT_CAND=<0|1>     1: sort the packed match slots with
                             their own kernel, then sweep them; 0
                             (default): the sweep kernel sorts each
                             row itself (one pass less over memory).
     MC_PROBE_PALLAS=<0|1|list>
-                            Pallas probe-decode kernels: 0 none,
-                            1 all, or a comma list of stages from
-                            bucket,head,full (default on device
-                            backends: head,full — the bucket kernel
-                            measured as a net loss in composed steps).
+                            extra probe-decode kernels: 0 or unset
+                            none, 1 all, or a comma list of stages from
+                            bucket,oidx (the bucket-row probe, B9, and
+                            the overflow-row id, B8). The two-tier
+                            decodes (B6 head only, B7 full depth)
+                            always run.
     MC_BUILD_GBITS=<g>      force 2^g feature-range groups in the
                             bounded-memory device build (default:
                             auto-sized to ~48M elements per group).
-    MC_BUILD_DEBUG=1        print per-phase device-build progress.
+
+    Not read by the port yet (JAX package knobs of modules still to be
+    ported; ROADMAP.md queue A):
+    MC_PREFETCH=0           the software-pipelined scan (A6, item 2).
+    MC_ESC_FUSED=0          the fused escalation dispatch (item 2).
+    MC_ESC_B2=<n>           its flagged-read slice width (item 2).
+    MC_NATIVE_FMT=0         the native per-read line formatter (the
+                            host pipeline, item 2).
+    MC_BUILD_DEBUG=1        per-phase device-build progress (the
+                            staging split, item 5, A10).
     MC_SHARD_LAYOUT=<auto|dense|two_tier>
-                            force the -table-shards shard layout.
+                            the -table-shards shard layout (A14, item 7).
 """,
     "build+query": """\
 metacache_tpu_torch build+query — build a database in memory and query it

@@ -98,7 +98,7 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.mc_sketch_windows.argtypes = [p, p, p, i64, i, i, p]
+            lib.mc_sketch_windows.argtypes = [p, p, p, i64, i, i, i, i, p]
             lib.mc_sketch_windows_long.argtypes = [p, p, p, i64, i, i64, i,
                                                    i, p]
             lib.mc_sort_packed.argtypes = [p, p, i64, i, i, p]
@@ -125,6 +125,15 @@ def _load():
     return _lib
 
 
+def _stream_getter():
+    """-> a function giving the current CUDA stream of the current device
+    as an int (what torch.cuda.current_stream().cuda_stream gives,
+    without building a Stream object a launch)."""
+    import torch
+    raw, device = torch._C._cuda_getCurrentRawStream, torch._C._cuda_getDevice
+    return lambda: raw(device())
+
+
 class Kernel:
     """One C entry point of the kernel library plus its launch count."""
 
@@ -133,18 +142,25 @@ class Kernel:
         self.replaces = replaces
         self.source = source
         self.launches = 0
+        self._fn = None
+        self._stream = None
+
+    def _bind(self):
+        """Load the library (built at first use) and keep this entry
+        point and the stream getter; later launches take no lock."""
+        self._stream = _stream_getter()
+        self._fn = getattr(_load(), self.symbol)
+        return self._fn
 
     def __call__(self, *args) -> None:
         """Launch on the current CUDA stream (appended as the last
         argument); tensors pass as ``data_ptr()`` ints."""
-        import torch
-        stream = torch.cuda.current_stream().cuda_stream
-        lib = _load()
-        err = getattr(lib, self.symbol)(*args, stream)
+        fn = self._fn or self._bind()
+        err = fn(*args, self._stream())
         if err != 0:
             raise RuntimeError(
                 f"{self.symbol} failed: CUDA error {err} "
-                f"({lib.mc_error_string(err).decode()})")
+                f"({_lib.mc_error_string(err).decode()})")
         self.launches += 1
 
 

@@ -29,7 +29,8 @@ from .pipeline import QueryResult, classify_candidates
 from .probe import probe_bucket, probe_bucket_classed, shift_right_logical
 from .probe_decode import (_rows, full_decode, head_decode, oidx_decode,
                            probe_pallas_enabled)
-from .sketch import sketch_windows
+from .sketch import (LANES, sketch_windows, sketch_windows_packed,
+                     unpack_2bit)
 
 
 # the route of packed slots when MC_SPLIT_CAND is unset: "0" sorts inside
@@ -329,17 +330,20 @@ def query_step_rows(windows, valid, mwir, tables, hits_min, hits_diff_frac,
 def _sketch_stage(wmat, vmat, k: int, sketchlen: int,
                   infeed_packed: bool) -> torch.Tensor:
     """(B, Wq, W) windows -> (B, Wq*s) features (rows.py:998-1009).
-    ``infeed_packed``: 2-bit codes, four bases per byte, low bits
-    first, unpacked here; content past a window's valid length is
-    ignored by the sketcher."""
+    ``infeed_packed``: 2-bit codes, four bases per byte, low bits first:
+    windows of at most 128 codes go to B1 as they are, which reads them
+    itself, wider ones are unpacked here for B2; content past a window's
+    valid length is ignored by the sketchers."""
     b, wq, w = wmat.shape
+    vmat = vmat.reshape(b * wq)
+    if infeed_packed and w * 4 <= LANES:
+        return sketch_windows_packed(wmat.reshape(b * wq, w), vmat, k,
+                                     sketchlen).reshape(b, wq * sketchlen)
     if infeed_packed:
-        w = w * 4
-        shifts = torch.arange(4, dtype=torch.uint8, device=wmat.device) * 2
-        wmat = ((wmat[..., None] >> shifts) & 3).reshape(b, wq, w)
-    return sketch_windows(wmat.reshape(b * wq, w),
-                          vmat.reshape(b * wq).to(torch.int32),
-                          k, sketchlen).reshape(b, wq * sketchlen)
+        wmat = unpack_2bit(wmat.reshape(b * wq, w))
+        w *= 4
+    return sketch_windows(wmat.reshape(b * wq, w), vmat, k,
+                          sketchlen).reshape(b, wq * sketchlen)
 
 
 def query_step_rows_scan(windows_k, valid_k, mwir_k, tables, hits_min,

@@ -2,14 +2,22 @@
 
 Port of metacache_tpu/ops/sketch_jax.py:34-152 (the sort-based
 sketcher) and of the Pallas kernels sketch_pallas.sketch_windows_pallas
-(B1, windows of at most 128 characters) and
-sketch_pallas.sketch_windows_pallas_long (B2, wider windows: the 255 and
-511 presets), both in csrc/sketch.cu. Features leave as int32 tensors
-holding the u32 bit patterns; the plain versions compute in int64, where
-every u32 value is non-negative, so their sorts order them as unsigned
-and the sentinel 0xFFFFFFFF sorts last.
+(B1, windows of at most 128 characters, also read from the runner's
+2-bit infeed) and sketch_pallas.sketch_windows_pallas_long (B2, wider
+windows: the 255 and 511 presets), both in csrc/sketch.cu. Features
+leave as int32 tensors holding the u32 bit patterns; the plain versions
+compute in int64, where every u32 value is non-negative, so their sorts
+order them as unsigned and the sentinel 0xFFFFFFFF sorts last.
+
+B1 selects its s features by s warp minima, the form JAX's
+MC_SKETCH_MODE=extract picks (rows.py:28-50); JAX's other form, "sort",
+gives the same sketches and was the slower on the H100 (PERF.md §6), so
+the port has one form. It accepts the variable's two values, which
+change nothing, and refuses any other.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -19,6 +27,16 @@ LANES = 128
 PAD_CODE = 4
 SENTINEL = 0xFFFFFFFF
 _M32 = 0xFFFFFFFF
+SKETCH_MODES = ("sort", "extract")
+
+
+def check_sketch_mode():
+    """Refuse an MC_SKETCH_MODE other than JAX's two forms, unset,
+    "sort" or "extract"; B1 gives the same sketches under each."""
+    mode = os.environ.get("MC_SKETCH_MODE")
+    if mode and mode not in SKETCH_MODES:
+        raise ValueError(f"sketch mode {mode!r} (MC_SKETCH_MODE): expected "
+                         f"one of {SKETCH_MODES}")
 
 
 def thomas_mueller_hash(x: torch.Tensor) -> torch.Tensor:
@@ -135,6 +153,14 @@ def pad_windows(codes: torch.Tensor) -> torch.Tensor:
     return torch.cat([codes, pad], dim=1)
 
 
+def unpack_2bit(packed: torch.Tensor) -> torch.Tensor:
+    """(N, W / 4) bytes of 2-bit codes, four a byte, low bits first (the
+    runner's infeed) -> (N, W) u8 codes."""
+    shifts = torch.arange(4, dtype=torch.uint8, device=packed.device) * 2
+    return ((packed[..., None] >> shifts) & 3).reshape(
+        packed.shape[0], packed.shape[1] * 4)
+
+
 def _check_launch(codes: torch.Tensor, valid: torch.Tensor):
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise ValueError("codes must be a (N, W) uint8 tensor")
@@ -144,6 +170,29 @@ def _check_launch(codes: torch.Tensor, valid: torch.Tensor):
     return valid
 
 
+def _launch_b1(codes: torch.Tensor, valid: torch.Tensor, k: int,
+               sketchlen: int, packed: bool):
+    """Kernel B1 on (N, 128) codes or (N, W / 4 <= 32) packed bytes,
+    rows contiguous from a 4-byte aligned start."""
+    valid = _check_launch(codes, valid)
+    codes = codes.contiguous()
+    if codes.data_ptr() % 4:            # the kernel loads 4 codes a lane
+        codes = codes.clone()
+    n = codes.shape[0]
+    out = torch.empty((n, sketchlen), dtype=torch.int32, device=codes.device)
+    if n:
+        kernels.SKETCH(codes.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                       n, codes.shape[1], k, sketchlen, int(packed))
+    return out
+
+
+def _check_k(k: int):
+    if k > 16:
+        raise NotImplementedError(
+            "k > 16 needs the 64-bit feature sketch (ROADMAP queue A, "
+            "u64 features)")
+
+
 def sketch_windows(codes: torch.Tensor, valid: torch.Tensor, k: int,
                    sketchlen: int) -> torch.Tensor:
     """(N, W) u8 windows + (N,) valid lengths -> (N, sketchlen) int32
@@ -151,25 +200,34 @@ def sketch_windows(codes: torch.Tensor, valid: torch.Tensor, k: int,
     of at most 128 characters are padded to 128 and go to kernel B1,
     wider ones to kernel B2, on a CUDA tensor; a CPU tensor takes the
     kernel's plain version."""
-    if k > 16:
-        raise NotImplementedError(
-            "k > 16 needs the 64-bit feature sketch (ROADMAP queue A, "
-            "u64 features)")
+    _check_k(k)
     if codes.shape[1] > LANES:
         return _sketch_long(codes, valid, k, sketchlen)
+    check_sketch_mode()
     codes = pad_windows(codes)
     if not codes.is_cuda:
         return sketch_windows_plain(codes, valid, k, sketchlen)
-    valid = _check_launch(codes, valid)
-    n = codes.shape[0]
-    codes = codes.contiguous()
-    if codes.data_ptr() % 4:            # the kernel loads 4 codes a lane
-        codes = codes.clone()
-    out = torch.empty((n, sketchlen), dtype=torch.int32, device=codes.device)
-    if n:
-        kernels.SKETCH(codes.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                       n, k, sketchlen)
-    return out
+    return _launch_b1(codes, valid, k, sketchlen, False)
+
+
+def sketch_windows_packed(packed: torch.Tensor, valid: torch.Tensor,
+                          k: int, sketchlen: int) -> torch.Tensor:
+    """(N, W / 4) bytes of W <= 128 2-bit codes a window, four a byte,
+    low bits first (the runner's infeed, cropped to a stack's longest
+    read; no ambiguous code), + (N,) valid lengths -> (N, sketchlen)
+    int32, what ``sketch_windows`` gives on the unpacked (N, W) codes:
+    kernel B1 reading the packed rows itself on a CUDA tensor; on a CPU
+    tensor the unpack and B1's plain version."""
+    _check_k(k)
+    if packed.dtype != torch.uint8 or packed.dim() != 2 or \
+            not 1 <= packed.shape[1] * 4 <= LANES:
+        raise ValueError("packed must be a (N, W / 4) uint8 tensor, "
+                         "W <= 128")
+    check_sketch_mode()
+    if not packed.is_cuda:
+        return sketch_windows_plain(pad_windows(unpack_2bit(packed)), valid,
+                                    k, sketchlen)
+    return _launch_b1(packed, valid, k, sketchlen, True)
 
 
 def _sketch_long(codes: torch.Tensor, valid: torch.Tensor, k: int,

@@ -343,3 +343,53 @@ def test_cpu_needs_explicit_opt_in(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="MC_TORCH_DEVICE=cpu"):
         get_device()
+
+
+NOT_READ_YET = {"MC_PREFETCH", "MC_ESC_FUSED", "MC_ESC_B2", "MC_NATIVE_FMT",
+                "MC_BUILD_DEBUG", "MC_SHARD_LAYOUT"}
+
+
+def _port_sources():
+    import glob
+    import metacache_tpu_torch
+    root = os.path.dirname(os.path.abspath(metacache_tpu_torch.__file__))
+    text = {}
+    for p in glob.glob(os.path.join(root, "**", "*.py"), recursive=True):
+        if os.path.relpath(p, root) != os.path.join("cli", "help.py"):
+            with open(p) as f:
+                text[p] = f.read()
+    return "\n".join(text.values())
+
+
+def test_help_lists_as_active_only_variables_the_port_reads():
+    """Every MC_* variable that `help query` presents as active is read
+    (as a quoted name) somewhere in metacache_tpu_torch outside
+    cli/help.py; the ones marked "not read by the port yet" are not."""
+    import re
+    from metacache_tpu_torch.cli.help import MODES
+    env = MODES["query"][MODES["query"].index("ENVIRONMENT"):]
+    active, idle = env.split("Not read by the port yet")
+    active_names = set(re.findall(r"^    (MC_[A-Z0-9_]+)=", active, re.M))
+    idle_names = set(re.findall(r"^    (MC_[A-Z0-9_]+)=", idle, re.M))
+    assert idle_names == NOT_READ_YET
+    assert {"MC_SKETCH_MODE", "MC_SPLIT_CAND", "MC_PROBE_PALLAS",
+            "MC_TORCH_DEVICE", "MC_HBM_GB"} <= active_names
+    src = _port_sources()
+    for name in active_names:
+        assert re.search(rf"[\"']{name}[\"']", src), name
+    for name in idle_names:
+        assert not re.search(rf"[\"']{name}[\"']", src), name
+    assert "bucket,oidx" in active and "always run" in active
+
+
+def test_hbm_gb_overrides_the_budget(monkeypatch):
+    """MC_HBM_GB sets the total the layout budget is taken from, less the
+    reserve of max(2 GiB, 20%), as metacache_tpu/utils/platform.py."""
+    from metacache_tpu.utils.platform import hbm_budget_bytes as jax_budget
+    from metacache_tpu_torch.device import hbm_budget_bytes
+    monkeypatch.delenv("MC_HBM_GB", raising=False)
+    assert hbm_budget_bytes() == (16 << 30) - (16 << 30) // 5
+    for gb in ("40", "0.5", "80"):
+        monkeypatch.setenv("MC_HBM_GB", gb)
+        assert hbm_budget_bytes() == jax_budget()
+    assert hbm_budget_bytes() == (80 << 30) - (16 << 30)

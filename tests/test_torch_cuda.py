@@ -66,6 +66,59 @@ def test_sketch_kernel_matches_plain(cuda, case):
         assert torch.equal(got, S.sketch_windows_plain(c, v, k, s))
 
 
+def _b1_inputs(rng, n, k):
+    """(n, 128) windows with ambiguous codes, all-ambiguous, repeated and
+    partly ambiguous windows, and valid lengths below k, at k, 100, 127,
+    128 and random; and the same codes with every ambiguous one made 2,
+    for the packed rows."""
+    codes = rng.integers(0, 4, (n, 128), dtype=np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    codes[3::97, 20:60] = 4
+    codes[4::101] = 4
+    codes[5::89] = np.tile(np.array([0, 1, 2, 3], np.uint8), 32)
+    valid = rng.integers(0, 129, n).astype(np.int32)
+    valid[::7] = 127
+    valid[1::11] = k - 1
+    valid[2::13] = k
+    valid[6::17] = 100
+    valid[8::19] = 128
+    return codes, valid, np.where(codes < 4, codes, 2).astype(np.uint8)
+
+
+def pack_2bit(codes):
+    """(N, W) codes 0..3 -> (N, W / 4) bytes, four a byte, low bits
+    first (the runner's infeed); the port's tests share this one."""
+    c = codes.astype(np.uint8)
+    return np.ascontiguousarray(
+        c[:, 0::4] | (c[:, 1::4] << 2) | (c[:, 2::4] << 4) | (c[:, 3::4] << 6))
+
+
+@pytest.mark.parametrize("k", [16, 12])
+def test_sketch_kernel_inputs_match_plain(cuda, k):
+    """B1 on (N, 128) codes and on packed rows of 32 and 28 bytes (the
+    runner's rows cropped to 100 bp reads), which it reads itself,
+    s = 8, 16 and 128, against its plain version (on the packed rows:
+    the unpack and padding, then the plain version); one launch a
+    call."""
+    rng = np.random.default_rng(31 + k)
+    for n in (8192, 4099):
+        codes, valid, clean = _b1_inputs(rng, n, k)
+        c = torch.from_numpy(codes).to(cuda)
+        v = torch.from_numpy(valid).to(cuda)
+        feeds = [torch.from_numpy(pack_2bit(clean[:, :w])).to(cuda)
+                 for w in (128, 112)]
+        for s in (16, 8, 128):
+            before = kernels.SKETCH.launches
+            got = S.sketch_windows(c, v, k, s)
+            assert torch.equal(got, S.sketch_windows_plain(c, v, k, s))
+            for pk in feeds:
+                got = S.sketch_windows_packed(pk, v, k, s)
+                assert torch.equal(got, S.sketch_windows_plain(
+                    S.pad_windows(S.unpack_2bit(pk)), v, k, s))
+            torch.cuda.synchronize()
+            assert kernels.SKETCH.launches == before + 3
+
+
 @pytest.mark.parametrize("k", [16, 12])
 @pytest.mark.parametrize("w", [129, 255, 256, 511, 512, 600, 1000])
 def test_long_sketch_kernel_matches_plain(cuda, w, k):
@@ -262,6 +315,20 @@ def test_fixture_query_on_the_card_matches_golden(cuda, tmp_path,
         assert strip(buf.getvalue()) == strip(f.read())
 
 
+@pytest.mark.parametrize("setting", [None, "sort", "extract"])
+def test_fixture_query_sketch_modes_match_golden(cuda, tmp_path,
+                                                 monkeypatch, setting):
+    """test_fixture_query_on_the_card_matches_golden's default route
+    under MC_SKETCH_MODE unset, "sort" and "extract" (JAX's two forms,
+    which change nothing in the port) gives the golden lines."""
+    if setting is None:
+        monkeypatch.delenv("MC_SKETCH_MODE", raising=False)
+    else:
+        monkeypatch.setenv("MC_SKETCH_MODE", setting)
+    test_fixture_query_on_the_card_matches_golden(cuda, tmp_path,
+                                                  monkeypatch, None, None)
+
+
 def test_winlen_255_on_the_card_matches_cpu(cuda, tmp_path, monkeypatch):
     """`build -winlen 255` and its per-read and -no-map queries of 250 bp
     reads on the card (B2 at W = 255 and 256) equal the same run on the
@@ -340,6 +407,27 @@ def test_head_decode_kernel_matches_plain(cuda, rl, f):
     torch.cuda.synchronize()
     assert torch.equal(pk, want_pk) and torch.equal(cnt, want_cnt)
     assert bool((cnt > 61).any()) and bool((cnt == 0).any())
+
+
+@pytest.mark.parametrize("f", [16, 1])
+@pytest.mark.parametrize("rl", [64, 128, 256])
+def test_head_decode_kernel_layouts_match_plain(cuda, rl, f):
+    """B6 on n % 32 != 0 probes, through its 16-byte path and, on a head
+    view that is not 16-byte aligned and on heads 63 lanes wide, through
+    its 4-byte path; hsl 61 and 30."""
+    head, _ovf, idx, flat = (t.to(cuda) for t in _two_tier_case(
+        np.random.default_rng(23 + rl), n=4096 + 17))
+    flat_head = torch.cat([head.new_zeros(1), head.reshape(-1)])
+    shifted = flat_head[1:].view(head.shape)
+    assert shifted.data_ptr() % 16 == 4
+    for h, hsl in ((head, 61), (shifted, 61), (head[:, :63], 60),
+                   (head, 30)):
+        before = kernels.HEAD_DECODE.launches
+        pk, cnt = D.head_decode(h, idx, flat, hsl, rl, f)
+        want_pk, want_cnt = D.head_decode_plain(h, idx, flat, hsl, rl, f)
+        torch.cuda.synchronize()
+        assert kernels.HEAD_DECODE.launches == before + 1
+        assert torch.equal(pk, want_pk) and torch.equal(cnt, want_cnt)
 
 
 @pytest.mark.parametrize("f", [16, 1])

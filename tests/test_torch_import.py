@@ -173,3 +173,38 @@ def test_native_reader_matches_metacache_tpu():
             a.close(), b.close()
             assert len(got[0]) > 0
             assert got == want
+
+
+def test_kernel_binds_its_entry_point_once(monkeypatch):
+    """A kernel wrapper loads the library and looks its C entry point up
+    at its first launch only; later launches take neither the library
+    lock nor the lookup, pass the current stream last and count once
+    each. A non-zero CUDA error raises and does not count."""
+    from metacache_tpu_torch import kernels
+
+    class Lib:
+        lookups = 0
+        calls = []
+
+        def __getattr__(self, name):
+            Lib.lookups += 1
+            if name != "mc_test":
+                raise AttributeError(name)
+            return lambda *a: Lib.calls.append(a) or (7 if a[0] < 0 else 0)
+
+        def mc_error_string(self, err):
+            return b"test error"
+
+    loads = []
+    monkeypatch.setattr(kernels, "_load",
+                        lambda: loads.append(1) or Lib())
+    monkeypatch.setattr(kernels, "_lib", Lib())
+    monkeypatch.setattr(kernels, "_stream_getter", lambda: lambda: 99)
+    k = kernels.Kernel("mc_test", "x.py:1", "y.cu")
+    k(1, 2)
+    k(3, 4)
+    assert (len(loads), Lib.lookups, k.launches) == (1, 1, 2)
+    assert Lib.calls == [(1, 2, 99), (3, 4, 99)]
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        k(-1)
+    assert k.launches == 2 and len(loads) == 1

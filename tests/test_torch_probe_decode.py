@@ -274,3 +274,91 @@ def test_decode_wrappers_check_shapes(layout):
         D.oidx_decode(head[:, :2], idx, flat)          # no lane 2
     with pytest.raises(ValueError):
         D.bucket_decode(_t(d["brows"]), flat, d["bits"])   # 64-lane rows
+
+
+I32_MAX = 2**31 - 1
+_POISON = 0x5A5A5A5A     # what the model reads from row words never loaded
+
+
+def _b6_model(head, idx, flat, hsl, rl, f):
+    """B6 as the kernel computes it: a warp takes 32 consecutive probes;
+    lane i reads probe p0 + i's row index (clamped) and feature and its
+    row's meta as one 16-byte word (feature, count, ovf id, slot 0),
+    giving the count and lim = min(count, hsl). A probe's rl / 4 output
+    int4s go to a group of g threads (16 at rl <= 64, else 32), thread t
+    taking int4s t, t + g, ...; it loads row int4 q only where
+    4 q < 3 + lim (else nothing: the model reads poison there). Output
+    int4 q holds slots 4q..4q+3, row lanes 4q+3..4q+6: the last lane of
+    row int4 q and the first three of int4 q + 1, from the neighbouring
+    thread; slots at or past lim are I32_MAX, and blocks of g int4s past
+    hsl store I32_MAX whole. Odd probes ((p % f) & 1) store int4 q at
+    rl / 4 - 1 - q, its values reversed."""
+    nf, hw = head.shape
+    n = len(idx)
+    nq = rl // 4
+    g = 32 if rl > 64 else 16
+    pk = np.full((n, rl), _POISON, np.int64)
+    cnt = np.zeros(n, np.int64)
+    for p0 in range(0, n, 32):
+        for p in range(p0, min(p0 + 32, n)):
+            row = head[min(max(int(idx[p]), 0), nf - 1)]
+            meta = row[:4]
+            c = int(meta[1]) if meta[0] == flat[p] and flat[p] != -1 else 0
+            cnt[p] = c
+            lim = min(max(c, 0), hsl)
+            odd = (p % f) & 1
+            # 3 + lim <= hw: no int4 past the row is ever loaded
+            quads = [row[4 * q:4 * q + 4] if 4 * q < 3 + lim
+                     else np.full(4, _POISON) for q in range(nq + 1)]
+            for q0 in range(0, nq, g):
+                for t in range(g):
+                    q = q0 + t
+                    if q >= nq:
+                        continue
+                    if 4 * q0 >= hsl:
+                        vals = np.full(4, I32_MAX)
+                    else:
+                        cur, nxt = quads[q], quads[q + 1]
+                        vals = np.array([cur[3], nxt[0], nxt[1], nxt[2]])
+                        vals = np.where(4 * q + np.arange(4) < lim, vals,
+                                        I32_MAX)
+                    if odd:
+                        pk[p, 4 * (nq - 1 - q):4 * (nq - q)] = vals[::-1]
+                    else:
+                        pk[p, 4 * q:4 * q + 4] = vals
+    return pk, cnt
+
+
+@pytest.mark.parametrize("f", [1, 16])
+@pytest.mark.parametrize("rl", [64, 128, 256])
+def test_b6_model_matches_pallas(layout, rl, f):
+    """B6's warp-of-32 layout (16-byte meta, the shift by 3 lanes by
+    neighbouring int4s, mirrored int4s of odd probes, row words loaded
+    only below lim) equals the interpreted Pallas kernel it replaces and
+    its plain version, on 144 (f 16) or 137 (f 1) probes, not a multiple
+    of 32, with misses, sentinels and indices past both ends clamped."""
+    d = layout
+    rng = np.random.default_rng(rl + f)
+    n = 144 if f == 16 else 137
+    nf = len(d["feats"])
+    idx = rng.integers(0, nf, n)
+    flat = d["feats"][idx].view(np.int32).copy()
+    miss = rng.random(n) < 0.3
+    flat[miss] = rng.integers(1, 2**31 - 1, int(miss.sum()))
+    flat[::29] = -1
+    idx[5::31] = nf + 7
+    idx[7::37] = -3
+    idx = idx.astype(np.int32)
+    pk, cnt = _b6_model(d["hl"], idx, flat, HSL, rl, f)
+    assert not (pk == _POISON).any()
+    ci = np.clip(idx, 0, nf - 1)
+    want_pk, want_cnt = jpp.head_decode(
+        _pairpack(d["hl"])[ci >> 1], jnp.asarray(ci & 1),
+        jnp.asarray(flat.view(np.uint32)), HSL, rl, f, tile=64)
+    np.testing.assert_array_equal(pk, np.asarray(want_pk))
+    np.testing.assert_array_equal(cnt, np.asarray(want_cnt))
+    got_pk, got_cnt = D.head_decode(_t(d["hl"]), _t(idx), _t(flat), HSL,
+                                    rl, f)
+    np.testing.assert_array_equal(got_pk.numpy(), pk)
+    np.testing.assert_array_equal(got_cnt.numpy(), cnt)
+    assert (cnt > HSL).any() and (cnt == 0).any() and (cnt > 0).any()

@@ -3,11 +3,14 @@ on a small strain database whose buckets are 96 deep, so that the probe
 emits alternating 128-lane runs and the slot sort skips phases;
 tolerance 0 (integer outputs; the LCA threshold is float32 on both
 sides)."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
 
 from metacache_tpu.config import SketchingOptions
 from metacache_tpu.db.build import BuildOptions, build_database
@@ -17,6 +20,7 @@ from metacache_tpu.ops.probe import make_bucket_index
 from metacache_tpu.ops.sketch_jax import sketch_windows as jax_sketch
 from metacache_tpu_torch.db.state import tables_from_numpy
 from metacache_tpu_torch.ops import rows as trows
+from test_torch_cuda import pack_2bit
 
 torch.set_num_threads(2)
 GLEN = 20000
@@ -132,27 +136,42 @@ def test_scan_unpacked_matches_jax(strain_db):
     _scan_case(strain_db, 0)
 
 
-def _scan_case(d, bits):
+@pytest.mark.parametrize("setting", [None, "sort", "extract"])
+def test_scan_sketch_mode_matches_jax(strain_db, monkeypatch, setting):
+    """MC_SKETCH_MODE unset, "sort" and "extract": the port's scan step
+    (packed infeed, B1's route) equals JAX's with its Pallas sketcher,
+    interpreted, under the same setting."""
+    if setting is None:
+        monkeypatch.delenv("MC_SKETCH_MODE", raising=False)
+    else:
+        monkeypatch.setenv("MC_SKETCH_MODE", setting)
+    _scan_case(strain_db, strain_db["wbits"], pallas_sketch=True)
+
+
+def _scan_case(d, bits, pallas_sketch=False):
     K, B = 2, 16
     reads = _reads(d, K * B, 100, seed=8)
     reads[3, 20] = 1                # every read stays ACGT-only
     c4 = np.zeros((K * B, 128), np.uint8)
     c4[:, :100] = reads
-    packed = (c4[:, 0::4] | (c4[:, 1::4] << 2) | (c4[:, 2::4] << 4) |
-              (c4[:, 3::4] << 6)).reshape(K, B, 1, 32)
+    packed = pack_2bit(c4).reshape(K, B, 1, 32)
     lens = np.full((K, B, 1), 100, np.uint8)
     lens[1, 5, 0] = 40              # a short read
     mwir = np.full((K, B), 2, np.uint8)
     hits_min, frac, highest = 5, 1.0, 19
     tf, to, lt, lw, mt, lg = _jax_tables(d, bits)
-    want = jrows.query_step_rows_scan(
-        jnp.asarray(packed), jnp.asarray(lens), jnp.asarray(mwir),
-        tf, to, lt, lw, mt, lg, jnp.int32(hits_min), jnp.float32(frac),
-        jnp.int32(highest), jnp.int32(0), jnp.asarray(d["brows"]),
-        k=16, sketchlen=16, slots_per_feature=d["spf"],
-        windows_per_query=1, max_candidates=2, prefix_bits=d["bits"],
-        dense=_layout(bits), walk_elems=32, fast_top2=True,
-        fused_candidates=True, pack_bits=bits, infeed_packed=True)
+    ctx = pltpu.force_tpu_interpret_mode() if pallas_sketch \
+        else contextlib.nullcontext()
+    with ctx:
+        want = jrows.query_step_rows_scan(
+            jnp.asarray(packed), jnp.asarray(lens), jnp.asarray(mwir),
+            tf, to, lt, lw, mt, lg, jnp.int32(hits_min), jnp.float32(frac),
+            jnp.int32(highest), jnp.int32(0), jnp.asarray(d["brows"]),
+            k=16, sketchlen=16, slots_per_feature=d["spf"],
+            windows_per_query=1, max_candidates=2, prefix_bits=d["bits"],
+            dense=_layout(bits), walk_elems=32, fast_top2=True,
+            fused_candidates=True, pack_bits=bits, infeed_packed=True,
+            use_pallas_sketch=pallas_sketch)
     got = trows.query_step_rows_scan(
         torch.from_numpy(packed), torch.from_numpy(lens),
         torch.from_numpy(mwir), _tables(d, bits), hits_min, frac,
@@ -222,3 +241,31 @@ def test_result_rejects_paths_not_ported(strain_db):
     with pytest.raises(NotImplementedError, match="A5"):
         trows.rows_to_result(*args, max_candidates=2, walk_elems=8,
                              fast_top2=False, pack_bits=d["wbits"])
+
+
+@pytest.mark.parametrize("nbytes,route", [(32, "packed"), (28, "packed"),
+                                          (8, "packed"), (64, "unpacked")])
+def test_sketch_stage_routes_packed_rows(monkeypatch, nbytes, route):
+    """The scan steps hand packed rows of up to 32 bytes (the runner
+    crops a stack's rows to its longest read: 28 bytes for 100 bp) to
+    B1's packed entry, which reads them itself, and unpack wider ones
+    for B2; both give the sketch of the unpacked codes."""
+    from metacache_tpu_torch.ops import sketch as S
+    calls = []
+    for name in ("sketch_windows_packed", "sketch_windows"):
+        fn = getattr(trows, name)
+        monkeypatch.setattr(trows, name, lambda *a, _f=fn, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+    rng = np.random.default_rng(nbytes)
+    codes = rng.integers(0, 4, (2, 8, 4 * nbytes)).astype(np.uint8)
+    packed = pack_2bit(codes.reshape(16, -1)).reshape(2, 8, nbytes)
+    valid = rng.integers(0, 4 * nbytes + 1, (2, 8)).astype(np.uint8
+                                                          if nbytes < 64
+                                                          else np.int32)
+    got = trows._sketch_stage(torch.from_numpy(packed),
+                              torch.from_numpy(valid), 16, 16, True)
+    assert calls == ["sketch_windows_packed" if route == "packed"
+                     else "sketch_windows"]
+    want = S.sketch_windows(torch.from_numpy(codes.reshape(16, -1)),
+                            torch.from_numpy(valid.reshape(16)), 16, 16)
+    np.testing.assert_array_equal(got.numpy(), want.reshape(2, 128).numpy())

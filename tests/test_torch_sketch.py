@@ -14,6 +14,7 @@ from metacache_tpu.ops.sketch_jax import sketch_windows as jax_sketch
 from metacache_tpu.ops.sketch_pallas import (sketch_windows_pallas,
                                              sketch_windows_pallas_long)
 from metacache_tpu_torch.ops import sketch as S
+from test_torch_cuda import pack_2bit
 
 torch.set_num_threads(2)
 
@@ -208,3 +209,200 @@ def test_whole_window_model_matches(w, k, s):
             jnp.asarray(codes), jnp.asarray(valid), k=k, sketchlen=s,
             tile=64))
     np.testing.assert_array_equal(jx, want)
+
+
+def _unpack_model(packed):
+    """The kernel's read of a packed row of W / 4 <= 32 bytes: lane l
+    takes byte l (lanes past the row take 0), code j of the lane is bits
+    2j..2j+1 (low bits first)."""
+    n, wb = packed.shape
+    out = np.zeros((n, 128), np.uint8)
+    for j in range(4):
+        out[:, j:4 * wb:4] = (packed >> (2 * j)) & 3
+    return out
+
+
+def _shfl_down(x, d):
+    """__shfl_down_sync over the 32 lanes of axis 1: lanes past 31 keep
+    their own value."""
+    out = x.copy()
+    out[:, :32 - d] = x[:, d:]
+    return out
+
+
+def _revcomp_codes(x, n):
+    """The kernel's reverse complement of the n codes in the low 2n bits
+    of x: bit reversal of x << (32 - 2n), each code's bits swapped back,
+    complemented."""
+    u64 = np.uint64
+    x = (x << u64(32 - 2 * n)) & _M32
+    r = np.zeros_like(x)
+    for i in range(32):                                   # __brev
+        r |= ((x >> u64(i)) & u64(1)) << u64(31 - i)
+    r = ((r >> u64(1)) & u64(0x55555555)) | ((r & u64(0x55555555)) << u64(1))
+    return r ^ u64((1 << (2 * n)) - 1)
+
+
+def _b1_model(codes, valid, k, s, packed=False):
+    """B1 as the kernel computes it: each lane packs its 4 codes 2 bits a
+    code (first code highest) with a mask of ambiguous ones (none on
+    packed rows), takes the next 16 codes and their mask from the
+    following 4 lanes by shuffles into a 64-bit window, reads the first
+    k - 1 codes off it whole (the reverse complement by bit reversal),
+    rolls the k-mer and its reverse complement one code a step over its
+    4 starts, and hashes the canonical k-mer at starts
+    4 lane + j < min(valid, 128) - (k - 1) whose k codes hold no
+    ambiguous one (on packed rows of W / 4 bytes the span ends at W).
+    Selection: each lane sorts its 4 values and drops its duplicates,
+    then s rounds take the warp's minimum of the lanes' first values,
+    the lanes holding it popping it, stopping at the sentinel."""
+    u64 = np.uint64
+    span = 128
+    if packed:
+        span = 4 * codes.shape[1]
+        codes = _unpack_model(codes)
+    n = codes.shape[0]
+    c = codes.reshape(n, 32, 4).astype(np.uint64)
+    pc = np.zeros((n, 32), np.uint64)
+    am = np.zeros((n, 32), np.uint64)
+    for j in range(4):
+        pc = (pc << u64(2)) | np.where(c[:, :, j] < 4, c[:, :, j], 0)
+        am = (am << u64(1)) | (c[:, :, j] >= 4).astype(np.uint64)
+    if packed:
+        am[:] = 0
+    win = pc << u64(56)
+    amb = am << u64(28)
+    for d in range(1, 5):
+        win |= _shfl_down(pc, d) << u64(64 - 8 * (d + 1))
+        amb |= _shfl_down(am, d) << u64(32 - 4 * (d + 1))
+    kmask = u64((1 << (2 * k)) - 1)
+    top = u64(2 * k - 2)
+    fw = win >> u64(66 - 2 * k)
+    rc = _revcomp_codes(fw, k - 1) << u64(2)
+    nxt = ((win << top) & u64(2**64 - 1)) >> u64(56)
+    nv = np.minimum(valid.astype(np.int64), span)[:, None] - (k - 1)
+    lane = np.arange(32)[None, :]
+    hashes = np.full((n, 32, 4), 0xFFFFFFFF, np.uint64)
+    for j in range(4):
+        b = (nxt >> u64(2 * (3 - j))) & u64(3)
+        fw = ((fw << u64(2)) | b) & kmask
+        rc = (rc >> u64(2)) | ((u64(3) - b) << top)
+        amb_j = (((amb << u64(j)) & _M32) >> u64(32 - k)) != 0
+        ok = (4 * lane + j < nv) & ~amb_j
+        hashes[:, :, j] = np.where(ok, _tm_hash(np.minimum(fw, rc)),
+                                   0xFFFFFFFF)
+    out = np.full((n, s), 0xFFFFFFFF, np.uint64)
+    v = np.sort(hashes, axis=2)
+    v[:, :, 1:][v[:, :, 1:] == v[:, :, :-1]] = 0xFFFFFFFF
+    v = np.sort(v, axis=2)
+    for r in range(s):
+        m = v[:, :, 0].min(axis=1)
+        if (m == 0xFFFFFFFF).all():
+            break                     # every window's rounds have stopped
+        out[:, r] = m
+        pop = v[:, :, 0] == m[:, None]
+        v[pop] = np.concatenate([v[pop][:, 1:], np.full(
+            (int(pop.sum()), 1), 0xFFFFFFFF, np.uint64)], axis=1)
+    return out.astype(np.uint32)
+
+
+def _b1_windows(k, seed, packed):
+    """64 windows of 128 codes: valid below k, exactly k, 100, 127 and
+    128, repeated content, all-ambiguous and partly ambiguous windows
+    (not on packed rows, which hold none)."""
+    rng = np.random.default_rng(seed)
+    n = 64
+    codes = rng.integers(0, 4, (n, 128)).astype(np.uint8)
+    valid = rng.integers(0, 129, n).astype(np.int32)
+    valid[:8] = [0, k - 1, k, k + 1, 100, 127, 128, 1]
+    codes[8] = np.tile(np.array([0, 1, 2, 3], np.uint8), 32)
+    codes[9] = 2
+    codes[10, 64:] = codes[10, :64]
+    valid[8:11] = 127
+    if not packed:
+        codes[13:][rng.random((n - 13, 128)) < 0.02] = 4
+        codes[11] = 4
+        codes[12, 30:50] = 5
+        valid[11:13] = 127
+    return codes, valid
+
+
+@pytest.mark.parametrize("width", [128, 32, 28])
+@pytest.mark.parametrize("s", [8, 16, 128])
+@pytest.mark.parametrize("k", [12, 16])
+def test_b1_model_matches(k, s, width):
+    """B1's steps (the low-bits-first read of packed rows of 32 and 28
+    bytes, the runner's rows cropped to 100 bp reads; k-mers rolled from
+    2-bit words with ambiguity from the mask; s warp minima) equal its
+    plain version (sketch_windows on CPU tensors of 128 codes, through
+    the unpack for packed rows) and the interpreted Pallas kernel it
+    replaces in both of its modes, on the codes padded with code 4."""
+    packed = width < 128
+    codes, valid = _b1_windows(k, seed=k * 131 + s + width, packed=packed)
+    if width == 28:
+        codes = codes.copy()
+        codes[:, 112:] = 4             # what padding 112 codes gives
+    feed = pack_2bit(codes[:, :4 * width]) if packed else codes
+    want = _b1_model(feed, valid, k, s, packed=packed)
+    if packed:
+        got = S.sketch_windows_packed(torch.from_numpy(feed),
+                                      torch.from_numpy(valid), k, s)
+    else:
+        got = S.sketch_windows(torch.from_numpy(codes),
+                               torch.from_numpy(valid), k, s)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    for mode in ("sort", "extract"):
+        with pltpu.force_tpu_interpret_mode():
+            jx = np.asarray(sketch_windows_pallas(
+                jnp.asarray(codes), jnp.asarray(valid), k=k, sketchlen=s,
+                tile=64, mode=mode))
+        np.testing.assert_array_equal(jx, want, err_msg=mode)
+    assert (want[0] == 0xFFFFFFFF).all() and (want[1] == 0xFFFFFFFF).all()
+    assert (want[2, 1:] == 0xFFFFFFFF).all() and want[2, 0] != 0xFFFFFFFF
+    if not packed:
+        assert (want[11] == 0xFFFFFFFF).all()
+
+
+def test_unpack_2bit_low_bits_first():
+    """The port's unpack of the infeed equals the kernel's read of it."""
+    rng = np.random.default_rng(3)
+    for wb in (32, 25):
+        packed = rng.integers(0, 256, (16, wb)).astype(np.uint8)
+        got = S.unpack_2bit(torch.from_numpy(packed)).numpy()
+        assert got.shape == (16, 4 * wb)
+        np.testing.assert_array_equal(got, _unpack_model(packed)[:, :4 * wb])
+        np.testing.assert_array_equal(pack_2bit(got), packed)
+
+
+@pytest.mark.parametrize("setting", [None, "sort", "extract"])
+def test_sketch_mode_setting_matches_jax(setting, monkeypatch):
+    """MC_SKETCH_MODE unset, "sort" and "extract": the port's sketches
+    (unpacked and packed rows; the setting changes nothing in the port)
+    equal JAX's Pallas dispatch under the same setting (rows.py:28-50,
+    interpreted)."""
+    from metacache_tpu.ops.rows import _sketch_dispatch
+    if setting is None:
+        monkeypatch.delenv("MC_SKETCH_MODE", raising=False)
+    else:
+        monkeypatch.setenv("MC_SKETCH_MODE", setting)
+    codes, valid = _b1_windows(16, seed=7, packed=True)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(_sketch_dispatch(
+            jnp.asarray(codes[:, :100]), jnp.asarray(valid), 16, 16, True))
+    got = S.sketch_windows(torch.from_numpy(codes[:, :100]),
+                           torch.from_numpy(valid), 16, 16)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    got = S.sketch_windows_packed(torch.from_numpy(pack_2bit(
+        codes[:, :100])), torch.from_numpy(valid), 16, 16)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_sketch_mode_rejects_unknown(monkeypatch):
+    monkeypatch.setenv("MC_SKETCH_MODE", "bitonic")
+    codes, valid = _b1_windows(16, seed=8, packed=True)
+    with pytest.raises(ValueError, match="MC_SKETCH_MODE"):
+        S.sketch_windows(torch.from_numpy(codes), torch.from_numpy(valid),
+                         16, 16)
+    with pytest.raises(ValueError, match="packed"):
+        S.sketch_windows_packed(torch.from_numpy(codes),
+                                torch.from_numpy(valid), 16, 16)
