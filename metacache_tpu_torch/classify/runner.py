@@ -12,6 +12,12 @@ long genomes). Two paths, as in the JAX package:
 - per-read output: coded read batches are bucketed by window count and
   classified by ``query_step_rows``, then formatted on the host.
 
+Each step takes the fused candidate kernels where JAX's runner would
+(``_fused_flags``, ``MC_FUSED_CANDIDATES``; long reads' wide rows
+through their wide form), else the non-fused result path (taxon
+merging, more than 4 candidates, -allhits, ranges longer than 48
+windows).
+
 The database stages on the card as the JAX runner stages it: a
 database built in this process (``build+query``) keeps the tables its
 build made there; a loaded one uploads its CSR stream and fills the
@@ -48,8 +54,9 @@ from ..taxonomy.model import NUM_RANKS, Rank, rank_from_name
 from ..db.state import tables_from_device, tables_from_numpy
 from ..device import get_device, hbm_budget_bytes
 from ..ops.probe import make_bucket_index
-from ..ops.rows import (query_step_rows, query_step_rows_redo_scan,
-                        query_step_rows_scan, query_step_rows_scan_head)
+from ..ops.rows import (fused_candidates_enabled, query_step_rows,
+                        query_step_rows_redo_scan, query_step_rows_scan,
+                        query_step_rows_scan_head)
 from ..ops.table import device_layout, unpack_locations
 from ..ops.table_device import dense_bytes, device_layout_from_csr
 from . import abundance as abd
@@ -130,14 +137,10 @@ class QueryRunner:
             _unsupported("paired-end reads", "queue A12")
         if len(db.parts) + len(db.device_parts) != 1:
             _unsupported("multi-part databases", "queue A12")
-        if oa.show_all_hits or oa.show_locations:
-            _unsupported("-allhits / -locations", "queue A5")
         if oa.show_alignment:
             _unsupported("-align", "queue A7")
         if opt.classify.cov_percentile > 0:
             _unsupported("-cov-percentile", "queue A7")
-        if opt.classify.max_candidates > 4:
-            _unsupported("-maxcand above 4", "queue A5")
         self.sketching = self._adapt_sketching()
         self.hits_min = opt.classify.resolve_hits_min(
             db.sketching.sketchlen)
@@ -160,9 +163,7 @@ class QueryRunner:
         self._fast_top2 = (
             self.merge_rank == 0 and opt.classify.max_candidates <= 4
             and db.target_count > 0 and bool(np.all(merge_tax != 0)))
-        if self.merge_rank != 0:
-            _unsupported("taxon merging (-lowest above sequence)",
-                         "queue A5")
+        self._fused_candidates = fused_candidates_enabled()
 
         # staging (runner.py:481-565, 632-646): packed pk slots when they
         # fit int32, else (tgt, win) lane pairs (layout tag True)
@@ -277,6 +278,18 @@ class QueryRunner:
         if m <= self.MAX_DEDUP_WALK:
             return {"dedup_walk": m}
         return {}
+
+    # copied from metacache_tpu/classify/runner.py:724-733, without the
+    # TPU crossover FUSED_MIN_SLOTS, which the fused kernels beat on the
+    # card at every width (chip_smoke.py's fused-crossover phase)
+    def _fused_flags(self) -> dict:
+        """The fused candidate kernels and no per-hit lists, unless
+        -allhits asks for them; rows_to_result fuses only where the
+        sweep is a walk and fast_top2 is on."""
+        if self.opt.output.analysis.show_all_hits:
+            return {"emit_hits": True, "fused_candidates": False}
+        return {"emit_hits": False,
+                "fused_candidates": self._fused_candidates}
 
     # copied from metacache_tpu/classify/runner.py:743-754
     def _adapt_sketching(self) -> SketchingOptions:
@@ -472,10 +485,11 @@ class QueryRunner:
         chunks: queue.Queue = queue.Queue(maxsize=2 + 2 * len(readers))
         done = threading.Lock()
         live = [len(readers)]
+        stop = threading.Event()
 
         def _produce(rd):
             try:
-                while True:
+                while not stop.is_set():
                     item = rd.read_batch_packed(4 * batch_reads, wl)
                     if item[5] == 0:
                         break
@@ -490,48 +504,56 @@ class QueryRunner:
                for rd in readers]
         for th in ths:
             th.start()
-        while True:
-            item = chunks.get()
-            if item is None:
-                break
-            packed, plens, scodes, slens, sheaders, _ = item
-            if opt.min_read_length > 0 or opt.max_read_length:
-                keep = plens >= opt.min_read_length
-                if opt.max_read_length:
-                    keep &= plens <= opt.max_read_length
-                packed, plens = packed[keep], plens[keep]
-                skeep = slens >= opt.min_read_length
-                if opt.max_read_length:
-                    skeep &= slens <= opt.max_read_length
-                scodes, slens = scodes[skeep], slens[skeep]
-                sheaders = sheaders[skeep]
-            if len(slens):
-                flush(self._dispatch_coded(scodes, slens, sheaders))
-            if len(plens):
-                buf.append((packed, plens))
-                nbuf += len(plens)
-            while nbuf >= take:
+        # the caller closes the readers: on an error here the producers
+        # stop reading first, so that none reads a closed reader
+        try:
+            while True:
+                item = chunks.get()
+                if item is None:
+                    break
+                packed, plens, scodes, slens, sheaders, _ = item
+                if opt.min_read_length > 0 or opt.max_read_length:
+                    keep = plens >= opt.min_read_length
+                    if opt.max_read_length:
+                        keep &= plens <= opt.max_read_length
+                    packed, plens = packed[keep], plens[keep]
+                    skeep = slens >= opt.min_read_length
+                    if opt.max_read_length:
+                        skeep &= slens <= opt.max_read_length
+                    scodes, slens = scodes[skeep], slens[skeep]
+                    sheaders = sheaders[skeep]
+                if len(slens):
+                    flush(self._dispatch_coded(scodes, slens, sheaders))
+                if len(plens):
+                    buf.append((packed, plens))
+                    nbuf += len(plens)
+                while nbuf >= take:
+                    pa = np.concatenate([c for c, _ in buf])
+                    la = np.concatenate([l for _, l in buf])
+                    flush(scan_dispatch(pa[:take], la[:take], take))
+                    buf = [(pa[take:], la[take:])]
+                    nbuf -= take
+                    flush_redo()
+            if nbuf:
                 pa = np.concatenate([c for c, _ in buf])
                 la = np.concatenate([l for _, l in buf])
-                flush(scan_dispatch(pa[:take], la[:take], take))
-                buf = [(pa[take:], la[take:])]
-                nbuf -= take
-                flush_redo()
-        if nbuf:
-            pa = np.concatenate([c for c, _ in buf])
-            la = np.concatenate([l for _, l in buf])
-            n = len(la)
-            pa = np.concatenate(
-                [pa, np.zeros((take - n, pa.shape[1]), np.uint8)])
-            la = np.concatenate([la, np.zeros(take - n, np.int32)])
-            flush(scan_dispatch(pa, la, n))
-        while pending:
-            self._collect_batch(*pending.popleft(), results)
-        flush_redo(final=True)
-        while pending:
-            self._collect_batch(*pending.popleft(), results)
-        for th in ths:
-            th.join()
+                n = len(la)
+                pa = np.concatenate(
+                    [pa, np.zeros((take - n, pa.shape[1]), np.uint8)])
+                la = np.concatenate([la, np.zeros(take - n, np.int32)])
+                flush(scan_dispatch(pa, la, n))
+            while pending:
+                self._collect_batch(*pending.popleft(), results)
+            flush_redo(final=True)
+            while pending:
+                self._collect_batch(*pending.popleft(), results)
+        finally:
+            stop.set()
+            while any(th.is_alive() for th in ths):
+                try:
+                    chunks.get(timeout=0.05)
+                except queue.Empty:
+                    pass
 
     def _scan_inputs(self, codes, lens, scan_k: int, bsz: int):
         """Stacked 2-bit packed rows -> (windows, valid, mwir) host arrays
@@ -566,19 +588,20 @@ class QueryRunner:
             max_candidates=opt.classify.max_candidates,
             pack_bits=self._pack_bits, infeed_packed=True,
             fast_top2=self._fast_top2,
+            fused_candidates=self._fused_candidates,
             **self._sweep_params(mwir.reshape(-1).astype(np.int32), 1))
 
     # copied from metacache_tpu/classify/runner.py:1671-1693 for single
-    # reads (wq = 1) and without the fused-candidates and part-count
-    # tests: the port always takes the fused candidate branch and stages
-    # one part
+    # reads (wq = 1) and without the part-count test: the port stages one
+    # part
     def _escalation_ok(self) -> bool:
         """Escalation (head-only phase 1 + full-depth redo) is valid for
         slot-packed two-tier and classed layouts on the fused fast path;
         it pays off when buckets can exceed the head. MC_ESCALATE=0
         disables."""
         if os.environ.get("MC_ESCALATE", "1") == "0" or \
-                not self._fast_top2 or not self._pack_bits:
+                not self._fast_top2 or not self._fused_candidates or \
+                not self._pack_bits:
             return False
         t = self.tables
         sk = self.sketching
@@ -605,6 +628,7 @@ class QueryRunner:
             sketchlen=sk.sketchlen,
             max_candidates=opt.classify.max_candidates,
             walk_elems=int(mwir.max()) * sk.sketchlen, fast_top2=True,
+            fused_candidates=self._fused_candidates,
             pack_bits=self._pack_bits, infeed_packed=True)
 
     # copied from metacache_tpu/classify/runner.py:1733-1764
@@ -656,6 +680,7 @@ class QueryRunner:
             self.hits_min, opt.classify.hits_diff_fraction,
             self.highest_rank, self.merge_rank,
             max_candidates=opt.classify.max_candidates, fast_top2=True,
+            fused_candidates=self._fused_candidates,
             pack_bits=self._pack_bits, **self._sweep_params(mwir, wq))
 
     # copied from metacache_tpu/classify/runner.py:1456-1508
@@ -705,6 +730,10 @@ class QueryRunner:
                                                    wq, k)))
         return (_CodedBatch(headers), ("rows", launched))
 
+    def _step_flags(self, mwir, wq: int, k: int) -> dict:
+        return dict(max_candidates=k, fast_top2=self._fast_top2,
+                    **self._fused_flags(), **self._sweep_params(mwir, wq))
+
     def _launch_rows(self, wmat, vmat, mwir, wq, k):
         sk = self.sketching
         return query_step_rows(
@@ -712,9 +741,8 @@ class QueryRunner:
             self.tables, self.hits_min,
             self.opt.classify.hits_diff_fraction, self.highest_rank,
             self.merge_rank, k=sk.kmerlen, sketchlen=sk.sketchlen,
-            windows_per_query=wq, max_candidates=k,
-            pack_bits=self._pack_bits, fast_top2=self._fast_top2,
-            **self._sweep_params(mwir, wq))
+            windows_per_query=wq, pack_bits=self._pack_bits,
+            **self._step_flags(mwir, wq, k))
 
     def _collect_batch(self, batch, dispatched, results):
         kind, payload = dispatched
@@ -812,6 +840,8 @@ class QueryRunner:
                              self._launch_rows(wmat, vmat, mwir, wq, k)))
         return launched
 
+    # copied from metacache_tpu/classify/runner.py:2046-2121, without the
+    # slim and micro fetches of the TPU link
     def _collect_batch_rows(self, batch, launched, results):
         if self._summary_only():
             for (idxs, _rows, res) in launched:
@@ -826,7 +856,9 @@ class QueryRunner:
         cand_beg = np.zeros((n, k), np.int32)
         cand_end = np.zeros((n, k), np.int32)
         cls_tax = np.zeros(n, np.int32)
-        for (idxs, _rows, res) in launched:
+        allhits_of: Dict[int, tuple] = {}
+        need_allhits = self.opt.output.analysis.show_all_hits
+        for (idxs, rows, res) in launched:
             sel = np.asarray(idxs)
             m = len(idxs)
             # one device-to-host copy per launch
@@ -835,19 +867,31 @@ class QueryRunner:
                                 res.cls_tax[:, None]], dim=1)[:m]
             packed = packed.cpu().numpy()
             kk = res.cand_tgt.shape[1]
-            cand_tgt[sel] = packed[:, 0 * kk:1 * kk]
-            cand_tax[sel] = packed[:, 1 * kk:2 * kk]
-            cand_hits[sel] = packed[:, 2 * kk:3 * kk]
-            cand_beg[sel] = packed[:, 3 * kk:4 * kk]
-            cand_end[sel] = packed[:, 4 * kk:5 * kk]
+            cand_tgt[sel, :kk] = packed[:, 0 * kk:1 * kk]
+            cand_tax[sel, :kk] = packed[:, 1 * kk:2 * kk]
+            cand_hits[sel, :kk] = packed[:, 2 * kk:3 * kk]
+            cand_beg[sel, :kk] = packed[:, 3 * kk:4 * kk]
+            cand_end[sel, :kk] = packed[:, 4 * kk:5 * kk]
             cls_tax[sel] = packed[:, 5 * kk]
+            if need_allhits:
+                hq = res.hit_qid.cpu().numpy()
+                ht = res.hit_tgt.cpu().numpy()
+                hw = res.hit_win.cpu().numpy()
+                order = np.argsort(hq, kind="stable")
+                hq, ht, hw = hq[order], ht[order], hw[order]
+                bounds = np.searchsorted(hq, np.arange(rows + 1))
+                for r, i in enumerate(idxs):
+                    lo, hi = bounds[r], bounds[r + 1]
+                    allhits_of[i] = (ht[lo:hi], hw[lo:hi])
         self._postprocess_arrays(batch, cand_tgt, cand_tax, cand_hits,
-                                 cand_beg, cand_end, cls_tax, results)
+                                 cand_beg, cand_end, cls_tax, allhits_of,
+                                 results)
 
     # copied from metacache_tpu/classify/runner.py:2123-2253 without the
-    # -allhits, -align and -cov-percentile branches (rejected above)
+    # -align and -cov-percentile branches (rejected above)
     def _postprocess_arrays(self, batch, cand_tgt, cand_tax, cand_hits,
-                            cand_beg, cand_end, cls_tax, results):
+                            cand_beg, cand_end, cls_tax, allhits_of,
+                            results):
         db = self.db
         oopt = self.opt.output
         make_truth = oopt.evaluate.precision or \
@@ -873,6 +917,7 @@ class QueryRunner:
         stats = results.statistics
         rank_counts = [0] * (NUM_RANKS + 1) if not precision else None
 
+        need_allhits = oopt.analysis.show_all_hits
         raw_hdrs = getattr(batch, "headers", None)
         fast_ok = (raw_hdrs is not None and not make_truth
                    and not track_matches and rank_counts is not None
@@ -941,7 +986,12 @@ class QueryRunner:
                 cls_mod.evaluate_classification(
                     best, truth, taxa, precision,
                     oopt.evaluate.taxon_coverage, stats)
-            lines.append(line(qid_out, header, best, truth, cands, [], ""))
+            allhits = []
+            if need_allhits and i in allhits_of:
+                ht, hw = allhits_of[i]
+                allhits = list(zip(ht.tolist(), hw.tolist()))
+            lines.append(line(qid_out, header, best, truth, cands, allhits,
+                              ""))
         if lines:
             write("".join(lines))
         results.query_count += len(batch)

@@ -280,11 +280,19 @@ ENVIRONMENT
                             their own kernel, then sweep them; 0
                             (default): the sweep kernel sorts each
                             row itself (one pass less over memory).
+    MC_FUSED_CANDIDATES=0   take the non-fused result path (torch
+                            sorts and scans) for every batch instead of
+                            the fused candidate kernels; any other
+                            value or unset: the kernels wherever the
+                            flags allow them (rows wider than a
+                            block holds take their wide form).
     MC_PROBE_PALLAS=<0|1|list>
                             extra probe-decode kernels: 0 or unset
                             none, 1 all, or a comma list of stages from
-                            bucket,oidx (the bucket-row probe, B9, and
-                            the overflow-row id, B8). The two-tier
+                            bucket,oidx (the bucket-row probe, B9; the
+                            overflow-row id, B8, is folded into B7,
+                            which reads it from the head row, so
+                            naming oidx changes nothing). The two-tier
                             decodes (B6 head only, B7 full depth)
                             always run.
     MC_BUILD_GBITS=<g>      force 2^g feature-range groups in the

@@ -24,7 +24,7 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("sketch.cu", "candidates.cu", "candidates_unpacked.cu",
-           "probe_decode.cu")
+           "candidates_wide.cu", "probe_decode.cu")
 HEADERS = ("block.cuh", "row_sort.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "metacache_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -106,6 +106,12 @@ def _load():
                                                  i, i, p]
             lib.mc_candidates_unpacked.argtypes = [p, p, p, p, i64, i, i, i,
                                                    i, i, p]
+            lib.mc_candidates_packed_wide.argtypes = [p, p, p, p, i64, i, i,
+                                                      i, i, i, i, p]
+            lib.mc_candidates_unpacked_wide.argtypes = [p, p, p, p, p, i64,
+                                                        i, i, i, i, i, p]
+            lib.mc_candidates_wide_work.argtypes = [i64, i, i, i]
+            lib.mc_candidates_wide_work.restype = ctypes.c_size_t
             lib.mc_head_decode.argtypes = [p, i64, i, p, p, i64, i, i, i, p,
                                            p, p]
             lib.mc_full_decode.argtypes = [p, i64, i, p, i64, i, p, p, p,
@@ -115,7 +121,9 @@ def _load():
             for fn in (lib.mc_sketch_windows, lib.mc_sketch_windows_long,
                        lib.mc_sort_packed,
                        lib.mc_candidates_packed,
-                       lib.mc_candidates_unpacked, lib.mc_head_decode,
+                       lib.mc_candidates_unpacked,
+                       lib.mc_candidates_packed_wide,
+                       lib.mc_candidates_unpacked_wide, lib.mc_head_decode,
                        lib.mc_full_decode, lib.mc_oidx_decode,
                        lib.mc_bucket_decode):
                 fn.restype = ctypes.c_int
@@ -179,6 +187,13 @@ CANDIDATES = Kernel("mc_candidates_packed",
 CANDIDATES_UNPACKED = Kernel("mc_candidates_unpacked",
                              "metacache_tpu/ops/candidates_pallas.py:264",
                              "metacache_tpu_torch/csrc/candidates_unpacked.cu")
+CANDIDATES_WIDE = Kernel("mc_candidates_packed_wide",
+                         "metacache_tpu/ops/candidates_pallas.py:429",
+                         "metacache_tpu_torch/csrc/candidates_wide.cu")
+CANDIDATES_UNPACKED_WIDE = Kernel(
+    "mc_candidates_unpacked_wide",
+    "metacache_tpu/ops/candidates_pallas.py:264",
+    "metacache_tpu_torch/csrc/candidates_wide.cu")
 HEAD_DECODE = Kernel("mc_head_decode",
                      "metacache_tpu/ops/probe_pallas.py:279",
                      "metacache_tpu_torch/csrc/probe_decode.cu")
@@ -193,8 +208,16 @@ BUCKET_DECODE = Kernel("mc_bucket_decode",
                        "metacache_tpu_torch/csrc/probe_decode.cu")
 ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sort": SORT,
        "candidates": CANDIDATES, "candidates_unpacked": CANDIDATES_UNPACKED,
+       "candidates_wide": CANDIDATES_WIDE,
+       "candidates_unpacked_wide": CANDIDATES_UNPACKED_WIDE,
        "head_decode": HEAD_DECODE, "full_decode": FULL_DECODE,
        "bucket_decode": BUCKET_DECODE, "oidx_decode": OIDX_DECODE}
+
+
+def wide_work_bytes(b: int, l2: int, pairs: bool, kk: int) -> int:
+    """Device bytes of the work space of B4's or B5's wide form
+    (csrc/candidates_wide.cu) for (b, l2) rows and kk candidates."""
+    return int(_load().mc_candidates_wide_work(b, l2, int(pairs), kk))
 
 
 def reset_counts() -> None:

@@ -16,8 +16,18 @@ pack into int32: ``candidates_unpacked`` (B5) sorts each row by
 (tgt, win), padding (I32_MAX, I32_MAX) last, and runs the same sweep +
 top-k with the target and window tests kept apart.
 
+Rows wider than one block's shared memory holds (MAX_CAND_L2 packed
+slots, MAX_UNPACKED_L2 pairs: long reads) take B4's and B5's wide form
+(csrc/candidates_wide.cu): tiles sorted in shared memory, merged in
+device memory, swept per tile with a top k per tile, then the row's top
+k from the tiles' picks; the same function, with int64 keys where the
+one-block kernels' int32 keys could overflow. The plain versions keep
+their keys in int64, which equals the int32 keys wherever those cannot
+overflow (L2 <= 32,768).
+
 CUDA tensors launch the kernels (csrc/candidates.cu,
-csrc/candidates_unpacked.cu); CPU tensors take the plain versions below.
+csrc/candidates_unpacked.cu, csrc/candidates_wide.cu); CPU tensors take
+the plain versions below.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ I32_MAX = 2**31 - 1
 MAX_SORT_L2 = 32768
 MAX_CAND_L2 = 32768      # csrc/candidates.cu: one row array, u16 run starts
 MAX_UNPACKED_L2 = 16384   # csrc/candidates_unpacked.cu: 12.5 B/slot of smem
+MAX_WIDE_L2 = 1 << 24     # csrc/candidates_wide.cu: i32 lane numbers
 
 
 def padded_width(l: int) -> int:
@@ -62,9 +73,10 @@ def sort_packed(pk: torch.Tensor, presorted: int = 0) -> torch.Tensor:
     if not pk.is_cuda:
         return sort_packed_plain(pk, presorted)
     if l2 > MAX_SORT_L2:
-        raise NotImplementedError(
+        raise ValueError(
             f"rows of {l2} > {MAX_SORT_L2} slots do not fit the sort "
-            "kernel's shared memory (ROADMAP queue B, wide rows)")
+            "kernel's shared memory (candidates_packed sorts them in its "
+            "wide form)")
     pk = pk.contiguous()
     if pk.data_ptr() % 16:              # the kernel loads 16 bytes a lane
         pk = pk.clone()
@@ -72,6 +84,32 @@ def sort_packed(pk: torch.Tensor, presorted: int = 0) -> torch.Tensor:
     if b:
         kernels.SORT(pk.data_ptr(), out.data_ptr(), b, l2, presorted)
     return out
+
+
+def _wide(kernel, slots, mwir, l2: int, presorted: int, extra, walk: int,
+          dedup_walk: int, kk: int) -> torch.Tensor:
+    """B4's or B5's wide form on CUDA rows of l2 > one block's lanes:
+    ``slots`` (pk,) or (tgt, win), ``extra`` the kernel's arguments after
+    ``presorted`` and before the sweep's. -> (B, K, 4) int32."""
+    b = slots[0].shape[0]
+    if l2 > MAX_WIDE_L2:
+        raise ValueError(f"rows of {l2} > {MAX_WIDE_L2} slots")
+    # its tile sort takes the rows of the one-block kernels
+    tile = MAX_CAND_L2 if len(slots) == 1 else MAX_UNPACKED_L2
+    if presorted not in (0, l2) and presorted > tile // 2:
+        raise ValueError(f"presorted={presorted} runs must fit half a "
+                         f"sort tile of {tile} lanes")
+    slots = [x.contiguous() for x in slots]
+    dev = slots[0].device
+    res = torch.empty((b, kk, 4), dtype=torch.int32, device=dev)
+    if b:
+        work = torch.empty(kernels.wide_work_bytes(b, l2, len(slots) == 2,
+                                                   kk),
+                           dtype=torch.uint8, device=dev)
+        kernel(*(x.data_ptr() for x in slots), mwir.data_ptr(),
+               res.data_ptr(), work.data_ptr(), b, l2, presorted, *extra,
+               walk, dedup_walk, kk)
+    return res
 
 
 def _lane_shift(x: torch.Tensor, e: int) -> torch.Tensor:
@@ -133,7 +171,7 @@ def candidates_sorted_plain(p: torch.Tensor, mwir: torch.Tensor,
             ok = (lane >= e) & (pe >= lo_p)
             hits = hits + ok.to(torch.int32)
             beg = torch.where(ok, pe, beg)
-    key = hits * l2 + (l2 - 1 - lane)
+    key = hits.to(torch.int64) * l2 + (l2 - 1 - lane)
     v = torch.where(is_match, key, -1)
     tq = (p >> pack_bits) & ((1 << (32 - pack_bits)) - 1)
     shift = int(l2).bit_length() - 1
@@ -168,7 +206,9 @@ def candidates_packed(pk: torch.Tensor, mwir: torch.Tensor, pack_bits: int,
     B4 sorts them itself (phases below ``presorted`` skipped) and sweeps;
     with ``split`` B3 sorts them first and B4 only sweeps, and with
     ``sorted_input`` they arrive sorted. Walk mode when ``dedup_walk``
-    is 0. CPU tensors take the plain sort and sweep on every route."""
+    is 0. CPU tensors take the plain sort and sweep on every route. Rows
+    wider than MAX_CAND_L2 take the wide form, which sorts them itself
+    (``split`` does not apply: B3 takes no such row)."""
     _check(pk, "pk", 2)
     b, l = pk.shape
     kk = max_candidates
@@ -195,12 +235,11 @@ def candidates_packed(pk: torch.Tensor, mwir: torch.Tensor, pack_bits: int,
             pk = sort_packed_plain(pk, presorted)
         res = candidates_sorted_plain(pk, mwir, pack_bits, walk, dedup_walk,
                                       kk)
+    elif l2 > MAX_CAND_L2:
+        res = _wide(kernels.CANDIDATES_WIDE, (pk,), mwir, l2,
+                    l2 if sorted_input else presorted, (pack_bits,), walk,
+                    dedup_walk, kk)
     else:
-        if l2 > MAX_CAND_L2:
-            raise NotImplementedError(
-                f"rows of {l2} > {MAX_CAND_L2} slots do not fit the "
-                "candidates kernel's shared memory (ROADMAP queue B, "
-                "wide rows)")
         if sorted_input:
             presorted = l2
         elif split:
@@ -258,7 +297,8 @@ def candidates_unpacked_plain(tgt: torch.Tensor, win: torch.Tensor,
         else:
             hits = hits + ok.to(torch.int32)
         beg = torch.where(ok, we, beg)
-    v = torch.where(is_match, hits * l2 + (l2 - 1 - lane), -1)
+    v = torch.where(is_match, hits.to(torch.int64) * l2 + (l2 - 1 - lane),
+                    -1)
     shift = int(l2).bit_length() - 1
     rounds = []
     for _ in range(max_candidates):
@@ -287,7 +327,8 @@ def candidates_unpacked(tgt: torch.Tensor, win: torch.Tensor,
     Rows are padded with (I32_MAX, I32_MAX) to max(128, next power of
     two) lanes; B5 sorts them by (tgt, win), skipping the phases below
     ``presorted`` (alternating sorted runs of that many lanes), sweeps
-    and picks the top k. Walk mode when ``dedup_walk`` is 0."""
+    and picks the top k. Walk mode when ``dedup_walk`` is 0. Rows wider
+    than MAX_UNPACKED_L2 take the wide form."""
     _check(tgt, "tgt", 2)
     _check(win, "win", 2)
     if win.shape != tgt.shape or win.device != tgt.device:
@@ -315,12 +356,10 @@ def candidates_unpacked(tgt: torch.Tensor, win: torch.Tensor,
         raise ValueError(f"mwir must have shape ({b},)")
     if not tgt.is_cuda:
         res = candidates_unpacked_plain(tgt, win, mwir, walk, dedup_walk, kk)
+    elif l2 > MAX_UNPACKED_L2:
+        res = _wide(kernels.CANDIDATES_UNPACKED_WIDE, (tgt, win), mwir, l2,
+                    presorted, (), walk, dedup_walk, kk)
     else:
-        if l2 > MAX_UNPACKED_L2:
-            raise NotImplementedError(
-                f"rows of {l2} > {MAX_UNPACKED_L2} slots do not fit the "
-                "unpacked candidates kernel's shared memory (ROADMAP "
-                "queue B, wide rows)")
         tgt, win = tgt.contiguous(), win.contiguous()
         res = torch.empty((b, kk, 4), dtype=torch.int32, device=tgt.device)
         if b:

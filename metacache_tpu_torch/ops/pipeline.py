@@ -1,7 +1,7 @@
 """Query results and the ranked-LCA classification of candidates.
 
-Port of metacache_tpu/ops/pipeline.py: ``QueryResult`` (:64, without
-the per-hit lists of -allhits) and ``classify_candidates`` (:317-361),
+Port of metacache_tpu/ops/pipeline.py: ``QueryResult`` (:64) and
+``classify_candidates`` (:317-361),
 with the same float32 threshold, cumprod include mask and first-index
 argmax rank picks.
 """
@@ -19,6 +19,10 @@ class QueryResult(NamedTuple):
     cand_beg: torch.Tensor    # (B, K) i32 window range begin
     cand_end: torch.Tensor    # (B, K) i32 window range end (inclusive)
     cls_tax: torch.Tensor     # (B,) i32 classified taxon id (0 = none)
+    # the sorted slots, flat, for -allhits; (1,) zeros when not asked for
+    hit_qid: torch.Tensor     # (B * L,) i32 row index (B = padding)
+    hit_tgt: torch.Tensor     # (B * L,) i32
+    hit_win: torch.Tensor     # (B * L,) i32
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:

@@ -38,8 +38,12 @@ f = 1 reverses nothing.
 
 CUDA tensors launch the kernels (csrc/probe_decode.cu); CPU tensors take
 the plain versions below. B6 and B7 run wherever their layouts are
-probed; B8 and B9 are off unless ``MC_PROBE_PALLAS`` names them, as in
-JAX (probe_pallas_enabled).
+probed; B9 is off unless ``MC_PROBE_PALLAS`` names it, as in JAX
+(probe_pallas_enabled). B8's work is folded into B7 on the query path:
+B7 without ``oidx`` reads the overflow row from the head row it holds,
+where JAX's oidx stage had to find the rows before XLA's gather
+(metacache_tpu/ops/rows.py:716-738). ``oidx_decode`` stays as the
+counterpart of JAX's kernel, held against its plain version.
 """
 from __future__ import annotations
 
@@ -52,12 +56,12 @@ from .. import kernels
 I32_MAX = 2**31 - 1
 
 
-# metacache_tpu/ops/probe_pallas.py:43-61 for the two stages the port
-# gates; head and full (B6, B7) always run
+# metacache_tpu/ops/probe_pallas.py:43-61 for the stage the port gates;
+# head and full (B6, B7) always run, and B7 does the oidx stage's work
 def probe_pallas_enabled(stage: str) -> bool:
-    """Gate of the off-by-default decode kernels, ``stage`` "bucket"
-    (B9) or "oidx" (B8). MC_PROBE_PALLAS: 0 or unset = off, 1 = all
-    stages, or a comma list of stage names ("bucket,head,full,oidx")."""
+    """Gate of the off-by-default decode kernel, ``stage`` "bucket"
+    (B9). MC_PROBE_PALLAS: 0 or unset = off, 1 = all stages, or a comma
+    list of stage names ("bucket,head,full,oidx")."""
     v = os.environ.get("MC_PROBE_PALLAS", "")
     if v in ("", "0"):
         return False

@@ -5,17 +5,26 @@ size-classed fused-row layouts, plain or pair-packed: sketch (B1, or B2
 for windows wider than 128) -> bucket-row probe (B9 when
 ``MC_PROBE_PALLAS`` names its stage) + row gather -> match slots ->
 candidates -> ranked LCA. Two-tier rows with packed slots decode
-through B7 (head + overflow rows; B8 finds the overflow rows first
-where JAX runs it) or, in escalation phase 1, B6 (head rows only);
-classed cells decode as torch ops, as the JAX package decodes them with
-XLA ops. Slots that pack into int32 (pack_bits > 0) go through B4, which
-sorts each row itself before its sweep + top-k, or, with
-``MC_SPLIT_CAND=1``, through sort B3 and then B4's sweep + top-k
+through B7 (head + overflow rows, the overflow row read from the head
+row it already holds: B8's work, folded in) or, in escalation phase 1,
+B6 (head rows only); classed cells decode as torch ops, as the JAX
+package decodes them with XLA ops.
+
+``rows_to_result`` has JAX's two branches. The fused one runs the
+candidate kernels: slots that pack into int32 (pack_bits > 0) go
+through B4, which sorts each row itself before its sweep + top-k, or,
+with ``MC_SPLIT_CAND=1``, through sort B3 and then B4's sweep + top-k
 (``split_candidates``); unpacked (tgt, win) slots go through the
-two-key kernel (B5). The port runs the fused candidate branch of
-``rows_to_result`` whenever the result allows it; branches it does not
-carry yet raise NotImplementedError naming their ROADMAP item. A Python
-loop over the K stacked batches takes the place of ``lax.scan``.
+two-key kernel (B5); rows wider than those kernels' shared memory takes
+(long reads) go through their wide form, which spreads a row over
+blocks (ops/candidates.py). The non-fused branch is the torch counterpart of
+JAX's XLA code (rows.py:181-467): a row sort, the walk, dedup or
+rank-join sweep, then either the segmented suffix-max top-k
+(``_fast_top2_result``) or the best range per target, the taxon merge
+and the final ranking, and the per-hit lists of -allhits. ``fuses``
+picks the branch from flags before the probe, as JAX's runner and
+rows.py:142-143 do (``MC_FUSED_CANDIDATES``, runner.py:612-622). A
+Python loop over the K stacked batches takes the place of ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -27,8 +36,7 @@ from .candidates import (I32_MAX, candidates_packed, candidates_unpacked,
                          padded_width)
 from .pipeline import QueryResult, classify_candidates
 from .probe import probe_bucket, probe_bucket_classed, shift_right_logical
-from .probe_decode import (_rows, full_decode, head_decode, oidx_decode,
-                           probe_pallas_enabled)
+from .probe_decode import _rows, full_decode, head_decode
 from .sketch import (LANES, sketch_windows, sketch_windows_packed,
                      unpack_2bit)
 
@@ -52,15 +60,45 @@ def _meta_match(rows: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
     return (rows[:, 0] == flat) & (flat != -1)
 
 
-def _alt_runs(fast_top2: bool, walk_elems: int, dedup_walk: int,
-              feats_per_query: int, spf: int) -> int:
+def fused_candidates_enabled() -> bool:
+    """MC_FUSED_CANDIDATES as JAX's runner.py:612-622 reads it: "0"
+    turns the fused candidate kernels off, any other value leaves them
+    on. The port keeps them on by default on the CPU too, where the
+    kernels' plain versions run."""
+    return os.environ.get("MC_FUSED_CANDIDATES") != "0"
+
+
+def fuses(fused_candidates: bool, fast_top2: bool, max_candidates: int,
+          walk_elems: int, dedup_walk: int, emit_hits: bool) -> bool:
+    """True when ``rows_to_result`` takes the fused candidate kernels:
+    JAX's condition (rows.py:142-143; its runner asks for no per-hit
+    lists then). The kernels take rows of every width."""
+    return (fused_candidates and fast_top2 and max_candidates <= 4 and
+            (walk_elems > 0 or dedup_walk > 0) and not emit_hits)
+
+
+def _alt_runs(fused: bool, fast_top2: bool, walk_elems: int,
+              dedup_walk: int, feats_per_query: int, spf: int) -> int:
     """Run length for alternating-direction probe emission, 0 = off
-    (rows.py:80-90; the port always takes the fused candidate branch)."""
-    if not (fast_top2 and (walk_elems or dedup_walk)):
+    (rows.py:80-90): only for the fused candidate kernels."""
+    if not (fused and fast_top2 and (walk_elems or dedup_walk)):
         return 0
     if spf <= 64 or feats_per_query & (feats_per_query - 1):
         return 0
     return 1 << (spf - 1).bit_length()
+
+
+def route(fused_candidates: bool, fast_top2: bool, max_candidates: int,
+           walk_elems: int, dedup_walk: int, emit_hits: bool, f: int,
+           spf: int):
+    """The branch of a step's rows, from flags and shapes before the
+    probe: -> (fused, alt_runs). The probe emits f * (alt_runs or spf)
+    slots a row; the non-fused branch gets no alternating runs (JAX's
+    ``_alt_runs(fused=False, ...)``)."""
+    fused = fuses(fused_candidates, fast_top2, max_candidates, walk_elems,
+                  dedup_walk, emit_hits)
+    return fused, _alt_runs(fused, fast_top2, walk_elems, dedup_walk, f,
+                            spf)
 
 
 def _bucket_idx(flat: torch.Tensor, tables) -> torch.Tensor:
@@ -172,10 +210,14 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
     probe (rows.py:665-669).
 
     Two-tier tables with packed slots decode head and overflow rows
-    through B7, with the overflow rows found by B8 first where JAX runs
-    its oidx kernel (pair-packed heads, full runs; rows.py:716-738);
-    (tgt, win) lane rows and classed cells decode as torch ops, as the
-    JAX package decodes them with XLA ops (rows.py:699-701, 750-758)."""
+    through B7, which reads each probe's overflow row from lane 2 of the
+    head row it holds. JAX runs B8 for that first where its oidx stage
+    is named (rows.py:716-738): its kernel had to find the rows before
+    XLA gathered them, while B7 reads them itself, so the port runs B7
+    alone under every ``MC_PROBE_PALLAS`` (B8's contract, ``found ?
+    row[2] : 0``, is B7's branch without ``oidx``). (tgt, win) lane rows
+    and classed cells decode as torch ops, as the JAX package decodes
+    them with XLA ops (rows.py:699-701, 750-758)."""
     b, f = feats.shape
     c = tables.spf
     flat = feats.reshape(-1)
@@ -187,14 +229,8 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
         pks = _classed_probe(flat, tables, c, idx_c)
         return _emit(_encode((pks,), slot_bits, pack_bits), b, f, alt_runs)
     if hsl and slot_bits:
-        rl = alt_runs or c
-        oidx = None
-        if (tables.packed and not tables.ovf_packed and
-                slot_bits == pack_bits and hsl <= 61 and alt_runs >= c and
-                probe_pallas_enabled("oidx")):
-            oidx = oidx_decode(tables.fused_rows, idx_c, flat)
         pks = full_decode(tables.fused_rows, tables.ovf_rows, idx_c, flat,
-                          hsl, c, rl, f if alt_runs else 1, oidx)
+                          hsl, c, alt_runs or c, f if alt_runs else 1)
         return _emit(_encode((pks,), slot_bits, pack_bits), b, f, 0)
     rows = tables.fused_rows[idx_c.to(torch.int64)]   # ONE row gather
     found = _meta_match(rows, flat)
@@ -251,61 +287,327 @@ def probe_rows_head(feats: torch.Tensor, tables, alt_runs: int,
     return pk.reshape(b, f * rl), over
 
 
+def _shifted(x: torch.Tensor, e: int, fill) -> torch.Tensor:
+    """y[:, i] = x[:, i - e] for i >= e, ``fill`` below (JAX's
+    concatenate of a filled block and x[:, :-e])."""
+    b, l = x.shape
+    e = min(e, l)
+    return torch.cat([torch.full((b, e), fill, dtype=x.dtype,
+                                 device=x.device), x[:, :l - e]], dim=1)
+
+
+def _pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Two int32 keys -> one int64 key in their lexicographic order
+    (signed hi, then signed lo)."""
+    return hi.to(torch.int64) * (1 << 32) + (lo.to(torch.int64) + (1 << 31))
+
+
+def _sort_rows(ops, num_keys: int):
+    """jax.lax.sort(ops, dimension=1, num_keys=num_keys) for int32
+    operands: a stable lexicographic sort of each row by the first
+    ``num_keys`` operands, the others carried. Keys pair up into int64
+    from the last; a chain of stable sorts, the last key first, gives
+    the lexicographic order."""
+    keys = list(ops[:num_keys])
+    chain = []
+    while keys:
+        chain.append(_pair_key(keys[-2], keys[-1]) if len(keys) >= 2
+                     else keys[-1])
+        keys = keys[:-2]
+    perm = None
+    for k in chain:
+        if perm is not None:
+            k = torch.gather(k, 1, perm)
+        idx = torch.sort(k, dim=1, stable=True).indices
+        perm = idx if perm is None else torch.gather(perm, 1, idx)
+    return tuple(torch.gather(x, 1, perm) for x in ops)
+
+
+def _hit_lists(hit_tgt, hit_win, device):
+    """Flat per-hit lists of -allhits (rows.py:364-373): the sorted
+    slots, row-major, with the row index as query id (the row count for
+    padding); without them three (1,) zeros."""
+    if hit_tgt is None:
+        z = torch.zeros((1,), dtype=torch.int32, device=device)
+        return z, z, z
+    b, l = hit_tgt.shape
+    row = torch.arange(b, dtype=torch.int32, device=hit_tgt.device)
+    qid = torch.where(hit_tgt != I32_MAX, row[:, None], b)
+    return qid.reshape(-1), hit_tgt.reshape(-1), hit_win.reshape(-1)
+
+
 def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
                    hits_min, hits_diff_frac, highest_rank, merge_rank,
                    *, max_candidates: int, walk_elems: int = 0,
                    dedup_walk: int = 0, fast_top2: bool = False,
-                   emit_hits: bool = False, presorted_runs: int = 0,
+                   fused_candidates: bool = True, emit_hits: bool = False,
+                   presorted_runs: int = 0,
                    pack_bits: int = 0) -> QueryResult:
-    """(B, L) match slots -> candidates + classification: the fused
-    branch of rows.py:134-179. With ``pack_bits`` > 0, ``tgt`` holds the
-    packed slots (``win`` is ignored) for B4, fused or after B3 as
-    ``split_candidates`` says; with 0, (tgt, win) go to the two-key
-    kernel B5."""
+    """(B, L) match slots -> candidates + classification
+    (rows.py:93-373). With ``pack_bits`` > 0, ``tgt`` holds the packed
+    slots (``win`` is ignored); with 0, (tgt, win) pairs.
+
+    Where ``fuses`` says so (``fused_candidates``, the port's default,
+    and JAX's other conditions), the fused branch: packed slots go to
+    B4, fused or after B3 as ``split_candidates`` says, (tgt, win) pairs
+    to B5, and rows wider than their shared memory takes to their wide
+    form. Otherwise the
+    non-fused branch, as torch ops: the sweep by walk (``0 < walk_elems
+    < L``), by dedup + walk (``dedup_walk``), else by the rank join;
+    then ``_fast_top2_result`` (``fast_top2`` and at most 4 candidates)
+    or the best range per target, the merge by taxon and the final
+    ranking; with ``emit_hits`` also the per-hit lists."""
+    b, l = tgt.shape
     kk = max_candidates
-    if emit_hits:
-        raise NotImplementedError(
-            "per-hit lists (-allhits) need the non-fused result path "
-            "(ROADMAP queue A5)")
-    if not fast_top2 or kk > 4:
-        raise NotImplementedError(
-            "taxon merging (-lowest above sequence) or more than 4 "
-            "candidates need the non-fused result path (ROADMAP queue A5)")
-    if not (walk_elems > 0 or dedup_walk > 0):
-        raise NotImplementedError(
-            "contiguous ranges longer than 48 windows need the rank-join "
-            "sweep (ROADMAP queue A5)")
-    walk = 0 if dedup_walk else walk_elems
+    mwir = mwir.to(torch.int32)
     if pack_bits:
         # clamping mwir to 2^(wbits-1) is semantically identity and keeps
         # the packed sweep's single-compare range test exact
         # (rows.py:134-140)
-        mwir = torch.clamp(mwir.to(torch.int32), max=1 << (pack_bits - 1))
-        cand_tgt, cand_hits, cand_beg, cand_end = candidates_packed(
-            tgt, mwir, pack_bits, walk_elems=walk, dedup_walk=dedup_walk,
-            max_candidates=kk, presorted=presorted_runs,
-            split=split_candidates())
-    else:
-        cand_tgt, cand_hits, cand_beg, cand_end = candidates_unpacked(
-            tgt, win, mwir, walk_elems=walk, dedup_walk=dedup_walk,
-            max_candidates=kk, presorted=presorted_runs)
+        mwir = torch.clamp(mwir, max=1 << (pack_bits - 1))
     ntax = merge_tax_of_target.shape[0]
-    cand_tax = torch.where(
-        cand_tgt >= 0,
-        merge_tax_of_target[torch.clamp(cand_tgt, 0, ntax - 1).to(
-            torch.int64)], 0)
+    if fuses(fused_candidates, fast_top2, kk, walk_elems, dedup_walk,
+             emit_hits):
+        walk = 0 if dedup_walk else walk_elems
+        if pack_bits:
+            cand_tgt, cand_hits, cand_beg, cand_end = candidates_packed(
+                tgt, mwir, pack_bits, walk_elems=walk,
+                dedup_walk=dedup_walk, max_candidates=kk,
+                presorted=presorted_runs, split=split_candidates())
+        else:
+            cand_tgt, cand_hits, cand_beg, cand_end = candidates_unpacked(
+                tgt, win, mwir, walk_elems=walk, dedup_walk=dedup_walk,
+                max_candidates=kk, presorted=presorted_runs)
+        cand_tax = torch.where(
+            cand_tgt >= 0,
+            merge_tax_of_target[torch.clamp(cand_tgt, 0, ntax - 1).to(
+                torch.int64)], 0)
+        cls_tax = classify_candidates(
+            cand_tgt, cand_tax, cand_hits, lineages,
+            hits_min, hits_diff_frac, highest_rank, merge_rank)
+        return QueryResult(cand_tgt, cand_tax, cand_hits, cand_beg,
+                           cand_end, cls_tax, *_hit_lists(None, None,
+                                                           tgt.device))
+
+    dev = tgt.device
+    # ---- per-row sort by (target, window) (rows.py:181-192) ----------
+    if pack_bits:
+        pk = torch.sort(tgt, dim=1).values
+        pad = pk == I32_MAX
+        tgt = torch.where(pad, I32_MAX, shift_right_logical(pk, pack_bits))
+        win = torch.where(pad, I32_MAX, pk & ((1 << pack_bits) - 1))
+    else:
+        tgt, win = _sort_rows((tgt, win), 2)
+    is_match = tgt != I32_MAX
+    pos = torch.arange(l, dtype=torch.int32, device=dev).expand(b, l)
+    hit_tgt, hit_win = (tgt, win) if emit_hits else (None, None)
+    m1 = (mwir - 1)[:, None]
+
+    carry_beg = False
+    if dedup_walk > 0:
+        # compact duplicate (t, w) runs to distinct entries + counts
+        # (rows.py:200-217)
+        start = (pos == 0) | (tgt != _shifted(tgt, 1, -1)) | \
+            (win != _shifted(win, 1, -1))
+        s_pos = torch.where(start, pos, I32_MAX)
+        nxt_incl = torch.cummin(s_pos.flip(1), dim=1).values.flip(1)
+        nxt = torch.cat([nxt_incl[:, 1:],
+                         torch.full((b, 1), I32_MAX, dtype=torch.int32,
+                                    device=dev)], dim=1)
+        nxt = torch.clamp(nxt, max=l)      # next run's start = my run end
+        cnt = nxt - pos
+        endpos = nxt - 1
+        ckey = torch.where(start & is_match, 0, 1).to(torch.int32)
+        ckey2, _p, tgt, win, cnt, endpos = _sort_rows(
+            (ckey, pos, tgt, win, cnt, endpos), 2)
+        valid = ckey2 == 0
+        # sweep over distinct entries: <= max(mwir) per range
+        # (rows.py:218-234); lane i looks back e lanes, lanes below e
+        # have nothing there, so the shifts work on the row's views
+        w_lo = win - m1
+        hits = torch.where(valid, cnt, 0)
+        beg = win.clone()
+        for e in range(1, min(dedup_walk, l)):
+            ok = valid[:, e:] & valid[:, :-e] & \
+                (tgt[:, :-e] == tgt[:, e:]) & (win[:, :-e] >= w_lo[:, e:])
+            hits[:, e:] += torch.where(ok, cnt[:, :-e], 0)
+            # the last ok shift gives the smallest window
+            beg[:, e:] = torch.where(ok, win[:, :-e], beg[:, e:])
+        is_match = valid
+        tgt = torch.where(valid, tgt, I32_MAX)
+        win = torch.where(valid, win, I32_MAX)
+        pos = endpos                       # the range's last slot
+        lo = beg                           # the begin window, carried
+        carry_beg = True
+    elif 0 < walk_elems < l:
+        # rows.py:243-251
+        w_lo = win - m1
+        hits = torch.ones((b, l), dtype=torch.int32, device=dev)
+        for e in range(1, walk_elems):
+            hits[:, e:] += ((tgt[:, :-e] == tgt[:, e:]) &
+                            (win[:, :-e] >= w_lo[:, e:])).to(torch.int32)
+        lo = pos + 1 - hits
+    else:
+        # the rank join for the two-pointer left bound (rows.py:252-264);
+        # the second sort of JAX, by the unique (flag, index) keys, is
+        # the inverse permutation, written here as a scatter
+        win_lo = torch.clamp(win - m1, min=0)
+        ones = torch.ones((b, l), dtype=torch.int32, device=dev)
+        ct, cw, cf, cidx = _sort_rows(
+            (torch.cat([tgt, tgt], 1), torch.cat([win, win_lo], 1),
+             torch.cat([ones, ones - 1], 1), torch.cat([pos, pos], 1)), 3)
+        orig_before = torch.cumsum(cf, dim=1, dtype=torch.int32) - cf
+        dest = (cidx + l * cf).to(torch.int64)
+        lo = torch.empty_like(orig_before).scatter_(1, dest, orig_before)
+        lo = lo[:, :l]
+        hits = pos + 1 - lo
+
+    if fast_top2 and kk <= 4:
+        return _fast_top2_result(
+            tgt, win, hits, lo, is_match, carry_beg, hit_tgt, hit_win,
+            merge_tax_of_target, lineages, hits_min, hits_diff_frac,
+            highest_rank, merge_rank, kk)
+
+    # ---- best range per target: sort by (tgt, hits desc, pos) --------
+    neg_hits0 = torch.where(is_match, -hits, I32_MAX)
+    tgt1, neg1, pos1, end1, lo1 = _sort_rows(
+        (tgt, neg_hits0, pos, win, lo), 3)
+    col = torch.arange(l, dtype=torch.int32, device=dev).expand(b, l)
+    is_cand = (tgt1 != I32_MAX) & ((col == 0) |
+                                   (tgt1 != _shifted(tgt1, 1, -1)))
+    tax = merge_tax_of_target[torch.clamp(tgt1, 0, ntax - 1).to(
+        torch.int64)]
+    is_cand = is_cand & (tax != 0)
+
+    # ---- merge by taxon: sort by (tax, hits desc, pos) ---------------
+    taxkey = torch.where(is_cand, tax, I32_MAX)
+    neg2 = torch.where(is_cand, neg1, I32_MAX)
+    taxkey2, neg2, pos2, tgt2, end2, lo2 = _sort_rows(
+        (taxkey, neg2, pos1, tgt1, end1, lo1), 3)
+    # taxon ids can be negative (sequence-level): column 0 always starts
+    # a group
+    is_rep = (taxkey2 != I32_MAX) & ((col == 0) |
+                                     (taxkey2 != _shifted(taxkey2, 1, -1)))
+    # the first insertion position of each taxon group by one suffix
+    # min with per-group offsets g * L2 (rows.py:316-332), in int64:
+    # JAX's int32 keys wrap once a row holds 2^31 / L2 groups (1,024 at
+    # rows of 1 M slots), and equal these wherever they do not
+    g = torch.cumsum(is_rep.to(torch.int64), dim=1)
+    l2 = 1 << int(l).bit_length()
+    v = torch.where(taxkey2 != I32_MAX, pos2 + g * l2, torch.iinfo(
+        torch.int64).max)
+    sufmin = torch.cummin(v.flip(1), dim=1).values.flip(1)
+    # below L at the representatives, the only lanes read
+    first_pos = (sufmin - g * l2).to(torch.int32)
+
+    # ---- final ranking: hits desc, first insertion asc ---------------
+    if kk <= 4 and l * l2 < 2**31:
+        # neg * L2 + first_pos is a unique total order over the
+        # representatives: kk masked min-reductions
+        comp = torch.where(is_rep, neg2 * l2 + first_pos, I32_MAX)
+        cols = (neg2, tgt2, taxkey2, end2, lo2)
+        picked = [[] for _ in cols]
+        oks = []
+        for _ in range(kk):
+            m = comp.min(dim=1, keepdim=True).values
+            pick = comp == m
+            oks.append(m[:, 0] != I32_MAX)
+            for out, arr in zip(picked, cols):
+                out.append(torch.where(pick, arr, 0).sum(
+                    dim=1, dtype=torch.int32))
+            comp = torch.where(pick, I32_MAX, comp)
+        okc = torch.stack(oks, dim=1)
+        neg3, tgt3, tax3, end3, lo3 = (torch.stack(x, dim=1)
+                                       for x in picked)
+    else:
+        neg3 = torch.where(is_rep, neg2, I32_MAX)
+        fp3 = torch.where(is_rep, first_pos, I32_MAX)
+        neg3, _f, tgt3, tax3, end3, lo3 = (
+            x[:, :kk] for x in _sort_rows(
+                (neg3, fp3, tgt2, taxkey2, end2, lo2), 2))
+        okc = neg3 != I32_MAX
+
+    cand_tgt = torch.where(okc, tgt3, -1)
+    cand_tax = torch.where(okc, tax3, 0)
+    cand_hits = torch.where(okc, -neg3, 0)
+    if carry_beg:
+        cand_beg = torch.where(okc, lo3, 0)
+    else:
+        lo_sel = torch.clamp(lo3, 0, l - 1).to(torch.int64)
+        cand_beg = torch.where(okc, torch.gather(win, 1, lo_sel), 0)
+    cand_end = torch.where(okc, end3, 0)
     cls_tax = classify_candidates(
         cand_tgt, cand_tax, cand_hits, lineages,
         hits_min, hits_diff_frac, highest_rank, merge_rank)
     return QueryResult(cand_tgt, cand_tax, cand_hits, cand_beg, cand_end,
-                       cls_tax)
+                       cls_tax, *_hit_lists(hit_tgt, hit_win, dev))
+
+
+def _fast_top2_result(tgt, win, hits, lo, is_match, carry_beg, hit_tgt,
+                      hit_win, merge_tax_of_target, lineages, hits_min,
+                      hits_diff_frac, highest_rank, merge_rank,
+                      kk: int) -> QueryResult:
+    """Top-k candidates without taxon merging (rows.py:376-467): slots
+    arrive (tgt, win)-sorted with padding last, so target groups are
+    contiguous runs. Each group's best range is the max of key = hits *
+    L2 + (L2 - 1 - col), placed at the group's start by a suffix max
+    with per-group offsets -g * L2^2; the candidates are the kk largest
+    group maxima. The keys are int64 where L * L2^2 >= 2^31, as JAX
+    widens them (``wide``), else int32."""
+    b, l = tgt.shape
+    dev = tgt.device
+    l2 = 1 << int(l).bit_length()
+    kb = l2 * l2
+    kdt = torch.int64 if l * kb >= 2**31 else torch.int32
+    neg_inf = torch.iinfo(kdt).min + 1
+    col = torch.arange(l, dtype=torch.int32, device=dev).expand(b, l)
+    key = hits.to(kdt) * l2 + (l2 - 1 - col).to(kdt)
+    newt = (col == 0) | (tgt != _shifted(tgt, 1, -1))
+    g = torch.cumsum(newt.to(kdt), dim=1, dtype=kdt)
+    v = torch.where(is_match, key - g * kb, neg_inf)
+    sufmax = torch.cummax(v.flip(1), dim=1).values.flip(1)
+    comp = torch.where(newt & is_match, sufmax + g * kb, neg_inf)
+
+    shift = int(l2).bit_length() - 1
+    ntax = merge_tax_of_target.shape[0]
+    out = [[] for _ in range(5)]          # tgt, tax, hits, beg, end
+    for _ in range(kk):
+        mx = comp.max(dim=1, keepdim=True).values
+        ok = mx[:, 0] > 0
+        bestkey = torch.where(ok, mx[:, 0], 0)
+        bc = torch.clamp(l2 - 1 - (bestkey & (l2 - 1)), 0, l - 1).to(
+            torch.int64)[:, None]
+        t_b = torch.gather(tgt, 1, bc)[:, 0]
+        w_b = torch.gather(win, 1, bc)[:, 0]
+        lo_b = torch.gather(lo, 1, bc)[:, 0]
+        if carry_beg:
+            beg_b = lo_b                   # the begin window, carried
+        else:
+            beg_b = torch.gather(win, 1, torch.clamp(
+                lo_b, 0, l - 1).to(torch.int64)[:, None])[:, 0]
+        tg = torch.where(ok, t_b, -1)
+        out[0].append(tg)
+        out[1].append(torch.where(ok, merge_tax_of_target[torch.clamp(
+            tg, 0, ntax - 1).to(torch.int64)], 0))
+        out[2].append(torch.where(ok, bestkey >> shift, 0).to(torch.int32))
+        out[3].append(torch.where(ok, beg_b, 0))
+        out[4].append(torch.where(ok, w_b, 0))
+        comp = torch.where(comp == mx, neg_inf, comp)
+    cand_tgt, cand_tax, cand_hits, cand_beg, cand_end = (
+        torch.stack(x, dim=1) for x in out)
+    cls_tax = classify_candidates(
+        cand_tgt, cand_tax, cand_hits, lineages,
+        hits_min, hits_diff_frac, highest_rank, merge_rank)
+    return QueryResult(cand_tgt, cand_tax, cand_hits, cand_beg, cand_end,
+                       cls_tax, *_hit_lists(hit_tgt, hit_win, dev))
 
 
 def query_step_rows(windows, valid, mwir, tables, hits_min, hits_diff_frac,
                     highest_rank, merge_rank, *, k: int, sketchlen: int,
                     windows_per_query: int, max_candidates: int,
                     walk_elems: int = 0, dedup_walk: int = 0,
-                    fast_top2: bool = False, emit_hits: bool = False,
+                    fast_top2: bool = False, fused_candidates: bool = True,
+                    emit_hits: bool = False,
                     pack_bits: int = 0) -> QueryResult:
     """Row-layout classification step (rows.py:904).
 
@@ -316,15 +618,16 @@ def query_step_rows(windows, valid, mwir, tables, hits_min, hits_diff_frac,
     feats = sketch_windows(windows.reshape(b * wq, w),
                            valid.reshape(b * wq), k, sketchlen)
     feats = feats.reshape(b, wq * sketchlen)
-    alt = _alt_runs(fast_top2, walk_elems, dedup_walk, wq * sketchlen,
-                    tables.spf)
+    fused, alt = route(fused_candidates, fast_top2, max_candidates,
+                        walk_elems, dedup_walk, emit_hits, wq * sketchlen,
+                        tables.spf)
     tgt, win = probe_rows(feats, tables, alt_runs=alt, pack_bits=pack_bits)
     return rows_to_result(
         tgt, win, mwir, tables.merge_tax, tables.lineages, hits_min,
         hits_diff_frac, highest_rank, merge_rank,
         max_candidates=max_candidates, walk_elems=walk_elems,
-        dedup_walk=dedup_walk, fast_top2=fast_top2, emit_hits=emit_hits,
-        presorted_runs=alt, pack_bits=pack_bits)
+        dedup_walk=dedup_walk, fast_top2=fast_top2, fused_candidates=fused,
+        emit_hits=emit_hits, presorted_runs=alt, pack_bits=pack_bits)
 
 
 def _sketch_stage(wmat, vmat, k: int, sketchlen: int,
@@ -351,15 +654,16 @@ def query_step_rows_scan(windows_k, valid_k, mwir_k, tables, hits_min,
                          k: int, sketchlen: int, windows_per_query: int,
                          max_candidates: int, walk_elems: int = 0,
                          dedup_walk: int = 0, fast_top2: bool = False,
-                         pack_bits: int = 0,
+                         fused_candidates: bool = True, pack_bits: int = 0,
                          infeed_packed: bool = False) -> torch.Tensor:
     """K stacked row batches -> (K, B) int32 classified taxon ids
     (rows.py:958). ``infeed_packed``: windows_k holds 2-bit codes, four
     bases per byte, low bits first, unpacked here; valid_k and mwir_k
     may arrive as uint8."""
     wq = windows_k.shape[2]
-    alt = _alt_runs(fast_top2, walk_elems, dedup_walk, wq * sketchlen,
-                    tables.spf)
+    fused, alt = route(fused_candidates, fast_top2, max_candidates,
+                        walk_elems, dedup_walk, False, wq * sketchlen,
+                        tables.spf)
     out = []
     for i in range(windows_k.shape[0]):
         feats = _sketch_stage(windows_k[i], valid_k[i], k, sketchlen,
@@ -371,7 +675,7 @@ def query_step_rows_scan(windows_k, valid_k, mwir_k, tables, hits_min,
             hits_diff_frac, highest_rank, merge_rank,
             max_candidates=max_candidates, walk_elems=walk_elems,
             dedup_walk=dedup_walk, fast_top2=fast_top2,
-            presorted_runs=alt, pack_bits=pack_bits)
+            fused_candidates=fused, presorted_runs=alt, pack_bits=pack_bits)
         out.append(res.cls_tax)
     return torch.stack(out)
 
@@ -391,7 +695,9 @@ def query_step_rows_scan_head(windows_k, valid_k, mwir_k, tables, hits_min,
                               hits_diff_frac, highest_rank, merge_rank, *,
                               k: int, sketchlen: int, max_candidates: int,
                               walk_elems: int = 0, dedup_walk: int = 0,
-                              fast_top2: bool = True, pack_bits: int = 0,
+                              fast_top2: bool = True,
+                              fused_candidates: bool = True,
+                              pack_bits: int = 0,
                               infeed_packed: bool = False):
     """Escalation phase 1 (rows.py:1314-1430): the scan of
     ``query_step_rows_scan`` with one head row per probe (B6) and runs of
@@ -419,7 +725,8 @@ def query_step_rows_scan_head(windows_k, valid_k, mwir_k, tables, hits_min,
             hits_diff_frac, highest_rank, merge_rank,
             max_candidates=max_candidates, walk_elems=walk_elems,
             dedup_walk=dedup_walk, fast_top2=fast_top2,
-            presorted_runs=presorted, pack_bits=pack_bits)
+            fused_candidates=fused_candidates, presorted_runs=presorted,
+            pack_bits=pack_bits)
         cls.append(res.cls_tax)
         over.append(_pack_bits32(ov))
         feats_k.append(feats)
@@ -432,21 +739,23 @@ def query_step_rows_redo(feats, idx_c, mwir, tables, hits_min,
                          hits_diff_frac, highest_rank, merge_rank, *,
                          max_candidates: int, walk_elems: int = 0,
                          dedup_walk: int = 0, fast_top2: bool = True,
+                         fused_candidates: bool = True,
                          pack_bits: int = 0) -> torch.Tensor:
     """Escalation phase 2 (rows.py:1079-1117, the body of
     ``_redo_body`` :1157): full-depth classification of (B, F) features
     whose feature rows phase 1 already found, so neither the sketch nor
     the bucket probe runs again. -> (B,) int32 classified taxa."""
-    f = feats.shape[1]
-    alt = _alt_runs(fast_top2, walk_elems, dedup_walk, f, tables.spf)
+    fused, alt = route(fused_candidates, fast_top2, max_candidates,
+                        walk_elems, dedup_walk, False, feats.shape[1],
+                        tables.spf)
     tgt, win = probe_rows(feats, tables, alt_runs=alt, pack_bits=pack_bits,
                           idx_pre=idx_c)
     return rows_to_result(
         tgt, win, mwir.to(torch.int32), tables.merge_tax, tables.lineages,
         hits_min, hits_diff_frac, highest_rank, merge_rank,
         max_candidates=max_candidates, walk_elems=walk_elems,
-        dedup_walk=dedup_walk, fast_top2=fast_top2, presorted_runs=alt,
-        pack_bits=pack_bits).cls_tax
+        dedup_walk=dedup_walk, fast_top2=fast_top2, fused_candidates=fused,
+        presorted_runs=alt, pack_bits=pack_bits).cls_tax
 
 
 def query_step_rows_redo_scan(feats_k, idx_k, mwir_k, tables, hits_min,

@@ -612,6 +612,198 @@ def test_packed_sweep_model_matches_plain(l2, walk, dedup, mwir):
         _packed_sweep_model(pk, mw, wbits, walk, dedup, 4), want)
 
 
+# ------------------------------------------------ the wide form
+@pytest.mark.parametrize("mode", ["walk", "dedup"])
+@pytest.mark.parametrize("pairs", [False, True])
+def test_wide_rows_match_pallas(mode, pairs):
+    """Rows wider than one block holds (65,536 packed slots, 32,768
+    pairs; on the card they take the wide form) through the plain
+    versions, which the wide form is held against on the card, equal
+    JAX's Pallas kernels, which take rows of any width."""
+    rng = np.random.default_rng(11 + 2 * pairs + (mode == "dedup"))
+    kw = dict(walk_elems=10) if mode == "walk" else dict(dedup_walk=6)
+    b, r = 2, 256
+    l = C.MAX_UNPACKED_L2 * 2 if pairs else C.MAX_CAND_L2 * 2
+    mwir = np.full(b, 3 if mode == "walk" else 6, np.int32)
+    if pairs:
+        tgt = rng.integers(0, 3000, (b, l)).astype(np.int32)
+        win = rng.integers(0, 900, (b, l)).astype(np.int32)
+        tgt[:, l // 2:] = win[:, l // 2:] = I32_MAX
+        order = np.lexsort((win.reshape(-1, r), tgt.reshape(-1, r)))
+        tgt = np.take_along_axis(tgt.reshape(-1, r), order, 1)
+        win = np.take_along_axis(win.reshape(-1, r), order, 1)
+        tgt[1::2], win[1::2] = tgt[1::2, ::-1], win[1::2, ::-1]
+        tgt, win = (np.ascontiguousarray(x.reshape(b, l)) for x in (tgt, win))
+        want = _jax_pairs(tgt, win, mwir, max_candidates=4, presorted=r,
+                          **kw)
+        got = _port_pairs(tgt, win, mwir, max_candidates=4, presorted=r,
+                          **kw)
+    else:
+        pk = _alternating(_slots(rng, b, l, 3000, 900, 11, dup=True), r)
+        want = _jax(pk, mwir, 11, max_candidates=4, presorted=r, **kw)
+        got = _port(pk, mwir, 11, max_candidates=4, presorted=r, **kw)
+    _assert_same(want, got)
+    assert (got[0] >= 0).all()
+
+
+class _PackedSlots:
+    """The wide form's view of packed slots (csrc/candidates_wide.cu
+    Packed): signed order, padding I32_MAX."""
+
+    def __init__(self, wbits):
+        self.wbits = wbits
+
+    def match(self, p):
+        return p != I32_MAX
+
+    def tgt(self, p):
+        return (p & 0xFFFFFFFF) >> self.wbits
+
+    def win(self, p):
+        return p & ((1 << self.wbits) - 1)
+
+    def in_range(self, q, p, mw1):
+        return q >= int(_wrap(p - mw1))
+
+
+class _PairSlots:
+    """(tgt, win) pairs as one int64 key tgt * 2^32 + (win + 2^31), in
+    the signed (tgt, win) order of the kernel's u64 keys."""
+
+    def match(self, p):
+        return self.tgt(p) != I32_MAX
+
+    def tgt(self, p):
+        return p >> 32
+
+    def win(self, p):
+        return (p & 0xFFFFFFFF) - 2**31
+
+    def in_range(self, q, p, mw1):
+        return (self.tgt(q) == self.tgt(p) and
+                self.win(q) >= int(_wrap(self.win(p) - mw1)))
+
+
+def _merge_pass(src, run, e=8):
+    """candidates_wide.cu::merge_pass_kernel over the flat key array:
+    runs of ``run`` keys merged pairwise, ``e`` outputs a thread."""
+    out = np.empty_like(src)
+    for t0 in range(0, len(src), e):
+        a0 = t0 & ~(2 * run - 1)
+        b0 = a0 + run
+        diag = t0 - a0
+        lo, hi = max(0, diag - run), min(diag, run)
+        while lo < hi:
+            m = (lo + hi) >> 1
+            if src[b0 + diag - 1 - m] < src[a0 + m]:
+                hi = m
+            else:
+                lo = m + 1
+        ia, ib = a0 + lo, b0 + diag - lo
+        for k in range(e):
+            tb = ib < b0 + run and (ia >= b0 or src[ib] < src[ia])
+            out[t0 + k] = src[ib] if tb else src[ia]
+            ib, ia = ib + tb, ia + (not tb)
+    return out
+
+
+def _wide_model(keys, mwir, pol, walk, dedup, kk, sort_tile, tile):
+    """The wide form's six steps on (B, L2) int64 keys: tiles of
+    ``sort_tile`` sorted, merge passes to whole rows, the run starts
+    compacted (dedup), per sweep tile of ``tile`` lanes the binary
+    search for each lane's first counted lane and the tile's K records,
+    then the row's K picks from the records."""
+    b, l2 = keys.shape
+    flat = np.concatenate([np.sort(keys.reshape(-1)[i:i + sort_tile])
+                           for i in range(0, b * l2, sort_tile)])
+    run = sort_tile
+    while run < l2:
+        flat = _merge_pass(flat, run)
+        run <<= 1
+    rows = flat.reshape(b, l2)
+    np.testing.assert_array_equal(rows, np.sort(keys, axis=1))
+    ne, lshift = dedup or walk, l2.bit_length() - 1
+    res = np.zeros((b, kk, 4), np.int64)
+    for r in range(b):
+        row = [int(x) for x in rows[r]]
+        mw1 = int(_wrap(int(mwir[r]) - 1))
+        S = list(range(l2 + 1))
+        if dedup:
+            S = [i for i in range(l2) if i == 0 or row[i] != row[i - 1]]
+        n = len(S) if dedup else l2
+        S = S + [l2] if dedup else S
+
+        def val(c):
+            return row[S[c]]
+        recs = []
+        for base in range(0, l2, tile):
+            lk, lt = {}, {}
+            for i in range(base, min(base + tile, n)):
+                p = val(i)
+                if not pol.match(p):
+                    continue
+                a, z = max(0, i - ne + 1), i
+                while a < z:
+                    m = (a + z) >> 1
+                    if pol.in_range(val(m), p, mw1):
+                        z = m
+                    else:
+                        a = m + 1
+                lk[i] = (S[i + 1] - S[a]) * l2 + (l2 - 1 - i)
+                lt[i] = pol.tgt(p)
+            for _ in range(kk):
+                best = max(lk.values(), default=-1)
+                if best <= 0:
+                    recs.append((-1, -1, 0, 0))
+                    continue
+                bc = (l2 - 1) - (best & (l2 - 1))
+                h, tb = best >> lshift, pol.tgt(val(bc))
+                recs.append((best, tb, pol.win(row[S[bc + 1] - h]),
+                             pol.win(val(bc))))
+                lk = {i: v for i, v in lk.items() if lt[i] != tb}
+        for k in range(kk):
+            best = max(rc[0] for rc in recs)
+            if best <= 0:
+                res[r, k] = (-1, 0, 0, 0)
+                continue
+            _key, tb, beg, end = next(rc for rc in recs if rc[0] == best)
+            res[r, k] = (tb, best >> lshift, beg, end)
+            recs = [(-1, *rc[1:]) if rc[1] == tb else rc for rc in recs]
+    return res.astype(np.int32)
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("walk,dedup", [(1, 0), (32, 0), (0, 1), (0, 6)])
+@pytest.mark.parametrize("mwir", [0, 2, 7])
+def test_wide_form_model_matches_plain(pairs, walk, dedup, mwir):
+    """The wide form's steps (tile sort, merge passes, compaction, the
+    sweep split over tiles with K records a tile, the row's picks from
+    them) equal the plain version, K = 4, at tiles far smaller than the
+    kernel's (sort tiles of 64 lanes, sweep tiles of 32, rows of 256) so
+    that runs, walks and targets cross tile borders."""
+    rng = np.random.default_rng(walk * 7 + dedup * 3 + mwir + 50 * pairs)
+    l2 = 256
+    if pairs:
+        tgt, win = _sweep_rows(rng, l2)
+        keys = tgt.astype(np.int64) * 2**32 + (win.astype(np.int64) + 2**31)
+        pol = _PairSlots()
+    else:
+        pk = _packed_sweep_rows(rng, l2, 10)
+        keys, pol = pk.astype(np.int64), _PackedSlots(10)
+    mw = np.full(len(keys), mwir, np.int32)
+    mw[::2] = rng.choice(np.array([0, 1, 2, 7]), len(mw[::2]))
+    if pairs:
+        want = C.candidates_unpacked_plain(
+            torch.from_numpy(tgt), torch.from_numpy(win),
+            torch.from_numpy(mw), walk, dedup, 4).numpy()
+    else:
+        want = C.candidates_sorted_plain(
+            torch.sort(torch.from_numpy(pk), dim=1).values,
+            torch.from_numpy(mw), 10, walk, dedup, 4).numpy()
+    np.testing.assert_array_equal(
+        _wide_model(keys, mw, pol, walk, dedup, 4, 64, 32), want)
+
+
 @pytest.mark.parametrize("value,split", [(None, False), ("0", False),
                                          ("1", True), ("yes", True)])
 def test_split_route_reads_mc_split_cand(monkeypatch, value, split):

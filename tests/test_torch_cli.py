@@ -1,17 +1,19 @@
 """metacache_tpu_torch's `build` and `query` CLI, in-process on the CPU:
 the build (through the device table builder) equals metacache_tpu's and
 each package loads the other's database, and the query output equals the
-reference binary's goldens that lie on the port's slice (single-end,
--lowest sequence, up to 4 candidates, no per-hit lists), with packed
-slots and, under MC_PACK_SLOTS=0, with unpacked (tgt, win) slots through
-kernel B5's plain version; under each staging: the tables filled from
-the CSR by the device builder (the default), host rows
-(MC_DEVICE_LAYOUT=0), the size-classed cells (MC_DENSE_LIMIT=1
-MC_CLASSED=1), B8's and B9's plain versions (MC_PROBE_PALLAS=1), and
-`build+query`'s tables kept from its build."""
+reference binary's goldens that lie on the port's slice (single-end
+reads, short and long, with taxon merging, any number of candidates,
+per-hit lists and locations), with packed slots and, under
+MC_PACK_SLOTS=0, with unpacked (tgt, win) slots through kernel B5's
+plain version; under each staging: the tables filled from the CSR by the
+device builder (the default), host rows (MC_DEVICE_LAYOUT=0), the
+size-classed cells (MC_DENSE_LIMIT=1 MC_CLASSED=1), B9's plain version
+(MC_PROBE_PALLAS=1), and `build+query`'s tables kept from its build; and
+with the fused candidate kernels off (MC_FUSED_CANDIDATES=0)."""
 import contextlib
 import io
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -26,7 +28,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "data")
 GOLD = os.path.join(DATA, "golden")
 
-# tests/test_golden_parity.py:96-116, minus the -lowest species/genus rows
+# tests/test_golden_parity.py:96-116
 FMT_FLAGS = {
     0: [], 1: ["-lineage"], 2: ["-taxids"], 3: ["-taxids-only"],
     4: ["-taxids-only", "-omit-ranks"], 5: ["-omit-ranks"],
@@ -35,6 +37,7 @@ FMT_FLAGS = {
     9: ["-taxids-only", "-separate-cols", "-omit-ranks"],
     10: ["-queryids"], 11: ["-queryids", "-lineage"],
     12: ["-mapped-only"], 13: ["-separator", ":::"],
+    14: ["-lowest", "species"], 15: ["-lowest", "genus", "-taxids"],
     16: ["-hitmin", "8"], 17: ["-hitdiff", "50"],
     18: ["-maxcand", "4", "-tophits"],
 }
@@ -132,6 +135,60 @@ def test_formatting_goldens(dbfile, i):
     assert ours == _golden(f"fmt_{i}.txt"), f"flags: {FMT_FLAGS[i]}"
 
 
+def test_classified_single_fa_golden(dbfile):
+    """-allhits (the per-hit lists), -hits-per-ref and abundances."""
+    ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-precision",
+                           "-ground-truth", "-tophits", "-allhits",
+                           "-hits-per-ref", "-abundances", "-abundance-per",
+                           "species"])
+    assert ours == _golden("classified_single_fa.txt")
+
+
+def test_classified_long_fa_golden(dbfile, monkeypatch):
+    """Long reads: window buckets of up to 64 windows, ranges past 48
+    windows through the rank join; the fused and the non-fused result
+    paths give the same lines."""
+    from metacache_tpu_torch.ops import rows as R
+    sweeps = []
+    real = R.rows_to_result
+    monkeypatch.setattr(R, "rows_to_result", lambda *a, **k: sweeps.append(
+        (k.get("walk_elems", 0), k.get("dedup_walk", 0), a[0].shape[1]))
+        or real(*a, **k))
+    args = [f"{DATA}/reads_long.fa", "-precision", "-ground-truth",
+            "-tophits"]
+    assert _query(dbfile, args) == _golden("classified_long_fa.txt")
+    assert (0, 0) in {s[:2] for s in sweeps}          # the rank join
+    monkeypatch.setenv("MC_FUSED_CANDIDATES", "0")
+    assert _query(dbfile, args) == _golden("classified_long_fa.txt")
+
+
+def test_summary_scan_error_stops_the_reader_thread(dbfile, monkeypatch,
+                                                    tmp_path):
+    """An error in the summary path's loop raises after the reader's
+    producer thread has stopped, so that it never reads the reader the
+    caller then closes: on a file of many reader batches, the thread
+    would otherwise stay blocked on its full queue."""
+    from metacache_tpu_torch.classify.runner import QueryRunner
+
+    def boom(self, *a, **k):
+        raise RuntimeError("boom")
+    monkeypatch.setattr(QueryRunner, "_dispatch_scan", boom)
+    with open(f"{DATA}/reads_single.fa") as f:
+        text = f.read()
+    reads = tmp_path / "many.fa"
+    reads.write_text(text * (200_000 // text.count(">") + 1))
+    before = threading.active_count()
+    with pytest.raises(RuntimeError, match="boom"):
+        _query(dbfile, [str(reads), "-no-map"])
+    assert threading.active_count() == before
+
+
+def test_locations_golden(dbfile):
+    ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-locations",
+                           "-queryids"])
+    assert ours == _golden("locations.txt")
+
+
 def test_classified_single_fq_golden(dbfile):
     ours = _query(dbfile, [f"{DATA}/reads_single.fq", "-precision",
                            "-ground-truth", "-tophits"])
@@ -172,7 +229,30 @@ def test_info_golden(dbfile):
 GOLDEN_CASES = [(f"fmt_{i}.txt", [f"{DATA}/reads_single.fa"] + FMT_FLAGS[i])
                 for i in sorted(FMT_FLAGS)] + [
     ("classified_single_fq.txt", [f"{DATA}/reads_single.fq", "-precision",
-                                  "-ground-truth", "-tophits"])]
+                                  "-ground-truth", "-tophits"]),
+    ("classified_single_fa.txt", [f"{DATA}/reads_single.fa", "-precision",
+                                  "-ground-truth", "-tophits", "-allhits",
+                                  "-hits-per-ref", "-abundances",
+                                  "-abundance-per", "species"]),
+    ("classified_long_fa.txt", [f"{DATA}/reads_long.fa", "-precision",
+                                "-ground-truth", "-tophits"]),
+    ("locations.txt", [f"{DATA}/reads_single.fa", "-locations",
+                       "-queryids"])]
+
+
+@pytest.mark.parametrize("gold,args", GOLDEN_CASES,
+                         ids=[g for g, _ in GOLDEN_CASES])
+def test_goldens_with_fused_candidates_off(dbfile, monkeypatch, gold, args):
+    """MC_FUSED_CANDIDATES=0: every step through the non-fused result
+    path (torch ops, no candidate kernel), the same goldens."""
+    from metacache_tpu_torch.ops import candidates as C
+    calls = []
+    for name in ("candidates_sorted_plain", "candidates_unpacked_plain"):
+        monkeypatch.setattr(C, name, lambda *a, _n=name, **k:
+                            calls.append(_n))
+    monkeypatch.setenv("MC_FUSED_CANDIDATES", "0")
+    assert _query(dbfile, args) == _golden(gold)
+    assert calls == []
 
 
 @pytest.mark.parametrize("gold,args", GOLDEN_CASES,
@@ -326,10 +406,35 @@ def test_summary_scan_path_statistics(dbfile, monkeypatch, scan_k_env):
         assert scan_k * bsz < nreads + bsz
 
 
+@pytest.mark.parametrize("gold,flags", [
+    ("fmt_14.txt", ["-lowest", "species"]),
+    ("fmt_15.txt", ["-lowest", "genus", "-taxids"]),
+    ("fmt_18.txt", ["-maxcand", "4"])])
+def test_summary_scan_path_takes_every_result_route(dbfile, monkeypatch,
+                                                    gold, flags):
+    """-no-map with taxon merging (the scan steps on the non-fused
+    result path) and without (the fused kernels): the summary statistics
+    equal the per-read golden's."""
+    from metacache_tpu_torch.ops import rows as R
+    fused = []
+    real = R.rows_to_result
+    monkeypatch.setattr(R, "rows_to_result", lambda *a, **k: fused.append(
+        R.fuses(k["fused_candidates"], k["fast_top2"], k["max_candidates"],
+                k.get("walk_elems", 0), k.get("dedup_walk", 0), False))
+        or real(*a, **k))
+    ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-no-map"] + flags)
+
+    def stats(lines):
+        i = next(j for j, l in enumerate(lines) if "queries:" in l)
+        return lines[i:]
+    assert stats(ours) == stats(_golden(gold))
+    assert fused and set(fused) == {"-lowest" not in flags}
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["-lowest", "species"], "A5"),
-    (["-allhits"], "A5"),
-    (["-maxcand", "5"], "A5"),
+    (["-align"], "A7"),
+    (["-cov-percentile", "0.1"], "A7"),
+    ([f"{DATA}/reads_pair2.fa", "-pairfiles"], "A12"),
     (["-replicate", "2"], "A14"),
 ])
 def test_query_rejects_paths_not_ported(dbfile, flags, item):

@@ -224,6 +224,60 @@ def test_sort_and_candidates_kernels_match_plain(cuda, mode, l2, presorted):
             assert kernels.CANDIDATES.launches == cands + 1
 
 
+WIDE_CASES = [(l2, r) for l2 in (1 << 16, 1 << 18) for r in (0, 256, l2)]
+
+
+@pytest.mark.parametrize("mode", ["walk10", "dedup6"])
+@pytest.mark.parametrize("l2,presorted", WIDE_CASES)
+def test_wide_candidates_kernel_matches_plain(cuda, mode, l2, presorted):
+    """B4's wide form on rows past one block (65,536 and 262,144 lanes),
+    unsorted, in alternating runs of 256 and sorted (presorted = L2),
+    walk 10 or dedup 6 with mwir 0-7, K = 1-4; one launch a call."""
+    rng = np.random.default_rng(17 + l2 + presorted)
+    pk = _slots(rng, 8, l2, 3000, 900, 11, dup=mode == "dedup6")
+    if presorted == l2:
+        pk = np.sort(pk, axis=1)
+    elif presorted:
+        pk = _alternate(pk, presorted)
+    p = torch.from_numpy(pk).to(cuda)
+    walk, dwalk = (10, 0) if mode == "walk10" else (0, 6)
+    mw = torch.from_numpy(rng.integers(0, 8, len(pk)).astype(np.int32)
+                          ).to(cuda)
+    for kk in (1, 2, 3, 4):
+        want = C.candidates_sorted_plain(C.sort_packed_plain(p), mw, 11,
+                                         walk, dwalk, kk)
+        before = kernels.CANDIDATES_WIDE.launches
+        got = torch.stack(C.candidates_packed(
+            p, mw, 11, walk_elems=walk, dedup_walk=dwalk, max_candidates=kk,
+            presorted=0 if presorted == l2 else presorted,
+            sorted_input=presorted == l2), 2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert kernels.CANDIDATES_WIDE.launches == before + 1
+
+
+def test_wide_candidates_kernel_int64_keys(cuda):
+    """Rows of 2^20 slots where one target holds 3,000 slots in range,
+    so that hits * L2 passes 2^31: the wide forms' int64 keys equal the
+    plain versions'."""
+    l2 = 1 << 20
+    rng = np.random.default_rng(23)
+    tgt = rng.integers(0, 500, (2, l2))
+    win = rng.integers(0, 900, (2, l2))
+    tgt[:, :3000], win[:, :3000] = 7, rng.integers(40, 42, (2, 3000))
+    pk = torch.from_numpy(((tgt << 11) | win).astype(np.int32)).to(cuda)
+    mw = torch.full((2,), 4, dtype=torch.int32, device=cuda)
+    want = C.candidates_sorted_plain(C.sort_packed_plain(pk), mw, 11, 0, 6, 2)
+    got = torch.stack(C.candidates_packed(pk, mw, 11, dedup_walk=6,
+                                          max_candidates=2), 2)
+    assert torch.equal(got, want) and int(want[0, 0, 1]) >= 3000
+    t = torch.from_numpy(tgt.astype(np.int32)).to(cuda)
+    w = torch.from_numpy(win.astype(np.int32)).to(cuda)
+    want = C.candidates_unpacked_plain(t, w, mw, 0, 6, 2)
+    got = torch.stack(C.candidates_unpacked(t, w, mw, 0, 6, 2), 2)
+    assert torch.equal(got, want) and int(want[0, 0, 1]) >= 3000
+
+
 def _pair_rows(rng, b, l):
     """(tgt, win) rows past the packing bound (9217 targets, windows up
     to 71427), with windows near 0 and near I32_MAX, few targets at close
@@ -274,6 +328,34 @@ def test_unpacked_candidates_kernel_matches_plain(cuda, mode, l2, presorted):
         want = C.candidates_unpacked_plain(t, w, mw, walk, dwalk, kk)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["walk32", "dedup6"])
+@pytest.mark.parametrize("l2,presorted", [(1 << 15, 0), (1 << 15, 256),
+                                          (1 << 17, 256)])
+def test_wide_unpacked_candidates_kernel_matches_plain(cuda, mode, l2,
+                                                       presorted):
+    """B5's wide form on rows past one block (32,768 and 131,072 pairs),
+    unsorted and in alternating runs of 256, walk 32 or dedup 6 with
+    mwir 0, 1, 2 and 7, K = 1-4; one launch a call."""
+    rng = np.random.default_rng(19 + l2 + presorted)
+    tgt, win = _pair_rows(rng, 8, l2)
+    if presorted:
+        key = _alternate(tgt << 32 | win, presorted)
+        tgt, win = key >> 32, key & 0xFFFFFFFF
+    t = torch.from_numpy(tgt.astype(np.int32)).to(cuda)
+    w = torch.from_numpy(win.astype(np.int32)).to(cuda)
+    walk, dwalk = (32, 0) if mode == "walk32" else (0, 6)
+    mw = torch.from_numpy(rng.choice(np.array([0, 1, 2, 7]), 8).astype(
+        np.int32)).to(cuda)
+    for kk in (1, 2, 3, 4):
+        before = kernels.CANDIDATES_UNPACKED_WIDE.launches
+        got = torch.stack(C.candidates_unpacked(
+            t, w, mw, walk, dwalk, kk, presorted), 2)
+        want = C.candidates_unpacked_plain(t, w, mw, walk, dwalk, kk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert kernels.CANDIDATES_UNPACKED_WIDE.launches == before + 1
 
 
 @pytest.mark.parametrize("packing,split", [(None, None), (None, "0"),
@@ -486,6 +568,21 @@ def test_oidx_decode_kernel_matches_plain(cuda):
     full = D.full_decode(head, ovf, idx, flat, 61, 254, 256, 16, got)
     assert torch.equal(full, D.full_decode_plain(head, ovf, idx, flat, 61,
                                                  254, 256, 16))
+
+
+@pytest.mark.parametrize("rl", [256, 512])
+def test_full_decode_takes_over_oidx_decode_on_the_card(cuda, rl):
+    """B8 folded into B7 on the card: B7 without oidx equals B8 then B7
+    and the plain version, bit for bit, on pair-packed heads."""
+    head, ovf, idx, flat = (t.to(cuda) for t in
+                            _two_tier_case(np.random.default_rng(29)))
+    alone = D.full_decode(head, ovf, idx, flat, 61, 254, rl, 16)
+    chained = D.full_decode(head, ovf, idx, flat, 61, 254, rl, 16,
+                            D.oidx_decode(head, idx, flat))
+    torch.cuda.synchronize()
+    assert torch.equal(alone, chained)
+    assert torch.equal(alone.cpu(), D.full_decode_plain(
+        head.cpu(), ovf.cpu(), idx.cpu(), flat.cpu(), 61, 254, rl, 16))
 
 
 def _device_table(dev, budget=1 << 40, n=60_000):

@@ -233,12 +233,41 @@ def test_oidx_decode_plain_matches_pallas(layout):
     assert (idx & 1).any() and not (idx & 1).all()
 
 
+@pytest.mark.parametrize("rl", [256, 512])
+def test_full_decode_takes_over_oidx_decode(layout, rl):
+    """B8 folded into B7: B7 given no oidx (reading head lane 2 itself)
+    equals B8 then B7, and JAX's oidx_decode then full_decode in
+    interpret mode, on pair-packed heads, both parities; B8's contract
+    found ? row[2] : 0 holds at that boundary."""
+    d = layout
+    idx = d["idx"]
+    head, ovf, ti, flat = _t(d["hl"]), _t(d["ovf"]), _t(idx), _t(d["flat"])
+    alone = D.full_decode(head, ovf, ti, flat, HSL, SPF, rl, F)
+    oidx = D.oidx_decode(head, ti, flat)
+    chained = D.full_decode(head, ovf, ti, flat, HSL, SPF, rl, F, oidx)
+    rows = d["hl"][np.minimum(idx, len(d["hl"]) - 1)]
+    found = (rows[:, 0] == d["flat"].view(np.int32)) & \
+        (d["flat"] != 0xFFFFFFFF)
+    np.testing.assert_array_equal(oidx.numpy(),
+                                  np.where(found, rows[:, 2], 0))
+    pp = _pairpack(d["hl"])[idx >> 1]
+    j_oidx = jpp.oidx_decode(pp, jnp.asarray(idx & 1),
+                             jnp.asarray(d["flat"]), tile=64)
+    want = jpp.full_decode(pp, jnp.asarray(d["ovf"])[j_oidx],
+                           jnp.asarray(idx & 1), jnp.asarray(d["flat"]),
+                           HSL, SPF, rl, F, tile=32)
+    np.testing.assert_array_equal(alone.numpy(), chained.numpy())
+    np.testing.assert_array_equal(alone.numpy(), np.asarray(want))
+    assert (oidx.numpy() > 0).any() and (idx & 1).any()
+
+
 @pytest.mark.parametrize("gate", ["0", "oidx"])
 @pytest.mark.parametrize("alt", [256, 0])
 def test_probe_rows_pair_packed_matches_xla(layout, gate, alt, monkeypatch):
-    """probe_rows on pair-packed head rows (tag hpack): B8 then B7 where
-    JAX runs oidx_decode (the oidx stage named, full runs), else B7 alone,
-    against JAX's XLA decode of the (F / 2, 128) rows."""
+    """probe_rows on pair-packed head rows (tag hpack): B7 alone, which
+    reads the overflow rows from the heads, also where JAX runs
+    oidx_decode first (the oidx stage named, full runs), against JAX's
+    XLA decode of the (F / 2, 128) rows; B8 does not run."""
     d = layout
     calls = []
     plain = D.oidx_decode_plain
@@ -258,7 +287,7 @@ def test_probe_rows_pair_packed_matches_xla(layout, gate, alt, monkeypatch):
     got = trows.probe_rows(_t(d["flat"].reshape(-1, F)), t, alt_runs=alt,
                            pack_bits=SB)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
-    assert bool(calls) == (gate == "oidx" and alt > 0)
+    assert calls == []
 
 
 def test_decode_wrappers_check_shapes(layout):

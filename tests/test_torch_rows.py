@@ -227,20 +227,41 @@ def _step_case(d, bits):
 
 
 def test_result_rejects_paths_not_ported(strain_db):
+    """The three calls that raised before the non-fused result path was
+    ported: per-hit lists, the rank-join sweep and the sort-based
+    candidates without fast_top2 now equal JAX's non-fused
+    rows_to_result in all nine fields."""
     d = strain_db
-    pk = torch.full((2, 128), 2**31 - 1, dtype=torch.int32)
-    mw = torch.full((2,), 2, dtype=torch.int32)
-    t = _tables(d, d["wbits"])
-    args = (pk, pk, mw, t.merge_tax, t.lineages, 5, 1.0, 19, 0)
-    with pytest.raises(NotImplementedError, match="A5"):
-        trows.rows_to_result(*args, max_candidates=2, walk_elems=8,
-                             fast_top2=True, emit_hits=True, pack_bits=0)
-    with pytest.raises(NotImplementedError, match="rank-join"):
-        trows.rows_to_result(*args, max_candidates=2, fast_top2=True,
-                             pack_bits=d["wbits"])
-    with pytest.raises(NotImplementedError, match="A5"):
-        trows.rows_to_result(*args, max_candidates=2, walk_elems=8,
-                             fast_top2=False, pack_bits=d["wbits"])
+    rng = np.random.default_rng(3)
+    ntgt, wb = len(d["lin"]), d["wbits"]
+    tgt = rng.integers(0, ntgt, (4, 128)).astype(np.int32)
+    win = rng.integers(0, 1 << (wb - 1), (4, 128)).astype(np.int32)
+    tgt[:, ::3], win[:, ::3] = tgt[:, 1::3], win[:, 1::3]
+    pad = np.arange(128)[None, :] >= np.array([[0], [50], [90], [128]])
+    tgt[pad], win[pad] = 2**31 - 1, 2**31 - 1
+    pk = np.where(pad, 2**31 - 1,
+                  (tgt.astype(np.int64) << wb) | win).astype(np.int32)
+    mw = np.full(4, 2, np.int32)
+    t = _tables(d, wb)
+    for kw, (a, b) in (
+            (dict(walk_elems=8, fast_top2=True, emit_hits=True,
+                  pack_bits=0), (tgt, win)),
+            (dict(fast_top2=True, pack_bits=wb), (pk, pk)),
+            (dict(walk_elems=8, fast_top2=False, pack_bits=wb), (pk, pk))):
+        want = jrows.rows_to_result(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(mw),
+            jnp.asarray(t.merge_tax.numpy()), jnp.asarray(d["lin"]),
+            jnp.int32(5), jnp.float32(1.0), jnp.int32(19), jnp.int32(0),
+            max_candidates=2, fused_candidates=False,
+            **{"emit_hits": False, **kw})
+        got = trows.rows_to_result(
+            torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(mw),
+            t.merge_tax, t.lineages, 5, 1.0, 19, 0, max_candidates=2, **kw)
+        for nm in want._fields:
+            np.testing.assert_array_equal(getattr(got, nm).numpy(),
+                                          np.asarray(getattr(want, nm)),
+                                          err_msg=f"{kw} {nm}")
+        assert (got.cand_hits[1:, 0] > 1).all()
 
 
 @pytest.mark.parametrize("nbytes,route", [(32, "packed"), (28, "packed"),
