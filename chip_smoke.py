@@ -56,7 +56,25 @@ saved CSR and fills the probe rows on the card.
 - taxon merging: the many-target database with -lowest species -maxcand
   8 -allhits on 2^14 reads (the non-fused path with per-hit lists), its
   card result held in all nine QueryResult fields against the same
-  rows_to_result on CPU tensors, on three 512-row blocks of its batch.
+  rows_to_result on CPU tensors, on three 512-row blocks of its batch;
+- paired-end reads: 2 x 100 bp mates of fragments of normal(300, 30) bp
+  clipped to 200-500 bp (an assumed library), mate 2 reverse-
+  complemented: 2^20 pairs on the summary path (-pairfiles -no-map, two
+  coded windows a pair) of the 944 Mbp database through B1 and B4, and
+  2^16 of them per read (-tophits; -insertsize 500; interleaved with
+  -pairseq and with MC_FUSED_CANDIDATES=0, whose lines must not change;
+  the per-read rank counts equal to the summary's); 2^16 pairs on the
+  many-target database through B1 and B5, per read the same; 2^20 pairs
+  on the 1456 Mbp database escalated (B1, B6, B4, then B7, B4 on the
+  flagged pairs), the same histogram under MC_ESCALATE=0; each path
+  with one stack against the plain path on CPU tensors;
+- multi-part: the 944 Mbp genomes built with `build -parts 2` (the host
+  build), staged part by part within one budget; 2^16 reads and 2^16
+  pairs per read through the multi-part step (B1 once, every part's
+  probe, B4 on the concatenated rows), the same lines under
+  MC_FUSED_CANDIDATES=0, and one batch against the same step on CPU
+  tensors of both parts in all nine QueryResult fields (512 of its reads
+  also with -maxcand 8: the non-fused path and its per-hit lists).
 
 B3 runs ahead of B4 wherever MC_SPLIT_CAND=1 selects the split route.
 At winlen 127 the summary path hands B1 the runner's 2-bit packed rows,
@@ -104,6 +122,8 @@ PROBE_FEATURES = 1 << 21   # features of the B8/B9 parity table
 LONG_READS = 1 << 16       # reads of the long-read phase (944 Mbp)
 LONG_READS_MANY = 1 << 13  # long reads against the many-target database
 MERGE_READS = 1 << 14      # reads of the taxon-merging phase
+PAIRS = 1 << 20            # read pairs of the paired summary queries
+PAIRS_PER_READ = 1 << 16   # pairs of the per-read and many-target phases
 # kernels no main path launches: B8's work is done by B7 (ops/rows.py)
 FOLDED = {"oidx_decode": "full_decode"}
 # the least time of a kernel: the larger of its bytes over the card's
@@ -430,6 +450,55 @@ def write_long_reads(path, codes, offs):
         for i in range(len(offs) - 1):
             f.write(b">r%d\n" % i + text[offs[i]:offs[i + 1]].tobytes() +
                     b"\n")
+
+
+def sample_pairs(rng, genomes, n: int, read_len: int = READ_LEN):
+    """n read pairs of read_len from fragments of normal(300, 30) bp
+    clipped to 200-500 bp (an assumed library: the repo's sources give
+    none) at uniformly drawn genomes and positions: mate 1 the
+    fragment's start, mate 2 the reverse complement of its end, each
+    with Poisson(read_len / 100) substitutions, the draw of
+    ``sample_reads``. -> (mate 1 codes (n, read_len), mate 2 codes)."""
+    frag = np.clip(np.round(rng.normal(300, 30, n)), 200, 500).astype(
+        np.int64)
+    glen = np.array([len(g) for g in genomes])
+    gsel = rng.integers(0, len(genomes), n)
+    pos = rng.integers(0, glen[gsel] - frag)
+    span = np.arange(read_len)
+    m1 = np.empty((n, read_len), np.uint8)
+    m2 = np.empty((n, read_len), np.uint8)
+    for g in np.unique(gsel):
+        sel = np.nonzero(gsel == g)[0]
+        m1[sel] = genomes[g][pos[sel, None] + span]
+        m2[sel] = genomes[g][(pos[sel] + frag[sel] - read_len)[:, None] +
+                             span]
+    m2 = np.ascontiguousarray(3 - m2[:, ::-1])    # codes 0..3 = ACGT
+    for m in (m1, m2):
+        nm = rng.poisson(read_len / 100, n)
+        rows = np.repeat(np.arange(n), nm)
+        m[rows, rng.integers(0, read_len, len(rows))] = \
+            rng.integers(0, 4, len(rows), dtype=np.uint8)
+    return m1, m2
+
+
+def write_pairs(sub, tag, m1, m2, interleaved=False):
+    """Mates as two FASTA files (``p<i>/1``, ``p<i>/2``) and, with
+    ``interleaved``, as one file of consecutive records (-pairseq).
+    -> the file names, relative to ``sub``."""
+    names = [f"{tag}_1.fa", f"{tag}_2.fa"]
+    l1, l2 = ACGT[m1], ACGT[m2]
+    with open(os.path.join(sub, names[0]), "wb") as f1, \
+            open(os.path.join(sub, names[1]), "wb") as f2:
+        for i in range(len(m1)):
+            f1.write(b">p%d/1\n" % i + l1[i].tobytes() + b"\n")
+            f2.write(b">p%d/2\n" % i + l2[i].tobytes() + b"\n")
+    if interleaved:
+        names.append(f"{tag}_seq.fa")
+        with open(os.path.join(sub, names[2]), "wb") as f:
+            for i in range(len(m1)):
+                f.write(b">p%d/1\n" % i + l1[i].tobytes() + b"\n>p%d/2\n"
+                        % i + l2[i].tobytes() + b"\n")
+    return names
 
 
 # -------------------------------------------------------------- phases
@@ -1229,10 +1298,13 @@ def phase_parity_probe(results, rng, dev):
         card_seconds=round(out[0][2], 3), cpu_seconds=round(out[1][2], 3))
 
 
-def phase_build(tmp, name, genomes, species, gen_s, host_check=False):
+def phase_build(tmp, name, genomes, species, gen_s, host_check=False,
+                parts=1):
     """`build` through the CLI (the device builder); with ``host_check``
     a host build of the same genomes must give the same features,
-    offsets and locations. -> (database path, max window)."""
+    offsets and locations; with ``parts`` > 1 also `build -parts`
+    (the host build) of the same genomes. -> (database path, max window,
+    the multi-part database's path or None)."""
     from metacache_tpu_torch import kernels
     from metacache_tpu_torch.cli.main import main as cli
     t0 = time.time()
@@ -1265,6 +1337,14 @@ def phase_build(tmp, name, genomes, species, gen_s, host_check=False):
             if not np.array_equal(getattr(hp.parts[0], k), getattr(p, k)):
                 raise AssertionError(f"device build != host build: {k}")
         del hp
+    db_parts = None
+    if parts > 1:
+        db_parts = os.path.join(sub, f"db_parts{parts}")
+        t0 = time.time()
+        if cli(["build", db_parts, fa, "-taxonomy", tax, "-parts",
+                str(parts)]) != 0:
+            raise AssertionError(f"build -parts {parts} failed")
+        host[f"parts{parts}_build_seconds"] = round(time.time() - t0, 3)
     os.remove(fa)
     maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max())
     say(f"build-{name}", genomes=len(genomes),
@@ -1272,33 +1352,42 @@ def phase_build(tmp, name, genomes, species, gen_s, host_check=False):
         locations=p.num_locations, max_bucket=p.max_bucket_size,
         max_window=maxwin, seconds=round(build_s, 3),
         data_gen_seconds=round(gen_s, 3), sketch_launches=launches, **host)
-    return db, maxwin
+    return db, maxwin, db_parts
 
 
-def _query(db_path, reads_path, args, out):
+def _query(db_path, reads_path, args, out, runner=None):
     """A query through the runner; ``db_path``: a path or a loaded
-    Database. -> (runner, results, staging seconds)."""
+    Database; ``reads_path``: a path or a list (two files a pair under
+    -pairfiles). ``runner``: staged tables to reuse under other flags,
+    of those that change no staged state (pairing, output, insert size).
+    -> (runner, results, staging seconds)."""
     from metacache_tpu_torch.classify.options import ClassificationResults
     from metacache_tpu_torch.classify.runner import (QueryRunner,
                                                      map_queries_to_targets)
     from metacache_tpu_torch.cli.main import Args, parse_query_options
     opt, _, _ = parse_query_options(Args(list(args)))
-    db = Database.load(db_path) if isinstance(db_path, str) else db_path
-    t0 = time.time()
-    runner = QueryRunner(db, opt)
-    torch.cuda.synchronize()
-    stage_s = time.time() - t0
+    stage_s = 0.0
+    if runner is None:
+        db = Database.load(db_path) if isinstance(db_path, str) else db_path
+        t0 = time.time()
+        runner = QueryRunner(db, opt)
+        torch.cuda.synchronize()
+        stage_s = time.time() - t0
+    else:
+        runner.opt, runner._line_writer = opt, None
     res = ClassificationResults(out, out, out)
-    map_queries_to_targets([reads_path], db, opt, res, runner)
+    paths = [reads_path] if isinstance(reads_path, str) else list(reads_path)
+    map_queries_to_targets(paths, runner.db, opt, res, runner)
     torch.cuda.synchronize()
     return runner, res, stage_s
 
 
-def phase_query_summary(tmp, name, db, reads, layout, expect):
+def phase_query_summary(tmp, name, db, reads, layout, expect, pairs=None):
     """A main path: counts are zeroed just before it and read just
     after, so its launches are its own. ``expect(runner, batches)`` gives
     the launches each kernel must show. ``reads``: the reads to write,
-    or the count of those an earlier phase wrote.
+    or the count of those an earlier phase wrote; with ``pairs``, the
+    two files of that many read pairs, queried with -pairfiles.
     -> (runner, launches, results)"""
     from metacache_tpu_torch import kernels
     path = os.path.join(tmp, name, "reads.fa")
@@ -1307,8 +1396,9 @@ def phase_query_summary(tmp, name, db, reads, layout, expect):
     else:
         nreads = len(reads)
         write_reads(path, reads)
+    args = ["-no-map"] + (["-pairfiles"] if pairs else [])
     kernels.reset_counts()
-    runner, res, stage_s = _query(db, path, ["-no-map"], io.StringIO())
+    runner, res, stage_s = _query(db, pairs or path, args, io.StringIO())
     grew = {k: v.launches for k, v in kernels.ALL.items()}
     runner.stage_s = stage_s
     if not layout(runner) if callable(layout) else runner.layout != layout:
@@ -1322,7 +1412,9 @@ def phase_query_summary(tmp, name, db, reads, layout, expect):
         raise AssertionError(f"classified {n} of {nreads} reads")
     frac = res.statistics.assigned() / n
     rpm = n / (res.time_ms / 60000.0)
-    say(f"query-summary-{name}", reads=n, reads_per_min=round(rpm),
+    unit = "pairs" if pairs else "reads"
+    say(f"query-{'pair' if pairs else 'summary'}-{name}",
+        **{unit: n, f"{unit}_per_min": round(rpm)},
         seconds=round(res.time_ms / 1000, 3),
         classified_fraction=round(frac, 6), layout=runner.layout.replace(
             " ", ""), pack_bits=runner._pack_bits, spf=runner.tables.spf,
@@ -1350,8 +1442,9 @@ def path_of(*names):
 
 def phase_profile(tmp, name, runner, tag="", reads="reads.fa"):
     """Trace a second, warm query of the same reads (the summary query's
-    unless ``reads`` names another file): device time by kernel and the
-    device's busy share of the query's wall time."""
+    unless ``reads`` names another file, or the two files of pairs):
+    device time by kernel and the device's busy share of the query's
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
     from metacache_tpu_torch.classify.options import ClassificationResults
     from metacache_tpu_torch.classify.runner import map_queries_to_targets
@@ -1359,8 +1452,10 @@ def phase_profile(tmp, name, runner, tag="", reads="reads.fa"):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        map_queries_to_targets([os.path.join(tmp, name, reads)],
-                               runner.db, runner.opt, res, runner)
+        map_queries_to_targets(
+            [os.path.join(tmp, name, r) for r in
+             ([reads] if isinstance(reads, str) else reads)],
+            runner.db, runner.opt, res, runner)
         torch.cuda.synchronize()
         wall = time.time() - t0
     evs = [e for e in prof.key_averages()
@@ -1522,19 +1617,18 @@ def packed_stack(reads, b: int):
             torch.full((1, b), 2, dtype=torch.uint8))
 
 
-def phase_e2e_two_tier(name, runner, reads, dev=torch.device("cuda")):
+def phase_e2e_two_tier(name, runner, reads, cpu, copy_s,
+                       dev=torch.device("cuda")):
     """The escalation steps on one 8192-read stack against the plain path
-    on CPU tensors of the same tables (the host holds the second copy):
-    phase 1 (B1, B6, B4) and the redo of its flagged reads (B7, B4);
-    their merge also equals the full-depth scan (B7) on the card.
-    Times one phase-1 batch and one full redo batch."""
+    on ``cpu``, CPU tensors of the same tables (the host holds the second
+    copy, made in ``copy_s`` seconds): phase 1 (B1, B6, B4) and the redo
+    of its flagged reads (B7, B4); their merge also equals the full-depth
+    scan (B7) on the card. Times one phase-1 batch and one full redo
+    batch."""
     from metacache_tpu_torch.ops import rows as R
     b = SCAN_BATCH
     stack = packed_stack(reads, b)
     t = runner.tables
-    t0 = time.time()
-    cpu = t.cpu_copy()
-    copy_s = time.time() - t0
     args = (runner.hits_min, 1.0, runner.highest_rank, runner.merge_rank)
     kw = dict(k=16, sketchlen=16, max_candidates=2, walk_elems=32,
               fast_top2=True, pack_bits=runner._pack_bits,
@@ -1576,7 +1670,6 @@ def phase_e2e_two_tier(name, runner, reads, dev=torch.device("cuda")):
                                   **kw).cpu()
     err = max(err, check_equal("escalated vs full depth", merged,
                                full.reshape(-1)))
-    del cpu
     # one phase-1 batch, one redo batch of 8192 flagged reads and one
     # full-depth batch: CUDA events around each call (launch gaps
     # included), and the kernels' own device time
@@ -1655,10 +1748,11 @@ def run_two_tier(tmp, profile):
     from metacache_tpu_torch.classify.runner import map_queries_to_targets
     name = "1456mbp-two-tier"
     genomes, species, gen_s = generated(two_tier_genomes)
-    db, maxwin = phase_build(tmp, name, genomes, species, gen_s)
+    db, maxwin, _p = phase_build(tmp, name, genomes, species, gen_s)
     if (2 * maxwin).bit_length() != 15:
         raise AssertionError(f"max window {maxwin}")
     reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
+    m1, m2 = sample_pairs(np.random.default_rng(17), genomes, PAIRS)
     del genomes
     layout = "('two_tier', 61, True, False, 15)"       # pair-packed heads
 
@@ -1717,8 +1811,15 @@ def run_two_tier(tmp, profile):
             phase_profile(tmp, name, runner, "-full-depth")
         finally:
             del os.environ["MC_ESCALATE"]
-    phase_e2e_two_tier(name, runner, reads)
-    del runner
+    # one CPU copy of the 24 GiB of tables for the single reads' and the
+    # pairs' steps
+    t0 = time.time()
+    cpu = runner.tables.cpu_copy()
+    copy_s = time.time() - t0
+    phase_e2e_two_tier(name, runner, reads, cpu, copy_s)
+    phase_e2e_pairs(name, runner, m1, m2, SCAN_BATCH, escalated=True,
+                    cpu=cpu)
+    del runner, cpu
     torch.cuda.empty_cache()
     lines = phase_query_per_read(tmp, name, db, reads[:65536])
     torch.cuda.empty_cache()
@@ -1747,7 +1848,9 @@ def run_two_tier(tmp, profile):
     say(f"probe-kernels-{name}", histogram_equal=True, lines_equal=True,
         launches=pallas)
     torch.cuda.empty_cache()
-    return launches, pallas
+    pairs = run_pairs_two_tier(tmp, name, db, m1, m2, layout, escalated,
+                               profile)
+    return launches, pallas, pairs
 
 
 def phase_dense_limit(tmp, name, db, dense_hist):
@@ -2151,6 +2254,371 @@ def run_merge_many_target(tmp, db, genomes):
     torch.cuda.empty_cache()
 
 
+def launch_counts() -> dict:
+    from metacache_tpu_torch import kernels
+    return {k: v.launches for k, v in kernels.ALL.items()}
+
+
+def mapping_lines(path) -> list:
+    with open(path) as f:
+        return [l for l in f if not l.startswith("#")]
+
+
+def phase_e2e_pairs(name, runner, m1, m2, b, escalated=False, cpu=None,
+                    dev=torch.device("cuda")):
+    """One stack of b pairs (two coded windows a query, mwir 2 + 200 //
+    stride, the runner's sweep) through the scan step on the card and
+    the plain path on CPU tensors of the same tables (``cpu``, or a copy
+    made here); ``escalated``: also phase 1 (B1, B6, B4) and the redo of
+    its flagged pairs (B7, B4), whose merge must equal the full-depth
+    scan."""
+    from metacache_tpu_torch.ops import rows as R
+    b = min(b, len(m1))
+    t = runner.tables
+    t0 = time.time()
+    cpu = t.cpu_copy() if cpu is None else cpu
+    copy_s = time.time() - t0
+    codes = np.full((1, b, 2, 127), 4, np.uint8)
+    codes[0, :, 0, :m1.shape[1]] = m1[:b]
+    codes[0, :, 1, :m2.shape[1]] = m2[:b]
+    lens = np.full((1, b, 2), m1.shape[1], np.int32)
+    mw = 2 + 2 * m1.shape[1] // runner.db.sketching.winstride
+    mwir = np.full((1, b), mw, np.int32)
+    host = [torch.from_numpy(x) for x in (codes, lens, mwir)]
+    card = [x.to(dev) for x in host]
+    args = (runner.hits_min, 1.0, runner.highest_rank, runner.merge_rank)
+    sweep = runner._sweep_params(np.array([mw], np.int32), 2)
+    kw = dict(k=16, sketchlen=16, max_candidates=2, fast_top2=True,
+              pack_bits=runner._pack_bits, **sweep)
+    full = R.query_step_rows_scan(*card, t, *args, windows_per_query=2,
+                                  **kw).cpu()
+    err = check_equal("paired scan", full, R.query_step_rows_scan(
+        *host, cpu, *args, windows_per_query=2, **kw))
+    extra = {}
+    if escalated:
+        got = [x.cpu() for x in R.query_step_rows_scan_head(*card, t, *args,
+                                                             **kw)]
+        want = R.query_step_rows_scan_head(*host, cpu, *args, **kw)
+        err = max([err] + [check_equal(f"paired phase 1 {i}", g, w)
+                           for i, (g, w) in enumerate(zip(got, want))])
+        bits = got[1].numpy().reshape(-1)
+        mask = ((bits[:, None] >> np.arange(32)) & 1).astype(bool)
+        sel = torch.from_numpy(np.nonzero(mask.reshape(-1))[0])
+        rkw = {k: v for k, v in kw.items() if k not in ("k", "sketchlen")}
+        fk, ik = got[2].reshape(b, -1)[sel], got[3].reshape(b, -1)[sel]
+        mws = host[2].reshape(-1)[sel]
+        red = R.query_step_rows_redo(fk.to(dev), ik.to(dev), mws.to(dev), t,
+                                     *args, **rkw).cpu()
+        err = max(err, check_equal("paired redo", red, R.query_step_rows_redo(
+            fk, ik, mws, cpu, *args, **rkw)))
+        merged = got[0].reshape(-1).clone()
+        merged[sel] = red
+        err = max(err, check_equal("paired escalated vs full depth", merged,
+                                   full.reshape(-1)))
+        extra = dict(flagged=len(sel), feats_per_pair=fk.shape[1])
+    say(f"e2e-parity-pairs-{name}", pairs=b, windows_per_query=2, mwir=mw,
+        sweep=sweep, tolerance=0, max_abs_err=err,
+        plain="CPU tensors of the same tables", cpu_copy_seconds=round(
+            copy_s, 3), classified=int((full != 0).sum()), **extra)
+
+
+def phase_pairs_per_read(tmp, name, db, files, runner=None, checks=()):
+    """Per-read -pairfiles -tophits on the files' pairs (the subset's
+    two files and its interleaved one), and with ``checks``: the summary
+    of the same pairs, whose rank histogram the per-read lines' rank
+    counts must equal ("summary"), -insertsize 500 ("insertsize"),
+    -pairseq on the interleaved file, whose lines must be byte-identical
+    ("pairseq"), and MC_FUSED_CANDIDATES=0 (a runner of its own), whose
+    lines must be byte-identical ("nonfused"). Launches are counted for
+    the -tophits query alone. -> (lines, launches, the summary's runner
+    or ``runner``)."""
+    sub = os.path.join(tmp, name)
+    pair = [os.path.join(sub, f) for f in files[:2]]
+    out = {}
+    ran = {}
+
+    def per_read(tag, args, paths, env=None, reuse=True):
+        nonlocal runner
+        path = os.path.join(sub, f"pairs{tag}.txt")
+        with environ(**(env or {})), open(path, "w") as f:
+            r, res, stage_s = _query(db, paths, args, f,
+                                     runner if reuse else None)
+        if reuse:
+            runner = r
+        lines = mapping_lines(path)
+        if len(lines) != res.statistics.total():
+            raise AssertionError(f"{tag}: {len(lines)} lines for "
+                                 f"{res.statistics.total()} pairs")
+        ran[tag or "tophits"] = dict(
+            pairs_per_min=round(res.statistics.total() /
+                                (res.time_ms / 60000.0)),
+            seconds=round(res.time_ms / 1000, 3))
+        return lines, res
+    hist = None
+    if "summary" in checks:
+        runner, res, _s = _query(db, pair, ["-pairfiles", "-no-map"],
+                                 io.StringIO(), runner)
+        hist = res.statistics.assigned_.copy()
+        ran["summary"] = dict(pairs_per_min=round(
+            res.statistics.total() / (res.time_ms / 60000.0)))
+    from metacache_tpu_torch import kernels
+    kernels.reset_counts()
+    out[""], res = per_read("", ["-pairfiles", "-tophits"], pair)
+    grew = launch_counts()
+    n = res.statistics.total()
+    if hist is not None and not np.array_equal(res.statistics.assigned_,
+                                               hist):
+        raise AssertionError("per-read rank counts != summary histogram")
+    if "insertsize" in checks:
+        ins, _r = per_read("-insertsize500", ["-pairfiles", "-tophits",
+                                              "-insertsize", "500"], pair)
+        ran["-insertsize500"]["lines_changed"] = sum(
+            x != y for x, y in zip(ins, out[""]))
+    if "pairseq" in checks:
+        seq, _r = per_read("-pairseq", ["-pairseq", "-tophits"],
+                           [os.path.join(sub, files[2])])
+        if seq != out[""]:
+            raise AssertionError("-pairseq lines != -pairfiles lines")
+    if "nonfused" in checks:
+        nf, _r = per_read("-nonfused", ["-pairfiles", "-tophits"], pair,
+                          {"MC_FUSED_CANDIDATES": "0"}, reuse=False)
+        if nf != out[""]:
+            diff = sum(x != y for x, y in zip(nf, out[""]))
+            raise AssertionError(f"MC_FUSED_CANDIDATES=0 changed {diff} "
+                                 "mapping lines")
+    say(f"query-pair-per-read-{name}", pairs=n, mapping_lines=len(out[""]),
+        checks_passed=list(checks), runs=ran,
+        launches={k: v for k, v in grew.items() if v})
+    return out[""], grew, runner
+
+
+def run_pairs(tmp, name, db, genomes, npairs, layout, expect, profile):
+    """[query-pair-<name>]: ``npairs`` read pairs of 2 x 100 bp
+    (``sample_pairs``) on the summary path (-pairfiles -no-map; the main
+    path of this database's kernels at two windows a query: counts zeroed
+    just before it, read just after), its profile, one stack against the
+    plain path on CPU tensors. -> (runner, launches, results, mates)."""
+    sub = os.path.join(tmp, name)
+    t0 = time.time()
+    m1, m2 = sample_pairs(np.random.default_rng(17), genomes, npairs)
+    files = write_pairs(sub, "pairs", m1, m2)
+    say(f"pairs-{name}", pairs=npairs, mate_bp=READ_LEN,
+        fragment_bp="normal(300, 30) clipped to 200-500 (assumed)",
+        data_gen_seconds=round(time.time() - t0, 3))
+    runner, grew, res = phase_query_summary(
+        tmp, name, db, npairs, layout, expect,
+        pairs=[os.path.join(sub, f) for f in files])
+    if profile:
+        phase_profile(tmp, name, runner, "-pairs", reads=files)
+    return runner, grew, res, (m1, m2)
+
+
+def run_pairs_944(tmp, db, genomes, layout, profile):
+    """[query-pair-944mbp]: 2^20 pairs on the summary path through B1 and
+    B4 (rows of 2 x 16 x 256 slots, runs of 256, the dedup sweep), one
+    stack against the plain path, then 2^16 of them per read (-tophits,
+    -insertsize 500, -pairseq, MC_FUSED_CANDIDATES=0). -> the summary's
+    launches."""
+    name = "944mbp"
+    runner, grew, res, (m1, m2) = run_pairs(
+        tmp, name, db, genomes, PAIRS, layout,
+        path_of("sketch", *cand_kernels()), profile)
+    phase_e2e_pairs(name, runner, m1, m2, SCAN_BATCH)
+    sub = os.path.join(tmp, name)
+    files = write_pairs(sub, "pairs_sub", m1[:PAIRS_PER_READ],
+                        m2[:PAIRS_PER_READ], interleaved=True)
+    phase_pairs_per_read(tmp, name, db, files, runner,
+                         ("summary", "insertsize", "pairseq", "nonfused"))
+    del runner
+    torch.cuda.empty_cache()
+    return grew
+
+
+def run_pairs_many_target(tmp, db, genomes):
+    """[query-pair-many-target]: 2^16 pairs on the summary path through
+    B1 and B5 ((tgt, win) pairs: the slots do not pack), 2048 of them
+    against the plain path, and per read, again under
+    MC_FUSED_CANDIDATES=0 with byte-identical lines. -> the summary's
+    launches."""
+    name = "many-target"
+    runner, grew, res, (m1, m2) = run_pairs(
+        tmp, name, db, genomes, PAIRS_PER_READ, "True",
+        path_of("sketch", "candidates_unpacked"), False)
+    phase_e2e_pairs(name, runner, m1, m2, 2048)
+    phase_pairs_per_read(tmp, name, db, write_pairs(
+        os.path.join(tmp, name), "pairs", m1, m2), runner,
+        ("summary", "nonfused"))
+    del runner
+    torch.cuda.empty_cache()
+    return grew
+
+
+def run_pairs_two_tier(tmp, name, db, m1, m2, layout, escalated, profile):
+    """[query-pair-1456mbp-two-tier]: 2^20 pairs escalated (phase 1
+    through B1, B6 and B4 at two windows a query, the redo of the flagged
+    pairs through B7 and B4), the escalated share and the same histogram
+    under MC_ESCALATE=0 (B7 on every batch); ``run_two_tier`` holds one
+    stack's phase 1 and redo against the plain path. -> the escalated
+    query's launches."""
+    sub = os.path.join(tmp, name)
+    files = write_pairs(sub, "pairs", m1, m2)
+    paths = [os.path.join(sub, f) for f in files]
+    runner, grew, res = phase_query_summary(tmp, name, db, len(m1), layout,
+                                            escalated, pairs=paths)
+    esc = runner.esc_reads
+    if not (runner._escalation_ok(wq=2) and 0 < esc < len(m1)):
+        raise AssertionError(f"pairs escalated {esc} of {len(m1)}")
+    if profile:
+        phase_profile(tmp, name, runner, "-pairs", reads=files)
+    with environ(MC_ESCALATE="0"):
+        from metacache_tpu_torch import kernels
+        kernels.reset_counts()
+        runner, res0, _s = _query(db, paths, ["-pairfiles", "-no-map"],
+                                  io.StringIO(), runner)
+        full = launch_counts()
+    if not np.array_equal(res0.statistics.assigned_,
+                          res.statistics.assigned_):
+        raise AssertionError("MC_ESCALATE=0 changed the pairs' histogram")
+    if full != path_of("sketch", "full_decode", *cand_kernels())(
+            runner, -(-len(m1) // SCAN_BATCH)):
+        raise AssertionError(f"full-depth pair launches {full}")
+    say(f"escalation-pair-{name}", pairs=len(m1), escalated_pairs=esc,
+        escalated_share=round(esc / len(m1), 6),
+        redo_batches=grew["full_decode"], launches=grew,
+        full_depth_pairs_per_min=round(res0.statistics.total() /
+                                       (res0.time_ms / 60000.0)),
+        full_depth_launches=full, histogram_equal=True)
+    del runner
+    torch.cuda.empty_cache()
+    return grew
+
+
+def run_multipart(tmp, db, genomes):
+    """[query-multipart-944mbp]: the 944 Mbp genomes built with `build
+    -parts 2` (the host build): each part's layout, GiB and the staging
+    seconds; 2^16 single reads and 2^16 pairs per read with -tophits
+    (the multi-part step: B1 once, every part probed, B4 on the
+    concatenated rows, which it sorts itself), again under
+    MC_FUSED_CANDIDATES=0 with byte-identical lines; one batch of 8192
+    reads against the same step on CPU tensors of both parts, all nine
+    QueryResult fields (``multipart_card_vs_cpu``). -> the launches of
+    the two default queries."""
+    from metacache_tpu_torch import kernels
+    name = "944mbp-parts2"
+    sub = os.path.join(tmp, name)
+    os.makedirs(sub)
+    reads = sample_reads(np.random.default_rng(7), genomes, PAIRS_PER_READ)
+    write_reads(os.path.join(sub, "reads.fa"), reads)
+    m1, m2 = sample_pairs(np.random.default_rng(17), genomes,
+                          PAIRS_PER_READ)
+    pair = [os.path.join(sub, f) for f in write_pairs(sub, "pairs", m1, m2)]
+    d = Database.load(db)
+    lines, grew, routes = {}, collections.Counter(), {}
+    for tag, env in (("", {}), ("-nonfused", {"MC_FUSED_CANDIDATES": "0"})):
+        runner = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with environ(**env):
+            for kind, paths, args in (
+                    ("reads", os.path.join(sub, "reads.fa"), ["-tophits"]),
+                    ("pairs", pair, ["-pairfiles", "-tophits"])):
+                out_path = os.path.join(sub, f"{kind}{tag}.txt")
+                stats: list = []
+                kernels.reset_counts()
+                restore = route_spy(stats)
+                try:
+                    with open(out_path, "w") as out:
+                        runner, res, stage_s = _query(d, paths, args, out,
+                                                      runner)
+                finally:
+                    restore()
+                lines[kind + tag] = mapping_lines(out_path)
+                if len(lines[kind + tag]) != PAIRS_PER_READ:
+                    raise AssertionError(f"{kind}{tag}: "
+                                         f"{len(lines[kind + tag])} lines")
+                counts = launch_counts()
+                fused = sum(x["fused"] for x in stats)
+                if tag == "":
+                    grew.update(counts)
+                    if counts["sketch"] != len(stats) or \
+                            counts["candidates"] != fused or not fused:
+                        raise AssertionError(f"{kind}: launches {counts}, "
+                                             f"routes {stats}")
+                elif fused or counts["candidates"]:
+                    raise AssertionError(f"{kind}{tag} fused {fused}")
+                if stage_s:
+                    parts = [dict(layout=str(t.dense).replace(" ", ""),
+                                  spf=t.spf, features=t.num_features,
+                                  gib=round(t.nbytes() / 2**30, 3))
+                             for t in runner.parts]
+                    # the peak of the staging and of this 2^16-read query
+                    say(f"staging-{name}{tag}", parts=parts,
+                        staging_seconds=round(stage_s, 3),
+                        budget_gib=round(runner.budget_bytes / 2**30, 3),
+                        max_allocated_gib=round(
+                            torch.cuda.max_memory_allocated() / 2**30, 3))
+                routes[kind + tag] = dict(
+                    per_min=round(res.statistics.total() /
+                                  (res.time_ms / 60000.0)),
+                    batches=len(stats), fused_batches=fused,
+                    widths=sorted({x["width"] for x in stats}),
+                    sweeps=dict(collections.Counter(x["sweep"]
+                                                    for x in stats)),
+                    launches={k: v for k, v in counts.items() if v})
+        if tag == "":
+            err, classified = multipart_card_vs_cpu(runner, reads)
+        del runner
+        torch.cuda.empty_cache()
+    for kind in ("reads", "pairs"):
+        if lines[kind] != lines[kind + "-nonfused"]:
+            diff = sum(x != y for x, y in zip(lines[kind],
+                                              lines[kind + "-nonfused"]))
+            raise AssertionError(f"MC_FUSED_CANDIDATES=0 changed {diff} "
+                                 f"{kind} lines")
+    say("query-multipart-944mbp", parts=2, routes=routes,
+        lines_equal_nonfused=True, card_vs_cpu_reads=SCAN_BATCH,
+        card_vs_cpu_nonfused_reads=512, fields=9, tolerance=0,
+        max_abs_err=err, classified=classified)
+    return dict(grew)
+
+
+def multipart_card_vs_cpu(runner, reads):
+    """One batch of 8192 reads through query_step_rows_multipart on the
+    card and on CPU tensors of both parts: all nine QueryResult fields;
+    and its first 512 reads with -maxcand 8 (the non-fused path, with
+    its per-hit lists). -> (max abs err, reads classified)."""
+    from metacache_tpu_torch.ops import rows as R
+    b = SCAN_BATCH
+    codes = np.full((b, 1, 127), 4, np.uint8)
+    codes[:, 0, :READ_LEN] = reads[:b]
+    host = [torch.from_numpy(codes),
+            torch.full((b, 1), READ_LEN, dtype=torch.int32),
+            torch.full((b,), 2 + READ_LEN // runner.db.sketching.winstride,
+                       dtype=torch.int32)]
+    kw = dict(k=16, sketchlen=16, windows_per_query=1, max_candidates=2,
+              walk_elems=32, fast_top2=True, pack_bits=runner._pack_bits)
+    args = (runner.hits_min, 1.0, runner.highest_rank, runner.merge_rank)
+    got = R.query_step_rows_multipart(*(x.cuda() for x in host),
+                                      runner.parts, *args, **kw)
+    cpu = [p.cpu_copy() for p in runner.parts]
+    want = R.query_step_rows_multipart(*host, cpu, *args, **kw)
+    if len(want._fields) != 9:
+        raise AssertionError(f"fields {want._fields}")
+    err = max(check_equal(f"multipart {f}", getattr(got, f).cpu(),
+                          getattr(want, f)) for f in want._fields)
+    kw8 = dict(kw, max_candidates=8, fast_top2=False, emit_hits=True)
+    got8 = R.query_step_rows_multipart(*(x[:512].cuda() for x in host),
+                                       runner.parts, *args, **kw8)
+    want8 = R.query_step_rows_multipart(*(x[:512] for x in host), cpu,
+                                        *args, **kw8)
+    if not (want8.hit_qid < 512).any():
+        raise AssertionError("the non-fused step listed no hits")
+    err = max([err] + [check_equal(f"multipart -maxcand 8 {f}",
+                                   getattr(got8, f).cpu(), getattr(want8, f))
+                       for f in want8._fields])
+    return err, int((got.cls_tax != 0).sum())
+
+
 def phase_fused_crossover(rng, dev):
     """rows_to_result on 8192 unsorted packed rows (walk 32, 2
     candidates): the fused kernel (B4) against the non-fused torch path
@@ -2211,8 +2679,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
         genomes, species, gen_s = generated(refseq_skew_genomes)
-        db, maxwin = phase_build(tmp, "944mbp", genomes, species, gen_s,
-                                 host_check=True)
+        db, maxwin, db_parts = phase_build(tmp, "944mbp", genomes, species,
+                                           gen_s, host_check=True, parts=2)
         layout = f"pk{(2 * maxwin).bit_length()}"
         if layout != "pk15":
             raise AssertionError(f"944 Mbp database packs as {layout}")
@@ -2223,20 +2691,23 @@ def main() -> int:
             launches[k] = main_path[k]
         # B3 runs on whichever of the two routes splits
         launches["sort"] = main_path["sort"] or other["sort"]
+        pair_paths = [run_pairs_944(tmp, db, genomes, layout, a.profile)]
         run_stagings(tmp, "944mbp", Database.load(db), hist, stage_s)
         long_path = run_long_reads(tmp, "944mbp", db, genomes, LONG_READS,
                                    a.profile, "candidates",
                                    "candidates_wide")
         launches["candidates_wide"] = long_path["candidates_wide"]
+        pair_paths.append(run_multipart(tmp, db_parts, genomes))
         shutil.rmtree(os.path.join(tmp, "944mbp"))
+        shutil.rmtree(os.path.join(tmp, "944mbp-parts2"))
         main_path = run_long_windows(tmp, genomes, species, a.profile)
         launches["sketch_long"] = main_path["sketch_long"]
         shutil.rmtree(os.path.join(tmp, "944mbp-w255"))
         del genomes, species
 
         genomes, species, gen_s = generated(many_target_genomes)
-        db, maxwin = phase_build(tmp, "many-target", genomes, species,
-                                 gen_s)
+        db, maxwin, _p = phase_build(tmp, "many-target", genomes, species,
+                                     gen_s)
         if len(genomes) != 9217 or (2 * maxwin).bit_length() != 18:
             raise AssertionError(f"{len(genomes)} targets, max window "
                                  f"{maxwin}")
@@ -2253,13 +2724,20 @@ def main() -> int:
         launches["candidates_unpacked_wide"] = \
             long_path["candidates_unpacked_wide"]
         run_merge_many_target(tmp, db, genomes)
+        pair_paths.append(run_pairs_many_target(tmp, db, genomes))
         shutil.rmtree(os.path.join(tmp, "many-target"))
 
-        main_path, pallas = run_two_tier(tmp, a.profile)
+        main_path, pallas, pairs = run_two_tier(tmp, a.profile)
         for k in ("head_decode", "full_decode"):
             launches[k] = main_path[k]
         for k in ("bucket_decode", "oidx_decode"):
             launches[k] = pallas[k]
+        pair_paths.append(pairs)
+    # the paired and multi-part main paths' launches, each counted from
+    # zero just before its own query
+    for path in pair_paths:
+        for k, v in path.items():
+            launches[k] += v
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
     rows = []

@@ -1,16 +1,20 @@
 """Query execution: stream reads, classify on the card, produce output.
 
 Port of metacache_tpu/classify/runner.py (QueryRunner) for single-end
-reads against a single-part u32 database, with packed slots when they
-fit int32 and (tgt, win) lane pairs when they do not (many targets,
-long genomes). Two paths, as in the JAX package:
+and paired-end reads (-pairfiles, -pairseq) against u32 databases of one
+part or many, with packed slots when they fit int32 and (tgt, win) lane
+pairs when they do not (many targets, long genomes). Two paths, as in
+the JAX package:
 
-- summary only (``-no-map`` and no per-read analysis): the native
-  reader's 2-bit packed short reads are stacked K batches deep and
-  classified by ``query_step_rows_scan``; a rank histogram computed on
-  the card is the only thing fetched;
-- per-read output: coded read batches are bucketed by window count and
-  classified by ``query_step_rows``, then formatted on the host.
+- summary only (``-no-map`` and no per-read analysis) on a single-part
+  database: short reads are stacked K batches deep and classified by
+  ``query_step_rows_scan`` (the native reader's 2-bit packed rows; pairs
+  as two coded windows a query); a rank histogram computed on the card
+  is the only thing fetched;
+- per-read output, or a multi-part database: coded read batches are
+  bucketed by window count (a pair's windows are mate 1's then mate
+  2's) and classified by ``query_step_rows`` or, over every part,
+  ``query_step_rows_multipart``, then formatted on the host.
 
 Each step takes the fused candidate kernels where JAX's runner would
 (``_fused_flags``, ``MC_FUSED_CANDIDATES``; long reads' wide rows
@@ -18,14 +22,15 @@ through their wide form), else the non-fused result path (taxon
 merging, more than 4 candidates, -allhits, ranges longer than 48
 windows).
 
-The database stages on the card as the JAX runner stages it: a
-database built in this process (``build+query``) keeps the tables its
-build made there; a loaded one uploads its CSR stream and fills the
-probe rows on the card (ops/table_device.py::device_layout_from_csr);
-``MC_DEVICE_LAYOUT=0`` fills host rows in numpy and copies them. Dense
-fused rows when they fit the card's budget, else two-tier head and
-overflow rows or size-classed cells; with packed slots the summary path
-then classifies head-only and redoes at full depth only the reads that
+The database stages on the card as the JAX runner stages it, part by
+part within one budget: a database built in this process
+(``build+query``) keeps the tables its build made there; a loaded one
+uploads each part's CSR stream and fills the probe rows on the card
+(ops/table_device.py::device_layout_from_csr); ``MC_DEVICE_LAYOUT=0``
+fills host rows in numpy and copies them. Dense fused rows when they fit
+the card's budget, else two-tier head and overflow rows or size-classed
+cells; on a single part with packed slots the summary path then
+classifies head-only and redoes at full depth only the reads that
 touched a deeper bucket (escalation). Options outside this slice raise
 NotImplementedError naming their ROADMAP item. The JAX runner's
 TPU-link workarounds (packed result fetches, fixed dispatch shapes) are
@@ -55,8 +60,8 @@ from ..db.state import tables_from_device, tables_from_numpy
 from ..device import get_device, hbm_budget_bytes
 from ..ops.probe import make_bucket_index
 from ..ops.rows import (fused_candidates_enabled, query_step_rows,
-                        query_step_rows_redo_scan, query_step_rows_scan,
-                        query_step_rows_scan_head)
+                        query_step_rows_multipart, query_step_rows_redo_scan,
+                        query_step_rows_scan, query_step_rows_scan_head)
 from ..ops.table import device_layout, unpack_locations
 from ..ops.table_device import dense_bytes, device_layout_from_csr
 from . import abundance as abd
@@ -111,6 +116,12 @@ def slot_pack_bits(target_count: int, max_window: int) -> int:
     return wbits if pkmax < 2**31 - 1 else 0
 
 
+def _max_window(p) -> int:
+    """The largest target window of a part's locations."""
+    return int((p.locations & np.uint64(0xFFFFFFFF)).max()) \
+        if p.num_locations else 0
+
+
 def _unsupported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
@@ -133,10 +144,6 @@ class QueryRunner:
             _unsupported("k > 16 (64-bit features)", "queue A13")
         if opt.num_replicas != 1 or opt.table_shards != 1:
             _unsupported("-replicate / -table-shards", "queue A14")
-        if opt.pairing != PairingMode.NONE:
-            _unsupported("paired-end reads", "queue A12")
-        if len(db.parts) + len(db.device_parts) != 1:
-            _unsupported("multi-part databases", "queue A12")
         if oa.show_alignment:
             _unsupported("-align", "queue A7")
         if opt.classify.cov_percentile > 0:
@@ -165,8 +172,10 @@ class QueryRunner:
             and db.target_count > 0 and bool(np.all(merge_tax != 0)))
         self._fused_candidates = fused_candidates_enabled()
 
-        # staging (runner.py:481-565, 632-646): packed pk slots when they
-        # fit int32, else (tgt, win) lane pairs (layout tag True)
+        # staging (runner.py:481-595, 632-646): packed pk slots when they
+        # fit int32 (one pack_bits from the largest window of all parts),
+        # else (tgt, win) lane pairs (layout tag True); every part takes
+        # its layout from what the parts before it left of the budget
         self.budget_bytes = hbm_budget_bytes(self.device)
         lineages = self.lineages if db.target_count else \
             np.zeros((1, NUM_RANKS), np.int32)
@@ -174,9 +183,19 @@ class QueryRunner:
             # tables built on the card by this process (build+query)
             dtab = db.device_parts[0]
             self._pack_bits = slot_pack_bits(db.target_count, dtab.max_win)
-            self._take(dtab, lineages, merge_tax)
+            staged = [self._take(dtab, lineages, merge_tax)]
         else:
-            self._stage_part(db.parts[0], lineages, merge_tax)
+            self._pack_bits = slot_pack_bits(
+                db.target_count, max(_max_window(p) for p in db.parts))
+            staged, left = [], self.budget_bytes
+            for p in db.parts:
+                staged.append(self._stage_part(p, lineages, merge_tax,
+                                               left))
+                left -= staged[-1][2]
+        self.parts = [t for t, _d, _s in staged]
+        self.tables = self.parts[0]      # the single-part paths' tables
+        self.dense_bytes = sum(d for _t, d, _s in staged)
+        self.staged_bytes = sum(s for _t, _d, s in staged)
         self.esc_reads = 0          # reads escalated to the full-depth redo
 
         # copied from metacache_tpu/classify/runner.py:655-676
@@ -202,20 +221,20 @@ class QueryRunner:
                 .to(self.device))
 
     def _take(self, dtab, lineages, merge_tax):
-        """Probe through a DeviceTable (ops/table_device.py)."""
-        self.tables = tables_from_device(dtab, lineages, merge_tax)
-        self.dense_bytes = dense_bytes(dtab.nf, dtab.spf, dtab.slot_bits)
-        self.staged_bytes = dtab.layout_bytes
+        """Probe through a DeviceTable (ops/table_device.py).
+        -> (tables, dense bytes, staged bytes)."""
+        return (tables_from_device(dtab, lineages, merge_tax),
+                dense_bytes(dtab.nf, dtab.spf, dtab.slot_bits),
+                dtab.layout_bytes)
 
-    def _stage_part(self, p, lineages, merge_tax):
-        """Stage a loaded part: its CSR stream filled into probe rows on
-        the card (MC_DEVICE_LAYOUT=1, the default), or host rows copied
-        (MC_DEVICE_LAYOUT=0). MC_DENSE_LIMIT caps only the dense option.
-        Where no layout fits, the CSR probe it would need is not ported
-        (queue A10): the builder's MemoryError raises so."""
-        maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max()) \
-            if p.num_locations else 0
-        self._pack_bits = slot_pack_bits(self.db.target_count, maxwin)
+    def _stage_part(self, p, lineages, merge_tax, budget: int):
+        """Stage a loaded part within ``budget`` bytes: its CSR stream
+        filled into probe rows on the card (MC_DEVICE_LAYOUT=1, the
+        default), or host rows copied (MC_DEVICE_LAYOUT=0).
+        MC_DENSE_LIMIT caps only the dense option. Where no layout fits,
+        the CSR probe it would need is not ported (queue A10): the
+        builder's MemoryError raises so.
+        -> (tables, dense bytes, staged bytes)."""
         spf = min(p.max_bucket_size, self.db.max_locations_per_feature) or 1
         try:
             dense_cap = int(os.environ.get("MC_DENSE_LIMIT", 0)) or None
@@ -231,17 +250,15 @@ class QueryRunner:
                     p.unique_features, p.offsets, ltgt, lwin,
                     device=self.device,
                     cap=self.db.max_locations_per_feature or 254,
-                    budget_bytes=self.budget_bytes, allow_dense=allow_dense)
+                    budget_bytes=budget, allow_dense=allow_dense)
             except MemoryError as e:
                 raise NotImplementedError(
                     f"{e}: the CSR probe layout is not ported yet (ROADMAP "
                     "queue A10)") from None
             del ltgt, lwin
-            self._take(dtab, lineages, merge_tax)
-            return
-        hsl, self.dense_bytes, self.staged_bytes = device_layout(
-            p, spf, self._pack_bits, self.budget_bytes,
-            allow_dense=allow_dense)
+            return self._take(dtab, lineages, merge_tax)
+        hsl, dense_b, staged_b = device_layout(
+            p, spf, self._pack_bits, budget, allow_dense=allow_dense)
         if hsl == spf:
             rows = p.fused_rows(spf, slot_bits=self._pack_bits)
             ovf, hsl = None, 0
@@ -249,17 +266,17 @@ class QueryRunner:
             rows, ovf = p.fused_rows_two_tier(spf, hsl,
                                               slot_bits=self._pack_bits)
         brows, bits = make_bucket_index(p.unique_features)
-        self.tables = tables_from_numpy(
+        return (tables_from_numpy(
             p.unique_features, p.offsets, rows, brows, bits, lineages,
             merge_tax, spf, self._pack_bits, self.device, ovf_rows=ovf,
-            head_slots=hsl)
+            head_slots=hsl), dense_b, staged_b)
 
     @property
     def layout(self) -> str:
-        """Probe layout tag of the staged table (e.g. "pk15",
-        "('two_tier', 61, True, False, 15)" or "('classed', 61, False,
-        False, 15)")."""
-        return str(self.tables.dense)
+        """Probe layout tag of each staged part, comma-separated (e.g.
+        "pk15", "('two_tier', 61, True, False, 15)" or "('classed', 61,
+        False, False, 15)")."""
+        return ", ".join(str(t.dense) for t in self.parts)
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -377,6 +394,9 @@ class QueryRunner:
         summary = self._summary_only()
         if not summary and max_len <= 1024:
             batch_reads = max(batch_reads, 65536)
+        # the summary scan stages one part (runner.py:838-839): a
+        # multi-part summary takes the row path and accumulates there
+        summary = summary and len(self.parts) == 1
         extra = []
         try:
             if summary:
@@ -444,16 +464,13 @@ class QueryRunner:
         opt = self.opt
         wl = self.sketching.winlen
         pending: collections.deque = collections.deque()
-        DEPTH = 3   # dispatches in flight
         take = scan_k * batch_reads
         esc = self._escalation_ok() and self._hist_dev is not None
         self._esc_redo = []      # (feats, idx, lens) of flagged reads
         self._esc_nredo = 0
 
         def flush(dispatched):
-            while len(pending) >= DEPTH:
-                self._collect_batch(*pending.popleft(), results)
-            pending.append(dispatched)
+            self._flush(pending, dispatched, results)
 
         def scan_dispatch(pa, la, n):
             # crop rows to the stack's max read length (4-byte quantum)
@@ -465,17 +482,6 @@ class QueryRunner:
                     pac, la, scan_k, batch_reads))))
             return (None, ("scan", (n, self._dispatch_scan(
                 pac, la, scan_k, batch_reads))))
-
-        def flush_redo(final: bool = False):
-            # full-depth phase 2 on phase 1's sketches and bucket probes
-            # for the reads that touched a bucket deeper than the head;
-            # unlike the JAX runner's fixed-shape stacks, a redo stack is
-            # only as deep as its reads need
-            while self._esc_nredo >= take or (final and self._esc_nredo):
-                k2 = min(scan_k, -(-self._esc_nredo // batch_reads))
-                rf, ri, rlens, got = self._carve_redo(k2 * batch_reads)
-                flush((None, ("scan", (got, self._dispatch_redo(
-                    rf, ri, rlens, k2, batch_reads)))))
 
         buf: list = []
         nbuf = 0
@@ -533,7 +539,7 @@ class QueryRunner:
                     flush(scan_dispatch(pa[:take], la[:take], take))
                     buf = [(pa[take:], la[take:])]
                     nbuf -= take
-                    flush_redo()
+                    self._flush_redo(pending, scan_k, batch_reads, results)
             if nbuf:
                 pa = np.concatenate([c for c, _ in buf])
                 la = np.concatenate([l for _, l in buf])
@@ -542,11 +548,7 @@ class QueryRunner:
                     [pa, np.zeros((take - n, pa.shape[1]), np.uint8)])
                 la = np.concatenate([la, np.zeros(take - n, np.int32)])
                 flush(scan_dispatch(pa, la, n))
-            while pending:
-                self._collect_batch(*pending.popleft(), results)
-            flush_redo(final=True)
-            while pending:
-                self._collect_batch(*pending.popleft(), results)
+            self._drain(pending, scan_k, batch_reads, results)
         finally:
             stop.set()
             while any(th.is_alive() for th in ths):
@@ -554,6 +556,37 @@ class QueryRunner:
                     chunks.get(timeout=0.05)
                 except queue.Empty:
                     pass
+
+    DEPTH = 3   # scan dispatches in flight
+
+    def _flush(self, pending: collections.deque, dispatched, results):
+        """Queue a dispatch, collecting the oldest while DEPTH are in
+        flight."""
+        while len(pending) >= self.DEPTH:
+            self._collect_batch(*pending.popleft(), results)
+        pending.append(dispatched)
+
+    def _flush_redo(self, pending, scan_k: int, bsz: int, results,
+                    final: bool = False):
+        """Full-depth phase 2 on phase 1's sketches and bucket probes for
+        the reads that touched a bucket deeper than the head, a stack at
+        a time (with ``final``, also the last partial one); unlike the
+        JAX runner's fixed-shape stacks, a redo stack is only as deep as
+        its reads need."""
+        while self._esc_nredo >= scan_k * bsz or (final and self._esc_nredo):
+            k2 = min(scan_k, -(-self._esc_nredo // bsz))
+            rf, ri, rlens, got = self._carve_redo(k2 * bsz)
+            self._flush(pending, (None, ("scan", (got, self._dispatch_redo(
+                rf, ri, rlens, k2, bsz)))), results)
+
+    def _drain(self, pending, scan_k: int, bsz: int, results):
+        """Collect every dispatch in flight, then the redo of the reads
+        they flagged."""
+        while pending:
+            self._collect_batch(*pending.popleft(), results)
+        self._flush_redo(pending, scan_k, bsz, results, final=True)
+        while pending:
+            self._collect_batch(*pending.popleft(), results)
 
     def _scan_inputs(self, codes, lens, scan_k: int, bsz: int):
         """Stacked 2-bit packed rows -> (windows, valid, mwir) host arrays
@@ -591,27 +624,27 @@ class QueryRunner:
             fused_candidates=self._fused_candidates,
             **self._sweep_params(mwir.reshape(-1).astype(np.int32), 1))
 
-    # copied from metacache_tpu/classify/runner.py:1671-1693 for single
-    # reads (wq = 1) and without the part-count test: the port stages one
-    # part
-    def _escalation_ok(self) -> bool:
+    # copied from metacache_tpu/classify/runner.py:1671-1693
+    def _escalation_ok(self, wq: int = 1) -> bool:
         """Escalation (head-only phase 1 + full-depth redo) is valid for
-        slot-packed two-tier and classed layouts on the fused fast path;
-        it pays off when buckets can exceed the head. MC_ESCALATE=0
-        disables."""
+        slot-packed two-tier and classed single-part layouts on the fused
+        fast path; it pays off when buckets can exceed the head. ``wq``:
+        windows a query (2 for pairs, whose ranges span both mates).
+        MC_ESCALATE=0 disables."""
         if os.environ.get("MC_ESCALATE", "1") == "0" or \
-                not self._fast_top2 or not self._fused_candidates or \
-                not self._pack_bits:
+                len(self.parts) != 1 or not self._fast_top2 or \
+                not self._fused_candidates or not self._pack_bits:
             return False
         t = self.tables
         sk = self.sketching
         stride = self.db.sketching.winstride
-        m = 2 + max(sk.winlen, self.opt.classify.insert_size_max) // stride
-        sweep_ok = (m * sk.sketchlen <= self.MAX_WALK_ELEMS or
+        m = 2 + max(wq * sk.winlen,
+                    self.opt.classify.insert_size_max) // stride
+        sweep_ok = (m * sk.sketchlen * wq <= self.MAX_WALK_ELEMS or
                     m <= self.MAX_DEDUP_WALK)
         return (t.head_slots > 0 and t.slot_bits == self._pack_bits and
                 t.spf > t.head_slots and sweep_ok and
-                sk.sketchlen * t.spf >= self.FUSED_MIN_SLOTS)
+                wq * sk.sketchlen * t.spf >= self.FUSED_MIN_SLOTS)
 
     # copied from metacache_tpu/classify/runner.py:1695-1731
     def _dispatch_scan_head(self, codes, lens, scan_k: int, bsz: int):
@@ -683,6 +716,294 @@ class QueryRunner:
             fused_candidates=self._fused_candidates,
             pack_bits=self._pack_bits, **self._sweep_params(mwir, wq))
 
+    # ------------------------------------------------------------------
+    # paired-end reads: each pair classifies from mate 1's windows then
+    # mate 2's (reference: sequence_pair_reader, src/sequence_io.cpp:
+    # 246-450, consumed with stride 2 by query_database,
+    # src/database_query.hpp:256-284)
+
+    # copied from metacache_tpu/classify/runner.py:1127-1153
+    def run_pair_files_native(self, path1: str, path2: str,
+                              results: ClassificationResults) -> bool:
+        """-pairfiles through two native readers advancing in lockstep;
+        returns False (the caller then streams QueryRecords) when the
+        reader cannot serve the files or they disagree on record
+        count."""
+        if native.get_lib() is None or self.opt.query_limit >= 0:
+            return False
+        s1, s2 = native.scan_file(path1), native.scan_file(path2)
+        if s1 is None or s2 is None or s1[0] == 0 or s1[0] != s2[0]:
+            return False
+        max_len = max(1024, s1[1], s2[1])
+        readers = self._open_readers((path1, path2), max_len)
+        if readers is None:
+            return False
+        r1, r2 = readers
+
+        def batches(n):
+            while True:
+                c1, l1, h1 = r1.read_batch_raw(n)
+                c2, l2, _h2 = r2.read_batch_raw(n)
+                m = min(len(l1), len(l2))
+                if m == 0:
+                    return
+                yield c1[:m], l1[:m], c2[:m], l2[:m], h1[:m]
+        try:
+            self._run_pairs(batches, s1[0], max_len, results)
+        finally:
+            r1.close()
+            r2.close()
+        return True
+
+    # copied from metacache_tpu/classify/runner.py:1324-1398
+    def run_pair_seq_native(self, path: str,
+                            results: ClassificationResults) -> bool:
+        """-pairseq through the native reader: records 2i and 2i+1 form a
+        pair; an odd final record is a pair whose mate 2 is empty (the
+        reference's sequence_pair_reader, src/sequence_io.cpp:345-383)."""
+        if native.get_lib() is None or self.opt.query_limit >= 0:
+            return False
+        scan = native.scan_file(path)
+        if scan is None or scan[0] == 0:
+            return False
+        max_len = max(1024, scan[1])
+        readers = self._open_readers((path,), max_len)
+        if readers is None:
+            return False
+        reader = readers[0]
+
+        def batches(n):
+            carry = None        # odd leftover record of the last batch
+            while True:
+                codes, lens, headers = reader.read_batch_raw(2 * n)
+                if len(lens) == 0:
+                    if carry is not None:
+                        c1 = carry[0][None]
+                        yield (c1, np.asarray([carry[1]], np.int32),
+                               np.zeros_like(c1), np.zeros(1, np.int32),
+                               carry[2][None])
+                    return
+                if carry is not None:
+                    codes = np.concatenate([carry[0][None], codes])
+                    lens = np.concatenate(
+                        [np.asarray([carry[1]], lens.dtype), lens])
+                    headers = np.concatenate([carry[2][None], headers])
+                    carry = None
+                if len(lens) % 2:
+                    carry = (codes[-1].copy(), lens[-1], headers[-1].copy())
+                    codes, lens, headers = codes[:-1], lens[:-1], \
+                        headers[:-1]
+                    if len(lens) == 0:
+                        continue
+                yield (codes[0::2], lens[0::2], codes[1::2], lens[1::2],
+                       headers[0::2])
+        try:
+            self._run_pairs(batches, -(-scan[0] // 2), max_len, results)
+        finally:
+            reader.close()
+        return True
+
+    @staticmethod
+    def _open_readers(paths, max_len: int):
+        """Native readers of ``paths``, or None (any opened closed again)
+        when one cannot be opened or reads pass 1 Mbp."""
+        if max_len > (1 << 20):
+            return None
+        readers = []
+        try:
+            for p in paths:
+                readers.append(native.NativeFastxReader(p, max_len=max_len))
+        except (FileNotFoundError, RuntimeError):
+            for rd in readers:
+                rd.close()
+            return None
+        return readers
+
+    # copied from metacache_tpu/classify/runner.py:1154-1279, with the
+    # port's stacks (runner.py:383-389 here) and a remainder stack only as
+    # deep as its pairs need
+    def _run_pairs(self, batches, npairs: int, max_len: int, results):
+        """Classify ``batches(n)``, a generator of (codes1, lens1,
+        codes2, lens2, headers1) batches of n pairs. Summary queries on
+        one part stack short pairs (both mates <= winlen) scan_k batches
+        deep through the scan step with two windows a query, escalating
+        where ``_escalation_ok(wq=2)`` holds; longer pairs, per-read
+        output and multi-part databases go through
+        ``_dispatch_coded_pair``. The length filter applies to a pair's
+        combined length."""
+        opt = self.opt
+        wl = self.sketching.winlen
+        batch_reads = max(opt.batch_windows // 2, 1024)
+        if max_len > 1024:
+            batch_reads = max(256, min(batch_reads, (64 << 20) // max_len))
+
+        def filtered(n):
+            for batch in batches(n):
+                # reference: database_query.hpp:271-281
+                if opt.min_read_length > 0 or opt.max_read_length:
+                    ln = batch[1].astype(np.int64) + batch[3]
+                    keep = ln >= opt.min_read_length
+                    if opt.max_read_length:
+                        keep &= ln <= opt.max_read_length
+                    batch = tuple(x[keep] for x in batch)
+                if len(batch[1]):
+                    yield batch
+
+        if not (self._summary_only() and len(self.parts) == 1):
+            pending = None
+            for batch in filtered(batch_reads):
+                dispatched = self._dispatch_coded_pair(*batch)
+                if pending is not None:
+                    self._collect_batch(*pending, results)
+                pending = dispatched
+            if pending is not None:
+                self._collect_batch(*pending, results)
+            return
+
+        bsz = batch_reads if self.device.type == "cpu" else \
+            max(batch_reads, 8192)
+        scan_k = max(1, min(int(os.environ.get("MC_SCAN_K", "32")),
+                            -(-npairs // bsz)))
+        take = scan_k * bsz
+        # the port's phase 1 always returns its sketches and bucket
+        # probes, which JAX's returns only with its prefetch carry
+        # (runner.py:1175-1177): pairs escalate wherever the layout lets
+        esc = self._escalation_ok(wq=2) and self._hist_dev is not None
+        self._esc_redo = []
+        self._esc_nredo = 0
+        pending: collections.deque = collections.deque()
+
+        def dispatch(c1, l1, c2, l2, n):
+            k = len(l1) // bsz
+            if esc:
+                lsum = (l1.astype(np.int64) + l2).astype(np.int32)
+                return (None, ("scanesc", (n, lsum, *self._dispatch_scan_pair(
+                    c1, l1, c2, l2, k, bsz, head=True))))
+            return (None, ("scan", (n, self._dispatch_scan_pair(
+                c1, l1, c2, l2, k, bsz))))
+
+        buf: list = []
+        nbuf = 0
+        for c1, l1, c2, l2, h1 in filtered(bsz):
+            short = (l1 <= wl) & (l2 <= wl)
+            if not short.all():
+                self._flush(pending, self._dispatch_coded_pair(
+                    *(x[~short] for x in (c1, l1, c2, l2, h1))), results)
+            if short.any():
+                buf.append(tuple(np.ascontiguousarray(x[short])
+                                 for x in (c1[:, :wl], l1, c2[:, :wl], l2)))
+                nbuf += int(short.sum())
+            while nbuf >= take:
+                c1a, l1a, c2a, l2a = (np.concatenate(x) for x in zip(*buf))
+                self._flush(pending, dispatch(c1a[:take], l1a[:take],
+                                              c2a[:take], l2a[:take], take),
+                            results)
+                buf = [(c1a[take:], l1a[take:], c2a[take:], l2a[take:])]
+                nbuf -= take
+                self._flush_redo(pending, scan_k, bsz, results)
+        if nbuf:
+            # the remainder, padded to whole batches with empty pairs
+            c1a, l1a, c2a, l2a = (np.concatenate(x) for x in zip(*buf))
+            pad = -nbuf % bsz
+            c1a, c2a = (np.concatenate([c, np.zeros((pad, c.shape[1]),
+                                                    np.uint8)])
+                        for c in (c1a, c2a))
+            l1a, l2a = (np.concatenate([x, np.zeros(pad, x.dtype)])
+                        for x in (l1a, l2a))
+            self._flush(pending, dispatch(c1a, l1a, c2a, l2a, nbuf), results)
+        self._drain(pending, scan_k, bsz, results)
+
+    # copied from metacache_tpu/classify/runner.py:1281-1322 and
+    # :1766-1806
+    def _dispatch_scan_pair(self, c1, l1, c2, l2, scan_k: int, bsz: int,
+                            head: bool = False):
+        """One scan over scan_k stacked batches of short pairs, two coded
+        windows a query; -> (scan_k, bsz) classified taxa on the device,
+        or with ``head`` escalation phase 1's (cls, over_bits, feats
+        (K, B, 2s), idx). Phase 1 on pairs takes the runner's sweep for
+        two windows, where single reads take the walk alone
+        (runner.py:1725 against :1802)."""
+        sk = self.sketching
+        opt = self.opt
+        wl = sk.winlen
+        stride = self.db.sketching.winstride
+        wmat = np.empty((len(l1), 2, wl), np.uint8)
+        wmat[:, 0] = c1[:, :wl]
+        wmat[:, 1] = c2[:, :wl]
+        vmat = np.stack([np.where(l1 >= sk.kmerlen, l1, 0),
+                         np.where(l2 >= sk.kmerlen, l2, 0)], axis=1)
+        mwir = (2 + np.maximum(l1.astype(np.int64) + l2,
+                               opt.classify.insert_size_max) // stride)
+        args = (self._to_dev(wmat.reshape(scan_k, bsz, 2, wl)),
+                self._to_dev(vmat.astype(np.int32).reshape(scan_k, bsz, 2)),
+                self._to_dev(mwir.astype(np.int32).reshape(scan_k, bsz)),
+                self.tables, self.hits_min, opt.classify.hits_diff_fraction,
+                self.highest_rank, self.merge_rank)
+        kw = dict(k=sk.kmerlen, sketchlen=sk.sketchlen,
+                  max_candidates=opt.classify.max_candidates,
+                  pack_bits=self._pack_bits,
+                  fused_candidates=self._fused_candidates,
+                  **self._sweep_params(mwir.astype(np.int32), 2))
+        if head:
+            return query_step_rows_scan_head(*args, fast_top2=True, **kw)
+        return query_step_rows_scan(*args, windows_per_query=2,
+                                    fast_top2=self._fast_top2, **kw)
+
+    # copied from metacache_tpu/classify/runner.py:1400-1454
+    def _dispatch_coded_pair(self, c1, l1, c2, l2, headers):
+        """Dispatch a coded paired batch: short pairs (both mates <=
+        winlen) as one row of two windows, longer ones bucketed by mate-1
+        plus mate-2 windows; the batch keeps mate 1's headers."""
+        sk = self.sketching
+        opt = self.opt
+        k = opt.classify.max_candidates
+        wl = sk.winlen
+        stride = self.db.sketching.winstride
+
+        def mwir_of(a, b):
+            return 2 + np.maximum(a.astype(np.int64) + b,
+                                  opt.classify.insert_size_max) // stride
+
+        short = (l1 <= wl) & (l2 <= wl)
+        launched = []
+        if short.any():
+            idxs = np.nonzero(short)[0]
+            rows = _round_up_pow2(len(idxs))
+            wmat = np.full((rows, 2, wl), win_ops.PAD_CODE, np.uint8)
+            wmat[:len(idxs), 0, :] = c1[idxs, :wl]
+            wmat[:len(idxs), 1, :] = c2[idxs, :wl]
+            vmat = np.zeros((rows, 2), np.int32)
+            vmat[:len(idxs), 0] = np.where(l1[idxs] >= sk.kmerlen,
+                                           l1[idxs], 0)
+            vmat[:len(idxs), 1] = np.where(l2[idxs] >= sk.kmerlen,
+                                           l2[idxs], 0)
+            mwir = np.full(rows, 2, np.int32)
+            mwir[:len(idxs)] = mwir_of(l1[idxs], l2[idxs])
+            launched.append((idxs.tolist(), rows,
+                             self._launch_rows(wmat, vmat, mwir, 2, k)))
+        if (~short).any():
+            lbuckets: Dict[int, list] = {}
+            for i in np.nonzero(~short)[0].tolist():
+                nw = (win_ops.num_windows(int(l1[i]), sk) +
+                      win_ops.num_windows(int(l2[i]), sk))
+                lbuckets.setdefault(_bucket_wq(nw), []).append(i)
+            for wq, idxs in sorted(lbuckets.items()):
+                rows = _round_up_pow2(len(idxs))
+                wmat = np.full((rows, wq, wl), win_ops.PAD_CODE, np.uint8)
+                vmat = np.zeros((rows, wq), np.int32)
+                mwir = np.full(rows, 2, np.int32)
+                for r, i in enumerate(idxs):
+                    w1, v1 = win_ops.sequence_windows(c1[i, :l1[i]], sk)
+                    w2, v2 = win_ops.sequence_windows(c2[i, :l2[i]], sk)
+                    w = np.concatenate([w1, w2])
+                    wmat[r, :len(w)] = w
+                    vmat[r, :len(w)] = np.concatenate([v1, v2])
+                mwir[:len(idxs)] = mwir_of(l1[idxs], l2[idxs])
+                launched.append((idxs, rows,
+                                 self._launch_rows(wmat, vmat, mwir,
+                                                   wq, k)))
+        return (_CodedBatch(headers), ("rows", launched))
+
     # copied from metacache_tpu/classify/runner.py:1456-1508
     def _dispatch_coded(self, codes, lens, headers):
         """Dispatch a coded (B, max_len) read batch, short reads as one
@@ -734,11 +1055,18 @@ class QueryRunner:
         return dict(max_candidates=k, fast_top2=self._fast_top2,
                     **self._fused_flags(), **self._sweep_params(mwir, wq))
 
+    # copied from metacache_tpu/classify/runner.py:1563-1588, without
+    # the mesh branches
     def _launch_rows(self, wmat, vmat, mwir, wq, k):
+        """One row batch through ``query_step_rows``, or over every part
+        through ``query_step_rows_multipart``."""
         sk = self.sketching
-        return query_step_rows(
+        step, tables = (query_step_rows, self.tables) \
+            if len(self.parts) == 1 else \
+            (query_step_rows_multipart, self.parts)
+        return step(
             self._to_dev(wmat), self._to_dev(vmat), self._to_dev(mwir),
-            self.tables, self.hits_min,
+            tables, self.hits_min,
             self.opt.classify.hits_diff_fraction, self.highest_rank,
             self.merge_rank, k=sk.kmerlen, sketchlen=sk.sketchlen,
             windows_per_query=wq, pack_bits=self._pack_bits,
@@ -1015,7 +1343,8 @@ def _round_up_pow2(x: int) -> int:
     return 1 << (x - 1).bit_length()
 
 
-# copied from metacache_tpu/classify/runner.py:2382-2443, single-end
+# copied from metacache_tpu/classify/runner.py:2380-2443, without
+# -cov-percentile's redo (rejected above)
 def map_queries_to_targets(infiles: List[str], db: Database,
                            opt: QueryOptions,
                            results: ClassificationResults,
@@ -1029,13 +1358,30 @@ def map_queries_to_targets(infiles: List[str], db: Database,
             out_mod.show_query_mapping_header(oopt))
 
     t0 = time.monotonic()
+    # announce + stream each input file (pair) in order
+    # (reference: query_database, src/database_query.hpp:345-360)
     comment = oopt.format.tokens.comment
-    for path in infiles:
-        results.per_read_out.write(f"{comment}{path}\n")
-        if runner.run_file_native(path, results):
-            continue
-        queries = read_queries([path], PairingMode.NONE)
+    files = opt.pairing == PairingMode.FILES
+    for i in range(0, len(infiles), 2 if files else 1):
+        group = infiles[i:i + 2] if files else infiles[i:i + 1]
+        if len(group) == 2:
+            results.per_read_out.write(
+                f"{comment}{group[0]} + {group[1]}\n")
+            if runner.run_pair_files_native(group[0], group[1], results):
+                continue
+        else:
+            results.per_read_out.write(f"{comment}{group[0]}\n")
+            if opt.pairing == PairingMode.NONE and \
+                    runner.run_file_native(group[0], results):
+                continue
+            if opt.pairing == PairingMode.SEQUENCES and \
+                    runner.run_pair_seq_native(group[0], results):
+                continue
+        queries = read_queries(group, opt.pairing)
         if opt.query_limit >= 0:
+            # the limit applies per sequence source
+            # (reference: performance_tuning_options.queryLimit,
+            # src/options.hpp:234-235)
             queries = itertools.islice(queries, opt.query_limit)
         runner.run_queries(queries, results)
     results.time_ms = (time.monotonic() - t0) * 1000.0

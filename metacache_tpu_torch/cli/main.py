@@ -1,5 +1,5 @@
 """Command-line interface of the port: build, modify, query, build+query,
-info, help.
+merge, info, help.
 
 Same flags as metacache_tpu's CLI (and the reference binary): the flag
 parser and the mode functions are copied from metacache_tpu/cli/main.py
@@ -491,6 +491,12 @@ def mode_build_query(argv: List[str]) -> int:
     return run_query(db, infiles, opt, out_file)
 
 
+# copied from metacache_tpu/cli/main.py:544-546
+def mode_merge(argv: List[str]) -> int:
+    from .merge import main_mode_merge
+    return main_mode_merge(argv)
+
+
 HELP = f"""metacache_tpu_torch {__version__} - metagenomic classifier on one
 NVIDIA GPU (PyTorch + hand-written CUDA kernels)
 
@@ -501,6 +507,7 @@ modes:
     modify      add reference sequences/taxonomy to an existing database
     query       classify read sequences using an existing database
     build+query build a database and query it immediately
+    merge       merge results of independent queries
     info        show database and taxonomy information
     help        show documentation
 """
@@ -533,6 +540,8 @@ def main(argv: List[str] | None = None) -> int:
             return mode_query(rest)
         if mode == "build+query":
             return mode_build_query(rest)
+        if mode == "merge":
+            return mode_merge(rest)
         if mode == "info":
             from .info import show_info
             return show_info(rest)

@@ -25,6 +25,9 @@ and the final ranking, and the per-hit lists of -allhits. ``fuses``
 picks the branch from flags before the probe, as JAX's runner and
 rows.py:142-143 do (``MC_FUSED_CANDIDATES``, runner.py:612-622). A
 Python loop over the K stacked batches takes the place of ``lax.scan``.
+A query holds windows_per_query windows (a pair: mate 1's, then mate
+2's); ``query_step_rows_multipart`` probes every part of a multi-part
+database and concatenates the parts' slot rows.
 """
 from __future__ import annotations
 
@@ -628,6 +631,40 @@ def query_step_rows(windows, valid, mwir, tables, hits_min, hits_diff_frac,
         max_candidates=max_candidates, walk_elems=walk_elems,
         dedup_walk=dedup_walk, fast_top2=fast_top2, fused_candidates=fused,
         emit_hits=emit_hits, presorted_runs=alt, pack_bits=pack_bits)
+
+
+def query_step_rows_multipart(windows, valid, mwir, parts, hits_min,
+                              hits_diff_frac, highest_rank, merge_rank, *,
+                              k: int, sketchlen: int, windows_per_query: int,
+                              max_candidates: int, walk_elems: int = 0,
+                              dedup_walk: int = 0, fast_top2: bool = False,
+                              fused_candidates: bool = True,
+                              emit_hits: bool = False,
+                              pack_bits: int = 0) -> QueryResult:
+    """Row-layout step over a multi-part database (rows.py:849-895):
+    sketch once, probe every part's tables, concatenate the (B, F*spf_p)
+    slot rows along the slot axis, then one ``rows_to_result``. The
+    parts' runs differ in width, so the probes emit no alternating runs
+    and the fused kernels sort each row whole (presorted 0, as JAX
+    passes none). Taxon maps and lineages are the first part's: every
+    part holds the same ones. All parts' slots pack with one
+    ``pack_bits``."""
+    b, wq, w = windows.shape
+    feats = sketch_windows(windows.reshape(b * wq, w),
+                           valid.reshape(b * wq), k, sketchlen)
+    feats = feats.reshape(b, wq * sketchlen)
+    tgts, wins = zip(*(probe_rows(feats, t, pack_bits=pack_bits)
+                       for t in parts))
+    tgt = torch.cat(tgts, dim=1)
+    win = tgt if pack_bits else torch.cat(wins, dim=1)   # (pk, pk)
+    t0 = parts[0]
+    return rows_to_result(
+        tgt, win, mwir, t0.merge_tax,
+        t0.lineages, hits_min, hits_diff_frac, highest_rank, merge_rank,
+        max_candidates=max_candidates, walk_elems=walk_elems,
+        dedup_walk=dedup_walk, fast_top2=fast_top2,
+        fused_candidates=fused_candidates, emit_hits=emit_hits,
+        pack_bits=pack_bits)
 
 
 def _sketch_stage(wmat, vmat, k: int, sketchlen: int,

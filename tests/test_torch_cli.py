@@ -183,6 +183,115 @@ def test_summary_scan_error_stops_the_reader_thread(dbfile, monkeypatch,
     assert threading.active_count() == before
 
 
+PAIR_CASES = {
+    "classified_pairfiles.txt": [f"{DATA}/reads_pair1.fa",
+                                 f"{DATA}/reads_pair2.fa", "-pairfiles",
+                                 "-precision", "-ground-truth", "-tophits"],
+    "classified_pairseq.txt": [f"{DATA}/reads_pairseq.fa", "-pairseq",
+                               "-precision", "-ground-truth", "-tophits"],
+    "insertsize.txt": [f"{DATA}/reads_pair1.fa", f"{DATA}/reads_pair2.fa",
+                       "-pairfiles", "-insertsize", "1000", "-tophits"],
+}
+
+
+@pytest.mark.parametrize("gold", sorted(PAIR_CASES))
+def test_paired_goldens(dbfile, gold):
+    """Paired-end reads (tests/test_golden_parity.py:82-86, :282-286):
+    two files read in lockstep, or consecutive records of one; each
+    pair classifies from both mates' windows."""
+    assert _query(dbfile, PAIR_CASES[gold]) == _golden(gold)
+
+
+@pytest.mark.parametrize("pairing", ["-pairfiles", "-pairseq"])
+def test_paired_summary_statistics(dbfile, monkeypatch, pairing):
+    """-no-map: the paired scan path (two windows a query), the same
+    summary statistics as the per-read path."""
+    from metacache_tpu_torch.classify.runner import QueryRunner
+    scans = []
+    dispatch = QueryRunner._dispatch_scan_pair
+    monkeypatch.setattr(QueryRunner, "_dispatch_scan_pair",
+                        lambda self, *a, **k: scans.append(a[4]) or
+                        dispatch(self, *a, **k))
+    files = PAIR_CASES["classified_pairfiles.txt"][:2] \
+        if pairing == "-pairfiles" else [f"{DATA}/reads_pairseq.fa"]
+
+    def stats(lines):
+        i = next(j for j, l in enumerate(lines) if "queries:" in l)
+        return lines[i:]
+    per_read = _query(dbfile, files + [pairing])
+    assert not scans
+    assert stats(_query(dbfile, files + [pairing, "-no-map"])) == \
+        stats(per_read)
+    assert scans == [1]
+
+
+def test_partitioned_merge_golden(tmp_path):
+    """Two databases of the fixture's first 3 and remaining genomes, each
+    queried, then the port's `merge` of the two results
+    (tests/test_golden_parity.py:135-170)."""
+    from metacache_tpu_torch.seqio.reader import read_sequences
+    recs = list(read_sequences(f"{DATA}/genomes.fa"))
+    qargs = ["-lowest", "species", "-queryids", "-tophits", "-no-summary"]
+    res = []
+    for tag, rs in (("A", recs[:3]), ("B", recs[3:])):
+        fa, db = tmp_path / f"{tag}.fa", str(tmp_path / f"db{tag}")
+        with open(fa, "w") as f:
+            for r in rs:
+                f.write(f">{r.header}\n{r.seq.decode()}\n")
+        assert main(["build", db, str(fa), "-taxonomy",
+                     f"{DATA}/taxonomy"]) == 0
+        out = str(tmp_path / f"partition_res{tag}.txt")
+        assert main(["query", db, f"{DATA}/reads_single.fa"] + qargs +
+                    ["-out", out]) == 0
+        with open(out) as f:
+            assert _strip(f.read()) == _golden(f"partition_res{tag}.txt")
+        res.append(out)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["merge", *res, "-taxonomy", f"{DATA}/taxonomy",
+                     "-lowest", "species", "-abundances"]) == 0
+
+    def keep(lines):
+        return [l for l in lines if "resA" not in l and "resB" not in l
+                and not l.startswith("Reading")]
+    assert keep(_strip(buf.getvalue())) == keep(_golden("merged.txt"))
+
+
+@pytest.mark.parametrize("staging", ["device", "host-rows", "unpacked"])
+@pytest.mark.parametrize("split", ["parts", "max-part-size"])
+def test_multipart_database_equals_single_part(dbfile, tmp_path, monkeypatch,
+                                               split, staging):
+    """A database of two parts (`-parts 2`, or two input files kept apart
+    by `-max-part-size`) gives the single-part database's mapping lines
+    (tests/test_db_modes.py:34-39, :168-197), per read and, through
+    the row path, as a summary; each part staged by the device builder,
+    as host rows (MC_DEVICE_LAYOUT=0), or with unpacked (tgt, win) slots
+    (MC_PACK_SLOTS=0 MC_PACK_STORE=0)."""
+    env = {"device": {}, "host-rows": {"MC_DEVICE_LAYOUT": "0"},
+           "unpacked": {"MC_PACK_SLOTS": "0", "MC_PACK_STORE": "0"}}
+    for k, v in env[staging].items():
+        monkeypatch.setenv(k, v)
+    db = str(tmp_path / "db")
+    if split == "parts":
+        args = [f"{DATA}/genomes.fa", "-parts", "2"]
+    else:
+        with open(f"{DATA}/genomes.fa") as f:
+            recs = f.read().split(">")[1:]
+        half = len(recs) // 2
+        args = []
+        for tag, rs in (("a", recs[:half]), ("b", recs[half:])):
+            (tmp_path / f"{tag}.fa").write_text("".join(">" + r for r in rs))
+            args.append(str(tmp_path / f"{tag}.fa"))
+        args += ["-max-part-size", "0.00001"]
+    assert main(["build", db] + args + ["-taxonomy", f"{DATA}/taxonomy"]) == 0
+    from metacache_tpu_torch.db.database import Database as TorchDatabase
+    assert len(TorchDatabase.load(db).parts) == 2
+    for flags in (["-tophits", "-no-summary", "-no-query-params"], [],
+                  ["-no-map"]):
+        assert _query(db, [f"{DATA}/reads_single.fa"] + flags) == \
+            _query(dbfile, [f"{DATA}/reads_single.fa"] + flags), flags
+
+
 def test_locations_golden(dbfile):
     ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-locations",
                            "-queryids"])
@@ -237,7 +346,7 @@ GOLDEN_CASES = [(f"fmt_{i}.txt", [f"{DATA}/reads_single.fa"] + FMT_FLAGS[i])
     ("classified_long_fa.txt", [f"{DATA}/reads_long.fa", "-precision",
                                 "-ground-truth", "-tophits"]),
     ("locations.txt", [f"{DATA}/reads_single.fa", "-locations",
-                       "-queryids"])]
+                       "-queryids"])] + sorted(PAIR_CASES.items())
 
 
 @pytest.mark.parametrize("gold,args", GOLDEN_CASES,
@@ -434,8 +543,8 @@ def test_summary_scan_path_takes_every_result_route(dbfile, monkeypatch,
 @pytest.mark.parametrize("flags,item", [
     (["-align"], "A7"),
     (["-cov-percentile", "0.1"], "A7"),
-    ([f"{DATA}/reads_pair2.fa", "-pairfiles"], "A12"),
     (["-replicate", "2"], "A14"),
+    (["-table-shards", "2"], "A14"),
 ])
 def test_query_rejects_paths_not_ported(dbfile, flags, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -3,8 +3,10 @@ PyTorch version on the same CUDA tensors, the device table builder on
 the card against the same builder on the CPU, and the port's query of
 the fixture against the reference goldens through the kernels, with
 packed and with unpacked slots, through the two-tier layout with
-escalation, the classed cells and the pair-packed rows probed by B9, and
-on a winlen-255 database through B2 against the CPU run; tolerance 0.
+escalation, the classed cells and the pair-packed rows probed by B9, on
+paired-end reads and on a database of two parts, and on a winlen-255
+database through B2 against the CPU run; the multi-part step on random
+tables against the same step on the CPU; tolerance 0.
 
 Needs an NVIDIA GPU (marker `cuda`; skipped without one). Imports no
 JAX, so it also runs on a GPU host without JAX:
@@ -47,6 +49,186 @@ def _slots(rng, b, l, ntgt, nwin, wbits, dup=False):
     pk = (tgt << wbits) | win
     n = rng.integers(0, l + 1, (b, 1))
     return np.where(np.arange(l) < n, pk, I32_MAX).astype(np.int32)
+
+
+# ---------------------------------------- random multi-part tables
+def lineages(n):
+    """Lineages of n targets: sequence-level taxa -1 .. -n, 8 targets a
+    genus-level taxon (100, 101, ...), all under root."""
+    lin = np.zeros((n, 21), np.int32)
+    lin[:, 0] = -np.arange(n) - 1
+    lin[:, 4] = np.arange(n) // 8 + 100
+    lin[:, 20] = 1
+    return lin
+
+
+def feature_locations(rng, feats_of_read, deep, ntgt):
+    """(feature, target, window) triples: each read's features point at
+    its own target and window (the read's origin) plus a few random
+    locations; ``deep`` reads' features get 8 more, so their buckets pass
+    a head of 4."""
+    fs, ts, ws = [], [], []
+    seen = set()
+    for r, feats in enumerate(feats_of_read):
+        for f in np.unique(feats):
+            if f == 0xFFFFFFFF or int(f) in seen:
+                continue
+            seen.add(int(f))
+            extra = 8 if deep[r] else int(rng.integers(0, 3))
+            fs += [f] * (1 + extra)
+            ts += [r % ntgt] + rng.integers(0, ntgt, extra).tolist()
+            ws += [r % 5 + 3] + rng.integers(0, 40, extra).tolist()
+    return (np.asarray(fs, np.uint32), np.asarray(ts, np.uint32),
+            np.asarray(ws, np.uint32))
+
+
+def feature_table(f, t, w):
+    from metacache_tpu_torch.ops.table import FeatureTable, pack_locations
+    order = np.lexsort((w, t, f))
+    return FeatureTable.build(f[order].copy(),
+                              pack_locations(t[order], w[order]),
+                              max_locations_per_feature=254)
+
+
+def multipart_case(ntgt=24, b=32):
+    """b reads of 100 bp (one shorter than k) and the locations of their
+    features, dealt at random over 3 parts (a feature can sit in
+    several); seed 11."""
+    rng = np.random.default_rng(11)
+    codes = np.full((b, 1, 127), 4, np.uint8)
+    codes[:, 0, :100] = rng.integers(0, 4, (b, 100))
+    lens = np.full((b, 1), 100, np.int32)
+    lens[5, 0] = 12
+    feats = S.sketch_windows_plain(torch.from_numpy(codes.reshape(b, 127)),
+                                   torch.from_numpy(lens.reshape(b)), 16,
+                                   16).numpy().view(np.uint32)
+    f, t, w = feature_locations(rng, feats, rng.random(b) < 0.5, ntgt)
+    return dict(codes=codes, lens=lens, locs=(f, t, w),
+                part=rng.integers(0, 3, len(f)),
+                wbits=(2 * int(w.max())).bit_length(), lin=lineages(ntgt))
+
+
+def part_layouts(case, nparts, pack_bits):
+    """The case's parts, dense or two-tier (head 4): 2 parts two-tier and
+    dense, 3 parts dense, two-tier and two-tier; each part's slots stored
+    packed where the query packs them, the last part's the other way (the
+    probe converts them). -> per part (port tables on the CPU, host
+    arrays: table, rows, overflow rows, bucket rows, bucket bits, stored
+    slot bits, metacache_tpu's layout tag)."""
+    from metacache_tpu_torch.db.state import tables_from_numpy
+    from metacache_tpu_torch.ops.probe import make_bucket_index
+    f, t, w = case["locs"]
+    lin, wb = case["lin"], case["wbits"]
+    kinds = ["two_tier", "dense"] if nparts == 2 else \
+        ["dense", "two_tier", "two_tier"]
+    out = []
+    for p, kind in enumerate(kinds):
+        sel = case["part"] % nparts == p
+        ft = feature_table(f[sel], t[sel], w[sel])
+        spf = ft.max_bucket_size
+        assert spf > 4
+        stored = wb if (pack_bits > 0) != (p == nparts - 1) else 0
+        brows, bits = make_bucket_index(ft.unique_features)
+        if kind == "dense":
+            rows, ovf, hsl = ft.fused_rows(spf, slot_bits=stored), None, 0
+            tag = f"pk{stored}" if stored else True
+        else:
+            rows, ovf = ft.fused_rows_two_tier(spf, 4, slot_bits=stored)
+            hsl = 4
+            tag = ("two_tier", 4, False, False, stored) if stored else \
+                ("two_tier", 4)
+        out.append((tables_from_numpy(
+            ft.unique_features, ft.offsets, rows, brows, bits, lin,
+            lin[:, 0].copy(), spf, stored, torch.device("cpu"),
+            ovf_rows=ovf, head_slots=hsl),
+            dict(ft=ft, rows=rows, ovf=ovf, brows=brows, bits=bits,
+                 stored=stored, tag=tag)))
+    return out
+
+
+MULTIPART_ARGS = (5, 0.5, 19, 0)   # hits_min, hits_diff, highest, merge
+
+
+def multipart_step(case, tables, pack_bits, max_candidates, dev):
+    """The port's multi-part step on the case's reads: two candidates
+    through the fused kernels, eight through the non-fused path with its
+    per-hit lists."""
+    from metacache_tpu_torch.ops.rows import query_step_rows_multipart
+    b = case["codes"].shape[0]
+    fused = max_candidates <= 4
+    return query_step_rows_multipart(
+        torch.from_numpy(case["codes"]).to(dev),
+        torch.from_numpy(case["lens"]).to(dev),
+        torch.full((b,), 2, dtype=torch.int32, device=dev),
+        [t.to(dev) for t in tables], *MULTIPART_ARGS, k=16, sketchlen=16,
+        windows_per_query=1, max_candidates=max_candidates, walk_elems=32,
+        fast_top2=fused, emit_hits=not fused, pack_bits=pack_bits)
+
+
+@pytest.mark.parametrize("nparts", [2, 3])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("max_candidates", [2, 8])
+def test_multipart_step_on_the_card_matches_cpu(cuda, nparts, packed,
+                                                max_candidates):
+    """The twin of tests/test_torch_pairs.py::
+    test_multipart_step_matches_jax: the step on the card (B1, the
+    parts' probes with B7 on two-tier packed rows, B4 or B5 on the
+    concatenated rows, or the non-fused path) equals the same step on
+    CPU tensors in all nine QueryResult fields."""
+    case = multipart_case()
+    pack_bits = case["wbits"] if packed else 0
+    tables = [t for t, _h in part_layouts(case, nparts, pack_bits)]
+    kernels.reset_counts()
+    got = multipart_step(case, tables, pack_bits, max_candidates, cuda)
+    torch.cuda.synchronize()
+    want = multipart_step(case, tables, pack_bits, max_candidates,
+                          torch.device("cpu"))
+    for nm in want._fields:
+        assert torch.equal(getattr(got, nm).cpu(), getattr(want, nm)), nm
+    assert kernels.SKETCH.launches == 1
+    # one two-tier part stores packed slots (B7), but with 2 parts and
+    # unpacked slots
+    assert kernels.FULL_DECODE.launches == int(packed or nparts == 3)
+    fused = (kernels.CANDIDATES if packed else
+             kernels.CANDIDATES_UNPACKED).launches
+    assert fused == (1 if max_candidates <= 4 else 0)
+
+
+@pytest.mark.parametrize("gold,args", [
+    ("classified_pairfiles.txt", ["reads_pair1.fa", "reads_pair2.fa",
+                                  "-pairfiles", "-precision",
+                                  "-ground-truth", "-tophits"]),
+    ("classified_pairseq.txt", ["reads_pairseq.fa", "-pairseq",
+                                "-precision", "-ground-truth", "-tophits"]),
+    ("insertsize.txt", ["reads_pair1.fa", "reads_pair2.fa", "-pairfiles",
+                        "-insertsize", "1000", "-tophits"]),
+    ("fmt_0.txt", ["reads_single.fa", "@parts"])])
+def test_fixture_pairs_and_parts_on_the_card_match_golden(cuda, tmp_path,
+                                                          monkeypatch, gold,
+                                                          args):
+    """The paired goldens through the card's kernels, and the single-end
+    golden from a database of two parts (`build -parts 2`, host build;
+    the multi-part step on the card)."""
+    monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+    parts = "@parts" in args
+    db = str(tmp_path / "db")
+    assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
+                 f"{DATA}/taxonomy"] + (["-parts", "2"] if parts else [])) \
+        == 0
+    args = [f"{DATA}/{a}" if a.startswith("reads_") else a for a in args
+            if a != "@parts"]
+    kernels.reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["query", db] + args) == 0
+    assert kernels.SKETCH.launches > 0 and kernels.CANDIDATES.launches > 0
+    drop = ("# time:", "# speed:", "threads", DATA, "/tmp")
+
+    def strip(text):
+        return [l for l in text.splitlines()
+                if not any(d in l for d in drop)]
+    with open(os.path.join(DATA, "golden", gold)) as f:
+        assert strip(buf.getvalue()) == strip(f.read())
 
 
 @pytest.mark.parametrize("case", ["random", "ambiguous", "short"])
