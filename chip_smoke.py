@@ -2,7 +2,8 @@
 """Smoke run of metacache_tpu_torch on one NVIDIA GPU.
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
-holds each against its plain PyTorch version on the card, holds the
+holds each against its plain PyTorch version on the card (the 64-bit
+sketch kernel of k > 16 too, at k 17, 18, 24 and 32), holds the
 device table builder on the card against the same builder on CPU
 tensors, then drives the port's query paths through its entry points,
 each at a scale its users run. `build` builds its tables on the card
@@ -41,7 +42,7 @@ saved CSR and fills the probe rows on the card.
   folded into B7, which must launch B8 no time and equal B8 then B7 on
   the query's own probes), which must give the same result, per read
   too;
-- long reads: 2^16 reads of log-normal lengths (median 480 bp, clipped
+- long reads: 2^15 reads of log-normal lengths (median 480 bp, clipped
   to 200-19,000 bp, the reference's long-read workload; the spread is
   assumed) against the 944 Mbp database with per-read output and
   -tophits: window buckets up to 256 windows, rows of up to 1 M slots;
@@ -75,6 +76,24 @@ saved CSR and fills the probe rows on the card.
   MC_FUSED_CANDIDATES=0, and one batch against the same step on CPU
   tensors of both parts in all nine QueryResult fields (512 of its reads
   also with -maxcand 8: the non-fused path and its per-hit lists).
+
+- 64-bit features: the 944 Mbp genomes built with `build -kmerlen 18`
+  (the host table build, sketched on the card by the 64-bit sketch
+  kernel), staged as u64 dense rows; 2^20 reads on the summary path
+  (the 64-bit sketch kernel on the runner's packed rows, B4), one stack
+  against the plain path on CPU tensors; 2^16 reads and 2^16 pairs per
+  read, byte-identical under MC_FUSED_CANDIDATES=0; the same database
+  staged as u64 two-tier rows under a smaller MC_HBM_GB, the same rank
+  histogram;
+- host-side modes on the 944 Mbp database: -cov-percentile 50 on 2^16
+  reads and -align on 1,024 reads (each lines equal under
+  MC_FUSED_CANDIDATES=0; -align's share of blocks on the read's true
+  genome), and the interactive mode fed two lines, whose lines equal
+  the two direct queries';
+- the non-fused batch within free memory: the two-part database's
+  non-fused per-read query, and 2^15 of its reads with -allhits, once
+  more beside a ballast tensor that leaves 12 GiB free: several
+  launches, the same lines.
 
 B3 runs ahead of B4 wherever MC_SPLIT_CAND=1 selects the split route.
 At winlen 127 the summary path hands B1 the runner's 2-bit packed rows,
@@ -119,11 +138,17 @@ READ_LEN = 100
 GENOME_LEN = 1_000_000
 SCAN_BATCH = 8192      # reads per summary batch on the card (runner.py)
 PROBE_FEATURES = 1 << 21   # features of the B8/B9 parity table
-LONG_READS = 1 << 16       # reads of the long-read phase (944 Mbp)
+LONG_READS = 1 << 15       # reads of the long-read phase (944 Mbp)
 LONG_READS_MANY = 1 << 13  # long reads against the many-target database
 MERGE_READS = 1 << 14      # reads of the taxon-merging phase
 PAIRS = 1 << 20            # read pairs of the paired summary queries
 PAIRS_PER_READ = 1 << 16   # pairs of the per-read and many-target phases
+# -align re-reads the top target's record from its source FASTA for
+# every read (as JAX and the reference binary do); the 944 Mbp genomes
+# are written one file a genome, so a re-read scans about 1 MB
+ALIGN_READS = 1024
+REPL_READS = 8192          # reads a line of the interactive-mode phase
+ALLHITS_READS = 1 << 15    # -allhits reads of the ballast phase
 # kernels no main path launches: B8's work is done by B7 (ops/rows.py)
 FOLDED = {"oidx_decode": "full_decode"}
 # the least time of a kernel: the larger of its bytes over the card's
@@ -367,9 +392,19 @@ def write_genomes(fa, genomes, species, lo: int = 0, hi: int | None = None):
             f.write(ACGT[genomes[i]].tobytes() + b"\n")
 
 
-def write_reference(tmp, genomes, species):
+def write_reference(tmp, genomes, species, per_genome: bool = False):
+    """The genomes as one FASTA file, or (``per_genome``) as a directory
+    of one file a genome, GEN<i>.fa, which `build` reads in name order.
+    -> (FASTA file or directory, taxonomy directory)."""
     fa = os.path.join(tmp, "genomes.fa")
-    write_genomes(fa, genomes, species)
+    if per_genome:
+        fa = os.path.join(tmp, "genomes")
+        os.makedirs(fa)
+        for i in range(len(genomes)):
+            write_genomes(os.path.join(fa, "GEN%05d.fa" % i), genomes,
+                          species, i, i + 1)
+    else:
+        write_genomes(fa, genomes, species)
     tax = os.path.join(tmp, "taxonomy")
     write_taxonomy(tax, int(species.max()) + 1)
     return fa, tax
@@ -390,10 +425,12 @@ def write_taxonomy(tax, nsp: int):
     open(os.path.join(tax, "merged.dmp"), "w").close()
 
 
-def sample_reads(rng, genomes, n: int, read_len: int = READ_LEN):
+def sample_reads(rng, genomes, n: int, read_len: int = READ_LEN,
+                 with_genomes: bool = False):
     """n reads of read_len from uniformly drawn genomes (of any lengths)
     and positions, with Poisson(read_len / 100) substitutions, a 1% rate
-    (the draw of bench.py:149-159)."""
+    (the draw of bench.py:149-159); ``with_genomes``: -> (reads, the
+    genome index of each)."""
     glen = np.array([len(g) for g in genomes])
     gsel = rng.integers(0, len(genomes), n)
     pos = rng.integers(0, glen[gsel] - read_len)
@@ -405,7 +442,7 @@ def sample_reads(rng, genomes, n: int, read_len: int = READ_LEN):
     rows = np.repeat(np.arange(n), nm)
     reads[rows, rng.integers(0, read_len, len(rows))] = \
         rng.integers(0, 4, len(rows), dtype=np.uint8)
-    return reads
+    return (reads, gsel) if with_genomes else reads
 
 
 def write_reads(path, reads):
@@ -535,6 +572,7 @@ def phase_parity(results):
 
     phase_parity_b1(results, rng, dev)
     phase_parity_long(results, rng, dev)
+    phase_parity_sketch64(results, np.random.default_rng(64), dev)
 
     b, l2, r = 8192, 4096, 256
     alt = torch.from_numpy(alternating_runs(rng, b, 16, r)).to(dev)
@@ -869,6 +907,69 @@ def phase_parity_b1(results, rng, dev):
         packed_8192x28_bound_ms=bound(
             SCAN_BATCH * (28 + 4 + 16 * 4), 22 * int(np.maximum(np.minimum(
                 valid[:SCAN_BATCH], 112).astype(np.int64) - 15, 0).sum()))[0])
+
+
+def phase_parity_sketch64(results, rng, dev):
+    """The 64-bit sketch kernel (k > 16) against its plain version,
+    tolerance 0, at k 17, 18, 24 and 32, s = 16: on the build's (65536,
+    128) coded windows, the k = 18 summary path's packed rows (8192, 28
+    bytes: 100 bp reads) and 250 bp windows (8192, 256). Timed at each
+    shape at k = 18 (CUDA events, a CUDA graph, the host's time a call)
+    beside its bound (the window bytes and valid lengths read, 8 s bytes
+    written, or its 64-bit arithmetic as 32-bit operations: about twice
+    B1's 22 a k-mer position); no PyTorch call computes this sketch, so
+    no library time. The kernels line's row is (65536, 128), k = 18."""
+    from metacache_tpu_torch.ops import sketch as S
+    codes, valid = sketch_inputs(rng, 65536)
+    clean = np.where(codes < 4, codes, 2).astype(np.uint8)
+    c = torch.from_numpy(codes).to(dev)
+    v = torch.from_numpy(valid).to(dev)
+    v8 = v[:SCAN_BATCH]
+    p7 = torch.from_numpy(pack_2bit(clean[:SCAN_BATCH, :112])).to(dev)
+    u7 = S.unpack_2bit(p7)
+    lc, lv = long_sketch_inputs(rng, SCAN_BATCH, 256, 18, 250)
+    c256 = torch.from_numpy(lc).to(dev)
+    v256 = torch.from_numpy(lv).to(dev)
+    cases = {"65536x128": (lambda k: S.sketch_windows(c, v, k, 16),
+                           lambda k: S.sketch_windows64_plain(c, v, k, 16)),
+             "8192x28_packed": (
+                 lambda k: S.sketch_windows_packed(p7, v8, k, 16),
+                 lambda k: S.sketch_windows64_plain(u7, v8, k, 16)),
+             "8192x256": (lambda k: S.sketch_windows(c256, v256, k, 16),
+                          lambda k: S.sketch_windows64_plain(c256, v256, k,
+                                                             16))}
+    errs = {}
+    for k in (17, 18, 24, 32):
+        for name, (got, want) in cases.items():
+            errs[f"{name}_k{k}"] = check_equal(f"sketch64 {name} k{k}",
+                                               got(k), want(k))
+
+    def kpos(vals, width):
+        return int(np.maximum(np.minimum(vals, width).astype(np.int64)
+                              - 17, 0).sum())
+    shapes = {"65536x128": (codes.nbytes + valid.nbytes,
+                            kpos(valid, 128), 65536),
+              "8192x28_packed": (SCAN_BATCH * (28 + 4),
+                                 kpos(valid[:SCAN_BATCH], 112), SCAN_BATCH),
+              "8192x256": (lc.nbytes + lv.nbytes, kpos(lv, 256), SCAN_BATCH)}
+    timed = {}
+    for name, (nin, kp, n) in shapes.items():
+        got, want = cases[name]
+        b_ms, by = bound(nin + 8 * 16 * n, 44 * kp)
+        timed[name] = dict(ms=cuda_ms(lambda: got(18)),
+                           device_ms=kernel_ms(lambda: got(18)),
+                           host_us=host_us(lambda: got(18)),
+                           plain_ms=cuda_ms(lambda: want(18)),
+                           bound_ms=b_ms, bound_by=by)
+    t = timed["65536x128"]
+    _record(results, "sketch64", err=max(errs.values()), ms=t["ms"],
+            plain_ms=t["plain_ms"], nbytes=shapes["65536x128"][0] +
+            8 * 16 * 65536, nops=44 * shapes["65536x128"][1],
+            device_ms=t["device_ms"], host_us=t["host_us"],
+            shape="(65536, 128) windows, k=18, s=16")
+    say("parity-sketch64", tolerance=0, max_abs_err=max(errs.values()),
+        cases=len(errs), library_ms=None,
+        **{f"{n}_{f}": v for n, d in timed.items() for f, v in d.items()})
 
 
 def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):
@@ -1299,18 +1400,20 @@ def phase_parity_probe(results, rng, dev):
 
 
 def phase_build(tmp, name, genomes, species, gen_s, host_check=False,
-                parts=1):
+                parts=1, keep_fasta=False):
     """`build` through the CLI (the device builder); with ``host_check``
     a host build of the same genomes must give the same features,
     offsets and locations; with ``parts`` > 1 also `build -parts`
-    (the host build) of the same genomes. -> (database path, max window,
-    the multi-part database's path or None)."""
+    (the host build) of the same genomes; ``keep_fasta``: the genomes
+    are written one FASTA file a genome, which stay (-align re-reads a
+    target's file). -> (database path, max window, the multi-part
+    database's path or None)."""
     from metacache_tpu_torch import kernels
     from metacache_tpu_torch.cli.main import main as cli
     t0 = time.time()
     sub = os.path.join(tmp, name)
     os.makedirs(sub)
-    fa, tax = write_reference(sub, genomes, species)
+    fa, tax = write_reference(sub, genomes, species, per_genome=keep_fasta)
     gen_s += time.time() - t0
     db = os.path.join(sub, "db")
     before = kernels.SKETCH.launches
@@ -1345,7 +1448,8 @@ def phase_build(tmp, name, genomes, species, gen_s, host_check=False,
                 str(parts)]) != 0:
             raise AssertionError(f"build -parts {parts} failed")
         host[f"parts{parts}_build_seconds"] = round(time.time() - t0, 3)
-    os.remove(fa)
+    if not keep_fasta:
+        os.remove(fa)
     maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max())
     say(f"build-{name}", genomes=len(genomes),
         bases=sum(len(g) for g in genomes), features=p.num_features,
@@ -1503,8 +1607,8 @@ def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
     mwir = np.full((1, b), mw, np.uint8)
     t = runner.tables
     cpu = t.cpu_copy()
-    kw = dict(k=16, sketchlen=16, windows_per_query=1, max_candidates=2,
-              fast_top2=True, pack_bits=runner._pack_bits,
+    kw = dict(k=runner.sketching.kmerlen, sketchlen=16, windows_per_query=1,
+              max_candidates=2, fast_top2=True, pack_bits=runner._pack_bits,
               infeed_packed=True,
               **runner._sweep_params(np.array([mw], np.int32), 1))
     args = (runner.hits_min, 1.0, runner.highest_rank, runner.merge_rank)
@@ -2392,6 +2496,259 @@ def phase_pairs_per_read(tmp, name, db, files, runner=None, checks=()):
     return out[""], grew, runner
 
 
+def query_lines(db, paths, args, out_path, runner=None, env=None):
+    """A query's whole output, written to ``out_path``, without its
+    timing lines. -> (lines, runner, results)."""
+    with environ(**(env or {})), open(out_path, "w") as out:
+        runner, res, _s = _query(db, paths, args, out, runner)
+    with open(out_path) as f:
+        lines = [l for l in f if not l.startswith(("# time:", "# speed:"))]
+    return lines, runner, res
+
+
+def run_covpct(tmp, name, db):
+    """[query-covpct-944mbp]: the per-read phase's 2^16 reads with
+    -cov-percentile 50 -tophits (mappings saved, targets below the
+    coverage percentile dropped, every read classified again on the
+    host), and again under MC_FUSED_CANDIDATES=0: the same lines."""
+    sub = os.path.join(tmp, name)
+    reads = os.path.join(sub, "reads_per_read.fa")
+    args = ["-cov-percentile", "50", "-tophits"]
+    got, runner, res = query_lines(db, reads, args,
+                                   os.path.join(sub, "covpct.txt"))
+    del runner
+    nf, runner, _r = query_lines(db, reads, args,
+                                 os.path.join(sub, "covpct_nonfused.txt"),
+                                 env={"MC_FUSED_CANDIDATES": "0"})
+    del runner
+    torch.cuda.empty_cache()
+    n = res.statistics.total()
+    rows = sum("\t|\t" in l and not l.startswith("#") for l in got)
+    if nf != got or rows != n or n != PAIRS_PER_READ:
+        raise AssertionError(f"-cov-percentile: {rows} lines for {n} reads, "
+                             f"equal under MC_FUSED_CANDIDATES=0: "
+                             f"{nf == got}")
+    say(f"query-covpct-{name}", reads=n, reads_per_min=round(
+        n / (res.time_ms / 60000.0)), seconds=round(res.time_ms / 1000, 3),
+        classified_fraction=round(res.statistics.assigned() / n, 6),
+        lines_equal_nonfused=True)
+
+
+def run_align(tmp, name, db, genomes, species, nreads):
+    """[query-align-944mbp]: ``nreads`` reads with -align -tophits; each
+    classified read's alignment re-reads its top target's record from
+    the target's FASTA file (as JAX and the reference binary do), one
+    file a genome here. The same output under MC_FUSED_CANDIDATES=0;
+    the share of alignment blocks whose subject is the read's true
+    genome, and of its species (a strain's reads fit its 0.3%-apart
+    sister strains as well)."""
+    import re
+    sub = os.path.join(tmp, name)
+    reads, gsel = sample_reads(np.random.default_rng(11), genomes, nreads,
+                               with_genomes=True)
+    path = os.path.join(sub, "reads_align.fa")
+    write_reads(path, reads)
+    got, runner, res = query_lines(db, path, ["-align", "-tophits"],
+                                   os.path.join(sub, "align.txt"))
+    del runner
+    nf, runner, _r = query_lines(db, path, ["-align", "-tophits"],
+                                 os.path.join(sub, "align_nonfused.txt"),
+                                 env={"MC_FUSED_CANDIDATES": "0"})
+    del runner
+    torch.cuda.empty_cache()
+    if nf != got:
+        raise AssertionError("-align: MC_FUSED_CANDIDATES=0 changed lines")
+    # a block follows the mapping line of its read (header ">r<i>")
+    nrows, scores, true, same_species, read = 0, [], 0, 0, -1
+    for l in got:
+        m = re.search(r"score\s+(-?\d+)\s+aligned to \S*GEN(\d+)\.fa #1 ",
+                      l)
+        if m:
+            scores.append(int(m.group(1)))
+            g = int(m.group(2))
+            true += g == gsel[read]
+            same_species += species[g] == species[gsel[read]]
+        elif "\t|\t" in l and not l.startswith("#"):
+            nrows += 1
+            read = int(l.split("\t|\t")[0][1:])
+    if not scores or nrows != nreads:
+        raise AssertionError(f"-align: {len(scores)} blocks, {nrows} lines")
+    blocks = scores
+    say(f"query-align-{name}", reads=nreads,
+        seconds=round(res.time_ms / 1000, 3),
+        seconds_per_read=round(res.time_ms / 1000 / nreads, 3),
+        alignment_blocks=len(blocks),
+        share_aligned_to_true_genome=round(true / len(blocks), 4),
+        share_aligned_to_true_species=round(same_species / len(blocks), 4),
+        mean_score=round(float(np.mean(scores)), 2),
+        lines_equal_nonfused=True)
+
+
+def run_repl(tmp, name, db, nreads):
+    """[repl-944mbp]: the query mode without read files (the interactive
+    mode), fed two lines on a patched stdin, `<reads> -tophits` and
+    `<reads> -lowest species`; its mapping lines equal the two direct
+    queries' lines."""
+    from metacache_tpu_torch.cli.main import main as cli
+    sub = os.path.join(tmp, name)
+    src = os.path.join(sub, "reads_per_read.fa")
+    path = os.path.join(sub, "reads_repl.fa")
+    with open(src, "rb") as f, open(path, "wb") as g:
+        for _ in range(2 * nreads):
+            g.write(f.readline())
+    lines = [["-tophits"], ["-lowest", "species"]]
+    direct = []
+    for i, args in enumerate(lines):
+        got, runner, _r = query_lines(db, path, args,
+                                      os.path.join(sub, f"repl_{i}.txt"))
+        del runner
+        direct += [l for l in got if "\t|\t" in l and not l.startswith("#")]
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    old = sys.stdin
+    sys.stdin = io.StringIO("".join(f"{path} {' '.join(a)}\n"
+                                    for a in lines))
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["query", db])
+    finally:
+        sys.stdin = old
+    secs = time.time() - t0
+    torch.cuda.empty_cache()
+    repl = [l + "\n" for l in buf.getvalue().splitlines()
+            if "\t|\t" in l and not l.startswith("#")]
+    if rc != 0 or repl != direct or len(repl) != 2 * nreads:
+        raise AssertionError(f"REPL: rc {rc}, {len(repl)} lines, equal to "
+                             f"the direct queries: {repl == direct}")
+    say(f"repl-{name}", stdin_lines=len(lines), reads=nreads,
+        mapping_lines=len(repl), seconds=round(secs, 3),
+        lines_equal_direct=True)
+
+
+def run_k18(tmp, genomes, species, profile):
+    """The 944 Mbp genomes at k = 18, the repo's 64-bit configuration
+    (tests/test_golden_parity.py:346-352). [build-944mbp-k18]: `build
+    -kmerlen 18`, the host table build (JAX's device builder is 32-bit
+    only) with the sketches taken on the card by the 64-bit sketch
+    kernel; the bucket index's bits and widest span.
+    [query-summary-944mbp-k18]: 2^20 reads, -no-map, the main path of the
+    64-bit sketch kernel (the runner's packed rows) and B4 on the u64
+    dense rows; one stack against the plain path on CPU tensors. Per
+    read: 2^16 reads with -tophits and 2^16 pairs with -pairfiles
+    -tophits, byte-identical under MC_FUSED_CANDIDATES=0.
+    [staging-944mbp-k18-two-tier]: a budget below the u64 dense rows
+    (MC_HBM_GB) stages u64 two-tier rows, queried at full depth (JAX
+    escalates no u64 rows): the same rank histogram. -> the summary
+    query's launches."""
+    from metacache_tpu_torch import kernels
+    from metacache_tpu_torch.cli.main import main as cli
+    from metacache_tpu_torch.ops.probe import collision_free_bits64
+    name = "944mbp-k18"
+    sub = os.path.join(tmp, name)
+    os.makedirs(sub)
+    fa, tax = write_reference(sub, genomes, species)
+    db = os.path.join(sub, "db")
+    kernels.reset_counts()
+    t0 = time.time()
+    if cli(["build", db, fa, "-taxonomy", tax, "-kmerlen", "18"]) != 0:
+        raise AssertionError("build -kmerlen 18 failed")
+    build_s = time.time() - t0
+    built = launch_counts()
+    if built["sketch64"] <= 0 or built["sketch"] or built["sketch_long"]:
+        raise AssertionError(f"build -kmerlen 18 launches {built}")
+    os.remove(fa)
+    p = Database.load(db).parts[0]
+    # make_bucket_index64's default width; a low-32 collision within a
+    # bucket there is where JAX takes its CSR probe and the port's staging
+    # widens the index (ops/table_device.py::device_layout_from_csr)
+    default_bits = min(24, max(12, p.num_features.bit_length() - 2))
+    free_bits = collision_free_bits64(p.unique_features)
+    say(f"build-{name}", genomes=len(genomes), kmerlen=18,
+        features=p.num_features, locations=p.num_locations,
+        max_bucket=p.max_bucket_size, seconds=round(build_s, 3),
+        sketch64_launches=built["sketch64"], default_bucket_bits=default_bits,
+        low32_collision_at_default_bits=free_bits > default_bits,
+        collision_free_bits=free_bits)
+    del p
+    reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
+    runner, grew, res = phase_query_summary(
+        tmp, name, db, reads,
+        lambda r: r.layout.startswith("u64pk") and r.tables.wide,
+        path_of("sketch64", *cand_kernels()))
+    hist = res.statistics.assigned_.copy()
+    dense_b = runner.dense_bytes
+    brows = runner.tables.bucket_rows
+    say(f"staging-{name}", layout=runner.layout,
+        bucket_bits=runner.tables.bucket_bits,
+        bucket_index_gib=round(brows.numel() * 4 / 2**30, 3),
+        bucket_max_span=int((brows[:, 1:] != -1).sum(dim=1).max()),
+        staged_gib=round(runner.tables.nbytes() / 2**30, 3),
+        dense_gib=round(dense_b / 2**30, 3),
+        budget_gib=round(runner.budget_bytes / 2**30, 3),
+        staging_seconds=round(runner.stage_s, 3))
+    if profile:
+        phase_profile(tmp, name, runner)
+    phase_e2e(name, runner, reads)
+    torch.cuda.empty_cache()
+    path = os.path.join(sub, "reads_per_read.fa")
+    write_reads(path, reads[:PAIRS_PER_READ])
+    m1, m2 = sample_pairs(np.random.default_rng(17), genomes,
+                          PAIRS_PER_READ)
+    pair = [os.path.join(sub, f) for f in write_pairs(sub, "pairs", m1, m2)]
+    runs, out = {}, {}
+    # the summary's staged tables serve the default per-read queries; the
+    # fused flag is read when a runner stages, so the non-fused ones take
+    # one runner of their own
+    for tag, env in (("", {}), ("-nonfused", {"MC_FUSED_CANDIDATES": "0"})):
+        for kind, paths, args in (("reads", path, ["-tophits"]),
+                                  ("pairs", pair, ["-pairfiles",
+                                                   "-tophits"])):
+            got, runner, r = query_lines(
+                db, paths, args, os.path.join(sub, f"{kind}{tag}.txt"),
+                runner, env)
+            out[kind + tag] = [l for l in got if not l.startswith("#")]
+            runs[kind + tag] = dict(per_min=round(
+                r.statistics.total() / (r.time_ms / 60000.0)),
+                seconds=round(r.time_ms / 1000, 3))
+        runner = None
+        torch.cuda.empty_cache()
+    for kind in ("reads", "pairs"):
+        if out[kind] != out[kind + "-nonfused"] or \
+                len(out[kind]) != PAIRS_PER_READ:
+            raise AssertionError(f"k18 {kind}: {len(out[kind])} lines, "
+                                 f"equal under MC_FUSED_CANDIDATES=0: "
+                                 f"{out[kind] == out[kind + '-nonfused']}")
+    say(f"query-per-read-{name}", reads=PAIRS_PER_READ,
+        pairs=PAIRS_PER_READ, lines_equal_nonfused=True, runs=runs)
+    # a total whose budget (total less max(2 GiB, 20%)) holds 75% of the
+    # u64 dense rows beside the bucket index, which the budget counts:
+    # the builder takes two-tier rows
+    index_b = brows.numel() * 4
+    total_gib = (0.75 * dense_b + index_b) / 0.8 / 2**30
+    with environ(MC_HBM_GB=f"{total_gib:.3f}"):
+        runner, grew2, res2 = phase_query_summary(
+            tmp, name, db, len(reads),
+            lambda r: r.layout.startswith("('u64_two_tier'"),
+            path_of("sketch64", *cand_kernels()))
+    if not np.array_equal(res2.statistics.assigned_, hist):
+        raise AssertionError("u64 two-tier: the rank histogram differs")
+    if runner.staged_bytes > runner.budget_bytes:
+        raise AssertionError(f"u64 two-tier: {runner.staged_bytes} bytes "
+                             f"staged, budget {runner.budget_bytes}")
+    say(f"staging-{name}-two-tier", layout=runner.layout,
+        staged_gib=round(runner.tables.nbytes() / 2**30, 3),
+        layout_gib_with_index=round(runner.staged_bytes / 2**30, 3),
+        bucket_index_gib=round(index_b / 2**30, 3),
+        budget_gib=round(runner.budget_bytes / 2**30, 3),
+        staging_seconds=round(runner.stage_s, 3), escalated_reads=0,
+        histogram_equal=True)
+    del runner
+    torch.cuda.empty_cache()
+    shutil.rmtree(sub)
+    return grew
+
+
 def run_pairs(tmp, name, db, genomes, npairs, layout, expect, profile):
     """[query-pair-<name>]: ``npairs`` read pairs of 2 x 100 bp
     (``sample_pairs``) on the summary path (-pairfiles -no-map; the main
@@ -2567,6 +2924,9 @@ def run_multipart(tmp, db, genomes):
                     launches={k: v for k, v in counts.items() if v})
         if tag == "":
             err, classified = multipart_card_vs_cpu(runner, reads)
+        else:
+            ballast_query(sub, name, runner, os.path.join(sub, "reads.fa"),
+                          lines["reads-nonfused"])
         del runner
         torch.cuda.empty_cache()
     for kind in ("reads", "pairs"):
@@ -2580,6 +2940,72 @@ def run_multipart(tmp, db, genomes):
         card_vs_cpu_nonfused_reads=512, fields=9, tolerance=0,
         max_abs_err=err, classified=classified)
     return dict(grew)
+
+
+def ballast_query(sub, name, runner, reads, want,
+                  dev=torch.device("cuda")):
+    """[nonfused-ballast-...]: the same non-fused per-read query once more
+    on the runner's tables with a ballast tensor that leaves about 12 GiB
+    of the card free: its 2^16-read batch must go in several launches
+    (classify/runner.py::_nonfused_rows) and give the same lines. Then
+    the first ALLHITS_READS reads with -allhits -tophits (per-hit lists
+    kept for every slot, moved to the host launch by launch), once
+    without the ballast and once beside it: several launches, the same
+    lines."""
+    from metacache_tpu_torch.device import free_bytes
+    path = os.path.join(sub, "reads_allhits.fa")
+    with open(reads, "rb") as f, open(path, "wb") as g:
+        for _ in range(2 * ALLHITS_READS):
+            g.write(f.readline())
+    allhits = ["-allhits", "-tophits"]
+    with environ(MC_FUSED_CANDIDATES="0"), \
+            open(os.path.join(sub, "allhits.txt"), "w") as out:
+        before = runner.row_launches
+        _query(None, path, allhits, out, runner)
+        alone = runner.row_launches - before
+    want_all = mapping_lines(os.path.join(sub, "allhits.txt"))
+    torch.cuda.empty_cache()
+    keep = 12 << 30
+    ballast = torch.empty(max(free_bytes(dev) - keep, 0), dtype=torch.uint8,
+                          device=dev)
+    free = free_bytes(dev)
+    tables_b = sum(t.nbytes() for t in runner.parts)
+    slots = 16 * sum(t.spf for t in runner.parts)
+    runs = {}
+    # the rows of a launch, as the runner sizes them
+    sized = []
+    real = runner._nonfused_rows
+    runner._nonfused_rows = lambda *a: sized.append(real(*a)) or sized[-1]
+    for tag, src, args, expect in (("tophits", reads, ["-tophits"], want),
+                                   ("allhits", path, allhits, want_all)):
+        torch.cuda.reset_peak_memory_stats()
+        before = runner.row_launches
+        sized.clear()
+        out_path = os.path.join(sub, f"reads-ballast-{tag}.txt")
+        with environ(MC_FUSED_CANDIDATES="0"), open(out_path, "w") as out:
+            _query(None, src, args, out, runner)
+        launches = runner.row_launches - before
+        peak = torch.cuda.max_memory_allocated()
+        got = mapping_lines(out_path)
+        if got != expect or launches < 2:
+            raise AssertionError(f"ballast {tag}: {launches} launches, "
+                                 f"lines equal: {got == expect}")
+        rows = min(len(got), max(sized))
+        runs[tag] = dict(
+            reads=len(got), launches=launches, rows_a_launch=rows,
+            work_bytes_a_slot=round((peak - ballast.numel() - tables_b) /
+                                    (rows * slots), 2),
+            peak_allocated_gib=round(peak / 2**30, 3),
+            peak_above_ballast_gib=round((peak - ballast.numel()) / 2**30,
+                                         3))
+    del runner._nonfused_rows
+    ballast_b = ballast.numel()
+    del ballast
+    torch.cuda.empty_cache()
+    say(f"nonfused-ballast-{name}", slots_a_row=slots,
+        ballast_gib=round(ballast_b / 2**30, 3),
+        free_gib_at_query=round(free / 2**30, 3),
+        allhits_launches_without_ballast=alone, runs=runs, lines_equal=True)
 
 
 def multipart_card_vs_cpu(runner, reads):
@@ -2680,7 +3106,8 @@ def main() -> int:
                                      prefix=".chip_smoke_") as tmp:
         genomes, species, gen_s = generated(refseq_skew_genomes)
         db, maxwin, db_parts = phase_build(tmp, "944mbp", genomes, species,
-                                           gen_s, host_check=True, parts=2)
+                                           gen_s, host_check=True, parts=2,
+                                           keep_fasta=True)
         layout = f"pk{(2 * maxwin).bit_length()}"
         if layout != "pk15":
             raise AssertionError(f"944 Mbp database packs as {layout}")
@@ -2692,12 +3119,19 @@ def main() -> int:
         # B3 runs on whichever of the two routes splits
         launches["sort"] = main_path["sort"] or other["sort"]
         pair_paths = [run_pairs_944(tmp, db, genomes, layout, a.profile)]
+        run_covpct(tmp, "944mbp", db)
+        run_align(tmp, "944mbp", db, genomes, species, ALIGN_READS)
+        shutil.rmtree(os.path.join(tmp, "944mbp", "genomes"))
+        run_repl(tmp, "944mbp", db, REPL_READS)
         run_stagings(tmp, "944mbp", Database.load(db), hist, stage_s)
         long_path = run_long_reads(tmp, "944mbp", db, genomes, LONG_READS,
                                    a.profile, "candidates",
                                    "candidates_wide")
         launches["candidates_wide"] = long_path["candidates_wide"]
         pair_paths.append(run_multipart(tmp, db_parts, genomes))
+        k18 = run_k18(tmp, genomes, species, a.profile)
+        launches["sketch64"] = k18.pop("sketch64")
+        pair_paths.append(k18)
         shutil.rmtree(os.path.join(tmp, "944mbp"))
         shutil.rmtree(os.path.join(tmp, "944mbp-parts2"))
         main_path = run_long_windows(tmp, genomes, species, a.profile)

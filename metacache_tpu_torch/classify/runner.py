@@ -1,10 +1,11 @@
 """Query execution: stream reads, classify on the card, produce output.
 
 Port of metacache_tpu/classify/runner.py (QueryRunner) for single-end
-and paired-end reads (-pairfiles, -pairseq) against u32 databases of one
-part or many, with packed slots when they fit int32 and (tgt, win) lane
-pairs when they do not (many targets, long genomes). Two paths, as in
-the JAX package:
+and paired-end reads (-pairfiles, -pairseq) against databases of u32
+features (k <= 16) or u64 ones (k 17-32, int64 bit patterns) of one part
+or many, with packed slots when they fit int32 and (tgt, win) lane pairs
+when they do not (many targets, long genomes). Two paths, as in the JAX
+package:
 
 - summary only (``-no-map`` and no per-read analysis) on a single-part
   database: short reads are stacked K batches deep and classified by
@@ -31,8 +32,14 @@ fills host rows in numpy and copies them. Dense fused rows when they fit
 the card's budget, else two-tier head and overflow rows or size-classed
 cells; on a single part with packed slots the summary path then
 classifies head-only and redoes at full depth only the reads that
-touched a deeper bucket (escalation). Options outside this slice raise
-NotImplementedError naming their ROADMAP item. The JAX runner's
+touched a deeper bucket (escalation). A per-read batch bound for the
+non-fused result path goes in launches that fit the device memory left
+free (``_nonfused_rows``). -cov-percentile classifies every read again
+on the host after the run, from the candidates of the targets that
+keep their coverage; -align aligns each classified read to its top
+candidate's windows, re-read from the target's FASTA, on the host.
+Options outside the port (-replicate, -table-shards, the CSR layout)
+raise NotImplementedError naming their ROADMAP item. The JAX runner's
 TPU-link workarounds (packed result fetches, fixed dispatch shapes) are
 not carried over.
 """
@@ -57,9 +64,10 @@ from ..ops import windows as win_ops
 from ..seqio.reader import PairingMode, QueryRecord, read_queries
 from ..taxonomy.model import NUM_RANKS, Rank, rank_from_name
 from ..db.state import tables_from_device, tables_from_numpy
-from ..device import get_device, hbm_budget_bytes
+from ..device import free_bytes, get_device, hbm_budget_bytes
 from ..ops.probe import make_bucket_index
-from ..ops.rows import (fused_candidates_enabled, query_step_rows,
+from ..ops.pipeline import QueryResult
+from ..ops.rows import (fuses, fused_candidates_enabled, query_step_rows,
                         query_step_rows_multipart, query_step_rows_redo_scan,
                         query_step_rows_scan, query_step_rows_scan_head)
 from ..ops.table import device_layout, unpack_locations
@@ -92,14 +100,60 @@ def rank_histogram(cls: torch.Tensor, n: int, taxid_sorted: torch.Tensor,
     return torch.bincount(ranks, minlength=NUM_RANKS + 2)[:NUM_RANKS + 1]
 
 
-class _CodedBatch:
-    """A coded read batch: raw header rows for the line formatter."""
+# copied from metacache_tpu/classify/runner.py:206-259
+_DECODE_LUT = np.frombuffer(b"ACGTN" + b"N" * 251, dtype=np.uint8)
 
-    def __init__(self, headers):
+
+class _CodedQuery:
+    """QueryRecord-compatible view over one row of a coded batch;
+    headers/sequences decode lazily (only when output needs them)."""
+
+    __slots__ = ("_codes", "_len", "_hdr", "_codes2", "_len2")
+
+    def __init__(self, codes, length, hdr_raw, codes2=None, len2=0):
+        self._codes = codes
+        self._len = int(length)
+        self._hdr = hdr_raw
+        self._codes2 = codes2
+        self._len2 = int(len2)
+
+    @property
+    def header(self) -> str:
+        return _decode_header(self._hdr)
+
+    @property
+    def seq1(self) -> bytes:
+        n = min(self._len, len(self._codes))
+        return _DECODE_LUT[self._codes[:n]].tobytes()
+
+    @property
+    def seq2(self) -> bytes:
+        if self._codes2 is None:
+            return b""
+        n = min(self._len2, len(self._codes2))
+        return _DECODE_LUT[self._codes2[:n]].tobytes()
+
+
+class _CodedBatch:
+    """A coded read batch: raw header rows for the line formatter, and
+    the codes, which -align reads back as sequences."""
+
+    def __init__(self, codes, lens, headers, codes2=None, lens2=None):
+        self.codes = codes
+        self.lens = lens
         self.headers = headers
+        self.codes2 = codes2
+        self.lens2 = lens2
 
     def __len__(self):
-        return len(self.headers)
+        return len(self.lens)
+
+    def __getitem__(self, i):
+        if self.codes2 is None:
+            return _CodedQuery(self.codes[i], self.lens[i],
+                               self.headers[i])
+        return _CodedQuery(self.codes[i], self.lens[i], self.headers[i],
+                           self.codes2[i], self.lens2[i])
 
 
 def slot_pack_bits(target_count: int, max_window: int) -> int:
@@ -122,6 +176,18 @@ def _max_window(p) -> int:
         if p.num_locations else 0
 
 
+# device bytes a match slot of a row takes on the non-fused result path
+# (ops/rows.py::rows_to_result: its row sorts, scans and taxon merge),
+# measured on an NVIDIA H100 80GB HBM3 at 700 W: a 65,536-read batch of
+# 16 x 503 slots a row over a two-part 944 Mbp database peaked 41.28 GiB
+# above its 19.0 GiB of tables (chip_smoke.py, run_multipart), 84 bytes
+# a slot; rounded up to 96 for the caching allocator's block rounding
+NONFUSED_BYTES_A_SLOT = 96
+# -allhits adds a launch's per-hit lists (QueryResult.hit_qid, hit_tgt,
+# hit_win: an int32 each a slot), which go to the host as it ends
+HIT_LIST_BYTES_A_SLOT = 12
+
+
 def _unsupported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
@@ -139,15 +205,8 @@ class QueryRunner:
         self.device = device or get_device()
         self.db = db
         self.opt = opt
-        oa = opt.output.analysis
-        if db.sketching.kmerlen > 16:
-            _unsupported("k > 16 (64-bit features)", "queue A13")
         if opt.num_replicas != 1 or opt.table_shards != 1:
             _unsupported("-replicate / -table-shards", "queue A14")
-        if oa.show_alignment:
-            _unsupported("-align", "queue A7")
-        if opt.classify.cov_percentile > 0:
-            _unsupported("-cov-percentile", "queue A7")
         self.sketching = self._adapt_sketching()
         self.hits_min = opt.classify.resolve_hits_min(
             db.sketching.sketchlen)
@@ -197,6 +256,7 @@ class QueryRunner:
         self.dense_bytes = sum(d for _t, d, _s in staged)
         self.staged_bytes = sum(s for _t, _d, s in staged)
         self.esc_reads = 0          # reads escalated to the full-depth redo
+        self.row_launches = 0       # launches of the per-read row steps
 
         # copied from metacache_tpu/classify/runner.py:655-676
         ids, ranks = [], []
@@ -224,7 +284,8 @@ class QueryRunner:
         """Probe through a DeviceTable (ops/table_device.py).
         -> (tables, dense bytes, staged bytes)."""
         return (tables_from_device(dtab, lineages, merge_tax),
-                dense_bytes(dtab.nf, dtab.spf, dtab.slot_bits),
+                dense_bytes(dtab.nf, dtab.spf, dtab.slot_bits,
+                            wide=dtab.uniq.dtype == torch.int64),
                 dtab.layout_bytes)
 
     def _stage_part(self, p, lineages, merge_tax, budget: int):
@@ -233,17 +294,26 @@ class QueryRunner:
         default), or host rows copied (MC_DEVICE_LAYOUT=0).
         MC_DENSE_LIMIT caps only the dense option. Where no layout fits,
         the CSR probe it would need is not ported (queue A10): the
-        builder's MemoryError raises so.
+        builder's MemoryError raises so. u64 features (k > 16) stage as
+        JAX's runner stages them (runner.py:505-540): through the device
+        builder, never as host rows, and without the dense cap; where
+        JAX falls back to its CSR probe (a layout that does not fit, a
+        low-32 collision, unpackable slots, MC_DEVICE_LAYOUT=0) this
+        raises naming A10.
         -> (tables, dense bytes, staged bytes)."""
         spf = min(p.max_bucket_size, self.db.max_locations_per_feature) or 1
+        wide = p.unique_features.dtype == np.uint64
         try:
             dense_cap = int(os.environ.get("MC_DENSE_LIMIT", 0)) or None
         except ValueError:
             dense_cap = None
-        allow_dense = dense_cap is None or \
+        allow_dense = wide or dense_cap is None or \
             p.dense_rows_bytes(spf) <= dense_cap
-        if os.environ.get("MC_DEVICE_LAYOUT", "1") != "0" and \
-                p.num_features:
+        device_rows = os.environ.get("MC_DEVICE_LAYOUT", "1") != "0"
+        if wide and not (device_rows and p.num_features):
+            _unsupported("the CSR probe of u64 features (MC_DEVICE_LAYOUT=0 "
+                         "or an empty part)", "queue A10")
+        if device_rows and p.num_features:
             ltgt, lwin = unpack_locations(p.locations)
             try:
                 dtab = device_layout_from_csr(
@@ -631,11 +701,13 @@ class QueryRunner:
         fast path; it pays off when buckets can exceed the head. ``wq``:
         windows a query (2 for pairs, whose ranges span both mates).
         MC_ESCALATE=0 disables."""
+        t = self.tables
+        # u64 two-tier rows are not escalated (runner.py:1689 admits
+        # "two_tier" and "classed" only): they take the full-depth scan
         if os.environ.get("MC_ESCALATE", "1") == "0" or \
                 len(self.parts) != 1 or not self._fast_top2 or \
-                not self._fused_candidates or not self._pack_bits:
+                not self._fused_candidates or not self._pack_bits or t.wide:
             return False
-        t = self.tables
         sk = self.sketching
         stride = self.db.sketching.winstride
         m = 2 + max(wq * sk.winlen,
@@ -687,7 +759,8 @@ class QueryRunner:
         pad = need - got
         F = fparts[0].shape[1] if fparts else self.sketching.sketchlen
         if pad:
-            fparts.append(torch.full((pad, F), -1, dtype=torch.int32,
+            fdt = torch.int64 if self.sketching.kmerlen > 16 else torch.int32
+            fparts.append(torch.full((pad, F), -1, dtype=fdt,
                                      device=self.device))
             iparts.append(torch.zeros((pad, F), dtype=torch.int32,
                                       device=self.device))
@@ -1002,7 +1075,7 @@ class QueryRunner:
                 launched.append((idxs, rows,
                                  self._launch_rows(wmat, vmat, mwir,
                                                    wq, k)))
-        return (_CodedBatch(headers), ("rows", launched))
+        return (_CodedBatch(c1, l1, headers, c2, l2), ("rows", launched))
 
     # copied from metacache_tpu/classify/runner.py:1456-1508
     def _dispatch_coded(self, codes, lens, headers):
@@ -1049,28 +1122,72 @@ class QueryRunner:
                 launched.append((idxs, rows,
                                  self._launch_rows(wmat, vmat, mwir,
                                                    wq, k)))
-        return (_CodedBatch(headers), ("rows", launched))
+        return (_CodedBatch(codes, lens, headers), ("rows", launched))
 
     def _step_flags(self, mwir, wq: int, k: int) -> dict:
         return dict(max_candidates=k, fast_top2=self._fast_top2,
                     **self._fused_flags(), **self._sweep_params(mwir, wq))
 
+    def _nonfused_rows(self, slots: int, emit_hits: bool) -> int:
+        """The most rows of ``slots`` match slots a launch of the
+        non-fused result path takes in the device memory free now (the
+        fused kernels work in shared memory and take a batch whole).
+        ``emit_hits``: the launch also lists its hits (-allhits).
+        Raises MemoryError when not even one row fits."""
+        free = free_bytes(self.device)
+        row_b = max(slots, 1) * (NONFUSED_BYTES_A_SLOT +
+                                 (HIT_LIST_BYTES_A_SLOT if emit_hits else 0))
+        r = free // row_b
+        if r < 1:
+            raise MemoryError(
+                f"a row of {slots} match slots needs {row_b} bytes on the "
+                f"non-fused result path; {free} bytes are free beside the "
+                "tables")
+        return int(r)
+
     # copied from metacache_tpu/classify/runner.py:1563-1588, without
     # the mesh branches
     def _launch_rows(self, wmat, vmat, mwir, wq, k):
         """One row batch through ``query_step_rows``, or over every part
-        through ``query_step_rows_multipart``."""
+        through ``query_step_rows_multipart``. A batch bound for the
+        non-fused result path goes in launches of as many rows as the
+        free device memory holds (``_nonfused_rows``), whose results
+        concatenate in row order; the flags come from the whole batch,
+        so every launch takes the same route and sweep. Where a batch
+        takes several launches, each launch's per-hit lists (-allhits)
+        go to the host as it ends, so they hold no device memory the
+        launches after it were sized to take."""
         sk = self.sketching
         step, tables = (query_step_rows, self.tables) \
             if len(self.parts) == 1 else \
             (query_step_rows_multipart, self.parts)
-        return step(
-            self._to_dev(wmat), self._to_dev(vmat), self._to_dev(mwir),
-            tables, self.hits_min,
-            self.opt.classify.hits_diff_fraction, self.highest_rank,
-            self.merge_rank, k=sk.kmerlen, sketchlen=sk.sketchlen,
-            windows_per_query=wq, pack_bits=self._pack_bits,
-            **self._step_flags(mwir, wq, k))
+        flags = self._step_flags(mwir, wq, k)
+        n = len(mwir)
+        per_launch = n
+        if not fuses(flags["fused_candidates"], flags["fast_top2"], k,
+                     flags.get("walk_elems", 0), flags.get("dedup_walk", 0),
+                     flags["emit_hits"]):
+            slots = wq * sk.sketchlen * sum(t.spf for t in self.parts)
+            per_launch = min(n, self._nonfused_rows(slots,
+                                                    flags["emit_hits"]))
+        results = []
+        for i in range(0, n, per_launch):
+            res = step(
+                self._to_dev(wmat[i:i + per_launch]),
+                self._to_dev(vmat[i:i + per_launch]),
+                self._to_dev(mwir[i:i + per_launch]),
+                tables, self.hits_min,
+                self.opt.classify.hits_diff_fraction, self.highest_rank,
+                self.merge_rank, k=sk.kmerlen, sketchlen=sk.sketchlen,
+                windows_per_query=wq, pack_bits=self._pack_bits, **flags)
+            if per_launch < n and flags["emit_hits"]:
+                res = res._replace(hit_qid=res.hit_qid.cpu(),
+                                   hit_tgt=res.hit_tgt.cpu(),
+                                   hit_win=res.hit_win.cpu())
+            results.append(res)
+        self.row_launches += len(results)
+        return results[0] if len(results) == 1 else \
+            _concat_results(results, per_launch, n)
 
     def _collect_batch(self, batch, dispatched, results):
         kind, payload = dispatched
@@ -1215,13 +1332,13 @@ class QueryRunner:
                                  cand_beg, cand_end, cls_tax, allhits_of,
                                  results)
 
-    # copied from metacache_tpu/classify/runner.py:2123-2253 without the
-    # -align and -cov-percentile branches (rejected above)
+    # copied from metacache_tpu/classify/runner.py:2123-2253
     def _postprocess_arrays(self, batch, cand_tgt, cand_tax, cand_hits,
                             cand_beg, cand_end, cls_tax, allhits_of,
                             results):
         db = self.db
-        oopt = self.opt.output
+        opt = self.opt
+        oopt = opt.output
         make_truth = oopt.evaluate.precision or \
             oopt.evaluate.determine_ground_truth
         if self._line_writer is None:
@@ -1238,7 +1355,10 @@ class QueryRunner:
             return targets_get(tid) if tid < 0 else taxa_get(tid)
 
         precision = oopt.evaluate.precision
-        track_matches = oopt.analysis.show_hits_per_target
+        track_matches = (oopt.analysis.show_hits_per_target or
+                         opt.classify.cov_percentile > 0)
+        save_mappings = opt.classify.cov_percentile > 0
+        show_align = oopt.analysis.show_alignment
         hits_min = self.hits_min
         tax_counts = results.tax_counts
         tgt_matches = results.tgt_matches
@@ -1248,7 +1368,8 @@ class QueryRunner:
         need_allhits = oopt.analysis.show_all_hits
         raw_hdrs = getattr(batch, "headers", None)
         fast_ok = (raw_hdrs is not None and not make_truth
-                   and not track_matches and rank_counts is not None
+                   and not track_matches and not save_mappings
+                   and not show_align and rank_counts is not None
                    and not writer.show_gt and not writer.show_allhits
                    and not writer.show_locations)
         if fast_ok:
@@ -1303,6 +1424,9 @@ class QueryRunner:
                     if tax is not None and hits >= hits_min:
                         tgt_matches.setdefault(tgt, []).append(
                             (qid_out, beg, end, hits))
+            if save_mappings:
+                results.saved_mappings.append((qid_out, header, cands))
+                continue
 
             if best is not None:
                 tax_counts[best] = tax_counts.get(best, 0) + 1
@@ -1318,13 +1442,112 @@ class QueryRunner:
             if need_allhits and i in allhits_of:
                 ht, hw = allhits_of[i]
                 allhits = list(zip(ht.tolist(), hw.tolist()))
+            align_text = ""
+            if show_align and best is not None and cands:
+                align_text = self._make_alignment_text(batch[i], cands[0])
             lines.append(line(qid_out, header, best, truth, cands, allhits,
-                              ""))
+                              align_text))
         if lines:
             write("".join(lines))
         results.query_count += len(batch)
         if rank_counts is not None:
             stats.assigned_ += np.asarray(rank_counts, np.int64)
+
+    # copied from metacache_tpu/classify/runner.py:2256-2292
+    def _make_alignment_text(self, q, cand) -> str:
+        """Align the query to the top candidate's window range
+        (reference: show_alignment, src/classification.cpp:384-427), on
+        the host, as the reference's display (src/printing.cpp:105)."""
+        from .alignment import make_semi_global_alignment
+        from ..seqio.reader import read_sequences
+        (tax, _tgt, _hits, beg, end) = cand
+        if tax is None or tax.rank != Rank.SEQUENCE or tax.source is None:
+            return ""
+        sk = self.db.sketching
+        try:
+            it = read_sequences(tax.source.filename)
+            rec = None
+            for r in it:
+                if r.index == tax.source.index:
+                    rec = r
+                    break
+            if rec is None:
+                return ""
+            w = sk.winstride
+            subject = rec.seq[w * beg: w * end + sk.winlen]
+            (score, aq, asub), best_score = make_semi_global_alignment(
+                q.seq1, q.seq2, subject)
+            c = self.opt.output.format.tokens.comment
+            return (f"\n{c}  score  {best_score}"
+                    f"  aligned to {tax.source.filename} #{tax.source.index}"
+                    f" in range [{w * beg},{w * end + w}]\n"
+                    f"{c}  query  {aq.decode()}\n"
+                    f"{c}  target {asub.decode()}")
+        except OSError as e:
+            # the subject sequence is re-read from its source file at
+            # query time (reference: src/classification.cpp:384-426);
+            # a missing/unreadable file skips the alignment display but
+            # must not fail silently
+            from ..utils import info as info_mod
+            info_mod.error(f"WARNING: could not align against "
+                           f"{tax.source.filename}: {e}")
+            return ""
+
+    # copied from metacache_tpu/classify/runner.py:2295-2323
+    def redo_saved_classification(self, results: ClassificationResults):
+        """Coverage-percentile second pass (reference:
+        filter_targets_by_coverage + redo_classification_batched,
+        src/classification.cpp:591-721)."""
+        db = self.db
+        opt = self.opt
+        oopt = opt.output
+        filter_targets_by_coverage(db.taxa, results.tgt_matches,
+                                   opt.classify.cov_percentile)
+        for (qid_out, header, cands) in results.saved_mappings:
+            cands = [c for c in cands if c[1] in results.tgt_matches]
+            host_cands = [cls_mod.HostCandidate(tax, tgt, hits, beg, end)
+                          for (tax, tgt, hits, beg, end) in cands]
+            best = cls_mod.classify(
+                db.taxa, opt.classify, self.hits_min, host_cands,
+                Rank(self.merge_rank), Rank(self.highest_rank))
+            truth = (cls_mod.ground_truth(db.taxa, header)
+                     if (oopt.evaluate.precision or
+                         oopt.evaluate.determine_ground_truth) else None)
+            if best is not None:
+                results.tax_counts[best] = \
+                    results.tax_counts.get(best, 0) + 1
+            cls_mod.evaluate_classification(
+                best, truth, db.taxa, oopt.evaluate.precision,
+                oopt.evaluate.taxon_coverage, results.statistics)
+            results.per_read_out.write(out_mod.show_query_mapping(
+                db.taxa, oopt, db.sketching, qid_out, header, best, truth,
+                cands, []))
+        results.saved_mappings = []
+
+
+# copied from metacache_tpu/classify/runner.py:2326-2347
+def filter_targets_by_coverage(taxonomy, tgt_matches: Dict[int, list],
+                               percentile: float):
+    """Reference: filter_targets_by_coverage
+    (src/classification.cpp:591-634)."""
+    cov = []
+    total = 0.0
+    for tgt, cands in tgt_matches.items():
+        tax = taxonomy.cached_taxon_of_target(tgt)
+        nwin = tax.source.windows if tax and tax.source else 1
+        hit_windows = set()
+        for (_qid, beg, end, _hits) in cands:
+            hit_windows.update(range(beg, end + 1))
+        p = len(hit_windows) / nwin
+        total += p
+        cov.append((tgt, p))
+    cov.sort(key=lambda tp: tp[1])
+    part = 0.0
+    for tgt, p in cov:
+        part += p
+        if part > percentile * total:
+            break
+        del tgt_matches[tgt]
 
 
 # copied from metacache_tpu/classify/runner.py:2350-2364
@@ -1343,8 +1566,23 @@ def _round_up_pow2(x: int) -> int:
     return 1 << (x - 1).bit_length()
 
 
-# copied from metacache_tpu/classify/runner.py:2380-2443, without
-# -cov-percentile's redo (rejected above)
+def _concat_results(results, per_launch: int, rows: int) -> QueryResult:
+    """The QueryResults of launches of ``per_launch`` rows (the last may
+    be shorter), in row order, as one of ``rows`` rows: the per-hit
+    lists' row ids move by each launch's first row, and their padding
+    id (a launch's row count) becomes ``rows``."""
+    qids = []
+    for i, res in enumerate(results):
+        b = res.cls_tax.shape[0]
+        q = res.hit_qid
+        qids.append(torch.where(q == b, rows, q + i * per_launch))
+    return QueryResult(*(torch.cat(x) for x in zip(*(
+        r[:6] for r in results))), torch.cat(qids),
+        torch.cat([r.hit_tgt for r in results]),
+        torch.cat([r.hit_win for r in results]))
+
+
+# copied from metacache_tpu/classify/runner.py:2380-2443
 def map_queries_to_targets(infiles: List[str], db: Database,
                            opt: QueryOptions,
                            results: ClassificationResults,
@@ -1384,6 +1622,9 @@ def map_queries_to_targets(infiles: List[str], db: Database,
             # src/options.hpp:234-235)
             queries = itertools.islice(queries, opt.query_limit)
         runner.run_queries(queries, results)
+
+    if opt.classify.cov_percentile > 0:
+        runner.redo_saved_classification(results)
     results.time_ms = (time.monotonic() - t0) * 1000.0
 
     if oopt.analysis.show_hits_per_target:

@@ -8,9 +8,9 @@ from __future__ import annotations
 _SKETCHING = """\
 SKETCHING (database fingerprinting)
 
-    -kmerlen <k>      number of nucleotides per k-mer (default 16).
-                      k > 16 is not supported by this build (64-bit
-                      features); the command fails with a clear error.
+    -kmerlen <k>      number of nucleotides per k-mer (default 16,
+                      at most 32). k > 16 takes 64-bit features (the
+                      reference's -DMC_KMER_TYPE=uint64_t build).
     -sketchlen <s>    number of features (min-hashed k-mers) per
                       window sketch (default 16).
     -winlen <w>       number of nucleotides per window (default 127).
@@ -252,11 +252,13 @@ ENVIRONMENT
                             when the input holds fewer batches).
     MC_NATIVE=0             disable the native C++ reader fast paths.
     MC_DEVICE_LAYOUT=0      stage probe layouts on the host instead of
-                            building them on device.
+                            building them on device (k > 16: refused,
+                            the CSR probe is not ported).
     MC_HBM_GB=<n>           override the device-memory total used for
                             probe-layout selection.
     MC_DENSE_LIMIT=<bytes>  stage dense rows only when they take at
-                            most this many bytes (1 refuses them).
+                            most this many bytes (1 refuses them;
+                            not read for k > 16, as in metacache_tpu).
     MC_CLASSED=<0|1>        size-classed head layout: 0 never, 1 always.
                             Unset = auto: uniform two-tier heads when
                             the memory budget allows a full 61-slot

@@ -405,7 +405,7 @@ def run_query(db, infiles, opt, out_file=None, runner=None):
     return 0
 
 
-# copied from metacache_tpu/cli/main.py:418-459 (no interactive mode)
+# copied from metacache_tpu/cli/main.py:418-459
 def mode_query(argv: List[str]) -> int:
     from ..config import MAX_SUPPORTED_LOCATIONS_PER_FEATURE
     from ..db.database import Database
@@ -419,10 +419,6 @@ def mode_query(argv: List[str]) -> int:
     if not pos:
         raise CliError("database filename missing")
     infiles = _expand(pos[1:])
-    if not infiles:
-        raise NotImplementedError(
-            "the interactive query mode is not ported yet (ROADMAP "
-            "queue A7): give the read files on the command line")
     db = Database.load(pos[0], part=int(part) if part else None)
     if remove_overpop:
         maxlpf = (int(maxlocs) - 1) if maxlocs else -1
@@ -435,6 +431,8 @@ def mode_query(argv: List[str]) -> int:
             db.set_max_locations_per_feature(int(maxlocs))
     elif maxlocs and int(maxlocs) > 1:
         db.set_max_locations_per_feature(int(maxlocs))
+    if not infiles:
+        return interactive_query(db, opt)
     if split_out:
         for path in infiles:
             suffix = "_" + os.path.basename(path) + ".txt"
@@ -443,7 +441,7 @@ def mode_query(argv: List[str]) -> int:
     return run_query(db, infiles, opt, out_file)
 
 
-# copied from metacache_tpu/cli/main.py:498-541 (no interactive mode)
+# copied from metacache_tpu/cli/main.py:498-541
 def mode_build_query(argv: List[str]) -> int:
     """Build DB in memory, then query (reference: mode_build_query.cpp)."""
     from ..db.build import BuildOptions, build_database
@@ -477,10 +475,6 @@ def mode_build_query(argv: List[str]) -> int:
     aq = Args(query_args)
     opt, out_file, _split = parse_query_options(aq)
     infiles = _expand(aq.positionals())
-    if not infiles:
-        raise NotImplementedError(
-            "the interactive query mode is not ported yet (ROADMAP "
-            "queue A7): give the read files after -query")
     # build the tables on the card whenever the query config allows;
     # -save-db exports them as CSR parts
     bopt.device_tables = (opt.num_replicas == 1
@@ -488,7 +482,46 @@ def mode_build_query(argv: List[str]) -> int:
     db = build_database(bopt)
     if save_db:
         db.save(save_db)
+    if not infiles:
+        return interactive_query(db, opt)
     return run_query(db, infiles, opt, out_file)
+
+
+# copied from metacache_tpu/cli/main.py:462-485
+def interactive_query(db, default_opt) -> int:
+    """Interactive REPL (reference: querying.cpp:275-316): each input line
+    is parsed as `[options] file(s)` and queried as its own run (the
+    initial options are the reference's defaults); an empty line or the
+    end of input quits."""
+    print("Waiting for input, hit return to quit ...", file=sys.stderr)
+    print("  for query parameter help type ':help'", file=sys.stderr)
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            break
+        if line.startswith(":help"):
+            print(query_mode_docs(), file=sys.stderr)
+            continue
+        try:
+            a = Args(line.split())
+            opt, out_file, _split = parse_query_options(a)
+            infiles = _expand(a.positionals())
+            if infiles:
+                run_query(db, infiles, opt, out_file)
+                sys.stdout.flush()
+        except Exception as e:  # REPL keeps running on errors
+            print(f"error: {e}", file=sys.stderr)
+    return 0
+
+
+# copied from metacache_tpu/cli/main.py:549-555
+def query_mode_docs() -> str:
+    return ("query mode options: -lowest/-highest <rank>, -hitmin <t>, "
+            "-hitdiff <t>, -maxcand <n>, -pairfiles/-pairseq, -tophits, "
+            "-allhits, -taxids[-only], -omit-ranks, -separate-cols, "
+            "-lineage, -queryids, -mapped-only, -no-map, -precision, "
+            "-ground-truth, -abundances [<f>], -abundance-per <rank>, "
+            "-hits-per-ref [<f>], -out <f>")
 
 
 # copied from metacache_tpu/cli/main.py:544-546

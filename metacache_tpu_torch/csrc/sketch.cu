@@ -381,6 +381,139 @@ sketch_long_kernel(const uint8_t* __restrict__ codes,
   for (int c = lane; c < s; c += 32) out[w * s + c] = run[2 * kLanes - 1 - c];
 }
 
+
+// ---------------------------------------------------------------------
+// The 64-bit sketch (k 17..32): the k > 16 branch of
+// metacache_tpu/ops/sketch_jax.py::sketch_windows (:103-152), which JAX
+// leaves to XLA (its Pallas sketcher B1/B2 is k <= 16 only). Contract:
+// (N, W) u8 codes of any width (>= 4 is ambiguous), rows `row_stride`
+// bytes apart, or the runner's 2-bit packed rows of W / 4 <= 32 bytes,
+// and (N,) i32 valid lengths -> (N, s) u64 features: the s smallest
+// distinct murmur3_fmix64 hashes of the canonical k-mers (unsigned
+// min of the k-mer and its reverse complement) over the starts
+// p + k <= min(valid, W) with no ambiguous code, ascending, sentinel
+// (all ones) padded.
+//
+// Design: B1's, on 64-bit values. One warp per window, walking its
+// starts in chunks of 128, 4 a lane: the warp stages the chunk's 128 +
+// 32 codes in shared memory (coalesced byte loads, or the packed bytes
+// unpacked), and each lane rolls its k-mer and reverse complement in
+// 64-bit registers over codes 4 lane .. 4 lane + k + 2 (a k-mer needs
+// up to 32 codes, more than the next lanes' words hold, so the lane
+// reads them from the staged chunk instead of shuffling). Selection is
+// B1's s warp minima on 64-bit values: __reduce_min_sync is 32-bit
+// only, so a minimum is the min of the high words, then the min of the
+// low words among the lanes that hold that high word. Each lane holds
+// its 4 chunk values and 4 of the running sketch's s <= 128; a round
+// pops every copy of the minimum, so duplicates within and across
+// chunks drop out. Windows above 128 characters are several chunks on
+// the same loop, B2's whole window on this template.
+//
+// Bound on the card: integer ALU (64-bit arithmetic is two 32-bit
+// instructions a step) and the s rounds of two reductions; a window
+// reads W + 4 bytes and writes 8 s.
+constexpr uint64_t kSent64 = ~0ull;
+constexpr int kChunk64 = kLanes;          // k-mer starts a chunk
+constexpr int kStage64 = kChunk64 + 32;   // codes staged a chunk
+
+__device__ __forceinline__ uint64_t murmur3_fmix64(uint64_t x) {
+  x ^= x >> 33;
+  x *= 0xFF51AFD7ED558CCDull;
+  x ^= x >> 33;
+  x *= 0xC4CEB9FE1A85EC53ull;
+  x ^= x >> 33;
+  return x;
+}
+
+// The warp's minimum of one u64 value a lane (unsigned order).
+__device__ __forceinline__ uint64_t warp_min64(uint64_t x) {
+  const uint32_t h = (uint32_t)(x >> 32);
+  const uint32_t hi = __reduce_min_sync(kFull, h);
+  const uint32_t lo = __reduce_min_sync(kFull, h == hi ? (uint32_t)x : kFull);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+template <bool PACKED>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+sketch64_kernel(const uint8_t* __restrict__ codes,
+                const int32_t* __restrict__ valid,
+                uint64_t* __restrict__ out, int64_t n, int width,
+                int64_t row_stride, int k, int s) {
+  __shared__ uint8_t sc[kWarpsPerBlock][kStage64];
+  __shared__ uint64_t run[kWarpsPerBlock][kMaxSketch];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t w = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
+  if (w >= n) return;  // uniform per warp
+
+  const uint8_t* row = codes + w * row_stride;
+  uint8_t* st = sc[warp];
+  uint64_t* rs = run[warp];
+  const int wc = PACKED ? 4 * width : width;    // codes a row
+  const int vl = valid[w];
+  const int span = vl < 0 ? 0 : (vl < wc ? vl : wc);
+  const int nstarts = span - (k - 1);           // starts [0, nstarts)
+  const uint64_t kmask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1ull;
+  const int top = 2 * k - 2;
+  for (int c = lane; c < s; c += 32) rs[c] = kSent64;
+  for (int lo = 0; lo < nstarts; lo += kChunk64) {  // uniform per warp
+    __syncwarp();
+    for (int q = lane; q < kStage64; q += 32) {
+      const int p = lo + q;
+      uint32_t c = 4;                           // past the span: unused
+      if (p < span)
+        c = PACKED ? (row[p >> 2] >> (2 * (p & 3))) & 3u : row[p];
+      st[q] = (uint8_t)c;
+    }
+    __syncwarp();
+    // starts b + j of the chunk: roll over codes b .. b + k + 2
+    const int b = 4 * lane;
+    uint64_t fw = 0, rc = 0;
+    int last_amb = -1;                          // chunk position
+    uint64_t v[8];
+    for (int i = 0; i < k - 1; ++i) {
+      const uint32_t c = st[b + i];
+      const uint32_t c2 = c < 4 ? c : 0;
+      if (c >= 4) last_amb = b + i;
+      fw = ((fw << 2) | c2) & kmask;
+      rc = (rc >> 2) | ((uint64_t)(3u - c2) << top);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {               // the k-mer at start b + j
+      const int i = b + k - 1 + j;
+      const uint32_t c = st[i];
+      const uint32_t c2 = c < 4 ? c : 0;
+      if (c >= 4) last_amb = i;
+      fw = ((fw << 2) | c2) & kmask;
+      rc = (rc >> 2) | ((uint64_t)(3u - c2) << top);
+      const bool ok = lo + b + j < nstarts && last_amb < b + j;
+      v[j] = ok ? murmur3_fmix64(fw < rc ? fw : rc) : kSent64;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = b + j;
+      v[4 + j] = c < s ? rs[c] : kSent64;
+    }
+    __syncwarp();
+    // s rounds of warp minima over the chunk and the running sketch;
+    // every copy of a minimum pops
+    int r = 0;
+    for (; r < s; ++r) {
+      uint64_t m = v[0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) m = v[j] < m ? v[j] : m;
+      m = warp_min64(m);
+      if (m == kSent64) break;                  // uniform per warp
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = v[j] == m ? kSent64 : v[j];
+      if (lane == 0) rs[r] = m;
+    }
+    for (int c = r + lane; c < s; c += 32) rs[c] = kSent64;
+  }
+  __syncwarp();
+  for (int c = lane; c < s; c += 32) out[w * s + c] = rs[c];
+}
+
 }  // namespace
 
 // packed: rows of `width` bytes (1..32); else width must be 128
@@ -411,6 +544,24 @@ extern "C" int mc_sketch_windows_long(const void* codes, const void* valid,
   sketch_long_kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
                        (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const int32_t*)valid, (uint32_t*)out, n, w,
+      row_stride, k, s);
+  return (int)cudaGetLastError();
+}
+
+// The 64-bit sketch, 16 < k <= 32: rows of `w` codes `row_stride` bytes
+// apart, or (packed) of w <= 32 bytes of 2-bit codes
+extern "C" int mc_sketch_windows64(const void* codes, const void* valid,
+                                   void* out, int64_t n, int w,
+                                   int64_t row_stride, int k, int s,
+                                   int packed, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (k <= 16 || k > 32 || s < 1 || s > kMaxSketch || w < 1 ||
+      row_stride < w || (packed && w > kLanes / 4))
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  auto kernel = packed ? sketch64_kernel<true> : sketch64_kernel<false>;
+  kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (const int32_t*)valid, (uint64_t*)out, n, w,
       row_stride, k, s);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@ onto the port's sketcher: targets are batched across in queue order, so
 the emitted (feature, location) stream stays ascending in (tgt, win),
 which FeatureTable.build's presorted path relies on, and each batch is
 sketched on the card by kernel B1, or B2 for windows wider than 128
-characters (their plain versions on the CPU). ``DeviceSketchAccumulator``
+characters, or for k > 16 by the 64-bit sketch kernel (their plain
+versions on the CPU). ``DeviceSketchAccumulator``
 (sketch_exec.py:167-269) keeps the (feature, target, window) stream on
 the card for the device table builder (ops/table_device.py).
 """
@@ -27,15 +28,16 @@ def sketch_windows_batched(wm: np.ndarray, vl: np.ndarray, k: int,
                            sketchlen: int, device: torch.device,
                            batch: int = _BATCH) -> np.ndarray:
     """(n, winlen) u8 windows + (n,) valid lengths -> (n, sketchlen) u32
-    sketches, ``batch`` windows per device call."""
-    out = np.empty((len(wm), sketchlen), np.uint32)
+    sketches (u64 for k > 16), ``batch`` windows per device call."""
+    fdt = np.uint32 if k <= 16 else np.uint64
+    out = np.empty((len(wm), sketchlen), fdt)
     for beg in range(0, len(wm), batch):
         end = min(beg + batch, len(wm))
         w = torch.from_numpy(np.ascontiguousarray(wm[beg:end])).to(device)
         v = torch.from_numpy(np.ascontiguousarray(vl[beg:end],
                                                   np.int32)).to(device)
         out[beg:end] = sketch_windows(w, v, k, sketchlen).cpu().numpy() \
-            .view(np.uint32)
+            .view(fdt)
     return out
 
 
@@ -53,7 +55,7 @@ class SketchAccumulator:
         # queue of (windows, valid, target_id, first_window_id)
         self._q: collections.deque = collections.deque()
         self._nwin = 0
-        self.features: list[np.ndarray] = []   # u32 chunks
+        self.features: list[np.ndarray] = []   # u32 chunks (k > 16: u64)
         self.locations: list[np.ndarray] = []  # u64 chunks
 
     def add_target(self, wm: np.ndarray, vl: np.ndarray, tid: int):
@@ -101,14 +103,15 @@ class SketchAccumulator:
                 np.full(int(mask.sum()), tid, np.uint32), wid[mask]))
 
     def finish(self):
-        """Sketch remaining windows; -> (features u32, locations u64)."""
+        """Sketch remaining windows; -> (features u32, or u64 for k > 16,
+        locations u64)."""
         if self._nwin:
             self._flush(self._nwin)
         if self.features:
             f = np.concatenate(self.features)
             l = np.concatenate(self.locations)
         else:
-            f = np.zeros(0, np.uint32)
+            f = np.zeros(0, np.uint32 if self.k <= 16 else np.uint64)
             l = np.zeros(0, np.uint64)
         self.features, self.locations = [], []
         return f, l
@@ -121,12 +124,14 @@ class DeviceSketchAccumulator(SketchAccumulator):
     device, for ops/table_device.py::build_device_table_chunked: a
     build never copies its sketches or its probe rows through the host.
     Sentinel feature slots (empty sketch lanes) are kept; the builder
-    drops them."""
+    drops them. Features are int32 u32-bit patterns, int64 u64-bit ones
+    for k > 16 (the builder takes only the former, as JAX's; a k > 16
+    build stays on the host, db/build.py)."""
 
     def __init__(self, k: int, sketchlen: int,
                  device: torch.device | None = None, batch: int = _BATCH):
         super().__init__(k, sketchlen, device, batch)
-        self.chunks: list = []    # (features, tgt, win) flat int32 tensors
+        self.chunks: list = []    # (features, tgt, win) flat tensors
 
     def _sketch_and_emit(self, take):
         if self.device is None:
@@ -148,7 +153,8 @@ class DeviceSketchAccumulator(SketchAccumulator):
 
     def finish_chunks(self) -> list:
         """Sketch the remaining windows; -> the list of (features int32
-        bit patterns, tgt int32, win int32) flat device chunks. Never
+        bit patterns (int64 for k > 16), tgt int32, win int32) flat
+        device chunks. Never
         concatenates: the builder consumes the list chunk by chunk."""
         if self._nwin:
             self._flush(self._nwin)

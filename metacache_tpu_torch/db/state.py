@@ -16,6 +16,11 @@ of ops/table.py under ``MC_DEVICE_LAYOUT=0``:
   ``ovf_rows`` the overflow rows of the class-C features deeper than
   ``head_slots``.
 
+u64 features (``wide``, k > 16) take two meta lanes, [flo, fhi, count,
+...] and [flo, fhi, count, ovf_idx, ...], and a bucket-row index of
+their low 32 bits (ops/probe.py::make_bucket_index64); they stage dense
+or two-tier, never classed.
+
 Rows the builder pair-packs (two 64-lane rows a 128-lane row) are kept
 as their 64-lane view, the same memory; ``packed``/``ovf_packed`` only
 record it for the layout tag. ``bucket_rows`` is the host's 64-lane
@@ -33,7 +38,8 @@ class DeviceTables(torch.nn.Module):
                  num_features: int, bucket_bits: int, spf: int,
                  slot_bits: int, ovf_rows: torch.Tensor | None = None,
                  head_slots: int = 0, packed: bool = False,
-                 ovf_packed: bool = False, classed: bool = False):
+                 ovf_packed: bool = False, classed: bool = False,
+                 wide: bool = False):
         super().__init__()
         if (ovf_rows is None) != (head_slots == 0):
             raise ValueError("two-tier tables need both overflow rows and "
@@ -51,22 +57,25 @@ class DeviceTables(torch.nn.Module):
         self.packed = packed
         self.ovf_packed = ovf_packed
         self.classed = classed
+        self.wide = wide            # u64 features: two meta lanes
 
     @property
     def dense(self):
         """metacache_tpu's probe layout tag (runner.py:297-312): True or
         "packed" for dense (tgt, win) lanes, "pk<bits>" or "pk<bits>p"
         for dense packed slots, ("two_tier", hsl, hpack, opack, bits) or
-        ("classed", hsl, False, opack, bits)."""
+        ("classed", hsl, False, opack, bits); u64 features
+        "u64pk<bits>(p)" or ("u64_two_tier", hsl, hpack, opack, bits)."""
         p = "p" if self.packed else ""
         if self.classed:
             return ("classed", self.head_slots, False, self.ovf_packed,
                     self.slot_bits)
         if self.head_slots:
-            return ("two_tier", self.head_slots, self.packed,
-                    self.ovf_packed, self.slot_bits)
+            return ("u64_two_tier" if self.wide else "two_tier",
+                    self.head_slots, self.packed, self.ovf_packed,
+                    self.slot_bits)
         if self.slot_bits:
-            return f"pk{self.slot_bits}{p}"
+            return f"{'u64' if self.wide else ''}pk{self.slot_bits}{p}"
         return "packed" if self.packed else True
 
     @property
@@ -86,7 +95,8 @@ class DeviceTables(torch.nn.Module):
             spf=self.spf, slot_bits=self.slot_bits,
             ovf_rows=None if self.ovf_rows is None else self.ovf_rows.cpu(),
             head_slots=self.head_slots, packed=self.packed,
-            ovf_packed=self.ovf_packed, classed=self.classed)
+            ovf_packed=self.ovf_packed, classed=self.classed,
+            wide=self.wide)
 
 
 def _i32(a: np.ndarray) -> torch.Tensor:
@@ -136,4 +146,5 @@ def tables_from_device(dt, lineages: np.ndarray,
         bucket_bits=dt.bbits, spf=dt.spf, slot_bits=dt.slot_bits,
         ovf_rows=logical(dt.ovf, dt.ovf_packed) if two_tier else None,
         head_slots=dt.head_slots if two_tier else 0, packed=dt.packed,
-        ovf_packed=dt.ovf_packed, classed=dt.classed)
+        ovf_packed=dt.ovf_packed, classed=dt.classed,
+        wide=dt.uniq.dtype == torch.int64)

@@ -28,14 +28,30 @@ def hbm_budget_bytes(device: torch.device | None = None) -> int:
     rule of metacache_tpu/utils/platform.py:81. MC_HBM_GB overrides the
     total (platform.py:55-61). On the CPU the total is taken as 16 GiB,
     so that layout choices in tests match the JAX package's CPU runs."""
+    total = _total_bytes(device)
+    reserve = max(2 << 30, total // 5)
+    return max(total - reserve, 64 << 20)
+
+
+def _total_bytes(device: torch.device | None) -> int:
     try:
         total = int(float(os.environ.get("MC_HBM_GB", "")) * 2**30)
     except ValueError:
         total = 0
-    if not total:
-        if device is not None and device.type == "cuda":
-            _free, total = torch.cuda.mem_get_info(device)
-        else:
-            total = 16 << 30
-    reserve = max(2 << 30, total // 5)
-    return max(total - reserve, 64 << 20)
+    if total:
+        return total
+    if device is not None and device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[1]
+    return 16 << 30
+
+
+def free_bytes(device: torch.device) -> int:
+    """Device memory a batch's working set can take now: on the card, the
+    free memory plus what PyTorch's allocator holds unused; on the CPU,
+    the reserve the budget above keeps for batch working sets (of 16 GiB,
+    or MC_HBM_GB)."""
+    if device.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(device)
+        return free + torch.cuda.memory_reserved(device) - \
+            torch.cuda.memory_allocated(device)
+    return _total_bytes(device) - hbm_budget_bytes(device)

@@ -101,6 +101,8 @@ def _load():
             lib.mc_sketch_windows.argtypes = [p, p, p, i64, i, i, i, i, p]
             lib.mc_sketch_windows_long.argtypes = [p, p, p, i64, i, i64, i,
                                                    i, p]
+            lib.mc_sketch_windows64.argtypes = [p, p, p, i64, i, i64, i, i,
+                                                i, p]
             lib.mc_sort_packed.argtypes = [p, p, i64, i, i, p]
             lib.mc_candidates_packed.argtypes = [p, p, p, i64, i, i, i, i,
                                                  i, i, p]
@@ -119,7 +121,7 @@ def _load():
             lib.mc_oidx_decode.argtypes = [p, i64, i, p, p, i64, p, p]
             lib.mc_bucket_decode.argtypes = [p, i, p, i64, p, p, p]
             for fn in (lib.mc_sketch_windows, lib.mc_sketch_windows_long,
-                       lib.mc_sort_packed,
+                       lib.mc_sketch_windows64, lib.mc_sort_packed,
                        lib.mc_candidates_packed,
                        lib.mc_candidates_unpacked,
                        lib.mc_candidates_packed_wide,
@@ -178,6 +180,10 @@ SKETCH = Kernel("mc_sketch_windows",
 SKETCH_LONG = Kernel("mc_sketch_windows_long",
                      "metacache_tpu/ops/sketch_pallas.py:200",
                      "metacache_tpu_torch/csrc/sketch.cu")
+# no TPU counterpart: JAX's k > 16 sketch is XLA (sketch_jax.py:103-152)
+SKETCH64 = Kernel("mc_sketch_windows64",
+                  "metacache_tpu/ops/sketch_jax.py:103",
+                  "metacache_tpu_torch/csrc/sketch.cu")
 SORT = Kernel("mc_sort_packed",
               "metacache_tpu/ops/candidates_pallas.py:395",
               "metacache_tpu_torch/csrc/candidates.cu")
@@ -206,7 +212,8 @@ OIDX_DECODE = Kernel("mc_oidx_decode",
 BUCKET_DECODE = Kernel("mc_bucket_decode",
                        "metacache_tpu/ops/probe_pallas.py:151",
                        "metacache_tpu_torch/csrc/probe_decode.cu")
-ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sort": SORT,
+ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sketch64": SKETCH64,
+       "sort": SORT,
        "candidates": CANDIDATES, "candidates_unpacked": CANDIDATES_UNPACKED,
        "candidates_wide": CANDIDATES_WIDE,
        "candidates_unpacked_wide": CANDIDATES_UNPACKED_WIDE,

@@ -1,8 +1,11 @@
 """Feature probing through the bucket-row index.
 
-Port of metacache_tpu/ops/probe.py for u32 features: ``make_bucket_index``
-builds the host's 64-lane bucket rows in numpy; the device builder
-(ops/table_device.py) builds them pair-packed, two a 128-lane row.
+Port of metacache_tpu/ops/probe.py: ``make_bucket_index`` builds the
+host's 64-lane bucket rows of u32 features in numpy; the device builder
+(ops/table_device.py) builds them pair-packed, two a 128-lane row. For
+u64 features (k > 16) ``make_bucket_index64`` builds them in numpy from
+the top bits and the low 32 bits of each feature, and
+``probe_bucket64`` probes them with int64 bit patterns.
 ``probe_bucket`` finds each feature's row in the sorted feature array
 with one row gather and an in-lane match, or through kernel B9 when
 ``MC_PROBE_PALLAS`` names its stage; ``probe_bucket_classed`` finds its
@@ -48,6 +51,101 @@ def make_bucket_index(features: np.ndarray, bits: int | None = None):
         col = np.arange(nf, dtype=np.int64) - starts[h]
         rows[h, 1 + col] = features.view(np.int32)
     return rows, bits
+
+
+# copied from metacache_tpu/ops/probe.py:72-112 (numpy, no JAX)
+def make_bucket_index64(features: np.ndarray, bits: int | None = None):
+    """u64-feature bucket-row index: row h (hash = top `bits` of the
+    64-bit feature) = [start, low32(f_0) .. low32(f_{S-1})].
+
+    The probe compares only the LOW 32 bits in-lane and verifies the
+    full feature against the fused head row's two meta lanes, exact as
+    long as no two features in one bucket share their low 32 bits.
+    Returns None when such a collision exists (JAX's runner then takes
+    its CSR probe; the port's staging widens the index,
+    ops/table_device.py::device_layout_from_csr)."""
+    nf = len(features)
+    assert features.dtype == np.uint64
+    if bits is None:
+        bits = min(24, max(12, int(max(nf, 1)).bit_length() - 2))
+    while True:
+        nbuckets = 1 << bits
+        bounds = (np.arange(nbuckets, dtype=np.uint64)
+                  << np.uint64(64 - bits))
+        starts = np.searchsorted(features, bounds).astype(np.int64)
+        ends = np.append(starts[1:], np.int64(nf))
+        max_span = int((ends - starts).max()) if nf else 1
+        if max_span <= 63 or bits >= 26:
+            break
+        bits += 1
+    if max_span > 63:
+        return None
+    low = (features & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    h = (features >> np.uint64(64 - bits)).astype(np.int64)
+    # collision check: duplicate low-32 within one bucket
+    if nf:
+        order = np.lexsort((low, h))
+        hl, ll = h[order], low[order]
+        if bool(((hl[1:] == hl[:-1]) & (ll[1:] == ll[:-1])).any()):
+            return None
+    w = max(64, 1 + (1 << max(0, int(max_span - 1).bit_length())))
+    rows = np.full((nbuckets, w), -1, np.int32)
+    rows[:, 0] = starts.astype(np.int32)
+    if nf:
+        col = np.arange(nf, dtype=np.int64) - starts[h]
+        rows[h, 1 + col] = low.view(np.int32)
+    return rows, bits
+
+
+def collision_free_bits64(features: np.ndarray) -> int:
+    """The least bucket width at which no two of the sorted distinct u64
+    ``features`` share both their top bits and their low 32 bits
+    (make_bucket_index64's condition), 0 when no two share their low 32
+    bits: one more than the longest common top-bit prefix of two features
+    of equal low 32 bits, found between neighbours in (low 32, value)
+    order."""
+    low = features & np.uint64(0xFFFFFFFF)
+    order = np.lexsort((features, low))
+    f, lo = features[order], low[order]
+    same = lo[1:] == lo[:-1]
+    if not same.any():
+        return 0
+    x = f[1:][same] ^ f[:-1][same]          # distinct features: x != 0
+    hi = (x >> np.uint64(32)).astype(np.float64)
+    lo32 = (x & np.uint64(0xFFFFFFFF)).astype(np.float64)
+    # bit length, exact: each half is below 2^53
+    blen = np.where(hi > 0, 33 + np.floor(np.log2(np.maximum(hi, 1))),
+                    1 + np.floor(np.log2(np.maximum(lo32, 1))))
+    return int((64 - blen).max()) + 1
+
+
+def low32(flat: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 u64-bit patterns, as int32 bits."""
+    return ((flat & 0xFFFFFFFF) - ((flat & 0x80000000) << 1)).to(torch.int32)
+
+
+def high32(flat: torch.Tensor) -> torch.Tensor:
+    """The high 32 bits of int64 u64-bit patterns, as int32 bits."""
+    return (flat >> 32).to(torch.int32)
+
+
+# metacache_tpu/ops/probe.py:115-135 as torch ops
+def probe_bucket64(flat: torch.Tensor, bucket_rows: torch.Tensor,
+                   bits: int):
+    """(N,) int64 u64-bit features -> (idx int32, found bool): the host
+    index's bucket row of the top `bits` bits (a logical shift), an in-lane
+    match of the LOW 32 bits (make_bucket_index64 keeps them distinct
+    within a bucket); the caller verifies the full feature against the
+    head row's two meta lanes. The sentinel (-1) is never found."""
+    h = ((flat >> (64 - bits)) & ((1 << bits) - 1))
+    row = bucket_rows[h]                      # ONE row gather
+    match = row[:, 1:] == low32(flat)[:, None]
+    lanes = torch.arange(match.shape[1], dtype=torch.int32,
+                         device=flat.device)
+    local = torch.where(match, lanes, 0).sum(dim=1, dtype=torch.int32)
+    idx = row[:, 0] + local
+    found = match.any(dim=1) & (flat != -1)
+    return idx, found
 
 
 def shift_right_logical(x: torch.Tensor, bits: int) -> torch.Tensor:

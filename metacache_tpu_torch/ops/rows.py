@@ -8,7 +8,9 @@ candidates -> ranked LCA. Two-tier rows with packed slots decode
 through B7 (head + overflow rows, the overflow row read from the head
 row it already holds: B8's work, folded in) or, in escalation phase 1,
 B6 (head rows only); classed cells decode as torch ops, as the JAX
-package decodes them with XLA ops.
+package decodes them with XLA ops, and so do the u64 tables' rows (k >
+16: two meta lanes, a bucket index of the low 32 bits), which JAX keeps
+out of its decode kernels (rows.py:588, :716).
 
 ``rows_to_result`` has JAX's two branches. The fused one runs the
 candidate kernels: slots that pack into int32 (pack_bits > 0) go
@@ -38,7 +40,8 @@ import torch
 from .candidates import (I32_MAX, candidates_packed, candidates_unpacked,
                          padded_width)
 from .pipeline import QueryResult, classify_candidates
-from .probe import probe_bucket, probe_bucket_classed, shift_right_logical
+from .probe import (high32, low32, probe_bucket, probe_bucket64,
+                    probe_bucket_classed, shift_right_logical)
 from .probe_decode import _rows, full_decode, head_decode
 from .sketch import (LANES, sketch_windows, sketch_windows_packed,
                      unpack_2bit)
@@ -58,8 +61,13 @@ def split_candidates() -> bool:
     return os.environ.get("MC_SPLIT_CAND", SPLIT_CAND_DEFAULT) != "0"
 
 
-def _meta_match(rows: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    """Fused-row feature verification, u32 features (rows.py:65-77)."""
+def _meta_match(rows: torch.Tensor, flat: torch.Tensor,
+                wide: bool = False) -> torch.Tensor:
+    """Fused-row feature verification (rows.py:65-77): one meta lane for
+    u32 features, two (lo, hi) for u64 ones (int64 bit patterns)."""
+    if wide:
+        return (rows[:, 0] == low32(flat)) & (rows[:, 1] == high32(flat)) & \
+            (flat != -1)
     return (rows[:, 0] == flat) & (flat != -1)
 
 
@@ -110,7 +118,8 @@ def _bucket_idx(flat: torch.Tensor, tables) -> torch.Tensor:
     if tables.classed:
         return probe_bucket_classed(flat, tables.bucket_rows,
                                     tables.bucket_bits)[0]
-    idx, _found = probe_bucket(flat, tables.bucket_rows, tables.bucket_bits)
+    probe = probe_bucket64 if tables.wide else probe_bucket
+    idx, _found = probe(flat, tables.bucket_rows, tables.bucket_bits)
     return torch.clamp(idx, 0, max(tables.num_features - 1, 0))
 
 
@@ -202,9 +211,10 @@ def _emit(lanes, b: int, f: int, alt_runs: int):
 
 def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
                pack_bits: int = 0, idx_pre: torch.Tensor | None = None):
-    """(B, F) int32 features -> (B, F*C) match slots (rows.py:624-839,
-    dense, two-tier and classed branches). With ``pack_bits=w`` returns
-    (pk, pk), pk = (tgt << w) | win with I32_MAX padding, else (tgt, win).
+    """(B, F) int32 features (int64 on u64 tables) -> (B, F*C) match
+    slots (rows.py:624-839, dense, two-tier and classed branches). With
+    ``pack_bits=w`` returns (pk, pk), pk = (tgt << w) | win with I32_MAX
+    padding, else (tgt, win).
 
     ``alt_runs=r`` pads each feature's slots to r lanes and reverses
     odd features' segments, emitting alternating asc/desc sorted runs so
@@ -231,6 +241,9 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
     if tables.classed:
         pks = _classed_probe(flat, tables, c, idx_c)
         return _emit(_encode((pks,), slot_bits, pack_bits), b, f, alt_runs)
+    if tables.wide:
+        return _emit(_encode((_wide_slots(flat, tables, c, idx_c),),
+                             slot_bits, pack_bits), b, f, alt_runs)
     if hsl and slot_bits:
         pks = full_decode(tables.fused_rows, tables.ovf_rows, idx_c, flat,
                           hsl, c, alt_runs or c, f if alt_runs else 1)
@@ -259,6 +272,31 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
     return _emit(_encode(lanes, slot_bits, pack_bits), b, f, alt_runs)
 
 
+def _wide_rows(flat, tables, idx_c):
+    """u64 features' head or dense rows, gathered (as JAX keeps them in
+    XLA, rows.py:588, :716) -> (rows, found, cnt)."""
+    rows = tables.fused_rows[idx_c.to(torch.int64)]
+    found = _meta_match(rows, flat, wide=True)
+    return rows, found, torch.where(found, rows[:, 2], 0)
+
+
+def _wide_slots(flat, tables, c: int, idx_c):
+    """u64 features' packed slots to depth c (rows.py:699-770): dense
+    rows [flo, fhi, count, pk * C], or two-tier heads [flo, fhi, count,
+    ovf_idx, pk * H] and overflow rows [pk * (C - H)], masked past the
+    count."""
+    rows, found, cnt = _wide_rows(flat, tables, idx_c)
+    hsl = tables.head_slots
+    if hsl:
+        orow = tables.ovf_rows[torch.where(found, rows[:, 3], 0).to(
+            torch.int64)]
+        pks = torch.cat([rows[:, 4:4 + hsl], orow[:, :c - hsl]], dim=1)
+    else:
+        pks = rows[:, 3:3 + c]
+    j = torch.arange(c, dtype=torch.int32, device=flat.device)[None, :]
+    return torch.where(j < cnt[:, None], pks, I32_MAX)
+
+
 def probe_rows_head(feats: torch.Tensor, tables, alt_runs: int,
                     pack_bits: int, idx_pre: torch.Tensor | None = None):
     """Head-only probe, escalation phase 1 (rows.py:545-621): one head
@@ -282,6 +320,13 @@ def probe_rows_head(feats: torch.Tensor, tables, alt_runs: int,
         j = torch.arange(hsl, dtype=torch.int32, device=flat.device)
         pk = torch.where(j[None, :] < torch.clamp(cnt, max=hsl)[:, None],
                          slots, I32_MAX)
+        pk = _emit((pk,), b, f, alt_runs)[0]
+    elif tables.wide:
+        # u64 heads decode as torch ops, as JAX's XLA path (rows.py:588)
+        rows, _found, cnt = _wide_rows(flat, tables, idx_c)
+        j = torch.arange(hsl, dtype=torch.int32, device=flat.device)
+        pk = torch.where(j[None, :] < torch.clamp(cnt, max=hsl)[:, None],
+                         rows[:, 4:4 + hsl], I32_MAX)
         pk = _emit((pk,), b, f, alt_runs)[0]
     else:
         pk, cnt = head_decode(tables.fused_rows, idx_c, flat, hsl, rl,

@@ -1,4 +1,5 @@
-"""Window sketchers: kernels B1 and B2 and their plain PyTorch versions.
+"""Window sketchers: kernels B1 and B2, the 64-bit sketch kernel, and
+their plain PyTorch versions.
 
 Port of metacache_tpu/ops/sketch_jax.py:34-152 (the sort-based
 sketcher) and of the Pallas kernels sketch_pallas.sketch_windows_pallas
@@ -8,6 +9,17 @@ windows: the 255 and 511 presets), both in csrc/sketch.cu. Features
 leave as int32 tensors holding the u32 bit patterns; the plain versions
 compute in int64, where every u32 value is non-negative, so their sorts
 order them as unsigned and the sentinel 0xFFFFFFFF sorts last.
+
+k > 16 takes 64-bit features (the k > 16 branch of sketch_jax.py's
+sketch_windows, :103-152: murmur3_fmix64 of the canonical u64 k-mer),
+which leave as int64 tensors of the u64 bit patterns, the sentinel
+0xFFFFFFFFFFFFFFFF as -1. JAX leaves them to XLA (its Pallas sketcher is
+k <= 16 only); the port has a hand kernel for them (csrc/sketch.cu,
+sketch64_kernel), on both infeed forms and every window width. Its
+plain version orders
+u64 values by flipping bit 63 (``_flip``) before a sort or compare and
+flipping it back, and shifts logically by masking, as torch has no u64
+shift or order on the CPU.
 
 B1 selects its s features by s warp minima, the form JAX's
 MC_SKETCH_MODE=extract picks (rows.py:28-50); JAX's other form, "sort",
@@ -27,6 +39,8 @@ LANES = 128
 PAD_CODE = 4
 SENTINEL = 0xFFFFFFFF
 _M32 = 0xFFFFFFFF
+SENTINEL64 = -1        # 0xFFFFFFFFFFFFFFFF as an int64 bit pattern
+_MIN64 = -2**63        # bit 63: xor with it maps u64 order to int64 order
 SKETCH_MODES = ("sort", "extract")
 
 
@@ -142,6 +156,77 @@ def sketch_windows_long_plain(codes: torch.Tensor, valid: torch.Tensor,
     return to_i32_bits(_sort_dedup_take(sk, sketchlen))
 
 
+def _srl64(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 u64-bit patterns by 0 < n < 64."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def _u64_const(c: int) -> int:
+    """A u64 constant as the int64 of the same bits."""
+    return c - 2**64 if c >= 2**63 else c
+
+
+def murmur3_fmix64(x: torch.Tensor) -> torch.Tensor:
+    """u64 murmur3 finalizer on int64 bit patterns (sketch_jax.py:57);
+    int64 multiplication wraps as u64 multiplication does."""
+    x = x ^ _srl64(x, 33)
+    x = x * _u64_const(0xFF51AFD7ED558CCD)
+    x = x ^ _srl64(x, 33)
+    x = x * _u64_const(0xC4CEB9FE1A85EC53)
+    return x ^ _srl64(x, 33)
+
+
+def revcomp_2bit_u64(s: torch.Tensor, k: int) -> torch.Tensor:
+    """u64 bit-twiddled reverse complement on int64 bit patterns
+    (sketch_jax.py:69)."""
+    for sh, m in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
+                  (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF)):
+        s = ((s >> sh) & m) | ((s & m) << sh)
+    s = _srl64(s, 32) | (s << 32)
+    s = ~s                                  # 0xFFFFFFFFFFFFFFFF - s
+    return s if k == 32 else _srl64(s, 64 - 2 * k)
+
+
+def _flip(x):
+    """u64 order <-> int64 order (an involution): flip bit 63."""
+    return x ^ _MIN64
+
+
+def sketch_windows64_plain(codes: torch.Tensor, valid: torch.Tensor,
+                           k: int, sketchlen: int) -> torch.Tensor:
+    """Plain version of the 64-bit sketch kernel (the k > 16 branch of
+    sketch_jax.sketch_windows): (N, W) u8 codes of any width, (N,) valid
+    lengths -> (N, sketchlen) int64 u64-bit features, ascending in u64
+    order, deduplicated, sentinel (-1) padded, no more than
+    max(valid - k + 1, 0) of them. Sorts and compares run on the
+    flipped values, where the sentinel is the int64 maximum."""
+    if not 16 < k <= 32:
+        raise ValueError(f"the 64-bit sketch takes 16 < k <= 32, not {k}")
+    n, w = codes.shape
+    sent = _flip(SENTINEL64)           # the int64 maximum
+    if w < k:
+        return torch.full((n, sketchlen), SENTINEL64, dtype=torch.int64,
+                          device=codes.device)
+    kmers, ambig = window_kmers(codes, k)
+    pos = torch.arange(w - k + 1, device=codes.device)[None, :]
+    nvalid = torch.clamp(valid.to(torch.int64) - (k - 1), min=0)[:, None]
+    invalid = ambig | (pos >= nvalid)
+    fk, fr = _flip(kmers), _flip(revcomp_2bit_u64(kmers, k))
+    canon = _flip(torch.minimum(fk, fr))
+    feats = torch.where(invalid, sent, _flip(murmur3_fmix64(canon)))
+    feats = torch.sort(feats, dim=1).values
+    dup = torch.zeros_like(feats, dtype=torch.bool)
+    dup[:, 1:] = feats[:, 1:] == feats[:, :-1]
+    feats = torch.sort(torch.where(dup, sent, feats), dim=1).values
+    feats = feats[:, :sketchlen]
+    if feats.shape[1] < sketchlen:
+        feats = torch.cat([feats, torch.full(
+            (n, sketchlen - feats.shape[1]), sent, dtype=torch.int64,
+            device=codes.device)], dim=1)
+    out_pos = torch.arange(sketchlen, device=codes.device)[None, :]
+    return _flip(torch.where(out_pos >= nvalid, sent, feats))
+
+
 def pad_windows(codes: torch.Tensor) -> torch.Tensor:
     """Pad windows narrower than 128 lanes with the ambiguous code 4
     (metacache_tpu/ops/rows.py:45-47)."""
@@ -186,11 +271,20 @@ def _launch_b1(codes: torch.Tensor, valid: torch.Tensor, k: int,
     return out
 
 
-def _check_k(k: int):
-    if k > 16:
-        raise NotImplementedError(
-            "k > 16 needs the 64-bit feature sketch (ROADMAP queue A, "
-            "u64 features)")
+def _launch_sketch64(codes: torch.Tensor, valid: torch.Tensor, k: int,
+                     sketchlen: int, packed: bool) -> torch.Tensor:
+    """The 64-bit sketch kernel on (N, W) codes, rows of any width and
+    alignment read in place with their stride, or on (N, W / 4 <= 32)
+    packed bytes."""
+    valid = _check_launch(codes, valid)
+    if codes.stride(1) != 1:
+        codes = codes.contiguous()
+    n, w = codes.shape
+    out = torch.empty((n, sketchlen), dtype=torch.int64, device=codes.device)
+    if n:
+        kernels.SKETCH64(codes.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                         n, w, codes.stride(0), k, sketchlen, int(packed))
+    return out
 
 
 def sketch_windows(codes: torch.Tensor, valid: torch.Tensor, k: int,
@@ -199,8 +293,13 @@ def sketch_windows(codes: torch.Tensor, valid: torch.Tensor, k: int,
     (u32 bits), the dispatch of metacache_tpu/ops/rows.py:28-50. Windows
     of at most 128 characters are padded to 128 and go to kernel B1,
     wider ones to kernel B2, on a CUDA tensor; a CPU tensor takes the
-    kernel's plain version."""
-    _check_k(k)
+    kernel's plain version. k > 16: (N, sketchlen) int64 (u64 bits)
+    from the 64-bit sketch kernel at every width, or its plain
+    version."""
+    if k > 16:
+        if not codes.is_cuda:
+            return sketch_windows64_plain(codes, valid, k, sketchlen)
+        return _launch_sketch64(codes, valid, k, sketchlen, False)
     if codes.shape[1] > LANES:
         return _sketch_long(codes, valid, k, sketchlen)
     check_sketch_mode()
@@ -217,12 +316,17 @@ def sketch_windows_packed(packed: torch.Tensor, valid: torch.Tensor,
     read; no ambiguous code), + (N,) valid lengths -> (N, sketchlen)
     int32, what ``sketch_windows`` gives on the unpacked (N, W) codes:
     kernel B1 reading the packed rows itself on a CUDA tensor; on a CPU
-    tensor the unpack and B1's plain version."""
-    _check_k(k)
+    tensor the unpack and B1's plain version. k > 16: the 64-bit sketch
+    kernel reading them itself, or the unpack and its plain version."""
     if packed.dtype != torch.uint8 or packed.dim() != 2 or \
             not 1 <= packed.shape[1] * 4 <= LANES:
         raise ValueError("packed must be a (N, W / 4) uint8 tensor, "
                          "W <= 128")
+    if k > 16:
+        if not packed.is_cuda:
+            return sketch_windows64_plain(unpack_2bit(packed), valid, k,
+                                          sketchlen)
+        return _launch_sketch64(packed, valid, k, sketchlen, True)
     check_sketch_mode()
     if not packed.is_cuda:
         return sketch_windows_plain(pad_windows(unpack_2bit(packed)), valid,

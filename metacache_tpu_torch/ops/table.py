@@ -352,17 +352,20 @@ def _quantize(n: int, min_bits: int) -> int:
 # row bytes equal these for rows of at most 64 lanes and for multiples of
 # 128; for other widths above 64 lanes a budget can pick another head or
 # layout than JAX does.
-def _bytes_for_fn(nf_pad, spf, spl):
+def _bytes_for_fn(nf_pad, spf, spl, wide: bool = False):
     """Layout bytes for head width hd + n_over overflow rows; spl =
-    lanes per slot (1 when slot-packed, 2 otherwise)."""
+    lanes per slot (1 when slot-packed, 2 otherwise); wide = u64
+    features (two meta lanes for the feature value,
+    table_device.py:801-805)."""
+    ex = 1 if wide else 0
 
     def row_b(c):
         return c * 4
 
     def bytes_for(hd, n_over):
         if hd == spf:                              # dense layout
-            return nf_pad * row_b(_pad64(2 + spl * spf)) + 512
-        return (nf_pad * row_b(_pad64(3 + spl * hd)) +
+            return nf_pad * row_b(_pad64(2 + ex + spl * spf)) + 512
+        return (nf_pad * row_b(_pad64(3 + ex + spl * hd)) +
                 (_quantize(n_over, 10) + 1) *
                 row_b(_pad64(spl * (spf - hd))))
     return bytes_for

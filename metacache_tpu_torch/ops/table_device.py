@@ -25,14 +25,18 @@ row, which on the card is the same memory as (2R, 64), so the probe
 reads them through a 64-lane ``view``. Features are int64 values in
 0 .. 2^32 - 1 while they are sorted and compared (the sentinel
 0xFFFFFFFF sorts last); the stored arrays are int32 bit patterns.
+u64 features (k > 16) stage from a CSR only, as in JAX ("query-staging
+only", table_device.py:1055-1056): ``device_layout_from_csr`` takes
+them as int64 bit patterns, the sentinel -1, fills rows with two meta
+lanes [flo, fhi] and takes the host's bucket index
+(ops/probe.py::make_bucket_index64); the classed cells are u32 only.
 
 Where the JAX builder weighs layouts in the TPU's row bytes (128-lane
 tiles, pair-packed 64-lane rows), this one weighs them in the card's:
 a row of c lanes is 4c bytes (ops/table.py::_bytes_for_fn). The two
 agree on every row of at most 64 lanes and every width that is a
 multiple of 128; for other widths above 64 lanes the budget can pick
-another head or layout than JAX does. u64 features (k > 16) raise,
-naming ROADMAP queue A13.
+another head or layout than JAX does.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ import numpy as np
 import torch
 
 from ..device import hbm_budget_bytes
+from .probe import (collision_free_bits64, high32, low32,
+                    make_bucket_index64)
 from .table import _bytes_for_fn, _choose_head, _pad64, _quantize
 
 IMAX = 2**31 - 1
@@ -56,6 +62,7 @@ _SCATTER_CHUNK = 1 << 24   # elements a scatter takes at a time
 class DeviceTable(NamedTuple):
     """Probe-ready device arrays (single part)."""
     uniq: torch.Tensor       # (F,) sorted distinct features, SENT padded
+    #                          (int32 bits; int64 bits for u64 features)
     offsets: torch.Tensor    # (F+1,) i32 capped CSR offsets
     head: torch.Tensor       # (F, 64+) i32 fused head rows
     ovf: torch.Tensor        # (NOVF+1, ...) i32 overflow rows (row 0 dummy)
@@ -241,20 +248,28 @@ def _fill_span_g(rows, marks, vals, nf_off: int, novf_off: int, nf_g: int,
     _put(rows.view(-1), (rr * rows.shape[1] + cc)[ok], vals[ok])
 
 
-# table_device.py:330-365, u32 features
+# table_device.py:330-365
 def _head_init(sizes, uniq, hw: int, dense: bool, head: int,
-               pack: bool = False):
+               pack: bool = False, wide: bool = False):
     """Feature-row headers [f, count(, ovfid)] + zeroed slot lanes;
-    (nf / 2, 128) when pair-packed, else (nf, hw)."""
+    (nf / 2, 128) when pair-packed, else (nf, hw). u64 features
+    (``wide``, int64 bit patterns) take two meta lanes [flo, fhi,
+    count(, ovfid)]: the probe verifies both after the row gather (the
+    bucket index matches only the low 32 bits)."""
     nf = sizes.shape[0]
     rows = torch.zeros((nf // 2, 128) if pack else (nf, hw),
                        dtype=torch.int32, device=sizes.device)
     lg = rows.view(nf, 64) if pack else rows
-    lg[:, 0] = _i32(uniq)
-    lg[:, 1] = sizes
+    if wide:
+        lg[:, 0] = low32(uniq)
+        lg[:, 1] = high32(uniq)
+    else:
+        lg[:, 0] = _i32(uniq)
+    nx = 2 if wide else 1
+    lg[:, nx] = sizes
     if not dense:
         over_f = sizes > head
-        lg[:, 2] = torch.where(over_f, torch.cumsum(over_f, 0), 0)
+        lg[:, nx + 1] = torch.where(over_f, torch.cumsum(over_f, 0), 0)
     return rows
 
 
@@ -474,13 +489,18 @@ def _logical(rows: torch.Tensor, pack: bool) -> torch.Tensor:
     return rows.view(-1, 64) if pack else rows
 
 
-# table_device.py:623-685, u32 features
+# table_device.py:623-685
 def _fill_layouts(get_mv, G: int, nf_offs, nf_gs, novf_offs, sizes, uniq,
                   *, nf_pad: int, novf: int, cap: int, head: int,
-                  bits: int, dense: bool, pack_rows: bool, slot_bits: int):
+                  bits: int, dense: bool, pack_rows: bool, slot_bits: int,
+                  index=None):
     """Head rows, overflow rows and the bucket index, filled group by
-    group. get_mv(g) -> (marks, [value streams]) of group g."""
-    base = 2 if dense else 3
+    group. get_mv(g) -> (marks, [value streams]) of group g. u64
+    features (uniq of int64 bit patterns) come with their host-built
+    bucket index, ``index`` = (rows, bits), and take an extra meta
+    lane."""
+    wide = index is not None
+    base = (2 if dense else 3) + wide
     spl = 1 if slot_bits else 2        # lanes per slot
     hw = _pad64(base + spl * head)
     pack = pack_rows and hw == 64 and nf_pad % 2 == 0
@@ -489,7 +509,7 @@ def _fill_layouts(get_mv, G: int, nf_offs, nf_gs, novf_offs, sizes, uniq,
     novf_rows, opack = _ovf_shape(novf, ocols)
     ovfrows = _zeros_rows(novf_rows, ocols, opack, sizes.device)
     headrows = _head_init(sizes, uniq, hw=hw, dense=dense, head=head,
-                          pack=pack)
+                          pack=pack, wide=wide)
     hl, ol = _logical(headrows, pack), _logical(ovfrows, opack)
     for g in range(G):
         if nf_gs[g] == 0:
@@ -503,7 +523,9 @@ def _fill_layouts(get_mv, G: int, nf_offs, nf_gs, novf_offs, sizes, uniq,
             _fill_span_g(hl, marks, vv, kind="head",
                          colbase=base + v * head, **kw)
         del marks, vals
-    return headrows, ovfrows, _brows_build(uniq, bits), pack, opack
+    brows = _brows_build(uniq, bits) if index is None else \
+        torch.from_numpy(index[0]).to(sizes.device)
+    return headrows, ovfrows, brows, pack, opack
 
 
 # copied from metacache_tpu/ops/table_device.py:692-700
@@ -664,13 +686,22 @@ def build_device_table_chunked(chunks: list, *, cap: int = 254,
         budget_bytes=budget_bytes, what="table")
 
 
-# table_device.py:965-1038, u32 features
+# table_device.py:965-1038
 def _layout_and_fill(get_mv, G, nf_offs, nf_gs, hists, sizes, uniq, *, nf,
                      nf_pad, spf, hist, slot_bits, maxw, budget_bytes, what,
-                     allow_dense=True) -> DeviceTable:
+                     allow_dense=True, index=None) -> DeviceTable:
     """Shared tail of the grouped builders: choose the layout against
-    the budget, run the grouped fills, assemble the DeviceTable."""
-    bytes_for = _bytes_for_fn(nf_pad, spf, 1 if slot_bits else 2)
+    the budget, run the grouped fills, assemble the DeviceTable. u64
+    features: pass the host-built bucket index as ``index`` = (rows,
+    bits); its bytes count in the budget beside the rows, as it may be
+    wider than JAX's (device_layout_from_csr). The classed cells are u32
+    only."""
+    wide = index is not None
+    index_b = index[0].nbytes if wide else 0
+    rows_for = _bytes_for_fn(nf_pad, spf, 1 if slot_bits else 2, wide=wide)
+
+    def bytes_for(hd, n_over):
+        return rows_for(hd, n_over) + index_b
     cum_over = np.cumsum(hist[::-1])[::-1]        # #buckets size >= idx
     if allow_dense and bytes_for(spf, 0) <= budget_bytes:
         head = spf                                 # dense: no overflow
@@ -678,7 +709,7 @@ def _layout_and_fill(get_mv, G, nf_offs, nf_gs, hists, sizes, uniq, *, nf,
         head = _choose_head(spf, cum_over, bytes_for, budget_bytes,
                             what, slot_packed=bool(slot_bits))
     dense = head == spf
-    use_classed = _want_classed(head, spf, dense, slot_bits)
+    use_classed = not wide and _want_classed(head, spf, dense, slot_bits)
     if use_classed:
         cb = _classed_bytes(hist, nf_pad, spf, cum_over)
         use_classed = cb <= budget_bytes and \
@@ -694,8 +725,8 @@ def _layout_and_fill(get_mv, G, nf_offs, nf_gs, hists, sizes, uniq, *, nf,
                                      device=sizes.device),
                          torch.cumsum(sizes, 0)]).to(torch.int32)
     num_loc = int(offsets[-1])
-    uniq32 = _i32(uniq)
-    common = dict(uniq=uniq32, offsets=offsets, nf=nf, spf=spf,
+    common = dict(uniq=uniq if wide else _i32(uniq), offsets=offsets, nf=nf,
+                  spf=spf,
                   num_locations=num_loc, max_win=maxw, slot_bits=slot_bits)
 
     if use_classed:
@@ -715,11 +746,12 @@ def _layout_and_fill(get_mv, G, nf_offs, nf_gs, hists, sizes, uniq, *, nf,
                            **common)
 
     novf = int(cum_over[head + 1]) if head < spf else 0
-    bits = _choose_bits(uniq, base_bits)
+    bits = index[1] if wide else _choose_bits(uniq, base_bits)
     headrows, ovfrows, brows, pack, opack = _fill_layouts(
         get_mv, G, nf_offs, nf_gs, novf_offsets(head), sizes, uniq,
         nf_pad=nf_pad, novf=novf, cap=spf, head=head, bits=bits,
-        dense=dense, pack_rows=_pack_auto(nf_pad), slot_bits=slot_bits)
+        dense=dense, pack_rows=_pack_auto(nf_pad), slot_bits=slot_bits,
+        index=index)
     return DeviceTable(head=headrows, ovf=ovfrows, brows=brows, bbits=bits,
                        head_slots=head, dense=dense,
                        layout_bytes=bytes_for(head, novf), packed=pack,
@@ -732,6 +764,9 @@ def export_csr(dt: DeviceTable, chunk: int = 1 << 25):
     u64 packed (tgt << 32 | win)). The build consumed its stream, so the
     locations are read back from the probe rows: element j of bucket r
     is head slot col(j) or overflow slot col(j) - H."""
+    if dt.uniq.dtype == torch.int64:
+        raise ValueError("u64 tables are query-staging only (built from "
+                         "a CSR save, table_device.py:1055-1056)")
     dev = dt.head.device
     nf, n, hsl = dt.nf, dt.num_locations, dt.head_slots
     uniq = dt.uniq[:nf].cpu().numpy().view(np.uint32)
@@ -784,7 +819,7 @@ def export_csr(dt: DeviceTable, chunk: int = 1 << 25):
     return uniq, offs.cpu().numpy(), locs
 
 
-# table_device.py:1130-1239, u32 features
+# table_device.py:1130-1239
 def device_layout_from_csr(uniq_host: np.ndarray, offsets_host,
                            ltgt: np.ndarray, lwin: np.ndarray, *,
                            device: torch.device, cap: int = 254,
@@ -797,10 +832,17 @@ def device_layout_from_csr(uniq_host: np.ndarray, offsets_host,
     marks plus pk, or tgt and win, lanes: 5 or 9 bytes a location) and
     fills the row layouts on the card, so the padded rows never cross
     the host link; at most one group's stream is on the card beyond the
-    layouts (each upload frees after its fills)."""
-    if uniq_host.dtype == np.uint64:
-        raise NotImplementedError(
-            "u64 features (k > 16) are not ported yet (ROADMAP queue A13)")
+    layouts (each upload frees after its fills).
+
+    u64 features (``uniq_host`` uint64, k > 16) need slot-packable
+    locations and a bucket index without a low-32 collision within a
+    bucket (make_bucket_index64). Where its default width has one, JAX's
+    runner falls back to its CSR probe (runner.py:505-540), which the
+    port does not have yet (ROADMAP A10): it widens the index to the
+    least width free of collisions (collision_free_bits64), up to 26
+    bits (a wider index only splits buckets; 16 GiB at 26), and raises
+    MemoryError where a collision or unpackable slots remain, or where
+    the rows and the index together exceed the budget."""
     if budget_bytes is None:
         budget_bytes = hbm_budget_bytes(device)
     nf = len(uniq_host)
@@ -812,6 +854,25 @@ def device_layout_from_csr(uniq_host: np.ndarray, offsets_host,
     sizes_capped = np.minimum(sizes_h, spf).astype(np.int32)
     maxw = int(lwin.max()) if n else 0
     slot_bits = slot_pack_bits(maxw, int(ltgt.max()) if n else 0)
+    wide = uniq_host.dtype == np.uint64
+    index = None
+    if wide:
+        if not slot_bits:
+            raise MemoryError("u64 device layout needs slot-packable "
+                              "locations")
+        index = make_bucket_index64(uniq_host)
+        if index is None:
+            bits = collision_free_bits64(uniq_host)
+            index = make_bucket_index64(uniq_host, bits) \
+                if bits <= 26 else None
+        if index is None:
+            raise MemoryError("u64 bucket index: low-32 collision "
+                              "within a bucket at every width")
+        uniq_bits = uniq_host.view(np.int64)
+        fsent = -1
+    else:
+        uniq_bits = uniq_host.astype(np.int64)
+        fsent = SENT
 
     # feature-range groups: equal-element quantile cuts over the CSR
     offs64 = np.asarray(offsets_host, np.int64)
@@ -826,8 +887,7 @@ def device_layout_from_csr(uniq_host: np.ndarray, offsets_host,
     hists = [np.bincount(sizes_capped[lo_f[g]:lo_f[g + 1]],
                          minlength=spf + 1) for g in range(G)]
     uniq = torch.from_numpy(np.pad(
-        uniq_host.astype(np.int64), (0, nf_pad - nf),
-        constant_values=SENT)).to(device)
+        uniq_bits, (0, nf_pad - nf), constant_values=fsent)).to(device)
     sizes = torch.from_numpy(np.pad(sizes_capped, (0, nf_pad - nf))).to(
         device)
 
@@ -856,10 +916,12 @@ def device_layout_from_csr(uniq_host: np.ndarray, offsets_host,
     return _layout_and_fill(
         get_mv, G, lo_f, nf_gs, hists, sizes, uniq, nf=nf, nf_pad=nf_pad,
         spf=spf, hist=np.sum(hists, axis=0), slot_bits=slot_bits, maxw=maxw,
-        budget_bytes=budget_bytes, what="layout", allow_dense=allow_dense)
+        budget_bytes=budget_bytes, what="layout", allow_dense=allow_dense,
+        index=index)
 
 
-def dense_bytes(nf: int, spf: int, slot_bits: int) -> int:
+def dense_bytes(nf: int, spf: int, slot_bits: int,
+                wide: bool = False) -> int:
     """Bytes of the dense layout the builder weighs for nf features."""
     return _bytes_for_fn(_quantize(nf, 12), spf,
-                         1 if slot_bits else 2)(spf, 0)
+                         1 if slot_bits else 2, wide=wide)(spf, 0)

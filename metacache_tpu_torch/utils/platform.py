@@ -3,9 +3,9 @@
 
 
 def ensure_feature_width(kmerlen: int):
-    """Nothing to switch for 32-bit features (k <= 16). The 64-bit
-    feature config (k > 16; the reference's -DMC_KMER_TYPE=uint64_t,
-    src/config.hpp:45-48) is not ported yet."""
-    if kmerlen > 16:
-        raise NotImplementedError(
-            "k > 16 (64-bit features) is not ported yet (ROADMAP queue A13)")
+    """Check the k-mer length: 32-bit features for k <= 16, 64-bit ones
+    (the reference's -DMC_KMER_TYPE=uint64_t, src/config.hpp:45-48) for
+    k up to 32. JAX switches its x64 mode here; the port carries 64-bit
+    features as int64 bit patterns, so it has nothing to switch."""
+    if not 1 <= kmerlen <= 32:
+        raise ValueError(f"k-mer length {kmerlen}: expected 1 to 32")

@@ -1,9 +1,10 @@
 """metacache_tpu_torch's `build` and `query` CLI, in-process on the CPU:
 the build (through the device table builder) equals metacache_tpu's and
 each package loads the other's database, and the query output equals the
-reference binary's goldens that lie on the port's slice (single-end
-reads, short and long, with taxon merging, any number of candidates,
-per-hit lists and locations), with packed slots and, under
+reference binary's goldens (single-end reads, short and long, with taxon
+merging, any number of candidates, per-hit lists and locations; 64-bit
+features at k = 18; -cov-percentile, -align and the interactive mode,
+the formatting matrix through it), with packed slots and, under
 MC_PACK_SLOTS=0, with unpacked (tgt, win) slots through kernel B5's
 plain version; under each staging: the tables filled from the CSR by the
 device builder (the default), host rows (MC_DEVICE_LAYOUT=0), the
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from metacache_tpu.config import SketchingOptions
 from metacache_tpu.db.build import BuildOptions, build_database
 from metacache_tpu.db.database import Database
 from metacache_tpu_torch.cli.main import main
@@ -541,14 +543,252 @@ def test_summary_scan_path_takes_every_result_route(dbfile, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-align"], "A7"),
-    (["-cov-percentile", "0.1"], "A7"),
     (["-replicate", "2"], "A14"),
     (["-table-shards", "2"], "A14"),
 ])
 def test_query_rejects_paths_not_ported(dbfile, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         _query(dbfile, [f"{DATA}/reads_single.fa"] + flags)
+
+
+# ---------------------------------------------- k = 18: 64-bit features
+@pytest.fixture(scope="module")
+def dbfile_k18(tmp_path_factory):
+    db = str(tmp_path_factory.mktemp("tdb18") / "testdb18")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MC_TORCH_DEVICE", "cpu")
+        assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
+                     f"{DATA}/taxonomy", "-parts", "1", "-kmerlen",
+                     "18"]) == 0
+    return db
+
+
+K18_CASES = {
+    "k18_single.txt": ["reads_single.fa", "-mapped-only", "-precision",
+                       "-ground-truth", "-tophits"],
+    "k18_long.txt": ["reads_long.fa", "-precision", "-ground-truth",
+                     "-tophits"],
+    "k18_pairfiles.txt": ["reads_pair1.fa", "reads_pair2.fa", "-pairfiles",
+                          "-precision", "-tophits"],
+}
+
+
+def _k18_args(gold):
+    return [f"{DATA}/{a}" if a.startswith("reads_") else a
+            for a in K18_CASES[gold]]
+
+
+@pytest.mark.parametrize("gold", sorted(K18_CASES))
+def test_k18_goldens(dbfile_k18, gold):
+    """The reference binary's goldens of its 64-bit build
+    (-DMC_KMER_TYPE=uint64_t; tests/test_golden_parity.py:344-364): the
+    port's k = 18 database, its u64 rows with two meta lanes, the 64-bit
+    sketch's plain version."""
+    assert _query(dbfile_k18, _k18_args(gold)) == _golden(gold)
+
+
+def test_k18_goldens_with_fused_candidates_off(dbfile_k18, monkeypatch):
+    """The non-fused result path (MC_FUSED_CANDIDATES=0) on the u64 rows:
+    the same goldens, and -no-map summaries (the scan on the runner's
+    packed infeed) equal to the per-read ones."""
+    monkeypatch.setenv("MC_FUSED_CANDIDATES", "0")
+    for gold in sorted(K18_CASES):
+        assert _query(dbfile_k18, _k18_args(gold)) == _golden(gold), gold
+
+    def stats(lines):
+        i = next(j for j, l in enumerate(lines) if "queries:" in l)
+        return lines[i:]
+    args = [f"{DATA}/reads_single.fa", "-lowest", "species"]
+    assert stats(_query(dbfile_k18, args + ["-no-map"])) == \
+        stats(_query(dbfile_k18, args))
+
+
+def test_k18_info_statistics(dbfile_k18):
+    """`info <db> statistics` of the k = 18 database (the reference
+    allocator's "buckets" line dropped, as tests/test_golden_parity.py
+    drops it)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["info", dbfile_k18, "statistics"]) == 0
+    drop = ("buckets ",)
+    assert [l for l in _strip(buf.getvalue()) if not l.startswith(drop)] == \
+        [l for l in _golden("k18_info_stats.txt") if not l.startswith(drop)]
+
+
+def test_k18_databases_load_across_packages(dbfile_k18, tmp_path):
+    """The port's k = 18 database equals metacache_tpu's build of the
+    same genomes (u64 features), and each package loads the other's."""
+    import jax
+    from metacache_tpu_torch.db.database import Database as TorchDatabase
+    ref_path = str(tmp_path / "ref18")
+    # JAX's 64-bit mode on for this block only: its build and load then
+    # find it on and leave the global switch alone
+    with jax.enable_x64(True):
+        build_database(BuildOptions(
+            infiles=[f"{DATA}/genomes.fa"], taxonomy_dir=f"{DATA}/taxonomy",
+            sketching=SketchingOptions(kmerlen=18))).save(ref_path)
+        ref_in_jax = Database.load(dbfile_k18)
+    for a, b in ((TorchDatabase.load(dbfile_k18), Database.load(ref_path)),
+                 (TorchDatabase.load(ref_path), ref_in_jax)):
+        assert a.sketching.kmerlen == b.sketching.kmerlen == 18
+        assert a.parts[0].unique_features.dtype == np.uint64
+        for name in ("unique_features", "offsets", "locations"):
+            np.testing.assert_array_equal(getattr(a.parts[0], name),
+                                          getattr(b.parts[0], name),
+                                          err_msg=name)
+
+
+def test_k18_staging_where_jax_takes_the_csr_probe(dbfile_k18, monkeypatch):
+    """u64 features never stage as host rows: MC_DEVICE_LAYOUT=0, where
+    JAX's runner takes its CSR probe (runner.py:530-540), raises naming
+    the CSR layout (A10)."""
+    from metacache_tpu_torch.classify.options import QueryOptions
+    from metacache_tpu_torch.classify.runner import QueryRunner
+    from metacache_tpu_torch.db.database import Database as TorchDatabase
+    monkeypatch.setenv("MC_DEVICE_LAYOUT", "0")
+    with pytest.raises(NotImplementedError, match="A10"):
+        QueryRunner(TorchDatabase.load(dbfile_k18), QueryOptions())
+
+
+# ------------------------------ -cov-percentile, -align, interactive mode
+def test_covpct_golden(dbfile):
+    """-cov-percentile 50 (tests/test_golden_parity.py:220-224): the
+    mappings are saved, targets below the coverage percentile dropped,
+    then every read classified again from its remaining candidates."""
+    ours = _query(dbfile, [f"{DATA}/reads_single.fa", "-cov-percentile",
+                           "50", "-precision", "-ground-truth", "-tophits"])
+    assert ours == _golden("covpct.txt")
+
+
+_ALIGN_BLOCK = ("#   score", "#   query", "#   target")
+
+
+def test_align_golden(dbfile):
+    """-align as tests/test_golden_parity.py:176-217 checks it: every line
+    but the alignment blocks equals the golden (whose blocks the
+    reference binary computes against the wrong record), and the blocks
+    align each classified read against its true genome with a positive
+    score; the whole output equals metacache_tpu's, line for line."""
+    import re
+    from metacache_tpu.cli.main import main as jax_main
+    args = ["query", dbfile, f"{DATA}/reads_single.fa", "-align", "-tophits"]
+    outs = []
+    for cli in (main, jax_main):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli(args) == 0
+        outs.append(buf.getvalue().replace(DATA, "DATA"))
+    ours = _strip(outs[0])
+    assert ours == _strip(outs[1])
+    assert [l for l in ours if not l.startswith(_ALIGN_BLOCK)] == \
+        [l for l in _golden("align.txt") if not l.startswith(_ALIGN_BLOCK)]
+    mapped = [l for l in ours if not l.startswith("#") and "\t|\t" in l]
+    scores = [l for l in ours if l.startswith("#   score")]
+    assert len(scores) == len(mapped) > 0
+    genomes = [h.split()[0][1:] for h in open(f"{DATA}/genomes.fa")
+               if h.startswith(">")]
+    for row, sl in zip(mapped, scores):
+        m = re.match(r"#   score  (\d+)  aligned to (\S+) #(\d+) "
+                     r"in range \[(\d+),(\d+)\]", sl)
+        assert m, sl
+        assert m.group(2) == "DATA/genomes.fa"
+        assert genomes[int(m.group(3)) - 1] == row.split("_r")[0]
+        assert int(m.group(1)) > 50
+
+
+def test_align_without_the_source_file_skips_the_display(tmp_path):
+    """The subject is re-read from the target's source file at query
+    time; where that file is gone, the lines carry no alignment block
+    and the query still classifies (a warning on stderr)."""
+    import shutil
+    fa = tmp_path / "genomes.fa"
+    shutil.copy(f"{DATA}/genomes.fa", fa)
+    db = str(tmp_path / "db")
+    assert main(["build", db, str(fa), "-taxonomy", f"{DATA}/taxonomy"]) == 0
+    fa.unlink()
+    ours = _query(db, [f"{DATA}/reads_single.fa", "-align", "-tophits"])
+    assert not [l for l in ours if l.startswith(_ALIGN_BLOCK)]
+    assert [l for l in ours if "\t|\t" in l]
+
+
+def _repl(db, lines):
+    """The query mode without read files, fed ``lines`` on stdin."""
+    import sys
+    buf = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sys, "stdin", io.StringIO(lines))
+        with contextlib.redirect_stdout(buf):
+            assert main(["query", db]) == 0
+    return buf.getvalue()
+
+
+def test_repl_golden(dbfile):
+    """The interactive mode (tests/test_golden_parity.py:256-273): options
+    and a read file on a stdin line."""
+    out = _repl(dbfile, f"{DATA}/reads_single.fa -tophits -no-summary\n")
+
+    def rows(lines):
+        return [l for l in lines if "\t|\t" in l or
+                l.startswith("# TABLE_LAYOUT")]
+    assert rows(_strip(out)) == rows(_golden("repl.txt"))
+
+
+def test_formatting_matrix_144_through_the_repl(dbfile):
+    """The reference run_tests' 144-combination formatting matrix driven
+    through the REPL, one stdin line a combination
+    (tests/test_golden_parity.py:412-436)."""
+    with open(os.path.join(DATA, "fmt_matrix.txt")) as f:
+        stdin = f.read().replace("tests/data/", f"{DATA}/")
+    ours = [l for l in _repl(dbfile, stdin).splitlines() if "NC_" in l]
+    with open(os.path.join(GOLD, "fmt_matrix.txt")) as f:
+        want = f.read().splitlines()
+    assert len(ours) == len(want)
+    for i, (a, b) in enumerate(zip(ours, want)):
+        assert a == b, f"line {i} (combination ~{i // 200})"
+
+
+def test_repl_keeps_running_after_a_bad_line(dbfile, capsys):
+    """A line that fails (a missing file) reports the error and the
+    session goes on; `:help` prints the options."""
+    out = _repl(dbfile, f":help\n{DATA}/missing.fa\n"
+                        f"{DATA}/reads_single.fa -tophits\n")
+    assert [l for l in _strip(out) if "\t|\t" in l]
+    err = capsys.readouterr().err
+    assert "query mode options" in err and "error:" in err
+
+
+# ---------------------------------- the non-fused batch within free memory
+@pytest.mark.parametrize("flags", [["-lowest", "species"],
+                                   ["-allhits", "-tophits"]])
+def test_nonfused_batch_splits_into_launches_that_fit(dbfile, monkeypatch,
+                                                      flags):
+    """A per-read batch bound for the non-fused result path goes in
+    launches of as many rows as the free device memory holds: with room
+    for 8 rows a launch, the fixture's 200 reads take at least 2 launches
+    and give the lines of one launch (per-hit lists included); with room
+    for less than a row, MemoryError names the numbers."""
+    from metacache_tpu_torch.classify import runner as R
+    launches = []
+    real = R.QueryRunner._launch_rows
+
+    def spy(self, *a, **k):
+        before = self.row_launches
+        out = real(self, *a, **k)
+        launches.append(self.row_launches - before)
+        return out
+    monkeypatch.setattr(R.QueryRunner, "_launch_rows", spy)
+    args = [f"{DATA}/reads_single.fa"] + flags
+    whole = _query(dbfile, args)
+    assert launches == [1]
+    slots = 16 * 2                             # the fixture's spf is 2
+    monkeypatch.setattr(R, "free_bytes",
+                        lambda device: 8 * slots * R.NONFUSED_BYTES_A_SLOT)
+    launches.clear()
+    assert _query(dbfile, args) == whole
+    assert launches and launches[0] >= 2
+    monkeypatch.setattr(R, "free_bytes", lambda device: 100)
+    with pytest.raises(MemoryError, match="100 bytes are free"):
+        _query(dbfile, args)
 
 
 def test_cpu_needs_explicit_opt_in(monkeypatch):

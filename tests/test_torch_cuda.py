@@ -5,8 +5,10 @@ the fixture against the reference goldens through the kernels, with
 packed and with unpacked slots, through the two-tier layout with
 escalation, the classed cells and the pair-packed rows probed by B9, on
 paired-end reads and on a database of two parts, and on a winlen-255
-database through B2 against the CPU run; the multi-part step on random
-tables against the same step on the CPU; tolerance 0.
+database through B2 against the CPU run; a k = 18 database through the
+64-bit sketch kernel against the reference's k18 goldens; a non-fused
+batch split into launches by the free memory; the multi-part step on
+random tables against the same step on the CPU; tolerance 0.
 
 Needs an NVIDIA GPU (marker `cuda`; skipped without one). Imports no
 JAX, so it also runs on a GPU host without JAX:
@@ -343,6 +345,50 @@ def test_long_sketch_kernel_matches_plain(cuda, w, k):
     assert torch.equal(S.sketch_windows(odd, v, k, 16), want)
 
 
+@pytest.mark.parametrize("k", [17, 18, 24, 31, 32])
+@pytest.mark.parametrize("w", [96, 127, 128, 255])
+def test_sketch64_kernel_matches_plain(cuda, w, k):
+    """The 64-bit sketch kernel (k > 16) against its plain version, bit
+    for bit: coded rows of w with ambiguous codes and runs, repeated
+    windows, valid lengths below k, at k, past w and random, s = 16, 8
+    and 128; rows read in place from an odd address; and at w <= 128 the
+    packed rows of the same windows (ambiguous codes made 2), which it
+    reads itself."""
+    rng = np.random.default_rng(w * 40 + k)
+    n = 4099
+    codes = rng.integers(0, 4, (n, w), dtype=np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    codes[3::101, 30:80] = 4
+    codes[4::103] = 4
+    codes[5::107] = np.tile(np.array([0, 1, 2, 3], np.uint8), w)[:w]
+    valid = rng.integers(0, w + 1, n).astype(np.int32)
+    valid[::7] = w
+    valid[1::11] = k - 1
+    valid[2::13] = k
+    valid[6::17] = w + 40
+    c = torch.from_numpy(codes).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    before = kernels.SKETCH64.launches
+    for s in (16, 8, 128):
+        got = S.sketch_windows(c, v, k, s)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64
+        assert torch.equal(got, S.sketch_windows64_plain(c, v, k, s))
+    assert kernels.SKETCH64.launches == before + 3
+    odd = torch.cat([c[:, :1], c], dim=1)[:, 1:]
+    assert odd.data_ptr() % 2 == 1
+    assert torch.equal(S.sketch_windows(odd, v, k, 16),
+                       S.sketch_windows64_plain(c, v, k, 16))
+    if w <= 128:
+        clean = np.where(codes < 4, codes, 2).astype(np.uint8)
+        wp = w // 4 * 4
+        pk = torch.from_numpy(pack_2bit(clean[:, :wp])).to(cuda)
+        for s in (16, 128):
+            got = S.sketch_windows_packed(pk, v, k, s)
+            assert torch.equal(got, S.sketch_windows64_plain(
+                S.unpack_2bit(pk), v, k, s))
+
+
 def _alternate(key, r):
     """(B, L) keys as the probe emits them for alt_runs = r: sorted runs
     of r lanes, odd runs reversed."""
@@ -577,6 +623,101 @@ def test_fixture_query_on_the_card_matches_golden(cuda, tmp_path,
                 if not any(d in l for d in drop)]
     with open(os.path.join(DATA, "golden", "fmt_0.txt")) as f:
         assert strip(buf.getvalue()) == strip(f.read())
+
+
+def _card_query(db, args):
+    drop = ("# time:", "# speed:", "threads", DATA, "/tmp")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["query", db] + args) == 0
+    return [l for l in buf.getvalue().splitlines()
+            if not any(d in l for d in drop)]
+
+
+def _golden(name):
+    drop = ("# time:", "# speed:", "threads", DATA, "/tmp")
+    with open(os.path.join(DATA, "golden", name)) as f:
+        return [l for l in f.read().splitlines()
+                if not any(d in l for d in drop)]
+
+
+def test_fixture_k18_on_the_card_matches_golden(cuda, tmp_path,
+                                                monkeypatch):
+    """A k = 18 database (64-bit features) built and queried on the card:
+    the 64-bit sketch kernel on coded windows, on the summary path's
+    packed rows and in the build; the reference's k18 goldens, and the
+    -no-map summary equal to the per-read one."""
+    monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+    db = str(tmp_path / "db18")
+    kernels.reset_counts()
+    assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
+                 f"{DATA}/taxonomy", "-kmerlen", "18"]) == 0
+    assert kernels.SKETCH64.launches > 0 and kernels.SKETCH.launches == 0
+    for gold, args in (
+            ("k18_single.txt", ["reads_single.fa", "-mapped-only",
+                                "-precision", "-ground-truth", "-tophits"]),
+            ("k18_long.txt", ["reads_long.fa", "-precision",
+                              "-ground-truth", "-tophits"]),
+            ("k18_pairfiles.txt", ["reads_pair1.fa", "reads_pair2.fa",
+                                   "-pairfiles", "-precision",
+                                   "-tophits"])):
+        args = [f"{DATA}/{a}" if a.startswith("reads_") else a for a in args]
+        assert _card_query(db, args) == _golden(gold), gold
+
+    def stats(lines):
+        i = next(j for j, l in enumerate(lines) if "queries:" in l)
+        return lines[i:]
+    before = kernels.SKETCH64.launches
+    summary = _card_query(db, [f"{DATA}/reads_single.fa", "-no-map"])
+    assert kernels.SKETCH64.launches > before
+    assert stats(summary) == stats(_card_query(
+        db, [f"{DATA}/reads_single.fa"]))
+
+
+def _split_on_the_card(tmp_path, monkeypatch, flags):
+    """The fixture's reads with ``flags`` (the non-fused result path) in
+    one launch, then with free memory for 8 rows a launch: -> (the lines
+    of both, the second query's launches)."""
+    from metacache_tpu_torch.classify import runner as R
+    monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+    db = str(tmp_path / "db")
+    assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
+                 f"{DATA}/taxonomy"]) == 0
+    launches = []
+    real = R.QueryRunner._launch_rows
+
+    def spy(self, *a, **k):
+        before = self.row_launches
+        out = real(self, *a, **k)
+        launches.append(self.row_launches - before)
+        return out
+    monkeypatch.setattr(R.QueryRunner, "_launch_rows", spy)
+    args = [f"{DATA}/reads_single.fa"] + flags
+    whole = _card_query(db, args)
+    assert launches == [1]
+    monkeypatch.setattr(R, "free_bytes",
+                        lambda device: 8 * 32 * R.NONFUSED_BYTES_A_SLOT)
+    launches.clear()
+    return whole, _card_query(db, args), launches
+
+
+def test_nonfused_batch_split_on_the_card(cuda, tmp_path, monkeypatch):
+    """A -lowest species batch (the non-fused result path) with free
+    memory for 8 rows a launch, on the card: at least 2 launches, the
+    lines of the batch in one launch."""
+    whole, split, launches = _split_on_the_card(tmp_path, monkeypatch,
+                                                ["-lowest", "species"])
+    assert split == whole == _golden("fmt_14.txt")
+    assert launches[0] >= 2
+
+
+def test_nonfused_allhits_split_on_the_card(cuda, tmp_path, monkeypatch):
+    """-allhits -tophits in launches of at most 8 rows on the card, each
+    launch's per-hit lists moved to the host as it ends: at least 2
+    launches, the lines (every hit included) of one launch."""
+    whole, split, launches = _split_on_the_card(tmp_path, monkeypatch,
+                                                ["-allhits", "-tophits"])
+    assert split == whole and launches[0] >= 2
 
 
 @pytest.mark.parametrize("setting", [None, "sort", "extract"])

@@ -249,9 +249,18 @@ def test_build_query_at_winlen_255_equals_build_then_query(db255, reads250):
         _from_mappings(_run(main, ["query", db255, reads250]))
 
 
-def test_build_query_without_reads_names_the_interactive_mode():
-    with pytest.raises(NotImplementedError, match="A7"):
-        main(["build+query", f"{DATA}/genomes.fa"] + TAX)
+def test_build_query_without_reads_enters_the_interactive_mode(monkeypatch):
+    """`build+query` without `-query` files builds, then reads query lines
+    from stdin (the REPL): one line gives the lines of the same query
+    given on the command line; the empty line ends the session."""
+    import sys
+    monkeypatch.setattr(sys, "stdin", io.StringIO(
+        f"{DATA}/reads_single.fa -tophits\n\n{DATA}/reads_long.fa\n"))
+    ours = _run(main, ["build+query", f"{DATA}/genomes.fa"] + TAX)
+    want = _run(main, ["build+query", f"{DATA}/genomes.fa"] + TAX +
+                ["-query", f"{DATA}/reads_single.fa", "-tophits"])
+    assert _from_mappings(ours) == _from_mappings(want)
+    assert any("\t|\t" in l for l in ours)
 
 
 @pytest.mark.parametrize("winlen", ["127", "255"])

@@ -1,0 +1,464 @@
+"""metacache_tpu_torch's 64-bit features (k 17..32) against metacache_tpu,
+with inputs made from a numpy seed, bit for bit: the plain u64 sketch
+(the 64-bit sketch kernel's plain version), the u64 bucket-row index and
+its probe, the u64 device layout (dense and two-tier rows with two meta
+lanes) and the row steps on the wide layout tags: the per-read step, the
+scan, and the escalation's head-only phase 1 and full-depth redo, in all
+QueryResult fields.
+
+JAX's 64-bit types are on only inside ``with jax.enable_x64(True):``, so
+that no other test on the same worker sees them."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from metacache_tpu.ops import probe as jprobe
+from metacache_tpu.ops import rows as jrows
+from metacache_tpu.ops import table_device as jtd
+from metacache_tpu.ops.sketch_jax import sketch_windows as jax_sketch
+from metacache_tpu.ops.table import FeatureTable as JFeatureTable
+from metacache_tpu_torch.db.state import tables_from_device
+from metacache_tpu_torch.ops import probe as tprobe
+from metacache_tpu_torch.ops import rows as trows
+from metacache_tpu_torch.ops import sketch as S
+from metacache_tpu_torch.ops import table_device as ttd
+from metacache_tpu_torch.ops.table import pack_locations, unpack_locations
+
+torch.set_num_threads(2)
+ARGS = (1, 0.5, 19, 0)    # hits_min, hits_diff, highest rank, merge rank
+NTGT = 24
+CPU = torch.device("cpu")
+
+
+def _jax_sketch64(codes, valid, k, s=16):
+    with jax.enable_x64(True):
+        out = jax_sketch(jnp.asarray(codes), jnp.asarray(valid), k=k,
+                         sketchlen=s)
+        return np.asarray(out).view(np.int64)
+
+
+# ------------------------------------------------------------- sketch
+@pytest.mark.parametrize("w", [96, 127, 128, 255])
+@pytest.mark.parametrize("k", [17, 18, 24, 31, 32])
+def test_sketch64_plain_matches_jax(k, w):
+    """Windows with ambiguous codes and runs of them, repeated windows,
+    valid lengths below k, at k, at and past w, and random; s = 16, and
+    128 at w = 255 (JAX's sketcher takes s up to w - k + 1). The packed
+    infeed (no ambiguous code) through sketch_windows_packed equals
+    JAX's sketch of the unpacked codes."""
+    rng = np.random.default_rng(k * 1000 + w)
+    n = 96
+    codes = rng.integers(0, 4, (n, w), dtype=np.uint8)
+    codes[rng.random(codes.shape) < 0.02] = 4
+    codes[3::13, 10:50] = 4
+    codes[4] = 4
+    codes[5] = np.tile(np.array([0, 1, 2, 3], np.uint8), w)[:w]
+    valid = rng.integers(0, w + 1, n).astype(np.int32)
+    valid[::7] = w
+    valid[1::11] = k - 1
+    valid[2::13] = k
+    valid[6] = w + 30
+    valid[8] = 0
+    for s in (16, 128) if w == 255 else (16,):
+        want = _jax_sketch64(codes, valid, k, s)
+        got = S.sketch_windows(torch.from_numpy(codes),
+                               torch.from_numpy(valid), k, s)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+    if w <= 128:
+        clean = np.where(codes < 4, codes, 1).astype(np.uint8)[:, :w // 4 * 4]
+        pk = np.ascontiguousarray(clean[:, 0::4] | (clean[:, 1::4] << 2) |
+                                  (clean[:, 2::4] << 4) |
+                                  (clean[:, 3::4] << 6))
+        got = S.sketch_windows_packed(torch.from_numpy(pk),
+                                      torch.from_numpy(valid), k, 16)
+        np.testing.assert_array_equal(got.numpy(),
+                                      _jax_sketch64(clean, valid, k))
+
+
+# ------------------------------------------------ bucket index + probe
+# the generator of tests/test_u64_layout.py:_u64_table (that module
+# switches JAX's 64-bit mode on for its whole process when imported)
+def _u64_table(rng, nfeat=3000, ntgt=48, deep_every=9, cap=254):
+    pool = rng.integers(0, 2**63, nfeat).astype(np.uint64) * 2 + 1
+    pool = np.unique(pool)
+    fs, ts, ws = [], [], []
+    for i, fv in enumerate(pool):
+        depth = 100 if i % deep_every == 0 else 4
+        for j in range(depth):
+            fs.append(fv)
+            ts.append((i + j) % ntgt)
+            ws.append(j % 40)
+    f = np.asarray(fs, np.uint64)
+    t = np.asarray(ts, np.uint32)
+    w = np.asarray(ws, np.uint32)
+    order = np.lexsort((w, t, f))
+    return JFeatureTable.build(f[order].copy(),
+                               pack_locations(t[order], w[order]),
+                               max_locations_per_feature=cap)
+
+
+@pytest.mark.parametrize("case", ["table", "bits12", "collision",
+                                  "wide-span"])
+def test_bucket_index64_and_probe_match_jax(case):
+    """make_bucket_index64 equals JAX's (the rows and bits, or None for a
+    low-32 collision within a bucket), and probe_bucket64 finds every
+    stored feature and equals JAX's row ids and found flags on stored
+    features, misses and the sentinel."""
+    rng = np.random.default_rng(7)
+    bits = None
+    if case == "table":
+        feats = _u64_table(rng).unique_features
+    elif case == "bits12":
+        feats, bits = _u64_table(rng, nfeat=500).unique_features, 12
+    elif case == "collision":
+        feats, bits = np.sort(np.asarray(
+            [0x1234567800000001, 0x123456F800000001, 0x9000000000000005],
+            np.uint64)), 12
+    else:
+        # 40 features in one 12-bit bucket: the index widens to 1 + 64
+        feats = np.sort(np.concatenate([
+            (np.uint64(0xABC) << np.uint64(52)) +
+            rng.integers(0, 2**40, 40).astype(np.uint64),
+            rng.integers(0, 2**63, 200).astype(np.uint64)]))
+        feats, bits = np.unique(feats), 12
+    want = jprobe.make_bucket_index64(feats, bits)
+    got = tprobe.make_bucket_index64(feats, bits)
+    if case == "collision":
+        assert want is None and got is None
+        return
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    q = np.concatenate([feats[rng.integers(0, len(feats), 64)],
+                        rng.integers(0, 2**63, 32).astype(np.uint64) * 2,
+                        np.asarray([2**64 - 1], np.uint64)])
+    with jax.enable_x64(True):
+        ji, jf = jprobe.probe_bucket64(jnp.asarray(q),
+                                       jnp.asarray(want[0]), want[1])
+        ji, jf = np.asarray(ji), np.asarray(jf)
+    ti, tf = tprobe.probe_bucket64(torch.from_numpy(q.view(np.int64)),
+                                   torch.from_numpy(got[0]), got[1])
+    np.testing.assert_array_equal(tf.numpy(), jf)
+    np.testing.assert_array_equal(ti.numpy()[jf], ji[jf])
+    assert jf[:64].all() and not jf[-1]
+    np.testing.assert_array_equal(feats[ti.numpy()[:64]], q[:64])
+
+
+# ------------------------------------------------------ device layout
+def _index_bytes(ft):
+    """Bytes of the u64 bucket index, which the port counts in its
+    budget beside the rows (JAX counts the rows only)."""
+    return tprobe.make_bucket_index64(ft.unique_features)[0].nbytes
+
+
+def _layouts(ft, budget):
+    """Both packages' layouts at a budget for the rows: the port's
+    budget adds the bucket index's bytes."""
+    ltgt, lwin = unpack_locations(ft.locations)
+    got = ttd.device_layout_from_csr(ft.unique_features, ft.offsets, ltgt,
+                                     lwin, device=CPU,
+                                     budget_bytes=budget + _index_bytes(ft))
+    with jax.enable_x64(True):
+        want = jtd.device_layout_from_csr(ft.unique_features, ft.offsets,
+                                          ltgt, lwin, budget_bytes=budget,
+                                          nch=4)
+        want = want._replace(**{f: np.asarray(getattr(want, f)) for f in
+                                ("uniq", "offsets", "head", "ovf", "brows")})
+    return got, want
+
+
+@pytest.mark.parametrize("budget,dense", [(1 << 40, True), (3 << 19, False)])
+def test_u64_device_layout_matches_jax(budget, dense):
+    """device_layout_from_csr on u64 features: the same arrays as JAX's
+    (uniq as int64 bits, offsets, head rows with [flo, fhi] meta, overflow
+    rows, the host-built bucket index) and the same layout choices, at a
+    budget that holds the dense rows and one that takes two-tier rows."""
+    ft = _u64_table(np.random.default_rng(71))
+    got, want = _layouts(ft, budget)
+    assert want.dense == dense and got.dense == dense
+    for f in ("bbits", "nf", "spf", "head_slots", "num_locations", "packed",
+              "ovf_packed", "slot_bits", "max_win", "classed"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.uniq.dtype == torch.int64
+    np.testing.assert_array_equal(got.uniq.numpy(), want.uniq.view(np.int64))
+    for f in ("offsets", "head", "ovf", "brows"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      getattr(want, f), err_msg=f)
+    t = tables_from_device(got, np.zeros((1, 21), np.int32),
+                           np.zeros(1, np.int32))
+    assert t.wide and t.dense == (
+        f"u64pk{got.slot_bits}" if dense else
+        ("u64_two_tier", got.head_slots, False, False, got.slot_bits))
+
+
+def test_u64_layout_budget_counts_the_bucket_index():
+    """The rows and the bucket index share the budget: the dense rows
+    stage where both fit, two-tier rows where the dense rows fit only
+    without the index, and no layout where the budget holds the index
+    alone (the runner then raises naming A10)."""
+    ft = _u64_table(np.random.default_rng(71))
+    ltgt, lwin = unpack_locations(ft.locations)
+    ib = _index_bytes(ft)
+    rows = ttd.dense_bytes(ft.num_features, ft.max_bucket_size, 1,
+                           wide=True)
+
+    def layout(budget):
+        return ttd.device_layout_from_csr(
+            ft.unique_features, ft.offsets, ltgt, lwin, device=CPU,
+            budget_bytes=budget)
+    dt = layout(rows + ib)
+    assert dt.dense and dt.layout_bytes == rows + ib == \
+        dt.head.numel() * 4 + 512 + dt.brows.numel() * 4
+    dt = layout(rows + ib - 1)
+    assert not dt.dense and dt.layout_bytes <= rows + ib - 1
+    with pytest.raises(MemoryError, match="budget"):
+        layout(ib)
+
+
+def test_u64_bucket_index_widens_past_a_collision():
+    """Two features of one 12-bit bucket with equal low 32 bits, apart in
+    the 13th bit: JAX's index refuses the table (its runner then takes
+    the CSR probe); the port's staging widens the index to 13 bits,
+    where they part, and probes both."""
+    f = np.asarray([0x1230000000000001, 0x1238000000000001,
+                    0x5000000000000007], np.uint64)
+    assert jprobe.make_bucket_index64(f) is None
+    assert tprobe.collision_free_bits64(f) == 13
+    dt = ttd.device_layout_from_csr(
+        f, np.arange(4, dtype=np.int64), np.arange(3, dtype=np.uint32),
+        np.zeros(3, np.uint32), device=CPU)
+    assert dt.bbits == 13
+    np.testing.assert_array_equal(
+        dt.brows.numpy(), tprobe.make_bucket_index64(f, 13)[0])
+    idx, found = tprobe.probe_bucket64(torch.from_numpy(f.view(np.int64)),
+                                       dt.brows, dt.bbits)
+    assert found.all() and idx.tolist() == [0, 1, 2]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_collision_free_bits64_is_the_least_width(seed):
+    """collision_free_bits64 against every width in turn: the least one
+    at which no two features share their top bits and low 32 bits (0
+    when all low 32 bits differ)."""
+    rng = np.random.default_rng(seed)
+    n = 300
+    hi = rng.integers(0, 2**int(rng.integers(4, 33)), n).astype(np.uint64)
+    f = np.unique((hi << np.uint64(32)) |
+                  rng.integers(0, 8, n).astype(np.uint64))
+    low = f & np.uint64(0xFFFFFFFF)
+
+    def collides(bits):
+        top = f >> np.uint64(64 - bits) if bits else np.zeros_like(f)
+        return len({(t, l) for t, l in zip(top.tolist(), low.tolist())}) \
+            < len(f)
+    want = next(b for b in range(65) if not collides(b))
+    assert tprobe.collision_free_bits64(f) == (want if collides(0) else 0)
+
+
+def test_u64_device_layout_refuses_what_jax_does_not_stage():
+    """Unpackable slots, and a low-32 collision within a bucket at every
+    index width, raise MemoryError, where JAX's runner falls back to its
+    CSR probe."""
+    f = np.asarray([1 << 40, (1 << 40) + 5], np.uint64)
+    offs = np.asarray([0, 1, 2], np.int64)
+    with pytest.raises(MemoryError, match="slot-packable"):
+        ttd.device_layout_from_csr(
+            f, offs, np.asarray([1, 2**20], np.uint32),
+            np.asarray([0, 2**14], np.uint32), device=CPU)
+    f = np.asarray([0x1234567800000001, 0x1234567900000001], np.uint64)
+    with pytest.raises(MemoryError, match="collision"):
+        ttd.device_layout_from_csr(
+            f, offs, np.zeros(2, np.uint32), np.zeros(2, np.uint32),
+            device=CPU)
+
+
+# ------------------------------------------------------ row steps
+@pytest.fixture(scope="module")
+def wide_case():
+    """K = 2 stacks of 32 reads of 100 bp (some shorter than k, one
+    empty), k = 18, s = 16, and a table of their features: each read's
+    features point at its own target plus 0-2 random locations, every
+    other read's at 100 (deeper than the two-tier head, 45); the dense and
+    the two-tier u64 layouts of both packages (the budget just below the
+    port's dense rows, whose 104 lanes JAX weighs as 128)."""
+    rng = np.random.default_rng(18)
+    K, B, W = 2, 32, 128
+    codes = np.full((K, B, 1, W), 4, np.uint8)
+    codes[..., :100] = rng.integers(0, 4, (K, B, 1, 100))
+    lens = np.full((K, B, 1), 100, np.int32)
+    lens[0, 3, 0] = 12
+    lens[1, 5, 0] = 0
+    codes[lens == 0] = 4
+    mwir = np.full((K, B), 2, np.int32)
+    feats = _jax_sketch64(codes.reshape(-1, W), lens.reshape(-1), 18) \
+        .view(np.uint64).reshape(K * B, 16)
+    fs, ts, ws = [], [], []
+    seen = set()
+    for r in range(K * B):
+        for f in np.unique(feats[r]):
+            if f == np.uint64(2**64 - 1) or int(f) in seen:
+                continue
+            seen.add(int(f))
+            extra = 99 if r % 2 == 0 else int(rng.integers(0, 3))
+            fs += [f] * (1 + extra)
+            ts += [r % NTGT] + rng.integers(0, NTGT, extra).tolist()
+            ws += [r % 5 + 3] + rng.integers(0, 40, extra).tolist()
+    f = np.asarray(fs, np.uint64)
+    t = np.asarray(ts, np.uint32)
+    w = np.asarray(ws, np.uint32)
+    order = np.lexsort((w, t, f))
+    ft = JFeatureTable.build(f[order].copy(),
+                             pack_locations(t[order], w[order]),
+                             max_locations_per_feature=254)
+    lin = np.zeros((NTGT, 21), np.int32)
+    lin[:, 0] = -np.arange(NTGT) - 1
+    lin[:, 4] = np.arange(NTGT) // 8 + 100
+    lin[:, 20] = 1
+    layouts = {}
+    for name, budget in (("dense", 1 << 40), ("two_tier", None)):
+        if budget is None:
+            nf_pad = len(ttd.device_layout_from_csr(
+                ft.unique_features, ft.offsets, *unpack_locations(
+                    ft.locations), device=CPU).uniq)
+            budget = ttd.dense_bytes(nf_pad, ft.max_bucket_size, 1,
+                                     wide=True) - 1
+        got, want = _layouts(ft, budget)
+        assert got.dense == want.dense == (name == "dense") and \
+            got.head_slots == want.head_slots
+        tables = tables_from_device(got, lin, lin[:, 0].copy())
+        tag = (f"u64pk{want.slot_bits}" if want.dense else
+               ("u64_two_tier", want.head_slots, want.packed,
+                want.ovf_packed, want.slot_bits))
+        jtab = (jnp.asarray(want.uniq), jnp.asarray(want.offsets),
+                jnp.asarray(want.head), jnp.asarray(want.ovf),
+                jnp.asarray(lin[:, 0].copy()), jnp.asarray(lin),
+                jnp.int32(ARGS[0]), jnp.float32(ARGS[1]),
+                jnp.int32(ARGS[2]), jnp.int32(ARGS[3]),
+                jnp.asarray(want.brows))
+        layouts[name] = (tables, jtab, dict(
+            slots_per_feature=want.spf, prefix_bits=want.bbits, dense=tag,
+            pack_bits=want.slot_bits))
+    return dict(codes=codes, lens=lens, mwir=mwir, layouts=layouts, K=K,
+                B=B)
+
+
+def _check_fields(got, want):
+    for nm in want._fields:
+        np.testing.assert_array_equal(getattr(got, nm).numpy(),
+                                      np.asarray(getattr(want, nm)),
+                                      err_msg=nm)
+
+
+@pytest.mark.parametrize("layout", ["dense", "two_tier"])
+@pytest.mark.parametrize("route", ["fused", "nonfused-allhits", "unpacked"])
+def test_wide_query_step_rows_matches_jax(wide_case, layout, route):
+    """query_step_rows on the u64 dense and two-tier rows, all nine
+    fields: the fused candidates (walk), the non-fused path with per-hit
+    lists and 8 candidates, and the slots decoded to (tgt, win)."""
+    d = wide_case
+    tables, jtab, jkw = d["layouts"][layout]
+    kw = dict(max_candidates=2, walk_elems=32, fast_top2=True,
+              fused_candidates=True, emit_hits=False,
+              pack_bits=jkw["pack_bits"])
+    if route == "nonfused-allhits":
+        kw.update(max_candidates=8, fast_top2=False, fused_candidates=False,
+                  emit_hits=True)
+    elif route == "unpacked":
+        kw.update(pack_bits=0)
+    codes, lens = d["codes"][0], d["lens"][0]
+    mwir = d["mwir"][0]
+    got = trows.query_step_rows(
+        torch.from_numpy(codes), torch.from_numpy(lens),
+        torch.from_numpy(mwir), tables, *ARGS, k=18, sketchlen=16,
+        windows_per_query=1, **kw)
+    with jax.enable_x64(True):
+        want = jrows.query_step_rows(
+            jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(mwir),
+            *jtab[:10], jtab[10], k=18, sketchlen=16, windows_per_query=1,
+            **{**jkw, **kw})
+        want = want._replace(**{f: np.asarray(getattr(want, f))
+                                for f in want._fields})
+    _check_fields(got, want)
+    assert (got.cls_tax.numpy() != 0).sum() > d["B"] // 2
+
+
+@pytest.mark.parametrize("infeed", ["coded", "packed"])
+@pytest.mark.parametrize("layout", ["dense", "two_tier"])
+def test_wide_scan_step_matches_jax(wide_case, layout, infeed):
+    """The summary scan over K stacks on the u64 rows (the runner's
+    packed infeed too, which the 64-bit sketch reads itself)."""
+    d = wide_case
+    tables, jtab, jkw = d["layouts"][layout]
+    codes = d["codes"]
+    if infeed == "packed":
+        c = np.where(codes < 4, codes, 0).astype(np.uint8)[..., :100]
+        codes = np.ascontiguousarray(
+            c[..., 0::4] | (c[..., 1::4] << 2) | (c[..., 2::4] << 4) |
+            (c[..., 3::4] << 6))
+    kw = dict(max_candidates=2, walk_elems=32, fast_top2=True,
+              pack_bits=jkw["pack_bits"], infeed_packed=infeed == "packed")
+    got = trows.query_step_rows_scan(
+        torch.from_numpy(codes), torch.from_numpy(d["lens"]),
+        torch.from_numpy(d["mwir"]), tables, *ARGS, k=18, sketchlen=16,
+        windows_per_query=1, **kw)
+    with jax.enable_x64(True):
+        want = np.asarray(jrows.query_step_rows_scan(
+            jnp.asarray(codes), jnp.asarray(d["lens"]),
+            jnp.asarray(d["mwir"]), *jtab, k=18, sketchlen=16,
+            windows_per_query=1, fused_candidates=True,
+            **{**jkw, **kw}))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() != 0).sum() > d["K"] * d["B"] // 2
+
+
+def test_wide_escalation_steps_match_jax(wide_case):
+    """Escalation phase 1 on the u64 two-tier rows (head rows, torch ops
+    as JAX's XLA path) and the redo of the flagged reads at full depth:
+    classified taxa, overflow bits, sketches and feature rows equal
+    JAX's, and their merge equals the full-depth scan."""
+    d = wide_case
+    tables, jtab, jkw = d["layouts"]["two_tier"]
+    K, B = d["K"], d["B"]
+    inputs = [torch.from_numpy(d[k]) for k in ("codes", "lens", "mwir")]
+    kw = dict(max_candidates=2, walk_elems=32, fast_top2=True,
+              pack_bits=jkw["pack_bits"])
+    cls1, over, fk, ik = trows.query_step_rows_scan_head(
+        *inputs, tables, *ARGS, k=18, sketchlen=16, **kw)
+    with jax.enable_x64(True):
+        jc, jo, jf, ji = (np.asarray(x) for x in
+                          jrows.query_step_rows_scan_head(
+            *(jnp.asarray(d[k]) for k in ("codes", "lens", "mwir")),
+            *jtab, k=18, sketchlen=16, prefetch=True, return_feats=True,
+            fused_candidates=True, **{**jkw, **kw}))
+    np.testing.assert_array_equal(cls1.numpy(), jc)
+    np.testing.assert_array_equal(over.numpy(), jo)
+    np.testing.assert_array_equal(fk.numpy(), jf.view(np.int64))
+    # a missing feature's row past the last real one: JAX keeps it, its
+    # gather clamps it; the port clamps first
+    nf = tables.num_features
+    np.testing.assert_array_equal(ik.numpy(), np.minimum(ji, nf - 1))
+    mask = (((over.numpy().reshape(-1)[:, None] >> np.arange(32)) & 1)
+            .astype(bool).reshape(K * B))
+    idxs = np.nonzero(mask)[0]
+    assert 0 < len(idxs) < K * B
+    sel = torch.from_numpy(idxs)
+    cls2 = trows.query_step_rows_redo_scan(
+        fk.reshape(-1, 16)[sel][None], ik.reshape(-1, 16)[sel][None],
+        inputs[2].reshape(-1)[sel][None], tables, *ARGS,
+        fused_candidates=True, **kw)
+    with jax.enable_x64(True):
+        jr = np.asarray(jrows.query_step_rows_redo_scan(
+            jnp.asarray(jf.reshape(-1, 16)[idxs][None]),
+            jnp.asarray(ji.reshape(-1, 16)[idxs][None]),
+            jnp.asarray(d["mwir"].reshape(-1)[idxs][None]), *jtab[:-1],
+            sketchlen=16, fused_candidates=True, **{**jkw, **kw}))
+    np.testing.assert_array_equal(cls2.numpy(), jr)
+    full = trows.query_step_rows_scan(
+        *inputs, tables, *ARGS, k=18, sketchlen=16, windows_per_query=1,
+        **kw).numpy().reshape(-1)
+    merged = cls1.numpy().reshape(-1).copy()
+    merged[idxs] = cls2.reshape(-1)
+    np.testing.assert_array_equal(merged, full)
