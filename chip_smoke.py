@@ -104,11 +104,15 @@ scan step compared with the plain path on CPU tensors of the same
 tables. The fused candidate kernels and the non-fused result path are
 timed against each other at the short-read widths (the JAX runner's
 FUSED_MIN_SLOTS crossover). B4's and B5's wide forms are held against
-their plain versions at the long-read path's widths.
+their plain versions at the long-read path's widths, on both of their
+routes (one thread block cluster a row up to 8 sort tiles, merge passes
+in device memory above), with the cluster kernel's resident clusters,
+registers and spills.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 It exits non-zero without a CUDA device. Its last stdout line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
+`--profile` adds torch.profiler traces.
 """
 from __future__ import annotations
 
@@ -672,17 +676,37 @@ def phase_parity(results):
 
 def phase_parity_wide(results, rng, dev):
     """B4's and B5's wide forms (rows past one block's shared memory)
-    against their plain versions, tolerance 0, at the long-read path's
-    shapes: packed rows of 65,536, 131,072 and 262,144 slots in runs of
-    256 (the probe's alternating runs at 256 slots a feature) with the
-    dedup sweep at 16, 32 and 48 (that path's ranges), walk 32 on
-    unsorted rows and dedup 6 on sorted rows (presorted = L2); pairs at
-    32,768 and 131,072, walk 32 and dedup 6 and 16; and rows of 2^20
-    where one target's hits pass 2^31 / L2 (the int64 keys). Each
-    kernels-line row is timed at the widest shape of the long-read
-    batches that take it."""
+    against their plain versions, tolerance 0, on both routes
+    (ops/candidates.py::wide_route: one cluster launch a row up to 8
+    sort tiles, merge passes in device memory above): the cluster
+    kernel's resident clusters of 2, 4 and 8 blocks, registers and local
+    (spill) bytes first; packed rows of 65,536, 131,072 and 262,144
+    slots (2, 4 and 8 tiles) in runs of 256 (the probe's alternating
+    runs at 256 slots a feature) with the dedup sweep at 16, 32 and 48
+    (the long-read path's ranges), walk 32 on unsorted rows and dedup 6
+    on sorted rows (presorted = L2), 524,288 slots (16 tiles, the merge
+    passes); pairs at 32,768, 65,536 and 131,072 (2, 4 and 8 tiles) and
+    262,144 (16), walk 32 and dedup 6 and 16; and rows of 2^20 where one
+    target's hits pass 2^31 / L2 (the int64 keys). Each kernels-line row
+    is timed at the widest shape of the long-read batches that take it;
+    every shape's device time (CUDA graph) and bound are printed."""
+    from metacache_tpu_torch import kernels
     from metacache_tpu_torch.ops import candidates as C
     r = 256
+    info = {}
+    for pairs in (False, True):
+        for nc in (2, 4, 8):
+            x = kernels.wide_cluster_info(pairs, nc)
+            if x["max_active_clusters"] < 1:
+                raise AssertionError(f"no cluster of {nc} blocks fits: {x}")
+            info[pairs, nc] = x
+    for pairs in (False, True):
+        x = info[pairs, 8]
+        say("wide-cluster-kernel", slots="pairs" if pairs else "packed",
+            max_active_clusters={nc: info[pairs, nc]["max_active_clusters"]
+                                 for nc in (2, 4, 8)},
+            registers=x["registers"], local_bytes=x["local_bytes"],
+            shared_bytes=x["shared_bytes"])
 
     def mwir(b, m):
         return torch.full((b,), m, dtype=torch.int32, device=dev)
@@ -698,18 +722,33 @@ def phase_parity_wide(results, rng, dev):
         win = rng.integers(0, 8929, (b, l2))
         tgt[:, :3000], win[:, :3000] = 7, rng.integers(40, 42, (b, 3000))
         return tgt, win
+
+    def timed(shapes, call, pairs):
+        """Each shape's device ms (kernel_ms) and bound (the kernels
+        line's byte and operation counts), by route."""
+        out = {}
+        for l2_, (args, b_) in sorted(shapes.items()):
+            tag = f"{C.wide_route(l2_, pairs)}_{b_}x{l2_}"
+            out[f"ms_{tag}"] = kernel_ms(lambda a=args: call(*a), reps=5)
+            out[f"bound_ms_{tag}"] = bound(
+                b_ * l2_ * (8 if pairs else 4) + b_ * 36,
+                sort_ops(b_, l2_, r, 2 if pairs else 1) +
+                b_ * l2_ * (10 if pairs else 8))[0]
+        return out
     errs, shapes = {}, {}
-    for b, f, m in ((512, 256, 16), (128, 512, 32), (64, 1024, 48)):
+    for b, f, m in ((512, 256, 16), (128, 512, 32), (64, 1024, 48),
+                    (32, 2048, 48)):
         pk = torch.from_numpy(alternating_runs(rng, b, f, r)).to(dev)
-        shapes[f * r] = (pk, mwir(b, m), m)
+        shapes[f * r] = ((pk, mwir(b, m), m), b)
+        route = C.wide_route(f * r, False)
         for kk in (2, 4):
             kw = dict(dedup_walk=m, max_candidates=kk, presorted=r)
             got = torch.stack(C.candidates_packed(pk, mwir(b, m), 15, **kw),
                               dim=2)
-            errs[f"{b}x{f * r}_dedup{m}_K{kk}"] = check_equal(
+            errs[f"{route}_{b}x{f * r}_dedup{m}_K{kk}"] = check_equal(
                 f"B4 wide {b}x{f * r} dedup {m} K={kk}", got,
                 plain(pk, mwir(b, m), **kw))
-    pk = shapes[1 << 16][0]
+    pk = shapes[1 << 16][0][0]
     for name, x, kw in (
             ("65536_unsorted_walk32", pk[:, torch.randperm(
                 1 << 16, device=dev)], dict(walk_elems=32)),
@@ -717,20 +756,20 @@ def phase_parity_wide(results, rng, dev):
              dict(dedup_walk=6, sorted_input=True))):
         got = torch.stack(C.candidates_packed(x, mwir(len(x), 6), 15, **kw),
                           dim=2)
-        errs[name] = check_equal(f"B4 wide {name}", got,
-                                 plain(x, mwir(len(x), 6), **kw))
+        errs[f"cluster_{name}"] = check_equal(f"B4 wide {name}", got,
+                                              plain(x, mwir(len(x), 6), **kw))
     t, w = deep(2, 1 << 20)
     dpk = torch.from_numpy(((t << 15) | w).astype(np.int32)).to(dev)
     got = torch.stack(C.candidates_packed(dpk, mwir(2, 4), 15, dedup_walk=6),
                       dim=2)
     want = plain(dpk, mwir(2, 4), dedup_walk=6)
-    errs["2x1048576_int64_keys"] = check_equal("B4 wide int64 keys", got,
-                                               want)
+    errs["passes_2x1048576_int64_keys"] = check_equal("B4 wide int64 keys",
+                                                      got, want)
     if int(want[0, 0, 1]) << 20 < 2**31:
         raise AssertionError("the int64-key case stays below 2^31")
     # the kernels line: the long-read path's widest wide-form batches
     # (rank-join takes the wider ones)
-    pk, mw, m = shapes[1 << 18]
+    (pk, mw, m), b = shapes[1 << 18]
     kw = dict(dedup_walk=m, max_candidates=2, presorted=r)
     ms = cuda_ms(lambda: C.candidates_packed(pk, mw, 15, **kw))
     pms = cuda_ms(lambda: plain(pk, mw, **kw))
@@ -743,32 +782,39 @@ def phase_parity_wide(results, rng, dev):
         nbytes=pk.numel() * 4 + b * 4 + b * 2 * 16,
         nops=sort_ops(b, l2, r, 1) + pk.numel() * 8,
         shape=f"({b}, {l2}) slots, presorted=256, dedup {m}, K=2")
-    ms16 = {}
-    for l2_, (x, mw_, m_) in sorted(shapes.items()):
-        ms16[f"ms_{x.shape[0]}x{l2_}"] = cuda_ms(lambda x=x, mw_=mw_, m_=m_:
-            C.candidates_packed(x, mw_, 15, dedup_walk=m_, max_candidates=2,
-                                presorted=r))
-        ms16[f"bound_ms_{x.shape[0]}x{l2_}"] = bound(
-            x.numel() * 4 + x.shape[0] * 36,
-            sort_ops(x.shape[0], l2_, r, 1) + x.numel() * 8)[0]
+    per = timed(shapes, lambda x, mw_, m_: C.candidates_packed(
+        x, mw_, 15, dedup_walk=m_, max_candidates=2, presorted=r), False)
+    # the same rows sorted (presorted = L2): the load and the sweep alone
+    srt = torch.sort(pk, dim=1).values
+    per["ms_cluster_64x262144_sorted_input"] = kernel_ms(
+        lambda: C.candidates_packed(srt, mw, 15, dedup_walk=m,
+                                    max_candidates=2, sorted_input=True),
+        reps=5)
+    del srt
+    (pk, mw, m), _b = shapes[1 << 19]
+    host_passes = host_us(lambda: C.candidates_packed(
+        pk, mw, 15, dedup_walk=m, max_candidates=2, presorted=r), reps=20)
     say("parity-B4-wide", tolerance=0, max_abs_err=max(errs.values()),
         cases=errs, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
-        host_us_per_call=hus, kernel_device_ms=dms, shape=(b, l2), **ms16)
+        host_us_per_call=hus, kernel_device_ms=dms, shape=(b, l2),
+        route=C.wide_route(l2, False),
+        host_us_per_call_passes_32x524288=host_passes, **per)
     del shapes, pk, dpk
 
     errs = {}
     pairs = {}
-    for b, f in ((512, 128), (64, 512)):
+    for b, f in ((512, 128), (128, 256), (64, 512), (32, 1024)):
         tt, ww = (torch.from_numpy(x).to(dev)
                   for x in alternating_pairs(rng, b, f, r))
-        pairs[f * r] = (tt, ww)
+        pairs[f * r] = ((tt, ww, mwir(b, 6)), b)
+        route = C.wide_route(f * r, True)
         for kk, kw in ((2, dict(walk_elems=32)), (4, dict(dedup_walk=6)),
                        (2, dict(dedup_walk=16))):
             got = torch.stack(C.candidates_unpacked(
                 tt, ww, mwir(b, 6), max_candidates=kk, presorted=r, **kw),
                 dim=2)
             (sweep, e), = kw.items()
-            errs[f"{b}x{f * r}_{sweep}{e}_K{kk}"] = check_equal(
+            errs[f"{route}_{b}x{f * r}_{sweep}{e}_K{kk}"] = check_equal(
                 f"B5 wide {b}x{f * r} {sweep} {e} K={kk}", got,
                 C.candidates_unpacked_plain(tt, ww, mwir(b, 6),
                                             max_candidates=kk, **kw))
@@ -776,12 +822,11 @@ def phase_parity_wide(results, rng, dev):
             for x in deep(2, 1 << 20))
     got = torch.stack(C.candidates_unpacked(t, w, mwir(2, 4), dedup_walk=6),
                       dim=2)
-    errs["2x1048576_int64_keys"] = check_equal(
+    errs["passes_2x1048576_int64_keys"] = check_equal(
         "B5 wide int64 keys", got,
         C.candidates_unpacked_plain(t, w, mwir(2, 4), dedup_walk=6))
-    tt, ww = pairs[1 << 15]
+    (tt, ww, mw), b = pairs[1 << 15]
     b, l2 = tt.shape
-    mw = mwir(b, 6)
     kw = dict(dedup_walk=6, max_candidates=2, presorted=r)
     ms = cuda_ms(lambda: C.candidates_unpacked(tt, ww, mw, **kw))
     pms = cuda_ms(lambda: C.candidates_unpacked_plain(
@@ -794,9 +839,12 @@ def phase_parity_wide(results, rng, dev):
         nbytes=tt.numel() * 8 + b * 4 + b * 2 * 16,
         nops=sort_ops(b, l2, r, 2) + tt.numel() * (6 + 4),
         shape=f"({b}, {l2}) (tgt, win) slots, presorted=256, dedup 6, K=2")
+    per = timed(pairs, lambda x, y, mw_: C.candidates_unpacked(
+        x, y, mw_, **kw), True)
     say("parity-B5-wide", tolerance=0, max_abs_err=max(errs.values()),
         cases=errs, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
-        host_us_per_call=hus, kernel_device_ms=dms, shape=(b, l2))
+        host_us_per_call=hus, kernel_device_ms=dms, shape=(b, l2),
+        route=C.wide_route(l2, True), **per)
     del pairs, tt, ww, t, w
     torch.cuda.empty_cache()
 
@@ -1544,11 +1592,21 @@ def path_of(*names):
         k: batches if k in names else 0 for k in kernels.ALL}
 
 
-def phase_profile(tmp, name, runner, tag="", reads="reads.fa"):
+# the kernels of B4's and B5's wide form (csrc/candidates_wide.cu): the
+# cluster route's one kernel and the multi-pass route's
+WIDE_KERNELS = ("wide_cluster_kernel", "tile_sort_kernel",
+                "merge_pass_kernel", "run_count_kernel", "tile_scan_kernel",
+                "compact_kernel", "sweep_kernel", "pick_kernel",
+                "copy_keys_kernel")
+
+
+def phase_profile(tmp, name, runner, tag="", reads="reads.fa",
+                  share=None):
     """Trace a second, warm query of the same reads (the summary query's
     unless ``reads`` names another file, or the two files of pairs):
     device time by kernel and the device's busy share of the query's
-    wall time."""
+    wall time; with ``share`` (kernel names) also those kernels' device
+    seconds and their share of the device time."""
     from torch.profiler import ProfilerActivity, profile
     from metacache_tpu_torch.classify.options import ClassificationResults
     from metacache_tpu_torch.classify.runner import map_queries_to_targets
@@ -1565,9 +1623,16 @@ def phase_profile(tmp, name, runner, tag="", reads="reads.fa"):
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in evs)
+    part = {}
+    if share:
+        mine = [e for e in evs if any(k in e.key for k in share)]
+        us = sum(e.self_device_time_total for e in mine)
+        part = dict(share_kernels_device_seconds=round(us / 1e6, 4),
+                    share_kernels_launches=sum(e.count for e in mine),
+                    share_of_device_time=round(us / max(busy_us, 1), 4))
     say(f"profile-{name}{tag}", wall_seconds=round(wall, 3),
         device_busy_seconds=round(busy_us / 1e6, 3),
-        device_idle_share=round(1 - busy_us / 1e6 / wall, 3))
+        device_idle_share=round(1 - busy_us / 1e6 / wall, 3), **part)
     evs.sort(key=lambda e: -e.self_device_time_total)
     for e in evs[:20]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
@@ -2258,7 +2323,8 @@ def run_long_reads(tmp, name, db, genomes, nreads, profile, narrow, wide):
         if not frac > 0.5:
             raise AssertionError(f"classified fraction {frac} too low")
         if profile and tag == "":
-            phase_profile(tmp, name, runner, "-long", reads="reads_long.fa")
+            phase_profile(tmp, name, runner, "-long", reads="reads_long.fa",
+                          share=WIDE_KERNELS)
         if tag == "":
             pred = {}
             for sigma in (0.7, 1.0, 1.5):

@@ -114,6 +114,8 @@ def _load():
                                                         i, i, i, i, i, p]
             lib.mc_candidates_wide_work.argtypes = [i64, i, i, i]
             lib.mc_candidates_wide_work.restype = ctypes.c_size_t
+            lib.mc_candidates_wide_cluster_info.argtypes = [i, i, i, p]
+            lib.mc_candidates_wide_cluster_info.restype = ctypes.c_int
             lib.mc_head_decode.argtypes = [p, i64, i, p, p, i64, i, i, i, p,
                                            p, p]
             lib.mc_full_decode.argtypes = [p, i64, i, p, i64, i, p, p, p,
@@ -225,6 +227,22 @@ def wide_work_bytes(b: int, l2: int, pairs: bool, kk: int) -> int:
     """Device bytes of the work space of B4's or B5's wide form
     (csrc/candidates_wide.cu) for (b, l2) rows and kk candidates."""
     return int(_load().mc_candidates_wide_work(b, l2, int(pairs), kk))
+
+
+def wide_cluster_info(pairs: bool, clusters: int, kk: int = 2) -> dict:
+    """The wide form's cluster kernel (csrc/candidates_wide.cu) for kk
+    candidates at ``clusters`` blocks a cluster: the clusters the card
+    can hold at once (cudaOccupancyMaxActiveClusters), registers and
+    local (spill) bytes a thread, shared bytes a block."""
+    info = (ctypes.c_int * 4)()
+    err = _load().mc_candidates_wide_cluster_info(int(pairs), clusters, kk,
+                                                  info)
+    if err != 0:
+        msg = _lib.mc_error_string(err).decode()
+        raise RuntimeError(f"mc_candidates_wide_cluster_info failed: CUDA "
+                           f"error {err} ({msg})")
+    return dict(max_active_clusters=info[0], registers=info[1],
+                local_bytes=info[2], shared_bytes=info[3])
 
 
 def reset_counts() -> None:

@@ -18,12 +18,15 @@ top-k with the target and window tests kept apart.
 
 Rows wider than one block's shared memory holds (MAX_CAND_L2 packed
 slots, MAX_UNPACKED_L2 pairs: long reads) take B4's and B5's wide form
-(csrc/candidates_wide.cu): tiles sorted in shared memory, merged in
-device memory, swept per tile with a top k per tile, then the row's top
-k from the tiles' picks; the same function, with int64 keys where the
-one-block kernels' int32 keys could overflow. The plain versions keep
-their keys in int64, which equals the int32 keys wherever those cannot
-overflow (L2 <= 32,768).
+(csrc/candidates_wide.cu): tiles of one block's rows sorted in shared
+memory, then, by the row's shape (``wide_route``), either one launch of
+a thread block cluster a row that merges and sweeps the tiles in
+distributed shared memory (up to MAX_CLUSTER tiles), or merge passes in
+device memory, a sweep per tile with a top k per tile and the row's top
+k from the tiles' picks (wider rows); the same function, with int64
+keys where the one-block kernels' int32 keys could overflow. The plain
+versions keep their keys in int64, which equals the int32 keys wherever
+those cannot overflow (L2 <= 32,768).
 
 CUDA tensors launch the kernels (csrc/candidates.cu,
 csrc/candidates_unpacked.cu, csrc/candidates_wide.cu); CPU tensors take
@@ -40,6 +43,7 @@ MAX_SORT_L2 = 32768
 MAX_CAND_L2 = 32768      # csrc/candidates.cu: one row array, u16 run starts
 MAX_UNPACKED_L2 = 16384   # csrc/candidates_unpacked.cu: 12.5 B/slot of smem
 MAX_WIDE_L2 = 1 << 24     # csrc/candidates_wide.cu: i32 lane numbers
+MAX_CLUSTER = 8           # csrc/candidates_wide.cu: tiles a cluster route row
 
 
 def padded_width(l: int) -> int:
@@ -86,16 +90,27 @@ def sort_packed(pk: torch.Tensor, presorted: int = 0) -> torch.Tensor:
     return out
 
 
+def wide_route(l2: int, pairs: bool) -> str:
+    """The route of B4's (packed) or B5's (pairs) wide form for rows of
+    l2 lanes, by shape alone (csrc/candidates_wide.cu::cluster_route):
+    "cluster" for rows of up to MAX_CLUSTER sort tiles (one cluster
+    launch, no work space), "passes" for wider ones."""
+    tile = MAX_UNPACKED_L2 if pairs else MAX_CAND_L2
+    if not tile < l2 <= MAX_WIDE_L2:
+        raise ValueError(f"rows of {l2} slots do not take the wide form")
+    return "cluster" if l2 // tile <= MAX_CLUSTER else "passes"
+
+
 def _wide(kernel, slots, mwir, l2: int, presorted: int, extra, walk: int,
           dedup_walk: int, kk: int) -> torch.Tensor:
     """B4's or B5's wide form on CUDA rows of l2 > one block's lanes:
     ``slots`` (pk,) or (tgt, win), ``extra`` the kernel's arguments after
     ``presorted`` and before the sweep's. -> (B, K, 4) int32."""
     b = slots[0].shape[0]
-    if l2 > MAX_WIDE_L2:
-        raise ValueError(f"rows of {l2} > {MAX_WIDE_L2} slots")
+    pairs = len(slots) == 2
+    route = wide_route(l2, pairs)
     # its tile sort takes the rows of the one-block kernels
-    tile = MAX_CAND_L2 if len(slots) == 1 else MAX_UNPACKED_L2
+    tile = MAX_UNPACKED_L2 if pairs else MAX_CAND_L2
     if presorted not in (0, l2) and presorted > tile // 2:
         raise ValueError(f"presorted={presorted} runs must fit half a "
                          f"sort tile of {tile} lanes")
@@ -103,12 +118,13 @@ def _wide(kernel, slots, mwir, l2: int, presorted: int, extra, walk: int,
     dev = slots[0].device
     res = torch.empty((b, kk, 4), dtype=torch.int32, device=dev)
     if b:
-        work = torch.empty(kernels.wide_work_bytes(b, l2, len(slots) == 2,
-                                                   kk),
-                           dtype=torch.uint8, device=dev)
+        work = None
+        if route == "passes":
+            work = torch.empty(kernels.wide_work_bytes(b, l2, pairs, kk),
+                               dtype=torch.uint8, device=dev)
         kernel(*(x.data_ptr() for x in slots), mwir.data_ptr(),
-               res.data_ptr(), work.data_ptr(), b, l2, presorted, *extra,
-               walk, dedup_walk, kk)
+               res.data_ptr(), 0 if work is None else work.data_ptr(), b,
+               l2, presorted, *extra, walk, dedup_walk, kk)
     return res
 
 

@@ -804,6 +804,324 @@ def test_wide_form_model_matches_plain(pairs, walk, dedup, mwir):
         _wide_model(keys, mw, pol, walk, dedup, 4, 64, 32), want)
 
 
+def _path_split(at, a0, run, diag):
+    """candidates_wide.cu::path_split: the keys of run a among the first
+    diag outputs of the merge of runs a (from lane a0) and b, by the
+    kernel's rounds: 32 lanes test the points lo + span * lane / 32 and
+    the first lane that finds the b key below the a key (f, 32 if none)
+    leaves the interval between the points of lanes f - 1 and f."""
+    b0 = a0 + run
+    lo, hi = max(0, diag - run), min(diag, run)
+    while lo < hi:
+        span = hi - lo
+        ms = [lo + ((span * lane) >> 5) for lane in range(32)]
+        f = next((lane for lane, m in enumerate(ms)
+                  if at(b0 + diag - 1 - m) < at(a0 + m)), 32)
+        nlo = lo + ((span * (f - 1)) >> 5) + 1 if f else lo
+        hi = hi if f == 32 else lo + ((span * f) >> 5)
+        lo = nlo
+    return lo
+
+
+@pytest.mark.parametrize("run", [1, 2, 3, 5, 31, 32, 33, 64, 100])
+def test_path_split_rounds_match_bisection(run):
+    """The kernel's 32-way rounds find the same merge-path split as a
+    bisection, at every diagonal of two sorted runs of ``run`` keys with
+    ties inside and across them, spans below, at and above 32."""
+    rng = np.random.default_rng(run)
+    for trial in range(4):
+        keys = np.concatenate([np.sort(rng.integers(0, 1 + run // 2 + trial,
+                                                    run))
+                               for _ in range(2)])
+        for diag in range(2 * run + 1):
+            lo, hi = max(0, diag - run), min(diag, run)
+            while lo < hi:
+                m = (lo + hi) >> 1
+                if keys[run + diag - 1 - m] < keys[m]:
+                    hi = m
+                else:
+                    lo = m + 1
+            assert _path_split(keys.__getitem__, 0, run, diag) == lo, \
+                (trial, diag)
+
+
+def _merge_staged(st, la, lb, d, e):
+    """candidates_wide.cu::merge_staged: outputs d .. d + e - 1 of the
+    merge of st[:la] and st[la:la + lb] (one spare key past them)."""
+    lo, hi = max(0, d - lb), min(d, la)
+    while lo < hi:
+        m = (lo + hi) >> 1
+        if st[la + d - 1 - m] < st[m]:
+            hi = m
+        else:
+            lo = m + 1
+    ia, ib = lo, d - lo
+    ka, kb = st[ia], st[la + ib]
+    out = []
+    for _ in range(e):
+        tb = ib < lb and (ia >= la or kb < ka)
+        out.append(kb if tb else ka)
+        ib, ia = ib + tb, ia + (not tb)
+        x = st[la + ib if tb else ia]
+        ka, kb = (ka, x) if tb else (x, kb)
+    return out
+
+
+def _cluster_merge(tiles, run, threads, step):
+    """One merge level of csrc/candidates_wide.cu's cluster route: block
+    q's tile of outputs, from lane q * step on, of the merge of the two
+    runs of ``run`` lanes that hold it, in two halves: each half's inputs
+    (a stretch of each run, split by the merge-path search over the
+    blocks' tiles) staged, then merged from there by each of the block's
+    ``threads``."""
+    tile = len(tiles[0])
+    half = tile // 2
+    e = half // threads
+
+    def at(j):
+        return tiles[j // tile][j % tile]
+    new = []
+    for q in range(len(tiles)):
+        t0 = q * step
+        a0 = t0 & ~(2 * run - 1)
+        b0 = a0 + run
+        split = [_path_split(at, a0, run, t0 - a0 + h * half)
+                 for h in range(3)]
+        out = []
+        for h in range(2):
+            sa, la = split[h], split[h + 1] - split[h]
+            ib0 = b0 + (t0 - a0 + h * half) - sa - la
+            st = [at(a0 + sa + j) if j < la else at(ib0 + j)
+                  for j in range(half)] + [None]
+            for d in range(0, half, e):
+                out += _merge_staged(st, la, half - la, d, e)
+        new.append(out)
+    return new
+
+
+def _top_add(top, key, tgt, f, end, kk):
+    """candidates_wide.cu::TopK::add: a thread's best key of each of its
+    top kk targets, {tgt: (key, first lane, end window)}."""
+    if tgt in top:
+        if key <= top[tgt][0]:
+            return
+    elif len(top) == kk:
+        lo = min(top, key=lambda t: top[t][0])
+        if key <= top[lo][0]:
+            return
+        del top[lo]
+    top[tgt] = (key, f, end)
+
+
+def _cluster_model(keys, mwir, pol, walk, dedup, kk, tile, threads=4):
+    """The wide form's cluster route on (B, L2) int64 keys, one cluster
+    of C = L2 / tile blocks a row, ``threads`` threads a block: each
+    block sorts its tile and counts its matching slots; log2(C) merge
+    levels across the tiles, the last dealing the nm matching lanes out
+    w = ceil(nm / C) a block; in dedup mode each block's run starts as
+    local lanes (its first lane against the previous block's last),
+    each tile rewritten as the keys of its run starts, and the blocks'
+    offsets in the compacted row; each block's sweep of its compacted
+    lanes, reading keys and run starts of earlier blocks, each thread's
+    top K targets and the block's K rounds over them; block 0's K picks
+    from the C x K records."""
+    b, l2 = keys.shape
+    nc = l2 // tile
+    ne, lshift = dedup or walk, l2.bit_length() - 1
+    res = np.zeros((b, kk, 4), np.int64)
+    for r in range(b):
+        tiles = [sorted(int(x) for x in keys[r, q * tile:(q + 1) * tile])
+                 for q in range(nc)]
+        # the matching lanes [0, nm) dealt out w a block at the last level
+        nm = sum(pol.match(x) for t in tiles for x in t)
+        w = max(1, -(-nm // nc))
+        run = tile
+        while run < l2:
+            tiles = _cluster_merge(tiles, run, threads,
+                                   w if 2 * run == l2 else tile)
+            run <<= 1
+        own = [max(0, min(w, nm - q * w)) for q in range(nc)]
+        assert sum((t[:o] for t, o in zip(tiles, own)), []) == \
+            sorted(int(x) for x in keys[r])[:nm]
+        if dedup:
+            starts = [[i for i in range(own[q])
+                       if (q == 0 and i == 0) or
+                       tiles[q][i] != (tiles[q][i - 1] if i
+                                       else tiles[q - 1][w - 1])]
+                      for q in range(nc)]
+            offs = [0]
+            for st in starts:
+                offs.append(offs[-1] + len(st))
+            # each tile rewritten as the keys of its run starts
+            tiles = [[tiles[q][i] for i in starts[q]] for q in range(nc)]
+        else:
+            offs = [q * w for q in range(nc)] + [nm]
+            offs = [min(o, nm) for o in offs]
+        n = offs[nc]
+
+        def owner(m):
+            return next(q for q in range(nc) if offs[q] <= m < offs[q + 1])
+
+        def key_at(m):
+            q = owner(m)
+            return tiles[q][m - offs[q]]
+
+        def s_at(m):
+            if not dedup:
+                return m
+            if m >= n:
+                return nm
+            q = owner(m)
+            return q * w + starts[q][m - offs[q]]
+        mw1 = int(_wrap(int(mwir[r]) - 1))
+        recs = []
+        for q in range(nc):
+            ents = []
+            for t in range(threads):
+                top = {}
+                for c in range(offs[q] + t, offs[q + 1], threads):
+                    p = key_at(c)
+                    if not pol.match(p):
+                        continue
+                    a, z = max(0, c - ne + 1), c
+                    while a < z:
+                        m = (a + z) >> 1
+                        if pol.in_range(key_at(m), p, mw1):
+                            z = m
+                        else:
+                            a = m + 1
+                    hits = s_at(c + 1) - s_at(a) if dedup else 1 + c - a
+                    _top_add(top, hits * l2 + (l2 - 1 - c), pol.tgt(p), a,
+                             pol.win(p), kk)
+                ents += [(k, tg, f, en) for tg, (k, f, en) in top.items()]
+            for _ in range(kk):
+                best = max((x[0] for x in ents), default=-1)
+                if best <= 0:
+                    recs.append((-1, -1, 0, 0))
+                    continue
+                _k, tb, f, en = next(x for x in ents if x[0] == best)
+                recs.append((best, tb, pol.win(key_at(f)), en))
+                ents = [x for x in ents if x[1] != tb]
+        for k in range(kk):
+            best = max(rc[0] for rc in recs)
+            if best <= 0:
+                res[r, k] = (-1, 0, 0, 0)
+                continue
+            _key, tb, beg, end = next(rc for rc in recs if rc[0] == best)
+            res[r, k] = (tb, best >> lshift, beg, end)
+            recs = [(-1, *rc[1:]) if rc[1] == tb else rc for rc in recs]
+    return res.astype(np.int32)
+
+
+def _plain_of(pairs, rows, mw, walk, dedup, kk, wbits=10):
+    """The plain version of B5 (pairs: (tgt, win)) or of B4 on the sorted
+    packed rows."""
+    if pairs:
+        tgt, win = rows
+        return C.candidates_unpacked_plain(
+            torch.from_numpy(tgt), torch.from_numpy(win),
+            torch.from_numpy(mw), walk, dedup, kk).numpy()
+    return C.candidates_sorted_plain(
+        torch.sort(torch.from_numpy(rows), dim=1).values,
+        torch.from_numpy(mw), wbits, walk, dedup, kk).numpy()
+
+
+def _model_keys(pairs, rows, wbits=10):
+    if pairs:
+        tgt, win = rows
+        keys = tgt.astype(np.int64) * 2**32 + (win.astype(np.int64) + 2**31)
+        return keys, _PairSlots()
+    return rows.astype(np.int64), _PackedSlots(wbits)
+
+
+@pytest.mark.parametrize("nc", [2, 4, 8])
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("walk,dedup", [(1, 0), (32, 0), (0, 1), (0, 6)])
+@pytest.mark.parametrize("mwir", [0, 2, 7])
+def test_cluster_route_model_matches_plain(nc, pairs, walk, dedup, mwir):
+    """The wide form's cluster route (tile sorts, merge-path levels across
+    the tiles, run starts per tile with cross-tile first lanes, the sweep
+    reaching into earlier tiles, per-thread and per-tile top K, block 0's
+    picks) equals the plain version, K = 4, at tiles of 32 lanes, C = 2,
+    4 and 8 tiles a row, so that runs, walks and targets cross tile
+    borders."""
+    rng = np.random.default_rng(walk * 7 + dedup * 3 + mwir + 50 * pairs +
+                                100 * nc)
+    l2 = 32 * nc
+    rows = _sweep_rows(rng, l2) if pairs else _packed_sweep_rows(rng, l2, 10)
+    keys, pol = _model_keys(pairs, rows)
+    mw = np.full(len(keys), mwir, np.int32)
+    mw[::2] = rng.choice(np.array([0, 1, 2, 7]), len(mw[::2]))
+    np.testing.assert_array_equal(
+        _cluster_model(keys, mw, pol, walk, dedup, 4, 32),
+        _plain_of(pairs, rows, mw, walk, dedup, 4))
+
+
+def _border_rows(rng, l2, pairs):
+    """Rows (tgt, win) whose runs cross tile borders of 32 lanes: one
+    slot repeated over half the row and 4 lanes (2 to 4 tiles) beside 20
+    lanes of its target's neighbouring windows; one target at 6 windows
+    of l2 / 12 lanes each (dedup 6 reaches 2 to 4 tiles back); one target
+    in every lane at windows 0-3 and then 1,000; and a row of 3 targets
+    each filling about a third of the row."""
+    rows = []
+    run, per = l2 // 2 + 4, l2 // 12
+    t = np.full(l2, 9)
+    w = rng.integers(0, 30, l2)
+    t[:run], w[:run] = 5, 10
+    t[run:run + 20], w[run:run + 20] = 5, rng.integers(8, 13, 20)
+    rows.append((t, w))
+    t = rng.integers(0, 20, l2)
+    w = rng.integers(0, 50, l2)
+    t[:6 * per], w[:6 * per] = 3, np.repeat(np.arange(6), per)
+    rows.append((t, w))
+    rows.append((np.full(l2, 1), np.where(np.arange(l2) < l2 - 4,
+                                          rng.integers(0, 4, l2), 1000)))
+    rows.append((np.repeat(np.arange(3), -(-l2 // 3))[:l2],
+                 rng.integers(0, 9, l2)))
+    tgt = np.stack([x[0] for x in rows])
+    win = np.stack([x[1] for x in rows])
+    perm = rng.permuted(np.tile(np.arange(l2), (len(rows), 1)), axis=1)
+    tgt = np.take_along_axis(tgt, perm, 1).astype(np.int32)
+    win = np.take_along_axis(win, perm, 1).astype(np.int32)
+    return (tgt, win) if pairs else _pk(tgt, win, 10)
+
+
+@pytest.mark.parametrize("nc", [4, 8])
+@pytest.mark.parametrize("pairs", [False, True])
+@pytest.mark.parametrize("walk,dedup", [(32, 0), (0, 6), (0, 48)])
+def test_cluster_route_model_runs_across_tiles(nc, pairs, walk, dedup):
+    """The cluster route's model where a run of equal slots spans three
+    tiles and more, dedup 6 and 48 count runs one to several tiles back,
+    and targets cross tile borders, K = 2 and 4."""
+    rng = np.random.default_rng(nc + 10 * pairs + walk + dedup)
+    l2 = 32 * nc
+    rows = _border_rows(rng, l2, pairs)
+    keys, pol = _model_keys(pairs, rows)
+    mw = np.array([3, 6, 2, 7], np.int32)
+    for kk in (2, 4):
+        np.testing.assert_array_equal(
+            _cluster_model(keys, mw, pol, walk, dedup, kk, 32),
+            _plain_of(pairs, rows, mw, walk, dedup, kk))
+
+
+@pytest.mark.parametrize("l2,pairs,route", [
+    (1 << 16, False, "cluster"), (1 << 17, False, "cluster"),
+    (1 << 18, False, "cluster"), (1 << 19, False, "passes"),
+    (1 << 24, False, "passes"), (1 << 15, True, "cluster"),
+    (1 << 16, True, "cluster"), (1 << 17, True, "cluster"),
+    (1 << 18, True, "passes"), (1 << 20, True, "passes")])
+def test_wide_route_by_shape(l2, pairs, route):
+    """B4's and B5's wide form pick their route by the row's width alone:
+    up to 8 sort tiles (32,768 packed slots, 16,384 pairs) one cluster
+    launch, wider rows the merge passes; narrower rows are not wide."""
+    assert C.wide_route(l2, pairs) == route
+    with pytest.raises(ValueError):
+        C.wide_route(C.MAX_UNPACKED_L2 if pairs else C.MAX_CAND_L2, pairs)
+    with pytest.raises(ValueError):
+        C.wide_route(2 * C.MAX_WIDE_L2, pairs)
+
+
 @pytest.mark.parametrize("value,split", [(None, False), ("0", False),
                                          ("1", True), ("yes", True)])
 def test_split_route_reads_mc_split_cand(monkeypatch, value, split):

@@ -452,17 +452,45 @@ def test_sort_and_candidates_kernels_match_plain(cuda, mode, l2, presorted):
             assert kernels.CANDIDATES.launches == cands + 1
 
 
-WIDE_CASES = [(l2, r) for l2 in (1 << 16, 1 << 18) for r in (0, 256, l2)]
+WIDE_CASES = [(l2, r) for l2 in (1 << 16, 1 << 17, 1 << 18, 1 << 19)
+              for r in (0, 256, l2)]
+
+
+def _border_runs(tgt, win, l2):
+    """Rows 0 and 1 of (tgt, win) (before any sort) made to cross tile
+    borders once sorted: l2 / 2 + 4,000 lanes of one slot in row 0 (more
+    than a tile of 32,768 packed slots or 16,384 pairs, beside 100 lanes
+    of its target's neighbouring windows), and in row 1 one target at 6
+    windows of l2 / 12 lanes each, which dedup 6 counts back over
+    several tiles."""
+    run, per = l2 // 2 + 4000, l2 // 12
+    tgt[0, :run], win[0, :run] = 7, 5
+    tgt[0, run:run + 100], win[0, run:run + 100] = 7, np.arange(100) % 9
+    tgt[1, :6 * per], win[1, :6 * per] = 11, np.repeat(np.arange(6), per)
+    return tgt, win
 
 
 @pytest.mark.parametrize("mode", ["walk10", "dedup6"])
 @pytest.mark.parametrize("l2,presorted", WIDE_CASES)
 def test_wide_candidates_kernel_matches_plain(cuda, mode, l2, presorted):
-    """B4's wide form on rows past one block (65,536 and 262,144 lanes),
-    unsorted, in alternating runs of 256 and sorted (presorted = L2),
-    walk 10 or dedup 6 with mwir 0-7, K = 1-4; one launch a call."""
+    """B4's wide form on rows past one block: 65,536, 131,072 and 262,144
+    lanes (the cluster route, 2, 4 and 8 tiles) and 524,288 (16 tiles,
+    the merge passes), unsorted, in alternating runs of 256 and sorted
+    (presorted = L2), walk 10 or dedup 6 with mwir 0-7, K = 1-4, with a
+    run of one slot and one target's runs across tile borders; one
+    launch a call."""
     rng = np.random.default_rng(17 + l2 + presorted)
-    pk = _slots(rng, 8, l2, 3000, 900, 11, dup=mode == "dedup6")
+    tgt = rng.integers(0, 3000, (8, l2))
+    win = rng.integers(0, 900, (8, l2))
+    if mode == "dedup6":
+        d = rng.random((8, l2)) < 0.5
+        tgt = np.where(d, np.roll(tgt, 1, 1), tgt)
+        win = np.where(d, np.roll(win, 1, 1), win)
+    tgt, win = _border_runs(tgt, win, l2)
+    pk = (tgt << 11) | win
+    n = rng.integers(0, l2 + 1, (8, 1))
+    n[:2] = l2
+    pk = np.where(np.arange(l2) < n, pk, I32_MAX).astype(np.int32)
     if presorted == l2:
         pk = np.sort(pk, axis=1)
     elif presorted:
@@ -482,6 +510,37 @@ def test_wide_candidates_kernel_matches_plain(cuda, mode, l2, presorted):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert kernels.CANDIDATES_WIDE.launches == before + 1
+
+
+@pytest.mark.parametrize("l2,pairs", [(1 << 16, False), (1 << 18, False),
+                                      (1 << 19, False), (1 << 15, True),
+                                      (1 << 17, True), (1 << 18, True)])
+def test_wide_route_allocates_by_shape(cuda, l2, pairs):
+    """The wide form's route by shape: rows of up to 8 tiles take one
+    cluster launch and the wrapper allocates nothing but the result
+    (work space 0), wider rows the merge passes and their work space;
+    the card can hold a cluster of 8 blocks of the cluster kernel."""
+    route = C.wide_route(l2, pairs)
+    assert route == ("cluster" if l2 <= (1 << 17 if pairs else 1 << 18)
+                     else "passes")
+    work = kernels.wide_work_bytes(4, l2, pairs, 2)
+    assert (work == 0) == (route == "cluster")
+    info = kernels.wide_cluster_info(pairs, 8)
+    assert info["max_active_clusters"] > 0, info
+    x = torch.full((4, l2), I32_MAX, dtype=torch.int32, device=cuda)
+    x[:, :1000] = 5
+    mw = torch.full((4,), 2, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if pairs:
+        got = C.candidates_unpacked(x, x, mw, dedup_walk=6)
+    else:
+        got = C.candidates_packed(x, mw, 11, dedup_walk=6)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    assert int(got[1][0, 0]) == 1000 and int(got[0][0, 1]) == -1
+    assert (grew <= 512) if route == "cluster" else grew >= work
 
 
 def test_wide_candidates_kernel_int64_keys(cuda):
@@ -504,6 +563,36 @@ def test_wide_candidates_kernel_int64_keys(cuda):
     want = C.candidates_unpacked_plain(t, w, mw, 0, 6, 2)
     got = torch.stack(C.candidates_unpacked(t, w, mw, 0, 6, 2), 2)
     assert torch.equal(got, want) and int(want[0, 0, 1]) >= 3000
+
+
+@pytest.mark.parametrize("l2,pairs", [(1 << 17, False), (1 << 19, False),
+                                      (1 << 16, True), (1 << 18, True)])
+def test_wide_form_takes_unaligned_rows(cuda, l2, pairs):
+    """Rows that start 4 bytes past 16-byte alignment (views into a
+    larger tensor) on both routes: the cluster kernel loads them one by
+    one, and the result equals the plain version's."""
+    rng = np.random.default_rng(29 + l2)
+    b = 4
+
+    def view(a):
+        flat = torch.empty(b * l2 + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = torch.from_numpy(a.astype(np.int32)).to(cuda).view(-1)
+        x = flat[1:].view(b, l2)
+        assert x.data_ptr() % 16 == 4
+        return x
+
+    mw = torch.full((b,), 3, dtype=torch.int32, device=cuda)
+    if pairs:
+        t, w = (view(a) for a in _pair_rows(rng, b, l2))
+        want = C.candidates_unpacked_plain(t, w, mw, 0, 6, 2)
+        got = torch.stack(C.candidates_unpacked(t, w, mw, 0, 6, 2), 2)
+    else:
+        pk = view(_slots(rng, b, l2, 3000, 900, 11, dup=True))
+        want = C.candidates_sorted_plain(C.sort_packed_plain(pk), mw, 11, 0,
+                                         6, 2)
+        got = torch.stack(C.candidates_packed(pk, mw, 11, dedup_walk=6,
+                                              max_candidates=2), 2)
+    assert torch.equal(got, want)
 
 
 def _pair_rows(rng, b, l):
@@ -560,14 +649,18 @@ def test_unpacked_candidates_kernel_matches_plain(cuda, mode, l2, presorted):
 
 @pytest.mark.parametrize("mode", ["walk32", "dedup6"])
 @pytest.mark.parametrize("l2,presorted", [(1 << 15, 0), (1 << 15, 256),
-                                          (1 << 17, 256)])
+                                          (1 << 16, 256), (1 << 16, 1 << 16),
+                                          (1 << 17, 256), (1 << 18, 256)])
 def test_wide_unpacked_candidates_kernel_matches_plain(cuda, mode, l2,
                                                        presorted):
-    """B5's wide form on rows past one block (32,768 and 131,072 pairs),
-    unsorted and in alternating runs of 256, walk 32 or dedup 6 with
-    mwir 0, 1, 2 and 7, K = 1-4; one launch a call."""
+    """B5's wide form on rows past one block: 32,768, 65,536 and 131,072
+    pairs (the cluster route, 2, 4 and 8 tiles) and 262,144 (16 tiles,
+    the merge passes), unsorted, in alternating runs of 256 and sorted
+    (presorted = L2), walk 32 or dedup 6 with mwir 0, 1, 2 and 7,
+    K = 1-4, with a run of one slot and one target's runs across tile
+    borders; one launch a call."""
     rng = np.random.default_rng(19 + l2 + presorted)
-    tgt, win = _pair_rows(rng, 8, l2)
+    tgt, win = _border_runs(*_pair_rows(rng, 8, l2), l2)
     if presorted:
         key = _alternate(tgt << 32 | win, presorted)
         tgt, win = key >> 32, key & 0xFFFFFFFF
