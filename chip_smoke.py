@@ -957,67 +957,97 @@ def phase_parity_b1(results, rng, dev):
                 valid[:SCAN_BATCH], 112).astype(np.int64) - 15, 0).sum()))[0])
 
 
-def phase_parity_sketch64(results, rng, dev):
-    """The 64-bit sketch kernel (k > 16) against its plain version,
-    tolerance 0, at k 17, 18, 24 and 32, s = 16: on the build's (65536,
-    128) coded windows, the k = 18 summary path's packed rows (8192, 28
-    bytes: 100 bp reads) and 250 bp windows (8192, 256). Timed at each
-    shape at k = 18 (CUDA events, a CUDA graph, the host's time a call)
-    beside its bound (the window bytes and valid lengths read, 8 s bytes
-    written, or its 64-bit arithmetic as 32-bit operations: about twice
-    B1's 22 a k-mer position); no PyTorch call computes this sketch, so
-    no library time. The kernels line's row is (65536, 128), k = 18."""
-    from metacache_tpu_torch.ops import sketch as S
+def sketch64_resources() -> dict:
+    """Registers, local (spill) and shared bytes of the 64-bit sketch
+    kernel's three instances: packed rows, coded rows of one 128-start
+    chunk, coded rows of several."""
+    from metacache_tpu_torch import kernels
+    return {f"{name}_{f}": x for name, packed, multi in (
+        ("packed", True, False), ("coded", False, False),
+        ("coded_multi", False, True))
+        for f, x in kernels.sketch64_info(packed, multi).items()}
+
+
+def sketch64_shapes(rng) -> dict:
+    """name -> (rows, valid lengths, packed) of the 64-bit sketch
+    kernel's parity and timing cases: the build's (65536, 128) coded
+    windows, the k = 18 summary path's packed rows (8192, 28 bytes: 100
+    bp reads), 250 bp windows (8192, 256), and windows of several
+    128-start chunks, (8192, 511) and (2048, 1024), with valid lengths
+    at the chunk boundary of k = 18 (145, 146 and 147) and windows of
+    one repeated k-mer (all code 0)."""
     codes, valid = sketch_inputs(rng, 65536)
     clean = np.where(codes < 4, codes, 2).astype(np.uint8)
-    c = torch.from_numpy(codes).to(dev)
-    v = torch.from_numpy(valid).to(dev)
-    v8 = v[:SCAN_BATCH]
-    p7 = torch.from_numpy(pack_2bit(clean[:SCAN_BATCH, :112])).to(dev)
-    u7 = S.unpack_2bit(p7)
-    lc, lv = long_sketch_inputs(rng, SCAN_BATCH, 256, 18, 250)
-    c256 = torch.from_numpy(lc).to(dev)
-    v256 = torch.from_numpy(lv).to(dev)
-    cases = {"65536x128": (lambda k: S.sketch_windows(c, v, k, 16),
-                           lambda k: S.sketch_windows64_plain(c, v, k, 16)),
-             "8192x28_packed": (
-                 lambda k: S.sketch_windows_packed(p7, v8, k, 16),
-                 lambda k: S.sketch_windows64_plain(u7, v8, k, 16)),
-             "8192x256": (lambda k: S.sketch_windows(c256, v256, k, 16),
-                          lambda k: S.sketch_windows64_plain(c256, v256, k,
-                                                             16))}
+    out = {"65536x128": (codes, valid, False),
+           "8192x28_packed": (pack_2bit(clean[:SCAN_BATCH, :112]),
+                              valid[:SCAN_BATCH], True),
+           "8192x256": (*long_sketch_inputs(rng, SCAN_BATCH, 256, 18, 250),
+                        False)}
+    for n, w in ((SCAN_BATCH, 511), (2048, 1024)):
+        lc, lv = long_sketch_inputs(rng, n, w, 18, w)
+        lc[10::101] = 0
+        lv[12::29], lv[14::31], lv[15::37] = 145, 146, 147
+        out[f"{n}x{w}"] = (lc, lv, False)
+    return out
+
+
+def sketch64_work(rows: np.ndarray, valid: np.ndarray, packed: bool,
+                  s: int = 16):
+    """-> (bytes, operations) of the 64-bit sketch at k = 18 for bound():
+    the rows and valid lengths read, 8 s bytes a window written; its
+    64-bit arithmetic as 32-bit operations, about twice B1's 22 a k-mer
+    position."""
+    width = 4 * rows.shape[1] if packed else rows.shape[1]
+    kpos = int(np.maximum(np.minimum(valid, width).astype(np.int64) - 17,
+                          0).sum())
+    return rows.nbytes + valid.nbytes + 8 * s * len(rows), 44 * kpos
+
+
+def phase_parity_sketch64(results, rng, dev):
+    """The 64-bit sketch kernel (k > 16) against its plain version,
+    tolerance 0, at k 17, 18, 24 and 32, s = 16, on sketch64_shapes'
+    rows (packed rows against the plain version of their unpacked
+    codes). Timed at each shape at k = 18 (CUDA events, a CUDA graph,
+    the host's time a call) beside its bound (sketch64_work); no
+    PyTorch call computes this sketch, so no library time. Prints the
+    kernel's registers, spill and shared bytes. The kernels line's row
+    is (65536, 128), k = 18."""
+    from metacache_tpu_torch.ops import sketch as S
+    cases, work = {}, {}
+    for name, (rows, vl, packed) in sketch64_shapes(rng).items():
+        r, v = torch.from_numpy(rows).to(dev), torch.from_numpy(vl).to(dev)
+        if packed:
+            cases[name] = (
+                lambda k, r=r, v=v: S.sketch_windows_packed(r, v, k, 16),
+                lambda k, u=S.unpack_2bit(r), v=v:
+                    S.sketch_windows64_plain(u, v, k, 16))
+        else:
+            cases[name] = (
+                lambda k, r=r, v=v: S.sketch_windows(r, v, k, 16),
+                lambda k, r=r, v=v: S.sketch_windows64_plain(r, v, k, 16))
+        work[name] = sketch64_work(rows, vl, packed)
     errs = {}
     for k in (17, 18, 24, 32):
         for name, (got, want) in cases.items():
             errs[f"{name}_k{k}"] = check_equal(f"sketch64 {name} k{k}",
                                                got(k), want(k))
-
-    def kpos(vals, width):
-        return int(np.maximum(np.minimum(vals, width).astype(np.int64)
-                              - 17, 0).sum())
-    shapes = {"65536x128": (codes.nbytes + valid.nbytes,
-                            kpos(valid, 128), 65536),
-              "8192x28_packed": (SCAN_BATCH * (28 + 4),
-                                 kpos(valid[:SCAN_BATCH], 112), SCAN_BATCH),
-              "8192x256": (lc.nbytes + lv.nbytes, kpos(lv, 256), SCAN_BATCH)}
     timed = {}
-    for name, (nin, kp, n) in shapes.items():
-        got, want = cases[name]
-        b_ms, by = bound(nin + 8 * 16 * n, 44 * kp)
+    for name, (got, want) in cases.items():
+        b_ms, by = bound(*work[name])
         timed[name] = dict(ms=cuda_ms(lambda: got(18)),
                            device_ms=kernel_ms(lambda: got(18)),
                            host_us=host_us(lambda: got(18)),
                            plain_ms=cuda_ms(lambda: want(18)),
                            bound_ms=b_ms, bound_by=by)
     t = timed["65536x128"]
+    nbytes, nops = work["65536x128"]
     _record(results, "sketch64", err=max(errs.values()), ms=t["ms"],
-            plain_ms=t["plain_ms"], nbytes=shapes["65536x128"][0] +
-            8 * 16 * 65536, nops=44 * shapes["65536x128"][1],
+            plain_ms=t["plain_ms"], nbytes=nbytes, nops=nops,
             device_ms=t["device_ms"], host_us=t["host_us"],
             shape="(65536, 128) windows, k=18, s=16")
     say("parity-sketch64", tolerance=0, max_abs_err=max(errs.values()),
-        cases=len(errs), library_ms=None,
-        **{f"{n}_{f}": v for n, d in timed.items() for f, v in d.items()})
+        cases=len(errs), library_ms=None, **sketch64_resources(),
+        **{f"{n}_{f}": x for n, d in timed.items() for f, x in d.items()})
 
 
 def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):

@@ -395,26 +395,42 @@ sketch_long_kernel(const uint8_t* __restrict__ codes,
 // (all ones) padded.
 //
 // Design: B1's, on 64-bit values. One warp per window, walking its
-// starts in chunks of 128, 4 a lane: the warp stages the chunk's 128 +
-// 32 codes in shared memory (coalesced byte loads, or the packed bytes
-// unpacked), and each lane rolls its k-mer and reverse complement in
-// 64-bit registers over codes 4 lane .. 4 lane + k + 2 (a k-mer needs
-// up to 32 codes, more than the next lanes' words hold, so the lane
-// reads them from the staged chunk instead of shuffling). Selection is
-// B1's s warp minima on 64-bit values: __reduce_min_sync is 32-bit
-// only, so a minimum is the min of the high words, then the min of the
-// low words among the lanes that hold that high word. Each lane holds
-// its 4 chunk values and 4 of the running sketch's s <= 128; a round
-// pops every copy of the minimum, so duplicates within and across
-// chunks drop out. Windows above 128 characters are several chunks on
-// the same loop, B2's whole window on this template.
+// starts 128 a chunk, starts lo + 4 lane + j (j < 4) in lane `lane`.
+// Codes stay in registers: each lane loads its 4 codes (coded rows: one
+// word where the row is 4-byte aligned, else 4 bytes; packed rows: byte
+// `lane`, one coalesced load of the row) and, in lanes 0-7, the 4 codes
+// 128 further on that the chunk's last lanes need, and packs each 4 2
+// bits a code, low bits first as the packed rows hold them, with a 4-bit
+// mask of the ambiguous ones. A lane's starts need its codes 4 lane ..
+// 4 lane + k + 2, at most 35: its own 4 and the next 8 lanes' (one
+// shuffle each, which carries both of that lane's groups), a 72-bit
+// window. Low bits first, the reverse complement of the k-mer at start j
+// is the complement of window bits [2j, 2j + 2k), read off whole; the
+// forward k-mer of codes 0 .. k - 2 is the window's code order reversed
+// (__brevll, each code's two bits swapped back), then 4 roll steps.
+// Selection is B1's: each lane sorts its 4 hashes and drops its own
+// duplicates; round r is the warp's minimum of the lanes' heads (two
+// 32-bit redux.sync: the high words, then the low words of the lanes
+// holding the high minimum), popped in every lane that holds it, which
+// drops its copies; lane r % 32 keeps round r's value, and the rounds
+// stop at the first sentinel minimum. A window of one chunk (W <= 128 +
+// k - 1, every window of the summary path and of the build) stores its
+// rounds 32 at a time, coalesced. A wider window keeps a running sketch
+// of the s smallest distinct values so far where the rounds leave them,
+// value 32 q + lane in slot q of lane `lane` (ascending in each lane):
+// a chunk's round takes the minimum of both heads, so duplicates
+// within and across chunks drop out, and its rounds make the next
+// running sketch. Rows that can hold such a window (coded, wider than
+// 128 + k - 1) take a kernel instance of their own: the running sketch
+// needs 64 registers a thread, the one-chunk instances 30 (ptxas, H100
+// build). No shared memory.
 //
 // Bound on the card: integer ALU (64-bit arithmetic is two 32-bit
-// instructions a step) and the s rounds of two reductions; a window
-// reads W + 4 bytes and writes 8 s.
+// instructions a step, the hash's two 64-bit products more) and the s
+// rounds of two reductions; a window reads W + 4 bytes (W / 4 + 4
+// packed) and writes 8 s.
 constexpr uint64_t kSent64 = ~0ull;
 constexpr int kChunk64 = kLanes;          // k-mer starts a chunk
-constexpr int kStage64 = kChunk64 + 32;   // codes staged a chunk
 
 __device__ __forceinline__ uint64_t murmur3_fmix64(uint64_t x) {
   x ^= x >> 33;
@@ -433,85 +449,179 @@ __device__ __forceinline__ uint64_t warp_min64(uint64_t x) {
   return ((uint64_t)hi << 32) | lo;
 }
 
+// Codes p .. p + 3 of a coded row: 2 bits a code, low bits first, in
+// bits 0-7 and the mask of the ambiguous ones in bits 8-11. Codes at or
+// past `span` read as 0 (they feed no start below span - k + 1).
+__device__ __forceinline__ uint32_t code_group(const uint8_t* __restrict__ row,
+                                               int p, int span, bool al4) {
+  uint32_t word = 0;
+  if (al4 && p + 4 <= span) {
+    word = *reinterpret_cast<const uint32_t*>(row + p);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      word |= (p + j < span ? (uint32_t)row[p + j] : 0u) << (8 * j);
+  }
+  uint32_t g = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t c = (word >> (8 * j)) & 0xFFu;
+    g |= c < 4 ? c << (2 * j) : 0x100u << j;
+  }
+  return g;
+}
+
+// The hashed canonical k-mers at starts lo + 4 lane + j (j < 4) of the
+// row: the sentinel at chunk starts >= nv and for k-mers with an
+// ambiguous code (PACKED rows have none).
 template <bool PACKED>
+__device__ __forceinline__ void chunk_hashes64(const uint8_t* __restrict__ row,
+                                               int width, int lo, int span,
+                                               int nv, int k, int lane,
+                                               uint64_t (&v)[4]) {
+  // this lane's group of 4 codes in bits 0-11, lanes 0-7 the group 128
+  // codes further on in bits 16-27
+  uint32_t x;
+  if constexpr (PACKED) {
+    x = lane < width ? row[lane] : 0u;   // no ambiguous code; one chunk
+  } else {
+    const bool al4 = (reinterpret_cast<uintptr_t>(row) & 3) == 0;
+    const int p = lo + 4 * lane;
+    x = code_group(row, p, span, al4);
+    if (lane < 8 && p + kChunk64 < span)
+      x |= code_group(row, p + kChunk64, span, al4) << 16;
+  }
+  // codes 4 lane .. 4 lane + 35 of the chunk, low bits first: codes 0-31
+  // in cw, 32-35 in ch; their ambiguity bits in am
+  uint64_t cw = x & 0xFFu;
+  uint32_t ch = 0;
+  uint64_t am = PACKED ? 0 : (x >> 8) & 0xFu;
+#pragma unroll
+  for (int d = 1; d <= 8; ++d) {
+    const uint32_t y = __shfl_sync(kFull, x, (lane + d) & 31);
+    const uint32_t g = lane + d < 32 ? y & 0xFFFu : y >> 16;
+    if (d < 8)
+      cw |= (uint64_t)(g & 0xFFu) << (8 * d);
+    else
+      ch = g & 0xFFu;
+    if (!PACKED) am |= (uint64_t)((g >> 8) & 0xFu) << (4 * d);
+  }
+  const uint64_t kmask = k == 32 ? kSent64 : (1ull << (2 * k)) - 1ull;
+  const uint64_t amask = (1ull << k) - 1ull;
+  // the forward k-mer of codes 0 .. k - 2 (first code highest), then the
+  // 4 codes k - 1 .. k + 2 that the roll steps add
+  uint64_t fw = __brevll(cw);
+  fw = ((fw >> 1) & 0x5555555555555555ull) |
+       ((fw & 0x5555555555555555ull) << 1);
+  fw >>= 66 - 2 * k;
+  const int sn = 2 * k - 2;                       // 32 .. 62
+  const uint32_t next = (uint32_t)((cw >> sn) | ((uint64_t)ch << (64 - sn)));
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    fw = ((fw << 2) | ((next >> (2 * j)) & 3u)) & kmask;
+    const uint64_t lw = j ? (cw >> (2 * j)) | ((uint64_t)ch << (64 - 2 * j))
+                          : cw;
+    const uint64_t rc = ~lw & kmask;
+    const bool ok = 4 * lane + j < nv && (PACKED || ((am >> j) & amask) == 0);
+    v[j] = ok ? murmur3_fmix64(fw < rc ? fw : rc) : kSent64;
+  }
+}
+
+__device__ __forceinline__ void order64(uint64_t& a, uint64_t& b) {
+  const uint64_t lo = a < b ? a : b;
+  b = a < b ? b : a;
+  a = lo;
+}
+
+__device__ __forceinline__ void pop64(uint64_t (&v)[4]) {
+  v[0] = v[1];
+  v[1] = v[2];
+  v[2] = v[3];
+  v[3] = kSent64;
+}
+
+// The s smallest distinct of the warp's 4 values a lane (and, RUN, of
+// the running sketch `run`, value 32 q + lane in run[q]), as
+// extract_sketch takes them: RUN = false stores them ascending and
+// sentinel padded into dst[0, s); RUN leaves them in `run` instead.
+template <bool RUN>
+__device__ __forceinline__ void select64(uint64_t (&v)[4], uint64_t (&run)[4],
+                                         int lane, int s,
+                                         uint64_t* __restrict__ dst) {
+  order64(v[0], v[1]); order64(v[2], v[3]); order64(v[0], v[2]);
+  order64(v[1], v[3]); order64(v[1], v[2]);
+  if (v[3] == v[2]) v[3] = kSent64;
+  if (v[2] == v[1]) v[2] = kSent64;
+  if (v[1] == v[0]) v[1] = kSent64;
+  order64(v[1], v[2]); order64(v[2], v[3]); order64(v[1], v[2]);
+  uint64_t kept = kSent64;
+  uint64_t nxt[4] = {kSent64, kSent64, kSent64, kSent64};
+  int r = 0;
+  for (; r < s; ++r) {
+    const uint64_t head = RUN && run[0] < v[0] ? run[0] : v[0];
+    const uint64_t m = warp_min64(head);
+    if (m == kSent64) break;                  // uniform per warp
+    if (v[0] == m) pop64(v);
+    if (RUN && run[0] == m) pop64(run);
+    kept = (r & 31) == lane ? m : kept;
+    if ((r & 31) == 31) {
+      if (RUN) {
+        // selects: stores under a branch left nxt in local memory
+#pragma unroll
+        for (int q = 0; q < 4; ++q) nxt[q] = q == r >> 5 ? kept : nxt[q];
+      } else {
+        dst[r - 31 + lane] = kept;
+      }
+      kept = kSent64;
+    }
+  }
+  if (RUN) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) run[q] = q == r >> 5 ? kept : nxt[q];
+  } else {
+    for (int c = (r & ~31) + lane; c < s; c += 32) {
+      dst[c] = kept;
+      kept = kSent64;
+    }
+  }
+}
+
+// MULTI: rows may hold windows of several chunks (coded rows wider than
+// 128 + k - 1); the one-chunk instances leave out the running sketch's
+// registers.
+template <bool PACKED, bool MULTI>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 sketch64_kernel(const uint8_t* __restrict__ codes,
                 const int32_t* __restrict__ valid,
                 uint64_t* __restrict__ out, int64_t n, int width,
                 int64_t row_stride, int k, int s) {
-  __shared__ uint8_t sc[kWarpsPerBlock][kStage64];
-  __shared__ uint64_t run[kWarpsPerBlock][kMaxSketch];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t w = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
   if (w >= n) return;  // uniform per warp
 
   const uint8_t* row = codes + w * row_stride;
-  uint8_t* st = sc[warp];
-  uint64_t* rs = run[warp];
+  uint64_t* dst = out + w * s;
   const int wc = PACKED ? 4 * width : width;    // codes a row
   const int vl = valid[w];
   const int span = vl < 0 ? 0 : (vl < wc ? vl : wc);
   const int nstarts = span - (k - 1);           // starts [0, nstarts)
-  const uint64_t kmask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1ull;
-  const int top = 2 * k - 2;
-  for (int c = lane; c < s; c += 32) rs[c] = kSent64;
-  for (int lo = 0; lo < nstarts; lo += kChunk64) {  // uniform per warp
-    __syncwarp();
-    for (int q = lane; q < kStage64; q += 32) {
-      const int p = lo + q;
-      uint32_t c = 4;                           // past the span: unused
-      if (p < span)
-        c = PACKED ? (row[p >> 2] >> (2 * (p & 3))) & 3u : row[p];
-      st[q] = (uint8_t)c;
-    }
-    __syncwarp();
-    // starts b + j of the chunk: roll over codes b .. b + k + 2
-    const int b = 4 * lane;
-    uint64_t fw = 0, rc = 0;
-    int last_amb = -1;                          // chunk position
-    uint64_t v[8];
-    for (int i = 0; i < k - 1; ++i) {
-      const uint32_t c = st[b + i];
-      const uint32_t c2 = c < 4 ? c : 0;
-      if (c >= 4) last_amb = b + i;
-      fw = ((fw << 2) | c2) & kmask;
-      rc = (rc >> 2) | ((uint64_t)(3u - c2) << top);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {               // the k-mer at start b + j
-      const int i = b + k - 1 + j;
-      const uint32_t c = st[i];
-      const uint32_t c2 = c < 4 ? c : 0;
-      if (c >= 4) last_amb = i;
-      fw = ((fw << 2) | c2) & kmask;
-      rc = (rc >> 2) | ((uint64_t)(3u - c2) << top);
-      const bool ok = lo + b + j < nstarts && last_amb < b + j;
-      v[j] = ok ? murmur3_fmix64(fw < rc ? fw : rc) : kSent64;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = b + j;
-      v[4 + j] = c < s ? rs[c] : kSent64;
-    }
-    __syncwarp();
-    // s rounds of warp minima over the chunk and the running sketch;
-    // every copy of a minimum pops
-    int r = 0;
-    for (; r < s; ++r) {
-      uint64_t m = v[0];
-#pragma unroll
-      for (int j = 1; j < 8; ++j) m = v[j] < m ? v[j] : m;
-      m = warp_min64(m);
-      if (m == kSent64) break;                  // uniform per warp
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = v[j] == m ? kSent64 : v[j];
-      if (lane == 0) rs[r] = m;
-    }
-    for (int c = r + lane; c < s; c += 32) rs[c] = kSent64;
+  uint64_t v[4];
+  uint64_t run[4] = {kSent64, kSent64, kSent64, kSent64};
+  if (!MULTI || nstarts <= kChunk64) {          // uniform per warp
+    chunk_hashes64<PACKED>(row, width, 0, span, nstarts, k, lane, v);
+    select64<false>(v, run, lane, s, dst);
+    return;
   }
-  __syncwarp();
-  for (int c = lane; c < s; c += 32) out[w * s + c] = rs[c];
+  if constexpr (MULTI) {
+    for (int lo = 0; lo < nstarts; lo += kChunk64) {
+      chunk_hashes64<PACKED>(row, width, lo, span, nstarts - lo, k, lane, v);
+      select64<true>(v, run, lane, s, dst);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (32 * q + lane < s) dst[32 * q + lane] = run[q];
+  }
 }
 
 }  // namespace
@@ -559,11 +669,30 @@ extern "C" int mc_sketch_windows64(const void* codes, const void* valid,
       row_stride < w || (packed && w > kLanes / 4))
     return (int)cudaErrorInvalidValue;
   const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  auto kernel = packed ? sketch64_kernel<true> : sketch64_kernel<false>;
+  auto kernel = packed                 ? sketch64_kernel<true, false>
+                : w - (k - 1) > kChunk64 ? sketch64_kernel<false, true>
+                                         : sketch64_kernel<false, false>;
   kernel<<<(unsigned)blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)codes, (const int32_t*)valid, (uint64_t*)out, n, w,
       row_stride, k, s);
   return (int)cudaGetLastError();
+}
+
+// The 64-bit sketch kernel on packed (1) or coded (0) rows, of one chunk
+// (multi = 0) or several: info[0] its registers a thread, info[1] local
+// (spill) bytes a thread, info[2] static shared bytes a block
+extern "C" int mc_sketch64_info(int packed, int multi, int* info) {
+  if (packed && multi) return (int)cudaErrorInvalidValue;
+  auto kernel = packed  ? sketch64_kernel<true, false>
+                : multi ? sketch64_kernel<false, true>
+                        : sketch64_kernel<false, false>;
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = fa.numRegs;
+  info[1] = (int)fa.localSizeBytes;
+  info[2] = (int)fa.sharedSizeBytes;
+  return (int)cudaSuccess;
 }
 
 extern "C" const char* mc_error_string(int err) {

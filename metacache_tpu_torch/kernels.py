@@ -116,6 +116,8 @@ def _load():
             lib.mc_candidates_wide_work.restype = ctypes.c_size_t
             lib.mc_candidates_wide_cluster_info.argtypes = [i, i, i, p]
             lib.mc_candidates_wide_cluster_info.restype = ctypes.c_int
+            lib.mc_sketch64_info.argtypes = [i, i, p]
+            lib.mc_sketch64_info.restype = ctypes.c_int
             lib.mc_head_decode.argtypes = [p, i64, i, p, p, i64, i, i, i, p,
                                            p, p]
             lib.mc_full_decode.argtypes = [p, i64, i, p, i64, i, p, p, p,
@@ -243,6 +245,20 @@ def wide_cluster_info(pairs: bool, clusters: int, kk: int = 2) -> dict:
                            f"error {err} ({msg})")
     return dict(max_active_clusters=info[0], registers=info[1],
                 local_bytes=info[2], shared_bytes=info[3])
+
+
+def sketch64_info(packed: bool, multi: bool = False) -> dict:
+    """The 64-bit sketch kernel (csrc/sketch.cu) on packed or coded rows,
+    the coded ones of one chunk or (``multi``) of several: registers and
+    local (spill) bytes a thread, static shared bytes a block."""
+    info = (ctypes.c_int * 3)()
+    err = _load().mc_sketch64_info(int(packed), int(multi), info)
+    if err != 0:
+        msg = _lib.mc_error_string(err).decode()
+        raise RuntimeError(f"mc_sketch64_info failed: CUDA error {err} "
+                           f"({msg})")
+    return dict(registers=info[0], local_bytes=info[1],
+                shared_bytes=info[2])
 
 
 def reset_counts() -> None:

@@ -346,14 +346,17 @@ def test_long_sketch_kernel_matches_plain(cuda, w, k):
 
 
 @pytest.mark.parametrize("k", [17, 18, 24, 31, 32])
-@pytest.mark.parametrize("w", [96, 127, 128, 255])
+@pytest.mark.parametrize("w", [96, 127, 128, 255, 511, 1024])
 def test_sketch64_kernel_matches_plain(cuda, w, k):
     """The 64-bit sketch kernel (k > 16) against its plain version, bit
     for bit: coded rows of w with ambiguous codes and runs, repeated
-    windows, valid lengths below k, at k, past w and random, s = 16, 8
-    and 128; rows read in place from an odd address; and at w <= 128 the
-    packed rows of the same windows (ambiguous codes made 2), which it
-    reads itself."""
+    windows, windows whose every start is the same k-mer (duplicates
+    across the 128-start chunks), valid lengths below k, at k, at the
+    chunk boundary (128 + k - 2, 128 + k - 1 and 128 + k), past w and
+    random, s = 1, 16, 8 and 128; rows read in place from an odd
+    address; and at w <= 128 the packed rows of the same windows
+    (ambiguous codes made 2), which it reads itself, at every width
+    from 1 to w / 4 bytes, s = 1, 16 and 128."""
     rng = np.random.default_rng(w * 40 + k)
     n = 4099
     codes = rng.integers(0, 4, (n, w), dtype=np.uint8)
@@ -361,32 +364,37 @@ def test_sketch64_kernel_matches_plain(cuda, w, k):
     codes[3::101, 30:80] = 4
     codes[4::103] = 4
     codes[5::107] = np.tile(np.array([0, 1, 2, 3], np.uint8), w)[:w]
+    codes[8::109] = 0
+    codes[9::113] = 3
     valid = rng.integers(0, w + 1, n).astype(np.int32)
     valid[::7] = w
     valid[1::11] = k - 1
     valid[2::13] = k
     valid[6::17] = w + 40
+    for i, vl in ((10, 128 + k - 2), (12, 128 + k - 1), (14, 128 + k)):
+        valid[i::19] = min(vl, w)
+    valid[8::109] = w
     c = torch.from_numpy(codes).to(cuda)
     v = torch.from_numpy(valid).to(cuda)
     before = kernels.SKETCH64.launches
-    for s in (16, 8, 128):
+    for s in (1, 16, 8, 128):
         got = S.sketch_windows(c, v, k, s)
         torch.cuda.synchronize()
         assert got.dtype == torch.int64
         assert torch.equal(got, S.sketch_windows64_plain(c, v, k, s))
-    assert kernels.SKETCH64.launches == before + 3
+    assert kernels.SKETCH64.launches == before + 4
     odd = torch.cat([c[:, :1], c], dim=1)[:, 1:]
     assert odd.data_ptr() % 2 == 1
     assert torch.equal(S.sketch_windows(odd, v, k, 16),
                        S.sketch_windows64_plain(c, v, k, 16))
     if w <= 128:
         clean = np.where(codes < 4, codes, 2).astype(np.uint8)
-        wp = w // 4 * 4
-        pk = torch.from_numpy(pack_2bit(clean[:, :wp])).to(cuda)
-        for s in (16, 128):
-            got = S.sketch_windows_packed(pk, v, k, s)
-            assert torch.equal(got, S.sketch_windows64_plain(
-                S.unpack_2bit(pk), v, k, s))
+        for nb in range(1, w // 4 + 1):
+            pk = torch.from_numpy(pack_2bit(clean[:, :4 * nb])).to(cuda)
+            for s in (1, 16, 128):
+                got = S.sketch_windows_packed(pk, v, k, s)
+                assert torch.equal(got, S.sketch_windows64_plain(
+                    S.unpack_2bit(pk), v, k, s)), (nb, s)
 
 
 def _alternate(key, r):

@@ -1,6 +1,7 @@
 """metacache_tpu_torch's 64-bit features (k 17..32) against metacache_tpu,
 with inputs made from a numpy seed, bit for bit: the plain u64 sketch
-(the 64-bit sketch kernel's plain version), the u64 bucket-row index and
+(the 64-bit sketch kernel's plain version, which a numpy model of the
+kernel's steps is held against too), the u64 bucket-row index and
 its probe, the u64 device layout (dense and two-tier rows with two meta
 lanes) and the row steps on the wide layout tags: the per-read step, the
 scan, and the escalation's head-only phase 1 and full-depth redo, in all
@@ -41,42 +42,226 @@ def _jax_sketch64(codes, valid, k, s=16):
 
 
 # ------------------------------------------------------------- sketch
-@pytest.mark.parametrize("w", [96, 127, 128, 255])
-@pytest.mark.parametrize("k", [17, 18, 24, 31, 32])
-def test_sketch64_plain_matches_jax(k, w):
-    """Windows with ambiguous codes and runs of them, repeated windows,
-    valid lengths below k, at k, at and past w, and random; s = 16, and
-    128 at w = 255 (JAX's sketcher takes s up to w - k + 1). The packed
-    infeed (no ambiguous code) through sketch_windows_packed equals
-    JAX's sketch of the unpacked codes."""
-    rng = np.random.default_rng(k * 1000 + w)
-    n = 96
+def _pack(codes):
+    """(n, 4 m) codes 0..3 -> (n, m) bytes, four a byte, low bits first
+    (the runner's infeed)."""
+    return np.ascontiguousarray(codes[:, 0::4] | (codes[:, 1::4] << 2) |
+                                (codes[:, 2::4] << 4) | (codes[:, 3::4] << 6))
+
+
+def _sketch64_windows(k, w, seed, n=96):
+    """n windows of w codes: ambiguous codes and runs of them, an
+    all-ambiguous window, a period-4 window and one whose every start is
+    the same k-mer; valid lengths below k, at k, at the chunk boundary
+    (128 + k - 2, 128 + k - 1 and 128 + k, where the window holds
+    them), at and past w, 0, and random."""
+    rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, (n, w), dtype=np.uint8)
     codes[rng.random(codes.shape) < 0.02] = 4
     codes[3::13, 10:50] = 4
     codes[4] = 4
     codes[5] = np.tile(np.array([0, 1, 2, 3], np.uint8), w)[:w]
+    codes[9] = 0
     valid = rng.integers(0, w + 1, n).astype(np.int32)
     valid[::7] = w
     valid[1::11] = k - 1
     valid[2::13] = k
     valid[6] = w + 30
     valid[8] = 0
-    for s in (16, 128) if w == 255 else (16,):
+    valid[9] = w
+    for i, vl in zip((10, 12, 15), (128 + k - 2, 128 + k - 1, 128 + k)):
+        valid[i] = min(vl, w)
+    return codes, valid
+
+
+@pytest.mark.parametrize("w", [96, 127, 128, 255, 511, 1024])
+@pytest.mark.parametrize("k", [17, 18, 24, 31, 32])
+def test_sketch64_plain_matches_jax(k, w):
+    """Windows with ambiguous codes and runs of them, repeated windows,
+    valid lengths below k, at k, at the 128-start chunk boundary, at and
+    past w, and random; s = 1 and 16, and 128 at w >= 255 (JAX's
+    sketcher takes s up to w - k + 1); windows of several chunks at w
+    511 and 1024. The packed infeed (no ambiguous code) through
+    sketch_windows_packed, rows of w / 4 bytes and, cropped, of 1, 7
+    and 25 bytes, equals JAX's sketch of the unpacked codes, padded with
+    code 4 to 128 (JAX's sketcher takes no window narrower than k +
+    s - 1)."""
+    codes, valid = _sketch64_windows(k, w, seed=k * 1000 + w)
+    for s in (1, 16, 128) if w >= 255 else (1, 16):
         want = _jax_sketch64(codes, valid, k, s)
         got = S.sketch_windows(torch.from_numpy(codes),
                                torch.from_numpy(valid), k, s)
         assert got.dtype == torch.int64
         np.testing.assert_array_equal(got.numpy(), want)
     if w <= 128:
-        clean = np.where(codes < 4, codes, 1).astype(np.uint8)[:, :w // 4 * 4]
-        pk = np.ascontiguousarray(clean[:, 0::4] | (clean[:, 1::4] << 2) |
-                                  (clean[:, 2::4] << 4) |
-                                  (clean[:, 3::4] << 6))
-        got = S.sketch_windows_packed(torch.from_numpy(pk),
-                                      torch.from_numpy(valid), k, 16)
-        np.testing.assert_array_equal(got.numpy(),
-                                      _jax_sketch64(clean, valid, k))
+        clean = np.where(codes < 4, codes, 1).astype(np.uint8)
+        for nb in sorted({w // 4} | {b for b in (1, 7, 25) if b < w // 4}):
+            pk = _pack(clean[:, :4 * nb])
+            ref = np.full((len(clean), 128), 4, np.uint8)
+            ref[:, :4 * nb] = clean[:, :4 * nb]
+            for s in (1, 16) if nb == w // 4 else (16,):
+                got = S.sketch_windows_packed(torch.from_numpy(pk),
+                                              torch.from_numpy(valid), k, s)
+                np.testing.assert_array_equal(
+                    got.numpy(), _jax_sketch64(ref, valid, k, s),
+                    err_msg=f"{nb} bytes")
+
+
+_U64 = np.uint64
+_SENT64 = _U64(2**64 - 1)
+
+
+def _fmix64(x):
+    with np.errstate(over="ignore"):
+        x = x ^ (x >> _U64(33))
+        x = x * _U64(0xFF51AFD7ED558CCD)
+        x = x ^ (x >> _U64(33))
+        x = x * _U64(0xC4CEB9FE1A85EC53)
+        return x ^ (x >> _U64(33))
+
+
+def _groups64(codes, pos, span):
+    """The kernel's 4-code groups at positions pos (one a lane) of each
+    row: codes 2 bits each, low bits first, in bits 0-7, the mask of the
+    ambiguous ones in bits 8-11; codes at or past span read as 0."""
+    g = np.zeros((codes.shape[0], len(pos)), np.uint64)
+    for j in range(4):
+        p = pos[None, :] + j
+        c = np.where(p < span[:, None],
+                     codes[:, np.minimum(pos + j, codes.shape[1] - 1)], 0)
+        c = c.astype(np.uint64)
+        g |= np.where(c < 4, c << _U64(2 * j), _U64(0x100 << j))
+    return g
+
+
+def _hashes64(x, nv, k, packed):
+    """A chunk's hashed canonical k-mers, (n, 32 lanes, 4 starts), from
+    each lane's word x (its group in bits 0-11, lanes 0-7 the group 128
+    codes on in bits 16-27) as the kernel computes them: codes 4 lane ..
+    4 lane + 35 from the next 8 lanes' words (the following lanes, past
+    lane 31 the first lanes' second groups), the reverse complement of
+    start j the complement of window bits [2j, 2j + 2k), the forward
+    k-mer of codes 0 .. k - 2 the window's code order reversed, then
+    rolled one code a step."""
+    lane = np.arange(32)
+    cw = x & _U64(0xFF)
+    ch = np.zeros_like(cw)
+    am = np.zeros_like(cw) if packed else (x >> _U64(8)) & _U64(0xF)
+    for d in range(1, 9):
+        y = x[:, (lane + d) & 31]
+        g = np.where(lane + d < 32, y & _U64(0xFFF), y >> _U64(16))
+        if d < 8:
+            cw |= (g & _U64(0xFF)) << _U64(8 * d)
+        else:
+            ch = g & _U64(0xFF)
+        if not packed:
+            am |= ((g >> _U64(8)) & _U64(0xF)) << _U64(4 * d)
+    kmask = _SENT64 if k == 32 else _U64((1 << (2 * k)) - 1)
+    amask = _U64((1 << k) - 1)
+    fw = np.zeros_like(cw)
+    for b in range(64):                                  # __brevll
+        fw |= ((cw >> _U64(b)) & _U64(1)) << _U64(63 - b)
+    fw = ((fw >> _U64(1)) & _U64(0x5555555555555555)) | \
+        ((fw & _U64(0x5555555555555555)) << _U64(1))
+    fw >>= _U64(66 - 2 * k)
+    sn = 2 * k - 2
+    nxt = (cw >> _U64(sn)) | (ch << _U64(64 - sn))
+    v = np.empty(x.shape + (4,), np.uint64)
+    for j in range(4):
+        fw = ((fw << _U64(2)) | ((nxt >> _U64(2 * j)) & _U64(3))) & kmask
+        lw = (cw >> _U64(2 * j)) | (ch << _U64(64 - 2 * j)) if j else cw
+        rc = ~lw & kmask
+        ok = 4 * lane[None, :] + j < nv[:, None]
+        if not packed:
+            ok &= ((am >> _U64(j)) & amask) == 0
+        v[:, :, j] = np.where(ok, _fmix64(np.minimum(fw, rc)), _SENT64)
+    return v
+
+
+def _pop64(v, where):
+    v[where] = np.concatenate([v[where][:, 1:], np.full(
+        (int(where.sum()), 1), _SENT64, np.uint64)], axis=1)
+
+
+def _select64(v, s, run=None):
+    """Each lane sorts its 4 values and drops its own duplicates; round r
+    takes the warp's minimum of the lanes' heads (and, with a running
+    sketch, of its lanes' heads), popped wherever it is a head ->
+    (n, s) values of the s rounds, sentinels once the minimum is."""
+    v = np.sort(v, axis=2)
+    v[:, :, 1:][v[:, :, 1:] == v[:, :, :-1]] = _SENT64
+    v = np.sort(v, axis=2)
+    out = np.empty((v.shape[0], s), np.uint64)
+    for r in range(s):
+        head = v[:, :, 0] if run is None else np.minimum(v[:, :, 0],
+                                                         run[:, :, 0])
+        out[:, r] = m = head.min(axis=1)
+        _pop64(v, v[:, :, 0] == m[:, None])
+        if run is not None:
+            _pop64(run, run[:, :, 0] == m[:, None])
+    return out
+
+
+def _sketch64_model(codes, valid, k, s, packed=False):
+    """The 64-bit sketch kernel (csrc/sketch.cu::sketch64_kernel) as it
+    computes: packed rows (W / 4 <= 32 bytes, lane l byte l, lanes past
+    the row 0) in one chunk; coded rows by chunks of 128 starts, in one
+    chunk where min(valid, W) - (k - 1) <= 128, else with a running
+    sketch (value 32 q + lane in slot q of the lane) that each chunk's
+    rounds merge into and replace."""
+    n = codes.shape[0]
+    span = np.clip(valid.astype(np.int64), 0,
+                   4 * codes.shape[1] if packed else codes.shape[1])
+    nst = span - (k - 1)
+    lane = np.arange(32)
+
+    def chunk(rows, lo):
+        if packed:
+            x = np.zeros((len(rows), 32), np.uint64)
+            x[:, :codes.shape[1]] = codes[rows]
+            return _hashes64(x, nst[rows], k, True)
+        x = _groups64(codes[rows], lo + 4 * lane, span[rows])
+        x[:, :8] |= _groups64(codes[rows], lo + 128 + 4 * lane[:8],
+                              span[rows]) << _U64(16)
+        return _hashes64(x, nst[rows] - lo, k, False)
+    out = np.empty((n, s), np.uint64)
+    one = np.nonzero(packed | (nst <= 128))[0]
+    out[one] = _select64(chunk(one, 0), s)
+    many = np.nonzero(~(packed | (nst <= 128)))[0]
+    run = np.full((len(many), 32, 4), _SENT64, np.uint64)
+    for lo in range(0, int(nst[many].max(initial=0)), 128):
+        nxt = np.full((len(many), 128), _SENT64, np.uint64)
+        nxt[:, :s] = _select64(chunk(many, lo), s, run.copy())
+        nxt = nxt.reshape(-1, 4, 32).transpose(0, 2, 1)
+        run = np.where((lo < nst[many])[:, None, None], nxt, run)
+    out[many] = run.transpose(0, 2, 1).reshape(-1, 128)[:, :s]
+    return out.view(np.int64)
+
+
+@pytest.mark.parametrize("w", [128, 146, 255, 511, 1024])
+@pytest.mark.parametrize("k", [17, 18, 32])
+def test_sketch64_model_matches(k, w):
+    """The 64-bit sketch kernel's steps (codes gathered from the
+    following lanes' words, k-mers read off the 72-bit window and rolled,
+    B1's rounds on u64 heads, the running sketch across 128-start
+    chunks) equal its plain version, s = 1, 16 and 128, on coded rows
+    and, at w = 128, on packed rows of 32, 25, 7 and 1 bytes."""
+    codes, valid = _sketch64_windows(k, w, seed=k * 7 + w)
+    for s in (1, 16, 128):
+        np.testing.assert_array_equal(
+            _sketch64_model(codes, valid, k, s),
+            S.sketch_windows64_plain(torch.from_numpy(codes),
+                                     torch.from_numpy(valid), k, s).numpy(),
+            err_msg=f"s={s}")
+    if w == 128:
+        clean = np.where(codes < 4, codes, 3).astype(np.uint8)
+        for nb in (32, 25, 7, 1):
+            pk = _pack(clean[:, :4 * nb])
+            np.testing.assert_array_equal(
+                _sketch64_model(pk, valid, k, 16, packed=True),
+                S.sketch_windows64_plain(torch.from_numpy(clean[:, :4 * nb]),
+                                         torch.from_numpy(valid), k,
+                                         16).numpy(), err_msg=f"{nb} bytes")
 
 
 # ------------------------------------------------ bucket index + probe
