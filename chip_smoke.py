@@ -42,7 +42,7 @@ saved CSR and fills the probe rows on the card.
   folded into B7, which must launch B8 no time and equal B8 then B7 on
   the query's own probes), which must give the same result, per read
   too;
-- long reads: 2^15 reads of log-normal lengths (median 480 bp, clipped
+- long reads: 2^14 reads of log-normal lengths (median 480 bp, clipped
   to 200-19,000 bp, the reference's long-read workload; the spread is
   assumed) against the 944 Mbp database with per-read output and
   -tophits: window buckets up to 256 windows, rows of up to 1 M slots;
@@ -81,19 +81,32 @@ saved CSR and fills the probe rows on the card.
   (the host table build, sketched on the card by the 64-bit sketch
   kernel), staged as u64 dense rows; 2^20 reads on the summary path
   (the 64-bit sketch kernel on the runner's packed rows, B4), one stack
-  against the plain path on CPU tensors; 2^16 reads and 2^16 pairs per
+  against the plain path on CPU tensors; 2^14 reads and 2^14 pairs per
   read, byte-identical under MC_FUSED_CANDIDATES=0; the same database
   staged as u64 two-tier rows under a smaller MC_HBM_GB, the same rank
   histogram;
 - host-side modes on the 944 Mbp database: -cov-percentile 50 on 2^16
-  reads and -align on 1,024 reads (each lines equal under
+  reads and -align on 256 reads (each lines equal under
   MC_FUSED_CANDIDATES=0; -align's share of blocks on the read's true
   genome), and the interactive mode fed two lines, whose lines equal
   the two direct queries';
 - the non-fused batch within free memory: the two-part database's
   non-fused per-read query, and 2^15 of its reads with -allhits, once
   more beside a ballast tensor that leaves 12 GiB free: several
-  launches, the same lines.
+  launches, the same lines;
+- the CSR layout (databases no row layout fits): the 944 Mbp database
+  under the MC_HBM_GB whose budget admits its CSR bytes and no row
+  layout (the window is computed from the database's bytes and
+  printed), 2^20 reads on the summary path through B1, csr_decode and
+  B4 with the dense staging's rank histogram, one stack against the
+  plain path on CPU tensors, and the per-read phase's 2^16 reads, whose
+  lines must equal the dense staging's byte for byte; the many-target
+  database the same way through B5 (summary); the k = 18 database under
+  MC_DEVICE_LAYOUT=0 (the u64 CSR, searched by its sign-flipped
+  features) through the 64-bit sketch kernel, csr_decode and B4
+  (summary); each with its staging seconds split into the host's
+  (unpack_locations among them) and the card's, and a profile of a warm
+  second query.
 
 B3 runs ahead of B4 wherever MC_SPLIT_CAND=1 selects the split route.
 At winlen 127 the summary path hands B1 the runner's 2-bit packed rows,
@@ -112,7 +125,8 @@ registers and spills.
 Run from the repository root with no arguments:  python3 chip_smoke.py
 It exits non-zero without a CUDA device. Its last stdout line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
-`--profile` adds torch.profiler traces.
+`--profile` adds torch.profiler traces of the summaries (those of the
+CSR stagings are always traced).
 """
 from __future__ import annotations
 
@@ -142,7 +156,8 @@ READ_LEN = 100
 GENOME_LEN = 1_000_000
 SCAN_BATCH = 8192      # reads per summary batch on the card (runner.py)
 PROBE_FEATURES = 1 << 21   # features of the B8/B9 parity table
-LONG_READS = 1 << 15       # reads of the long-read phase (944 Mbp)
+CSR_FEATURES = 1 << 24     # features of the csr_decode parity table
+LONG_READS = 1 << 14       # reads of the long-read phase (944 Mbp)
 LONG_READS_MANY = 1 << 13  # long reads against the many-target database
 MERGE_READS = 1 << 14      # reads of the taxon-merging phase
 PAIRS = 1 << 20            # read pairs of the paired summary queries
@@ -150,8 +165,9 @@ PAIRS_PER_READ = 1 << 16   # pairs of the per-read and many-target phases
 # -align re-reads the top target's record from its source FASTA for
 # every read (as JAX and the reference binary do); the 944 Mbp genomes
 # are written one file a genome, so a re-read scans about 1 MB
-ALIGN_READS = 1024
-REPL_READS = 8192          # reads a line of the interactive-mode phase
+ALIGN_READS = 256
+REPL_READS = 4096          # reads a line of the interactive-mode phase
+K18_PER_READ = 1 << 14     # reads and pairs of the k = 18 per-read phase
 ALLHITS_READS = 1 << 15    # -allhits reads of the ballast phase
 # kernels no main path launches: B8's work is done by B7 (ops/rows.py)
 FOLDED = {"oidx_decode": "full_decode"}
@@ -671,6 +687,7 @@ def phase_parity(results):
 
     phase_parity_wide(results, rng, dev)
     phase_parity_decode(results, rng, dev)
+    phase_parity_csr(results, np.random.default_rng(99), dev)
     phase_parity_probe(results, rng, dev)
 
 
@@ -1141,6 +1158,7 @@ def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):
         srt, mw, 15, sorted_input=True, **kw))
     fused_dms = kernel_ms(lambda: C.candidates_packed(alt, mw, 15,
                                                       presorted=r, **kw))
+    pr10 = b4_pr10_shapes(C, plain, mwir, dev, errs)
     if split_candidates():
         row = dict(ms=split_ms, plain_ms=sweep_plain_ms, host_us=split_hus,
                    device_ms=split_dms,
@@ -1168,7 +1186,44 @@ def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):
         fused_plain_ms=fused_plain_ms, b3_b4_ms=route_ms,
         b3_b4_bound_ms=fused_b[0], turns_fused_b3b4_fused=reads,
         fused_8192x1024_ms=fused1k_ms, b3_b4_8192x1024_ms=route1k_ms,
-        bound_8192x1024_ms=fused1k_b[0], turns_8192x1024=reads1k)
+        bound_8192x1024_ms=fused1k_b[0], turns_8192x1024=reads1k, **pr10)
+
+
+def b4_pr10_shapes(C, plain, mwir, dev, errs):
+    """B4 (sorting its own rows) at the shapes the paired and multi-part
+    paths give it: the paired summary's rows of 8,192 slots (32 features
+    x 256-lane runs, 8192 pairs), dedup 3; the multi-part per-read
+    batch, 65,536 rows of 8,192 slots sorted whole (presorted 0), walk
+    32, held against the plain version on its first 2,048 rows. Their
+    own generator, so the later phases' data stay as they were.
+    -> their device ms and bounds."""
+    rng = np.random.default_rng(810)
+    pair = torch.from_numpy(alternating_runs(rng, 8192, 32, 256)).to(dev)
+    base = torch.from_numpy(rng.permuted(slot_rows(rng, 4096, 8192),
+                                         axis=1)).to(dev)
+    multi = base.repeat(16, 1)
+    del base
+    out = {}
+    for name, pk, m, kw, pre in (
+            ("pairs_8192x8192_presorted256_dedup3", pair, 3,
+             dict(dedup_walk=3), 256),
+            ("multipart_65536x8192_presorted0_walk32", multi, 2,
+             dict(walk_elems=32), 0)):
+        mw = mwir(pk, m)
+        chk = pk[:2048]
+        got = torch.stack(C.candidates_packed(chk, mw[:2048], 15,
+                                              max_candidates=2,
+                                              presorted=pre, **kw), dim=2)
+        errs[name] = check_equal(f"B4 {name}", got,
+                                 plain(chk, mw[:2048], **kw))
+        rows, l2 = pk.shape
+        out[f"{name}_device_ms"] = kernel_ms(lambda: C.candidates_packed(
+            pk, mw, 15, max_candidates=2, presorted=pre, **kw), reps=5)
+        # the rows and mwir read once, (rows, K=2, 4) results written
+        out[f"{name}_bound_ms"] = bound(
+            pk.numel() * 4 + rows * 4 + rows * 2 * 16,
+            sort_ops(rows, l2, pre or 1, 1) + pk.numel() * 8)[0]
+    return out
 
 
 def long_sketch_inputs(rng, n: int, w: int, k: int, read_len: int):
@@ -1337,6 +1392,92 @@ def phase_parity_decode(results, rng, dev):
     say("parity-B7", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
         kernel_device_ms=dms, host_us_per_call=hus, plain_ms=pms,
         bound_ms=b_ms, bound_by=by, cases="rl 256/512 f=16, rl 256 f=1")
+
+
+def csr_table(rng, dev, nf: int, ntgt: int, nwin: int):
+    """A CSR of nf features on the card at the 944 Mbp database's bucket
+    depths (1-16 locations, every 64th feature 200-399, past the 254
+    cap): int64 offsets, targets below ``ntgt``, windows below ``nwin``
+    (made on the card from a seed)."""
+    cnt = rng.integers(1, 17, nf)
+    cnt[::64] = rng.integers(200, 400, len(cnt[::64]))
+    offs = np.zeros(nf + 1, np.int64)
+    np.cumsum(cnt, out=offs[1:])
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    loc = [torch.randint(0, m, (int(offs[-1]),), generator=g, device=dev,
+                         dtype=torch.int32) for m in (ntgt, nwin)]
+    return torch.from_numpy(offs).to(dev), *loc
+
+
+def phase_parity_csr(results, rng, dev):
+    """csr_decode against its plain version at the main paths' 131,072
+    probes (8192 reads x 16 features), c 254, rl 256 (alternating runs,
+    f 16) and rl 254 (f 1), on a 16 M-feature CSR (221 M locations, past
+    the L2 cache): the 944 Mbp summary's packed form (pk15), the
+    many-target form ((tgt, win), pack_bits 0), and the k = 18 form,
+    whose rows come from the search of sign-flipped u64 features
+    (ops/rows.py::_csr_rows). Bound: the rl output lanes a probe, 8
+    bytes a slot the counts keep, and each probe's row id, found flag
+    and offsets pair once."""
+    from types import SimpleNamespace
+    from metacache_tpu_torch.ops import probe_decode as D
+    from metacache_tpu_torch.ops.rows import INT64_MIN, _csr_rows
+    n, f, c, rl = 131072, 16, 254, 256
+    nf = CSR_FEATURES
+    offs, ltgt, lwin = csr_table(rng, dev, nf, 944, 1 << 14)
+    idx = torch.from_numpy(rng.integers(0, nf, n).astype(np.int32)).to(dev)
+    found = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    # a u64 table: sorted distinct sign-flipped features, probed by the
+    # features of 90% of its rows and 10% random ones
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    keys = torch.unique(torch.randint(-2**63, 2**63 - 1, (nf,), generator=g,
+                                      device=dev, dtype=torch.int64))
+    t64 = SimpleNamespace(num_features=keys.numel(), bucket_rows=None,
+                          features=keys)
+    q = keys[torch.randint(0, keys.numel(), (n,), generator=g, device=dev)]
+    q = torch.where(torch.rand(n, generator=g, device=dev) < 0.9, q,
+                    torch.randint(-2**63, 2**63 - 1, (n,), generator=g,
+                                  device=dev, dtype=torch.int64)) ^ INT64_MIN
+    idx64, found64 = _csr_rows(q, t64)
+    offs64 = offs[:keys.numel() + 1]
+    cases = {"944mbp_pk15": (idx, found, offs, 15, rl, f),
+             "many_target_tgt_win": (idx, found, offs, 0, rl, f),
+             "k18_u64_search_pk15": (idx64, found64, offs64, 15, rl, f),
+             "pk15_rl254_f1": (idx, found, offs, 15, c, 1)}
+    out = {}
+    for name, (ii, fd, oo, pb, r_, ff) in cases.items():
+        def call():
+            return D.csr_decode(ii, fd, oo, ltgt, lwin, c, r_, ff, pb)
+
+        def plain():
+            return D.csr_decode_plain(ii, fd, oo, ltgt, lwin, c, r_, ff, pb)
+        err = max(check_equal(f"csr_decode {name}", a, b)
+                  for a, b in zip(call(), plain()))
+        i = torch.clamp(ii.to(torch.int64), 0, oo.numel() - 2)
+        kept = int(torch.where(fd, torch.clamp(oo[i + 1] - oo[i], max=c),
+                               0).sum())
+        nbytes = n * r_ * 4 * (1 if pb else 2) + kept * 8 + n * 5 + \
+            int(fd.sum()) * 16
+        b_ms, by = bound(nbytes, n * r_)
+        out[name] = dict(max_abs_err=err, ms=cuda_ms(call),
+                         kernel_ms=kernel_ms(call), host_us=host_us(call),
+                         plain_ms=cuda_ms(plain), bound_ms=b_ms,
+                         bound_by=by, slots_read=kept)
+        if name == "944mbp_pk15":
+            _record(results, "csr_decode", err=err, ms=out[name]["ms"],
+                    plain_ms=out[name]["plain_ms"],
+                    device_ms=out[name]["kernel_ms"],
+                    host_us=out[name]["host_us"], nbytes=nbytes, nops=n * r_,
+                    shape="131072 probes, f=16, c=254, rl=256, pk15, "
+                          "16 M-feature CSR")
+        say(f"parity-csr_decode-{name}", probes=n, c=c, rl=r_, f=ff,
+            pack_bits=pb, tolerance=0, **out[name])
+    search_ms = kernel_ms(lambda: _csr_rows(q, t64))
+    say("parity-csr_decode", tolerance=0,
+        max_abs_err=max(o["max_abs_err"] for o in out.values()),
+        features=nf, locations=ltgt.numel(), u64_features=keys.numel(),
+        u64_search_ms=search_ms, cases={k: v["max_abs_err"]
+                                        for k, v in out.items()})
 
 
 def probe_stream(rng, nf: int):
@@ -1669,12 +1810,14 @@ def phase_profile(tmp, name, runner, tag="", reads="reads.fa",
               f"{e.count:7d} x  {e.key[:90]}")
 
 
-def phase_query_per_read(tmp, name, db, reads, tag=""):
+def phase_query_per_read(tmp, name, db, reads, tag="", runner=None):
+    """The per-read query of ``reads`` (on ``runner``'s staged tables
+    where one is given) -> its mapping lines."""
     path = os.path.join(tmp, name, "reads_per_read.fa")
     write_reads(path, reads)
     out_path = os.path.join(tmp, name, "mapping.txt")
     with open(out_path, "w") as out:
-        runner, res, _ = _query(db, path, [], out)
+        runner, res, _ = _query(db, path, [], out, runner)
     with open(out_path) as f:
         lines = [l for l in f if not l.startswith("#")]
     if len(lines) != len(reads):
@@ -1937,6 +2080,118 @@ def run_stagings(tmp, name, db, hist, stage_s):
     return b9
 
 
+def hbm_gb_for_budget(budget: int) -> str:
+    """The MC_HBM_GB whose budget (device.py::hbm_budget_bytes: the total
+    less max(2 GiB, 20%)) is ``budget`` bytes."""
+    total = budget + (2 << 30) if budget <= 8 << 30 else budget / 0.8
+    return f"{total / 2**30:.6f}"
+
+
+def csr_window(db) -> dict:
+    """A budget that admits a single-part database's CSR bytes and no
+    row layout: below the least two-tier rows by the host rule (the
+    feature count unpadded, so the builder's padded rows cannot fit
+    either, and the classed cells are weighed only beside a fitting
+    two-tier head), at the middle of [CSR bytes, that). -> the bytes
+    and the MC_HBM_GB that gives the budget."""
+    from metacache_tpu_torch.classify.runner import _max_window, \
+        slot_pack_bits
+    from metacache_tpu_torch.ops.probe import make_bucket_index
+    from metacache_tpu_torch.ops.table import csr_bytes, device_layout
+    d = Database.load(db)
+    p = d.parts[0]
+    spf = min(p.max_bucket_size, d.max_locations_per_feature) or 1
+    pb = slot_pack_bits(d.target_count, _max_window(p))
+    csr_b = csr_bytes(p, make_bucket_index(p.unique_features)[0].nbytes)
+    head, dense_b, rows_b = device_layout(p, spf, pb, 1 << 62,
+                                          allow_dense=False)
+    if not csr_b < rows_b:
+        raise AssertionError(f"no budget admits the CSR layout ({csr_b} "
+                             f"bytes) and no row layout ({rows_b})")
+    budget = (csr_b + rows_b) // 2
+    return dict(csr_bytes=csr_b, least_two_tier_bytes=rows_b,
+                least_two_tier_head=head, dense_bytes=dense_b,
+                budget_bytes=budget, mc_hbm_gb=hbm_gb_for_budget(budget))
+
+
+def run_csr(tmp, name, db, hist, path_kernels, env, stack=None,
+            lines=None):
+    """[query-summary-<name>] (layout False), [staging-<name>-csr] and
+    [profile-<name>-csr]: the 2^20-read summary query (the reads of the
+    dense staging's summary) with the database staged in the CSR layout
+    under ``env``, a main path of its own (csr_decode once a batch
+    beside ``path_kernels``): the dense staging's rank histogram, its
+    staging seconds split into the host's (unpack_locations among them)
+    and the card's, a profile of a warm second query (device busy, idle
+    share); ``stack``:
+    one stack of reads through the scan step against the plain path on
+    CPU tensors; ``lines``: the dense staging's per-read mapping lines of
+    reads_per_read.fa, which the CSR staging must give byte for byte.
+    -> the summary's launches."""
+    with environ(**env):
+        runner, grew, res = phase_query_summary(
+            tmp, name, db, 1 << 20, lambda r: r.layout == "False" and
+            r.tables.csr, path_of(*path_kernels, "csr_decode"))
+    if not np.array_equal(res.statistics.assigned_, hist):
+        raise AssertionError(f"{name} CSR: the rank histogram differs from "
+                             "the dense staging's")
+    if runner.staged_bytes > runner.budget_bytes and \
+            env.get("MC_DEVICE_LAYOUT") != "0":
+        raise AssertionError(f"{name} CSR: {runner.staged_bytes} bytes "
+                             f"staged, budget {runner.budget_bytes}")
+    [split] = runner.stage_seconds
+    t = runner.tables
+    say(f"staging-{name}-csr", layout=runner.layout, env=env,
+        staged_gib=round(runner.staged_bytes / 2**30, 3),
+        budget_gib=round(runner.budget_bytes / 2**30, 3),
+        features=t.num_features, locations=t.loc_tgt.numel(), spf=t.spf,
+        bucket_bits=t.bucket_bits, wide=t.wide,
+        staging_seconds=round(runner.stage_s, 3),
+        host_seconds=round(split["host_s"], 3),
+        unpack_locations_seconds=round(split["unpack_s"], 3),
+        card_seconds=round(split["card_s"], 3), histogram_equal=True)
+    phase_profile(tmp, name, runner, tag="-csr")
+    if stack is not None:
+        phase_e2e(f"{name}-csr", runner, stack)
+    if lines is not None:
+        got, _r, r = query_lines(db, os.path.join(tmp, name,
+                                                  "reads_per_read.fa"),
+                                 [], os.path.join(tmp, name, "csr.txt"),
+                                 runner)
+        got = [l for l in got if not l.startswith("#")]
+        if got != lines:
+            raise AssertionError(f"{name} CSR: {len(got)} mapping lines, "
+                                 f"equal to the dense staging's "
+                                 f"{len(lines)}: {got == lines}")
+        say(f"query-per-read-{name}-csr", reads=len(got),
+            lines_equal_dense=True, seconds=round(r.time_ms / 1000, 3),
+            reads_per_min=round(len(got) / (r.time_ms / 60000.0)))
+    del runner
+    torch.cuda.empty_cache()
+    return grew
+
+
+def run_csr_window(tmp, name, db, hist, path_kernels, genomes=None,
+                   per_read=False):
+    """[csr-window-<name>] and the database in CSR under the MC_HBM_GB
+    of that window (run_csr); with ``genomes`` one stack of their reads
+    against the CPU, with ``per_read`` the per-read phase's 2^16 reads,
+    whose lines must equal the dense staging's (its mapping.txt).
+    -> the summary's launches."""
+    win = csr_window(db)
+    say(f"csr-window-{name}", **{k: (round(v / 2**30, 4) if k.endswith(
+        "bytes") else v) for k, v in win.items()})
+    lines = None
+    if per_read:
+        with open(os.path.join(tmp, name, "mapping.txt")) as f:
+            lines = [l for l in f if not l.startswith("#")]
+    stack = None if genomes is None else sample_reads(
+        np.random.default_rng(8), genomes, SCAN_BATCH)
+    return run_csr(tmp, name, db, hist, path_kernels,
+                   {"MC_HBM_GB": win["mc_hbm_gb"]}, stack=stack,
+                   lines=lines)
+
+
 def run_two_tier(tmp, profile):
     """The 1456 Mbp database: dense rows above the card's budget, so it
     stages two-tier (hsl 61, pk15). Summary query escalated (the main
@@ -2018,9 +2273,10 @@ def run_two_tier(tmp, profile):
     phase_e2e_two_tier(name, runner, reads, cpu, copy_s)
     phase_e2e_pairs(name, runner, m1, m2, SCAN_BATCH, escalated=True,
                     cpu=cpu)
-    del runner, cpu
-    torch.cuda.empty_cache()
-    lines = phase_query_per_read(tmp, name, db, reads[:65536])
+    del cpu
+    lines = phase_query_per_read(tmp, name, db, reads[:65536],
+                                 runner=runner)
+    del runner
     torch.cuda.empty_cache()
 
     # MC_PROBE_PALLAS=1: B9 in the bucket probe; B7 does B8's work, so B8
@@ -2037,11 +2293,11 @@ def run_two_tier(tmp, profile):
         raise AssertionError("MC_PROBE_PALLAS=1 changed the rank histogram")
     if runner.esc_reads != esc_reads or pallas["oidx_decode"] != 0:
         raise AssertionError("MC_PROBE_PALLAS=1 escalated otherwise")
-    del runner
-    torch.cuda.empty_cache()
+    # the stage is read at each probe: the summary's tables serve
     with environ(MC_PROBE_PALLAS="1"):
         lines1 = phase_query_per_read(tmp, name, db, reads[:65536],
-                                      tag="-probe-kernels")
+                                      tag="-probe-kernels", runner=runner)
+    del runner
     if lines1 != lines:
         raise AssertionError("MC_PROBE_PALLAS=1 changed the mapping lines")
     say(f"probe-kernels-{name}", histogram_equal=True, lines_equal=True,
@@ -2731,12 +2987,14 @@ def run_k18(tmp, genomes, species, profile):
     [query-summary-944mbp-k18]: 2^20 reads, -no-map, the main path of the
     64-bit sketch kernel (the runner's packed rows) and B4 on the u64
     dense rows; one stack against the plain path on CPU tensors. Per
-    read: 2^16 reads with -tophits and 2^16 pairs with -pairfiles
+    read: 2^14 reads with -tophits and 2^14 pairs with -pairfiles
     -tophits, byte-identical under MC_FUSED_CANDIDATES=0.
     [staging-944mbp-k18-two-tier]: a budget below the u64 dense rows
     (MC_HBM_GB) stages u64 two-tier rows, queried at full depth (JAX
-    escalates no u64 rows): the same rank histogram. -> the summary
-    query's launches."""
+    escalates no u64 rows): the same rank histogram.
+    [staging-944mbp-k18-csr]: MC_DEVICE_LAYOUT=0 stages the u64 CSR
+    layout, as JAX's runner does, the same rank histogram through the
+    search and csr_decode (run_csr). -> the summary query's launches."""
     from metacache_tpu_torch import kernels
     from metacache_tpu_torch.cli.main import main as cli
     from metacache_tpu_torch.ops.probe import collision_free_bits64
@@ -2788,35 +3046,36 @@ def run_k18(tmp, genomes, species, profile):
     phase_e2e(name, runner, reads)
     torch.cuda.empty_cache()
     path = os.path.join(sub, "reads_per_read.fa")
-    write_reads(path, reads[:PAIRS_PER_READ])
-    m1, m2 = sample_pairs(np.random.default_rng(17), genomes,
-                          PAIRS_PER_READ)
+    write_reads(path, reads[:K18_PER_READ])
+    m1, m2 = sample_pairs(np.random.default_rng(17), genomes, K18_PER_READ)
     pair = [os.path.join(sub, f) for f in write_pairs(sub, "pairs", m1, m2)]
     runs, out = {}, {}
-    # the summary's staged tables serve the default per-read queries; the
-    # fused flag is read when a runner stages, so the non-fused ones take
-    # one runner of their own
-    for tag, env in (("", {}), ("-nonfused", {"MC_FUSED_CANDIDATES": "0"})):
+    # the summary's staged tables serve every per-read query: the runner
+    # reads MC_FUSED_CANDIDATES when it stages, so the non-fused queries
+    # set its flag instead of staging again (the widened u64 index takes
+    # about 30 s)
+    for tag, fused in (("", True), ("-nonfused", False)):
+        runner._fused_candidates = fused
         for kind, paths, args in (("reads", path, ["-tophits"]),
                                   ("pairs", pair, ["-pairfiles",
                                                    "-tophits"])):
             got, runner, r = query_lines(
                 db, paths, args, os.path.join(sub, f"{kind}{tag}.txt"),
-                runner, env)
+                runner)
             out[kind + tag] = [l for l in got if not l.startswith("#")]
             runs[kind + tag] = dict(per_min=round(
                 r.statistics.total() / (r.time_ms / 60000.0)),
                 seconds=round(r.time_ms / 1000, 3))
-        runner = None
-        torch.cuda.empty_cache()
+    del runner
+    torch.cuda.empty_cache()
     for kind in ("reads", "pairs"):
         if out[kind] != out[kind + "-nonfused"] or \
-                len(out[kind]) != PAIRS_PER_READ:
+                len(out[kind]) != K18_PER_READ:
             raise AssertionError(f"k18 {kind}: {len(out[kind])} lines, "
                                  f"equal under MC_FUSED_CANDIDATES=0: "
                                  f"{out[kind] == out[kind + '-nonfused']}")
-    say(f"query-per-read-{name}", reads=PAIRS_PER_READ,
-        pairs=PAIRS_PER_READ, lines_equal_nonfused=True, runs=runs)
+    say(f"query-per-read-{name}", reads=K18_PER_READ,
+        pairs=K18_PER_READ, lines_equal_nonfused=True, runs=runs)
     # a total whose budget (total less max(2 GiB, 20%)) holds 75% of the
     # u64 dense rows beside the bucket index, which the budget counts:
     # the builder takes two-tier rows
@@ -2841,6 +3100,10 @@ def run_k18(tmp, genomes, species, profile):
         histogram_equal=True)
     del runner
     torch.cuda.empty_cache()
+    # MC_DEVICE_LAYOUT=0: the u64 CSR layout, as JAX's runner stages it
+    # (runner.py:530-540), searched by its sign-flipped features
+    run_csr(tmp, name, db, hist, ("sketch64", *cand_kernels()),
+            {"MC_DEVICE_LAYOUT": "0"})
     shutil.rmtree(sub)
     return grew
 
@@ -3220,6 +3483,9 @@ def main() -> int:
         shutil.rmtree(os.path.join(tmp, "944mbp", "genomes"))
         run_repl(tmp, "944mbp", db, REPL_READS)
         run_stagings(tmp, "944mbp", Database.load(db), hist, stage_s)
+        launches["csr_decode"] = run_csr_window(
+            tmp, "944mbp", db, hist, ("sketch", *cand_kernels()),
+            genomes=genomes, per_read=True)["csr_decode"]
         long_path = run_long_reads(tmp, "944mbp", db, genomes, LONG_READS,
                                    a.profile, "candidates",
                                    "candidates_wide")
@@ -3247,6 +3513,8 @@ def main() -> int:
             ("sketch", "candidates_unpacked"), a.profile)
         launches["candidates_unpacked"] = main_path["candidates_unpacked"]
         phase_dense_limit(tmp, "many-target", db, hist)
+        run_csr_window(tmp, "many-target", db, hist,
+                       ("sketch", "candidates_unpacked"))
         long_path = run_long_reads(tmp, "many-target", db, genomes,
                                    LONG_READS_MANY, False,
                                    "candidates_unpacked",

@@ -38,8 +38,8 @@ free (``_nonfused_rows``). -cov-percentile classifies every read again
 on the host after the run, from the candidates of the targets that
 keep their coverage; -align aligns each classified read to its top
 candidate's windows, re-read from the target's FASTA, on the host.
-Options outside the port (-replicate, -table-shards, the CSR layout)
-raise NotImplementedError naming their ROADMAP item. The JAX runner's
+Options outside the port (-replicate, -table-shards) raise
+NotImplementedError naming their ROADMAP item. The JAX runner's
 TPU-link workarounds (packed result fetches, fixed dispatch shapes) are
 not carried over.
 """
@@ -63,15 +63,16 @@ from ..native import decode_header as _decode_header
 from ..ops import windows as win_ops
 from ..seqio.reader import PairingMode, QueryRecord, read_queries
 from ..taxonomy.model import NUM_RANKS, Rank, rank_from_name
-from ..db.state import tables_from_device, tables_from_numpy
+from ..db.state import tables_csr, tables_from_device, tables_from_numpy
 from ..device import free_bytes, get_device, hbm_budget_bytes
 from ..ops.probe import make_bucket_index
 from ..ops.pipeline import QueryResult
 from ..ops.rows import (fuses, fused_candidates_enabled, query_step_rows,
                         query_step_rows_multipart, query_step_rows_redo_scan,
                         query_step_rows_scan, query_step_rows_scan_head)
-from ..ops.table import device_layout, unpack_locations
-from ..ops.table_device import dense_bytes, device_layout_from_csr
+from ..ops.table import csr_bytes, device_layout, unpack_locations
+from ..ops.table_device import (debug_note, dense_bytes,
+                                device_layout_from_csr)
 from . import abundance as abd
 from . import classification as cls_mod
 from . import output as out_mod
@@ -238,6 +239,7 @@ class QueryRunner:
         self.budget_bytes = hbm_budget_bytes(self.device)
         lineages = self.lineages if db.target_count else \
             np.zeros((1, NUM_RANKS), np.int32)
+        self.stage_seconds = []     # a part's staging split, _staged
         if db.device_parts:
             # tables built on the card by this process (build+query)
             dtab = db.device_parts[0]
@@ -289,18 +291,20 @@ class QueryRunner:
                 dtab.layout_bytes)
 
     def _stage_part(self, p, lineages, merge_tax, budget: int):
-        """Stage a loaded part within ``budget`` bytes: its CSR stream
-        filled into probe rows on the card (MC_DEVICE_LAYOUT=1, the
-        default), or host rows copied (MC_DEVICE_LAYOUT=0).
-        MC_DENSE_LIMIT caps only the dense option. Where no layout fits,
-        the CSR probe it would need is not ported (queue A10): the
-        builder's MemoryError raises so. u64 features (k > 16) stage as
-        JAX's runner stages them (runner.py:505-540): through the device
-        builder, never as host rows, and without the dense cap; where
-        JAX falls back to its CSR probe (a layout that does not fit, a
-        low-32 collision, unpackable slots, MC_DEVICE_LAYOUT=0) this
-        raises naming A10.
+        """Stage a loaded part within ``budget`` bytes, as JAX's runner
+        stages it (runner.py:505-596): its CSR stream filled into probe
+        rows on the card (MC_DEVICE_LAYOUT=1, the default); where the
+        builder raises MemoryError (no layout fits; for u64 features also
+        unpackable slots or a low-32 collision of the bucket index that
+        widening does not part), or under MC_DEVICE_LAYOUT=0, host rows
+        by the host rule (``device_layout``), which takes the CSR layout
+        where no row layout fits and raises MemoryError where even CSR
+        does not. u64 features (k > 16) never stage as host rows: they
+        take the CSR layout there, without a budget check, as in JAX.
+        MC_DENSE_LIMIT caps only the dense option of u32 features.
+        Records the staging's seconds (``_staged``).
         -> (tables, dense bytes, staged bytes)."""
+        t0 = time.perf_counter()
         spf = min(p.max_bucket_size, self.db.max_locations_per_feature) or 1
         wide = p.unique_features.dtype == np.uint64
         try:
@@ -309,37 +313,72 @@ class QueryRunner:
             dense_cap = None
         allow_dense = wide or dense_cap is None or \
             p.dense_rows_bytes(spf) <= dense_cap
-        device_rows = os.environ.get("MC_DEVICE_LAYOUT", "1") != "0"
-        if wide and not (device_rows and p.num_features):
-            _unsupported("the CSR probe of u64 features (MC_DEVICE_LAYOUT=0 "
-                         "or an empty part)", "queue A10")
-        if device_rows and p.num_features:
-            ltgt, lwin = unpack_locations(p.locations)
+        unpacked = None
+        unpack_s = 0.0
+        if os.environ.get("MC_DEVICE_LAYOUT", "1") != "0" and p.num_features:
+            unpacked = unpack_locations(p.locations)
+            unpack_s = time.perf_counter() - t0
+            t_card = time.perf_counter()
             try:
-                dtab = device_layout_from_csr(
-                    p.unique_features, p.offsets, ltgt, lwin,
+                staged = self._take(device_layout_from_csr(
+                    p.unique_features, p.offsets, *unpacked,
                     device=self.device,
                     cap=self.db.max_locations_per_feature or 254,
-                    budget_bytes=budget, allow_dense=allow_dense)
-            except MemoryError as e:
-                raise NotImplementedError(
-                    f"{e}: the CSR probe layout is not ported yet (ROADMAP "
-                    "queue A10)") from None
-            del ltgt, lwin
-            return self._take(dtab, lineages, merge_tax)
-        hsl, dense_b, staged_b = device_layout(
-            p, spf, self._pack_bits, budget, allow_dense=allow_dense)
+                    budget_bytes=budget, allow_dense=allow_dense),
+                    lineages, merge_tax)
+                return self._staged(staged, t0, t_card, unpack_s)
+            except MemoryError:
+                pass             # the host rule, then CSR (runner.py:564)
+        index = None if wide else make_bucket_index(p.unique_features)
+        if wide:
+            hsl, staged_b = 0, csr_bytes(p)
+            dense_b = dense_bytes(p.num_features, spf, 1, wide=True)
+        else:
+            hsl, dense_b, staged_b = device_layout(
+                p, spf, self._pack_bits, budget, allow_dense=allow_dense,
+                index_bytes=index[0].nbytes)
+        if hsl == 0:
+            if unpacked is None:
+                h0 = time.perf_counter()
+                unpacked = unpack_locations(p.locations)
+                unpack_s += time.perf_counter() - h0
+            t_card = time.perf_counter()
+            tables = tables_csr(p.unique_features, p.offsets, *unpacked,
+                                lineages, merge_tax, spf, self.device,
+                                index=index)
+            return self._staged((tables, dense_b, staged_b), t0, t_card,
+                                unpack_s)
         if hsl == spf:
             rows = p.fused_rows(spf, slot_bits=self._pack_bits)
             ovf, hsl = None, 0
         else:
             rows, ovf = p.fused_rows_two_tier(spf, hsl,
                                               slot_bits=self._pack_bits)
-        brows, bits = make_bucket_index(p.unique_features)
-        return (tables_from_numpy(
+        brows, bits = index
+        t_card = time.perf_counter()
+        return self._staged((tables_from_numpy(
             p.unique_features, p.offsets, rows, brows, bits, lineages,
             merge_tax, spf, self._pack_bits, self.device, ovf_rows=ovf,
-            head_slots=hsl), dense_b, staged_b)
+            head_slots=hsl), dense_b, staged_b), t0, t_card, unpack_s)
+
+    def _staged(self, staged, t0: float, t_card: float, unpack_s: float):
+        """Record a staged part's seconds (``stage_seconds``): on the
+        host before the call that puts the part on the device (from
+        ``t0`` to ``t_card``; ``unpack_s`` of them the host's
+        unpack_locations), and in that call, waited for (the card's
+        fill from the CSR, or the copy of the host's rows or CSR); then
+        pass the part on."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        card_s = time.perf_counter() - t_card
+        self.stage_seconds.append({"layout": str(staged[0].dense),
+                                   "unpack_s": unpack_s,
+                                   "host_s": t_card - t0, "card_s": card_s})
+        debug_note(f"staged part {len(self.stage_seconds)}: layout "
+                   f"{staged[0].dense}, {staged[2] / 2**30:.3f} GiB, host "
+                   f"{t_card - t0:.3f} s (unpack {unpack_s:.3f} s), card "
+                   f"{card_s:.3f} s")
+        return staged
 
     @property
     def layout(self) -> str:

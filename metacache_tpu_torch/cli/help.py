@@ -138,8 +138,8 @@ DESCRIPTION
 
     Saved databases are staged to the accelerator from their compact
     CSR form; the probe layout (dense / two-tier head+overflow /
-    packed rows) is chosen automatically against the measured device
-    memory budget.
+    packed rows / the CSR itself) is chosen automatically against the
+    measured device memory budget.
 
 CLASSIFICATION
 
@@ -252,8 +252,8 @@ ENVIRONMENT
                             when the input holds fewer batches).
     MC_NATIVE=0             disable the native C++ reader fast paths.
     MC_DEVICE_LAYOUT=0      stage probe layouts on the host instead of
-                            building them on device (k > 16: refused,
-                            the CSR probe is not ported).
+                            building them on device (k > 16: the CSR
+                            layout, as in metacache_tpu).
     MC_HBM_GB=<n>           override the device-memory total used for
                             probe-layout selection.
     MC_DENSE_LIMIT=<bytes>  stage dense rows only when they take at
@@ -300,6 +300,8 @@ ENVIRONMENT
     MC_BUILD_GBITS=<g>      force 2^g feature-range groups in the
                             bounded-memory device build (default:
                             auto-sized to ~48M elements per group).
+    MC_BUILD_DEBUG=1        print the device build's and staging's
+                            per-phase progress.
 
     Not read by the port yet (JAX package knobs of modules still to be
     ported; ROADMAP.md queue A):
@@ -308,8 +310,6 @@ ENVIRONMENT
     MC_ESC_B2=<n>           its flagged-read slice width (item 2).
     MC_NATIVE_FMT=0         the native per-read line formatter (the
                             host pipeline, item 2).
-    MC_BUILD_DEBUG=1        per-phase device-build progress (the
-                            staging split, item 5, A10).
     MC_SHARD_LAYOUT=<auto|dense|two_tier>
                             the -table-shards shard layout (A14, item 7).
 """,

@@ -1,4 +1,4 @@
-// B6 to B9: the probe decode for Hopper (sm_90a).
+// B6 to B9 and csr_decode: the probe decode for Hopper (sm_90a).
 //
 // The two-tier layout keeps one head row per feature,
 // [feature, count, ovf_idx, slot * (W - 3)], and one overflow row per
@@ -53,6 +53,18 @@
 // device-memory bytes: B9's 256-byte row a probe is nearly all of its
 // traffic, B8's row sector and its 12 bytes of index, feature and
 // output a probe are all of its.
+//
+// csr_decode: the CSR layout's per-slot gathers, which JAX leaves to
+// XLA (metacache_tpu/ops/rows.py:784-838: an (N, C) index tensor, two
+// gathers, masks, the pack, a concatenate to rl and a flip). One warp a
+// probe, as B7: every lane reads the probe's row id, found flag and
+// offsets pair (one broadcast load each), lane l then takes output
+// lanes l, l + 32, ..., reads slot j (mirrored for odd features) from
+// loc_tgt and loc_win only where j < min(count, c), so a warp's loads
+// are the bucket's contiguous slots, packs pk in registers and writes
+// each output lane once (coalesced). Bound: device-memory bytes, the
+// output's rl lanes a probe (134 MB at 131,072 probes, rl 256, packed)
+// most of them; the slots read are 8 bytes each.
 //
 // The kernels clamp probe and overflow indices into their tables, as
 // the XLA gathers in front of the Pallas kernels do. A probe is odd when
@@ -275,6 +287,44 @@ bucket_decode_kernel(const int32_t* __restrict__ brows, int bits,
   }
 }
 
+template <bool PACK>
+__global__ void __launch_bounds__(kThreads)
+csr_decode_kernel(const int32_t* __restrict__ idx,
+                  const bool* __restrict__ found,
+                  const int64_t* __restrict__ offsets, int64_t nf,
+                  const int32_t* __restrict__ ltgt,
+                  const int32_t* __restrict__ lwin, int64_t nloc, int64_t n,
+                  int c, int rl, int f, int pack_bits,
+                  int32_t* __restrict__ out0, int32_t* __restrict__ out1) {
+  const int64_t probe = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (probe >= n) return;  // the whole warp: one probe a warp
+  int64_t beg = 0;
+  int lim = 0;
+  if (found[probe] && nf > 0 && nloc > 0) {
+    const int64_t r = clamp_row(idx[probe], nf);
+    beg = offsets[r];
+    const int64_t cnt = offsets[r + 1] - beg;
+    lim = cnt < c ? (int)cnt : c;
+  }
+  const bool odd = (probe % f) & 1;
+  int32_t* o0 = out0 + probe * rl;
+  int32_t* o1 = PACK ? nullptr : out1 + probe * rl;
+  for (int p = lane; p < rl; p += 32) {
+    const int j = odd ? rl - 1 - p : p;
+    int32_t t = kI32Max, w = kI32Max;
+    if (j < lim) {
+      const int64_t li = beg + j < nloc ? beg + j : nloc - 1;
+      t = ltgt[li];
+      w = lwin[li];
+      if constexpr (PACK)
+        t = (int32_t)(((uint32_t)t << pack_bits) | (uint32_t)w);
+    }
+    o0[p] = t;
+    if constexpr (!PACK) o1[p] = w;
+  }
+}
+
 inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n * 32 + kThreads - 1) / kThreads);
 }
@@ -336,5 +386,23 @@ extern "C" int mc_bucket_decode(const void* brows, int bits,
                          (cudaStream_t)stream>>>(
       (const int32_t*)brows, bits, (const int32_t*)flat, n, (int32_t*)idx,
       (bool*)found);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mc_csr_decode(const void* idx, const void* found,
+                             const void* offsets, int64_t nf,
+                             const void* ltgt, const void* lwin,
+                             int64_t nloc, int64_t n, int c, int rl, int f,
+                             int pack_bits, void* out0, void* out1,
+                             void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (nf < 0 || nloc < 0 || c < 1 || rl < c || f < 1 || pack_bits < 0 ||
+      pack_bits > 30 || (pack_bits == 0 && out1 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = pack_bits ? csr_decode_kernel<true> : csr_decode_kernel<false>;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)idx, (const bool*)found, (const int64_t*)offsets, nf,
+      (const int32_t*)ltgt, (const int32_t*)lwin, nloc, n, c, rl, f,
+      pack_bits, (int32_t*)out0, (int32_t*)out1);
   return (int)cudaGetLastError();
 }

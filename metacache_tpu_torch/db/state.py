@@ -25,6 +25,15 @@ Rows the builder pair-packs (two 64-lane rows a 128-lane row) are kept
 as their 64-lane view, the same memory; ``packed``/``ovf_packed`` only
 record it for the layout tag. ``bucket_rows`` is the host's 64-lane
 bucket-row index or the builder's pair-packed (2^bits / 2, 128) one.
+
+The CSR layout (``csr``; JAX's tag ``False``) has no rows: ``features``
+(F,), ``offsets`` (F + 1,) int64, and one int32 ``loc_tgt`` and
+``loc_win`` a location, each bucket's locations ascending. A u32 part
+keeps the host's bucket-row index (make_bucket_index), stored as its
+pair-packed view where its rows are 64 lanes wide, so that B9 can read
+it; a u64 part (or an empty one) has none and is searched: its
+``features`` are the int64 bit patterns with the sign bit flipped (x ^
+2^63), whose signed order is the features' unsigned order.
 """
 from __future__ import annotations
 
@@ -39,11 +48,18 @@ class DeviceTables(torch.nn.Module):
                  slot_bits: int, ovf_rows: torch.Tensor | None = None,
                  head_slots: int = 0, packed: bool = False,
                  ovf_packed: bool = False, classed: bool = False,
-                 wide: bool = False):
+                 wide: bool = False, csr: tuple | None = None):
         super().__init__()
         if (ovf_rows is None) != (head_slots == 0):
             raise ValueError("two-tier tables need both overflow rows and "
                              "a head width")
+        if (csr is None) == (fused_rows is None) or csr and slot_bits:
+            raise ValueError("tables hold probe rows or a CSR (whose slots "
+                             "are unpacked), not both")
+        self.csr = csr is not None
+        for name, t in zip(("features", "offsets", "loc_tgt", "loc_win"),
+                           csr or (None,) * 4):
+            self.register_buffer(name, t)
         self.register_buffer("fused_rows", fused_rows)
         self.register_buffer("ovf_rows", ovf_rows)
         self.register_buffer("bucket_rows", bucket_rows)
@@ -65,7 +81,10 @@ class DeviceTables(torch.nn.Module):
         "packed" for dense (tgt, win) lanes, "pk<bits>" or "pk<bits>p"
         for dense packed slots, ("two_tier", hsl, hpack, opack, bits) or
         ("classed", hsl, False, opack, bits); u64 features
-        "u64pk<bits>(p)" or ("u64_two_tier", hsl, hpack, opack, bits)."""
+        "u64pk<bits>(p)" or ("u64_two_tier", hsl, hpack, opack, bits);
+        the CSR layout False."""
+        if self.csr:
+            return False
         p = "p" if self.packed else ""
         if self.classed:
             return ("classed", self.head_slots, False, self.ovf_packed,
@@ -80,7 +99,7 @@ class DeviceTables(torch.nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.fused_rows.device
+        return self.merge_tax.device
 
     def nbytes(self) -> int:
         return sum(b.numel() * b.element_size() for b in self.buffers())
@@ -88,15 +107,19 @@ class DeviceTables(torch.nn.Module):
     def cpu_copy(self) -> "DeviceTables":
         """The same tables on the CPU, for holding a query on the card
         against the plain versions."""
+        def cpu(t):
+            return None if t is None else t.cpu()
         return DeviceTables(
-            self.fused_rows.cpu(), self.bucket_rows.cpu(),
+            cpu(self.fused_rows), cpu(self.bucket_rows),
             self.lineages.cpu(), self.merge_tax.cpu(),
             num_features=self.num_features, bucket_bits=self.bucket_bits,
             spf=self.spf, slot_bits=self.slot_bits,
-            ovf_rows=None if self.ovf_rows is None else self.ovf_rows.cpu(),
-            head_slots=self.head_slots, packed=self.packed,
-            ovf_packed=self.ovf_packed, classed=self.classed,
-            wide=self.wide)
+            ovf_rows=cpu(self.ovf_rows), head_slots=self.head_slots,
+            packed=self.packed, ovf_packed=self.ovf_packed,
+            classed=self.classed, wide=self.wide,
+            csr=tuple(cpu(t) for t in (self.features, self.offsets,
+                                       self.loc_tgt, self.loc_win))
+            if self.csr else None)
 
 
 def _i32(a: np.ndarray) -> torch.Tensor:
@@ -148,3 +171,32 @@ def tables_from_device(dt, lineages: np.ndarray,
         head_slots=dt.head_slots if two_tier else 0, packed=dt.packed,
         ovf_packed=dt.ovf_packed, classed=dt.classed,
         wide=dt.uniq.dtype == torch.int64)
+
+
+def tables_csr(unique_features: np.ndarray, offsets: np.ndarray,
+               ltgt: np.ndarray, lwin: np.ndarray, lineages: np.ndarray,
+               merge_tax: np.ndarray, spf: int, device: torch.device,
+               index: tuple | None = None) -> DeviceTables:
+    """Carry a part's CSR to the device (JAX's runner.py:530-540 and
+    :585-592): the features, int64 offsets and the locations unpacked on
+    the host into (``ltgt``, ``lwin``) u32. ``index`` = (rows, bits), the
+    host's bucket-row index of u32 features; u64 features take none and
+    are kept sign-flipped for the search."""
+    wide = unique_features.dtype == np.uint64
+    if wide:
+        feats = torch.from_numpy(
+            unique_features.view(np.int64) ^ np.int64(-2**63))
+    else:
+        feats = _i32(unique_features)
+    brows, bits = (None, 0) if index is None else index
+    if brows is not None:
+        brows = _i32(brows)
+        if brows.shape[1] == 64:        # the pair-packed view B9 reads
+            brows = brows.view(-1, 128)
+    t = DeviceTables(
+        None, brows, _i32(lineages), _i32(merge_tax),
+        num_features=len(unique_features), bucket_bits=bits, spf=spf,
+        slot_bits=0, wide=wide,
+        csr=(feats, torch.from_numpy(np.asarray(offsets, np.int64)),
+             _i32(ltgt), _i32(lwin)))
+    return t.to(device)

@@ -1,5 +1,6 @@
 """Probe decode: kernels B6 (two-tier head only), B7 (full depth), B8
-(overflow-row id) and B9 (bucket-row index).
+(overflow-row id), B9 (bucket-row index) and csr_decode (the CSR
+layout's per-slot gathers).
 
 Port of metacache_tpu/ops/probe_pallas.py::head_decode, ::full_decode,
 ::oidx_decode and ::bucket_decode. The two-tier layout
@@ -31,6 +32,15 @@ read the rows themselves. Their contracts at that boundary:
   bits): (start + the in-bucket ranks of the lanes that hold the
   feature, found = some lane holds it and it is not the sentinel);
 
+- ``csr_decode(idx, found, offsets, loc_tgt, loc_win, c, rl, f,
+  pack_bits)`` equals the CSR branch of JAX's ``probe_rows``
+  (rows.py:784-838) after its row search, per probe: slots j <
+  min(offsets[i + 1] - offsets[i], c) where found, else none, read at
+  offsets[i] + j from loc_tgt and loc_win, I32_MAX past the count and
+  up to rl lanes; (pk,) = (tgt << pack_bits) | win where pack_bits > 0,
+  else (tgt, win). It has no Pallas counterpart: JAX leaves these
+  gathers to XLA.
+
 where pairpack views the (F, 64) rows as (F / 2, 128). Probe indices
 and overflow ids are clamped into their tables, as XLA's gathers do.
 Odd features ((probe index % f) & 1) get their rl-lane run reversed;
@@ -43,7 +53,8 @@ probed; B9 is off unless ``MC_PROBE_PALLAS`` names it, as in JAX
 B7 without ``oidx`` reads the overflow row from the head row it holds,
 where JAX's oidx stage had to find the rows before XLA's gather
 (metacache_tpu/ops/rows.py:716-738). ``oidx_decode`` stays as the
-counterpart of JAX's kernel, held against its plain version.
+counterpart of JAX's kernel, held against its plain version. csr_decode
+runs wherever a CSR part is probed.
 """
 from __future__ import annotations
 
@@ -247,3 +258,74 @@ def bucket_decode(brows: torch.Tensor, flat: torch.Tensor, bits: int):
         kernels.BUCKET_DECODE(brows.data_ptr(), bits, flat.data_ptr(), n,
                               idx.data_ptr(), found.data_ptr())
     return idx, found
+
+
+def csr_decode_plain(idx, found, offsets, loc_tgt, loc_win, c: int, rl: int,
+                     f: int, pack_bits: int):
+    """Plain version of csr_decode: the (N, rl) int32 lanes, (pk,) or
+    (tgt, win), as JAX's XLA ops compute them (rows.py:784-838)."""
+    nf = offsets.shape[0] - 1
+    i = torch.clamp(idx.to(torch.int64), 0, max(nf - 1, 0))
+    if nf > 0:
+        beg = offsets[i]
+        cnt = torch.where(found, torch.clamp(offsets[i + 1] - beg, max=c), 0)
+        beg = torch.where(found, beg, 0)
+    else:
+        cnt = beg = torch.zeros_like(i)
+    j = torch.arange(c, device=idx.device)[None, :]
+    hit = j < cnt[:, None]
+    nloc = loc_tgt.shape[0]
+    li = torch.clamp(beg[:, None] + j, max=max(nloc - 1, 0))
+    if nloc == 0:
+        loc_tgt = loc_win = torch.full((1,), I32_MAX, dtype=torch.int32,
+                                       device=idx.device)
+    tgts = torch.where(hit, loc_tgt[li], I32_MAX)
+    wins = torch.where(hit, loc_win[li], I32_MAX)
+    if pack_bits:
+        lanes = (torch.where(hit, (tgts << pack_bits) | wins, I32_MAX),)
+    else:
+        lanes = (tgts, wins)
+    return tuple(_reverse_odd(_padded(x, rl), f) for x in lanes)
+
+
+def csr_decode(idx: torch.Tensor, found: torch.Tensor, offsets: torch.Tensor,
+               loc_tgt: torch.Tensor, loc_win: torch.Tensor, c: int, rl: int,
+               f: int, pack_bits: int) -> tuple:
+    """(N,) feature rows and found flags, a CSR's (F + 1,) int64 offsets
+    and its (L,) int32 targets and windows -> the probes' slots as (N,
+    rl) int32 lanes: (pk,) with pk = (tgt << pack_bits) | win when
+    ``pack_bits`` > 0, else (tgt, win); the first min(count, c) slots of
+    each found feature, I32_MAX past them, odd features' runs reversed
+    ((probe index % f) & 1; f = 1 reverses none)."""
+    _check(idx, "idx", 1)
+    _check(loc_tgt, "loc_tgt", 1)
+    _check(loc_win, "loc_win", 1)
+    if found.dtype != torch.bool or offsets.dtype != torch.int64 or \
+            found.shape != idx.shape or offsets.dim() != 1 or \
+            loc_win.shape != loc_tgt.shape or len(
+                {t.device for t in (idx, found, offsets, loc_tgt,
+                                    loc_win)}) != 1:
+        raise ValueError("found must be bool and match idx, offsets int64, "
+                         "loc_tgt and loc_win match; all on one device")
+    if offsets.shape[0] < 1 or c < 1 or rl < c or f < 1 or \
+            not 0 <= pack_bits < 31:
+        raise ValueError(f"bad CSR decode shape: {offsets.shape[0]} "
+                         f"offsets, c {c}, rl {rl}, f {f}, pack_bits "
+                         f"{pack_bits}")
+    if not offsets.is_cuda:
+        return csr_decode_plain(idx, found, offsets, loc_tgt, loc_win, c, rl,
+                                f, pack_bits)
+    idx, found, offsets = idx.contiguous(), found.contiguous(), \
+        offsets.contiguous()
+    loc_tgt, loc_win = loc_tgt.contiguous(), loc_win.contiguous()
+    n = idx.shape[0]
+    outs = tuple(torch.empty((n, rl), dtype=torch.int32, device=idx.device)
+                 for _ in range(1 if pack_bits else 2))
+    if n:
+        kernels.CSR_DECODE(idx.data_ptr(), found.data_ptr(),
+                           offsets.data_ptr(), offsets.shape[0] - 1,
+                           loc_tgt.data_ptr(), loc_win.data_ptr(),
+                           loc_tgt.shape[0], n, c, rl, f, pack_bits,
+                           outs[0].data_ptr(),
+                           outs[-1].data_ptr() if not pack_bits else None)
+    return outs

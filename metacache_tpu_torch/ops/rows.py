@@ -1,7 +1,10 @@
 """Row-layout query step: one row of match slots per read.
 
 Port of metacache_tpu/ops/rows.py for the dense, two-tier and
-size-classed fused-row layouts, plain or pair-packed: sketch (B1, or B2
+size-classed fused-row layouts, plain or pair-packed, and the CSR layout
+(JAX's ``dense=False``: the feature's row found through the bucket
+index, or by a search of u64 features, then its slots read one by one by
+the csr_decode kernel): sketch (B1, or B2
 for windows wider than 128) -> bucket-row probe (B9 when
 ``MC_PROBE_PALLAS`` names its stage) + row gather -> match slots ->
 candidates -> ranked LCA. Two-tier rows with packed slots decode
@@ -42,7 +45,7 @@ from .candidates import (I32_MAX, candidates_packed, candidates_unpacked,
 from .pipeline import QueryResult, classify_candidates
 from .probe import (high32, low32, probe_bucket, probe_bucket64,
                     probe_bucket_classed, shift_right_logical)
-from .probe_decode import _rows, full_decode, head_decode
+from .probe_decode import _rows, csr_decode, full_decode, head_decode
 from .sketch import (LANES, sketch_windows, sketch_windows_packed,
                      unpack_2bit)
 
@@ -114,13 +117,38 @@ def route(fused_candidates: bool, fast_top2: bool, max_candidates: int,
 
 def _bucket_idx(flat: torch.Tensor, tables) -> torch.Tensor:
     """The bucket-probe stage: feature rows, or classed cell addresses
-    (pidx), of (N,) features (rows.py:1035-1047)."""
+    (pidx), of (N,) features (rows.py:1035-1047). Row layouts only: the
+    CSR layout finds its rows in ``_csr_rows``."""
+    assert not tables.csr, "a CSR part has no rows to find ahead"
     if tables.classed:
         return probe_bucket_classed(flat, tables.bucket_rows,
                                     tables.bucket_bits)[0]
     probe = probe_bucket64 if tables.wide else probe_bucket
     idx, _found = probe(flat, tables.bucket_rows, tables.bucket_bits)
     return torch.clamp(idx, 0, max(tables.num_features - 1, 0))
+
+
+INT64_MIN = -2**63
+
+
+def _csr_rows(flat: torch.Tensor, tables):
+    """The CSR layout's row stage (rows.py:670-689) -> (idx int32, found
+    bool): a u32 part through its bucket-row index (B9 where
+    MC_PROBE_PALLAS names it), rows clamped into the table; a u64 or
+    empty part by a binary search of the sign-flipped features, found
+    where the row holds the feature and it is not the sentinel."""
+    nf = tables.num_features
+    if tables.bucket_rows is not None:
+        idx, found = probe_bucket(flat, tables.bucket_rows,
+                                  tables.bucket_bits)
+        return torch.clamp(idx, 0, nf - 1), found
+    if nf == 0:
+        return (torch.zeros(flat.shape, dtype=torch.int32, device=flat.device),
+                torch.zeros(flat.shape, dtype=torch.bool, device=flat.device))
+    key = flat ^ INT64_MIN
+    idx = torch.clamp(torch.searchsorted(tables.features, key), max=nf - 1)
+    found = (tables.features[idx] == key) & (flat != -1)
+    return idx.to(torch.int32), found
 
 
 # rows.py:469-494
@@ -230,11 +258,22 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
     alone under every ``MC_PROBE_PALLAS`` (B8's contract, ``found ?
     row[2] : 0``, is B7's branch without ``oidx``). (tgt, win) lane rows
     and classed cells decode as torch ops, as the JAX package decodes
-    them with XLA ops (rows.py:699-701, 750-758)."""
+    them with XLA ops (rows.py:699-701, 750-758). A CSR part
+    (``tables.csr``) finds its rows (``_csr_rows``) and reads its slots
+    through csr_decode, which writes the encoded, padded and reversed
+    runs itself; it is never probed with ``idx_pre`` (no escalation and
+    no prefetch reach it, rows.py:785-786)."""
     b, f = feats.shape
     c = tables.spf
     flat = feats.reshape(-1)
     slot_bits = tables.slot_bits
+    if tables.csr:
+        assert idx_pre is None, "a CSR part recomputes its rows"
+        idx, found = _csr_rows(flat, tables)
+        out = [x.reshape(b, -1) for x in csr_decode(
+            idx, found, tables.offsets, tables.loc_tgt, tables.loc_win, c,
+            alt_runs or c, f if alt_runs else 1, pack_bits)]
+        return (out[0], out[0]) if pack_bits else tuple(out)
     idx_c = _bucket_idx(flat, tables) if idx_pre is None \
         else idx_pre.reshape(-1)
     hsl = tables.head_slots
@@ -307,6 +346,7 @@ def probe_rows_head(feats: torch.Tensor, tables, alt_runs: int,
     or classed tables and pack_bits == slot_bits."""
     b, f = feats.shape
     hsl = tables.head_slots
+    assert not tables.csr, "a CSR part is never escalated"
     if not (hsl and tables.slot_bits and tables.slot_bits == pack_bits):
         raise ValueError("the head-only probe needs slot-packed two-tier "
                          "tables whose slot bits equal pack_bits")

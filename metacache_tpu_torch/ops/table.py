@@ -1,8 +1,9 @@
 # copied from metacache_tpu/ops/table.py: the host CSR table (build,
 # merge, culls) and the host rows that MC_DEVICE_LAYOUT=0 stages; the
 # device layout rule is table_device.py's in the port's bytes
-# (device_layout below). Cut: the CSR probe's prefix_index (ROADMAP queue
-# A10), the host choose_layout rule and the helpers nothing calls.
+# (device_layout below), with the CSR layout where no row layout fits.
+# Cut: prefix_index (no runtime path of JAX reaches the 1-D prefix
+# probe), the host choose_layout rule and the helpers nothing calls.
 """Feature -> location store, TPU-native layout.
 
 The reference uses a pointer-chasing open-addressing multimap on CPU
@@ -403,15 +404,30 @@ def _choose_head(spf, cum_over, bytes_for, budget_bytes, what,
     return best[1]
 
 
+def csr_bytes(table: FeatureTable, index_bytes: int = 0) -> int:
+    """Device bytes of the CSR layout (db/state.py::tables_csr) in the
+    port's types: features at 4 bytes (u32) or 8 (u64), int64 offsets,
+    an int32 target and window a location, plus ``index_bytes`` of the
+    u32 bucket-row index, counted beside the table as the u64 rows count
+    theirs (JAX's layout_bytes("csr"), table.py:357-360, counts int32
+    offsets and no index)."""
+    fb = 8 if table.unique_features.dtype == np.uint64 else 4
+    return (table.num_features * fb + (table.num_features + 1) * 8 +
+            table.num_locations * 8 + index_bytes)
+
+
 def device_layout(table: FeatureTable, spf: int, slot_bits: int,
-                  budget_bytes: int, allow_dense: bool = True):
-    """The dense or two-tier layout of the host rows that
-    ``MC_DEVICE_LAYOUT=0`` stages (``fused_rows``/``fused_rows_two_tier``),
-    chosen by the device builder's rule (table_device.py:975-983) in the
-    port's bytes. -> (head, dense bytes, staged bytes): head == spf for
-    the dense layout, else the two-tier head width. The host rows have no
-    size-classed cells; where no two-tier head fits, the CSR layout is
-    not ported and this raises NotImplementedError (ROADMAP queue A10)."""
+                  budget_bytes: int, allow_dense: bool = True,
+                  index_bytes: int = 0):
+    """The layout of the host rows that ``MC_DEVICE_LAYOUT=0`` stages
+    (``fused_rows``/``fused_rows_two_tier``), chosen by the device
+    builder's rule (table_device.py:975-983) in the port's bytes, or the
+    CSR layout where no two-tier head fits (JAX's choose_layout,
+    table.py:392-394). -> (head, dense bytes, staged bytes): head == spf
+    for the dense layout, 0 for CSR (``csr_bytes`` with the bucket
+    index's ``index_bytes``), else the two-tier head width. The host rows
+    have no size-classed cells. Raises MemoryError with JAX's advice
+    where even CSR exceeds the budget."""
     nf = max(table.num_features, 1)
     bytes_for = _bytes_for_fn(nf, spf, 1 if slot_bits else 2)
     dense_b = bytes_for(spf, 0)
@@ -424,8 +440,17 @@ def device_layout(table: FeatureTable, spf: int, slot_bits: int,
     try:
         head = _choose_head(spf, cum_over, bytes_for, budget_bytes,
                             "layout", slot_packed=bool(slot_bits))
-    except MemoryError as e:
-        raise NotImplementedError(
-            f"{e}: the CSR probe layout is not ported yet (ROADMAP queue "
-            "A10)") from None
+    except MemoryError:
+        csr_b = csr_bytes(table, index_bytes)
+        if csr_b > budget_bytes:
+            # the advice of metacache_tpu/ops/table.py:395-400
+            raise MemoryError(
+                f"database part needs more device memory than the "
+                f"{budget_bytes / 2**30:.1f} GiB budget even in CSR layout "
+                f"({csr_b / 2**30:.1f} GiB); "
+                "use -table-shards N (shard over devices), -parts N + "
+                "per-part query & merge, or cull with "
+                "-remove-overpopulated-features / "
+                "-max-locations-per-feature") from None
+        return 0, dense_b, csr_b
     return head, dense_b, bytes_for(head, int(cum_over[head + 1]))

@@ -41,6 +41,7 @@ another head or layout than JAX does.
 from __future__ import annotations
 
 import os
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -587,6 +588,14 @@ def _fill_layouts_classed(get_mv, G: int, nf_offs, nf_gs, novf_offs,
 
 
 # copied from metacache_tpu/ops/table_device.py:818-833
+# table_device.py:881-887
+def debug_note(msg: str):
+    """Per-phase progress of the build and the staging, under
+    MC_BUILD_DEBUG=1."""
+    if os.environ.get("MC_BUILD_DEBUG") == "1":
+        print(f"[build {time.strftime('%H:%M:%S')}] {msg}", flush=True)
+
+
 def _choose_gbits(total_elems: int) -> int:
     """Feature-range group count (2^gbits) for the bounded-memory
     build: at most ~48M elements a group. MC_BUILD_GBITS overrides (0 =
@@ -643,6 +652,7 @@ def build_device_table_chunked(chunks: list, *, cap: int = 254,
     G = 1 << (_choose_gbits(total) if gbits is None else gbits)
 
     # phase 1: value histogram (quantile group bounds), max window/target
+    debug_note(f"phase1 stats: {len(chunks)} chunks, G={G}")
     acc = torch.zeros((1 << HIST_BITS) + 3, dtype=torch.int64, device=dev)
     for cf, ct, cw in chunks:
         _chunk_stats(acc, cf, ct, cw)
@@ -651,17 +661,24 @@ def build_device_table_chunked(chunks: list, *, cap: int = 254,
     nsent, maxw, maxt = (int(x) for x in acc_h[nb:nb + 3])
     bnds_np, counts = _group_bounds(acc_h[:nb], nsent, G)
     bnds = torch.from_numpy(bnds_np.astype(np.int64)).to(dev)
+    debug_note(f"phase1 done: counts={counts.tolist()}")
     slot_bits = slot_pack_bits(maxw, maxt)
     V = 1 if slot_bits else 2
 
     # phase 2: place the chunks into the (G, S) group buffers, freeing
     # each source chunk after its placement
     S = _quantize(int(max(counts.max(), 1)), 14)
+    debug_note(f"phase2 place: S={S} slot_bits={slot_bits}")
     bufF = torch.full((G, S), SENT, dtype=torch.int64, device=dev)
     bufV = torch.zeros((V, G, S), dtype=torch.int32, device=dev)
     offs = [0] * G
+    nplaced = 0
     while chunks:
         _place_chunk(bufF, bufV, offs, *chunks.pop(0), bnds, slot_bits)
+        nplaced += 1
+        if nplaced % 64 == 0:
+            debug_note(f"placed {nplaced}")
+    debug_note("phase2 done")
 
     # phase 3: in-place per-group sorts
     nf_gs, maxb = [], 0
@@ -669,6 +686,7 @@ def build_device_table_chunked(chunks: list, *, cap: int = 254,
         nf_g, maxb_g = _sort_group(bufF, bufV, g, presorted)
         nf_gs.append(nf_g)
         maxb = max(maxb, maxb_g)
+        debug_note(f"sorted group {g}: nf_g={nf_g}")
     nf = sum(nf_gs)
     nf_offs = np.concatenate([[0], np.cumsum(nf_gs)]).astype(np.int64)
     spf = max(min(maxb, cap), 1)
@@ -679,6 +697,7 @@ def build_device_table_chunked(chunks: list, *, cap: int = 254,
     sizes = torch.zeros((nf_pad,), dtype=torch.int32, device=dev)
     hists = [_group_meta(uniq, sizes, bufF[g], int(nf_offs[g]), nf_gs[g],
                          spf) for g in range(G)]
+    debug_note(f"meta done: nf={nf} spf={spf}; filling layouts")
     return _layout_and_fill(
         lambda g: (bufF[g], [bufV[v, g] for v in range(V)]), G, nf_offs,
         nf_gs, hists, sizes, uniq, nf=nf, nf_pad=nf_pad, spf=spf,
@@ -714,6 +733,9 @@ def _layout_and_fill(get_mv, G, nf_offs, nf_gs, hists, sizes, uniq, *, nf,
         cb = _classed_bytes(hist, nf_pad, spf, cum_over)
         use_classed = cb <= budget_bytes and \
             cb < bytes_for(head, int(cum_over[head + 1]))
+    debug_note(f"layout: head {head} of {spf} slots"
+          f"{' (dense)' if dense else ''}{' (classed)' if use_classed else ''}"
+          f", {G} groups")
     base_bits = min(24, max(12, int(max(nf_pad, 1)).bit_length() - 4))
 
     def novf_offsets(h):
@@ -837,12 +859,13 @@ def device_layout_from_csr(uniq_host: np.ndarray, offsets_host,
     u64 features (``uniq_host`` uint64, k > 16) need slot-packable
     locations and a bucket index without a low-32 collision within a
     bucket (make_bucket_index64). Where its default width has one, JAX's
-    runner falls back to its CSR probe (runner.py:505-540), which the
-    port does not have yet (ROADMAP A10): it widens the index to the
-    least width free of collisions (collision_free_bits64), up to 26
-    bits (a wider index only splits buckets; 16 GiB at 26), and raises
-    MemoryError where a collision or unpackable slots remain, or where
-    the rows and the index together exceed the budget."""
+    runner falls back to its CSR probe (runner.py:505-540); this widens
+    the index to the least width free of collisions
+    (collision_free_bits64), up to 26 bits (a wider index only splits
+    buckets; 16 GiB at 26), so that such tables keep their rows, and
+    raises MemoryError where a collision or unpackable slots remain, or
+    where the rows and the index together exceed the budget: the runner
+    then stages the CSR layout, as JAX's does."""
     if budget_bytes is None:
         budget_bytes = hbm_budget_bytes(device)
     nf = len(uniq_host)

@@ -456,14 +456,23 @@ def test_runner_stages_the_layout_of_its_slots(dbfile, monkeypatch,
 
 def test_staging_that_fits_no_layout_names_the_csr_layout(dbfile,
                                                           monkeypatch):
-    """A budget no dense, two-tier or classed layout fits: the device
-    builder's MemoryError raises NotImplementedError naming the CSR
-    layout (A10), with no quiet switch to host rows."""
+    """A budget no dense, two-tier or classed layout fits but the CSR
+    bytes do: the device builder's MemoryError takes the CSR layout (tag
+    False, JAX's), the host rows of no layout; one byte less, and the
+    MemoryError names the CSR layout, with JAX's advice."""
     from metacache_tpu_torch.classify import runner as R
     from metacache_tpu_torch.classify.options import QueryOptions
     from metacache_tpu_torch.db.database import Database as TorchDatabase
-    monkeypatch.setattr(R, "hbm_budget_bytes", lambda device: 1 << 16)
-    with pytest.raises(NotImplementedError, match="A10"):
+    from metacache_tpu_torch.ops.probe import make_bucket_index
+    from metacache_tpu_torch.ops.table import csr_bytes
+    p = TorchDatabase.load(dbfile).parts[0]
+    need = csr_bytes(p, make_bucket_index(p.unique_features)[0].nbytes)
+    monkeypatch.setattr(R, "hbm_budget_bytes", lambda device: need)
+    r = R.QueryRunner(TorchDatabase.load(dbfile), QueryOptions())
+    assert r.layout == "False" and r.tables.fused_rows is None
+    assert r.staged_bytes == need
+    monkeypatch.setattr(R, "hbm_budget_bytes", lambda device: need - 1)
+    with pytest.raises(MemoryError, match="CSR layout.*-table-shards"):
         R.QueryRunner(TorchDatabase.load(dbfile), QueryOptions())
 
 
@@ -640,14 +649,20 @@ def test_k18_databases_load_across_packages(dbfile_k18, tmp_path):
 
 def test_k18_staging_where_jax_takes_the_csr_probe(dbfile_k18, monkeypatch):
     """u64 features never stage as host rows: MC_DEVICE_LAYOUT=0, where
-    JAX's runner takes its CSR probe (runner.py:530-540), raises naming
-    the CSR layout (A10)."""
+    JAX's runner takes its CSR probe (runner.py:530-540), stages the CSR
+    layout (tag False), searched by the sign-flipped features, and the
+    k18 golden holds through it."""
     from metacache_tpu_torch.classify.options import QueryOptions
     from metacache_tpu_torch.classify.runner import QueryRunner
     from metacache_tpu_torch.db.database import Database as TorchDatabase
     monkeypatch.setenv("MC_DEVICE_LAYOUT", "0")
-    with pytest.raises(NotImplementedError, match="A10"):
-        QueryRunner(TorchDatabase.load(dbfile_k18), QueryOptions())
+    r = QueryRunner(TorchDatabase.load(dbfile_k18), QueryOptions())
+    assert r.layout == "False" and r.tables.wide
+    assert r.tables.bucket_rows is None
+    assert r.tables.features.dtype == torch.int64
+    assert bool((r.tables.features[1:] > r.tables.features[:-1]).all())
+    assert _query(dbfile_k18, _k18_args("k18_single.txt")) == \
+        _golden("k18_single.txt")
 
 
 # ------------------------------ -cov-percentile, -align, interactive mode
@@ -800,7 +815,7 @@ def test_cpu_needs_explicit_opt_in(monkeypatch):
 
 
 NOT_READ_YET = {"MC_PREFETCH", "MC_ESC_FUSED", "MC_ESC_B2", "MC_NATIVE_FMT",
-                "MC_BUILD_DEBUG", "MC_SHARD_LAYOUT"}
+                "MC_SHARD_LAYOUT"}
 
 
 def _port_sources():

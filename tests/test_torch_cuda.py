@@ -8,7 +8,8 @@ paired-end reads and on a database of two parts, and on a winlen-255
 database through B2 against the CPU run; a k = 18 database through the
 64-bit sketch kernel against the reference's k18 goldens; a non-fused
 batch split into launches by the free memory; the multi-part step on
-random tables against the same step on the CPU; tolerance 0.
+random tables against the same step on the CPU; the CSR layout through
+csr_decode against the goldens; tolerance 0.
 
 Needs an NVIDIA GPU (marker `cuda`; skipped without one). Imports no
 JAX, so it also runs on a GPU host without JAX:
@@ -945,6 +946,92 @@ def test_full_decode_kernel_matches_plain(cuda, rl, f):
     want = D.full_decode_plain(head, ovf, idx, flat, 61, 254, rl, f)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _csr_case(rng, nf=3000, n=4096 + 17, deep=300):
+    """A CSR of nf features with 0..deep locations each (targets below
+    2^16, windows below 2^15), and probes: row ids with some past the
+    table, found flags with misses."""
+    cnt = rng.integers(0, deep + 1, nf)
+    offs = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
+    ltgt = rng.integers(0, 1 << 16, int(offs[-1])).astype(np.int32)
+    lwin = rng.integers(0, 1 << 15, int(offs[-1])).astype(np.int32)
+    idx = rng.integers(0, nf, n).astype(np.int32)
+    idx[::101] = nf + 5
+    found = rng.random(n) < 0.8
+    return [torch.from_numpy(a) for a in (idx, found, offs, ltgt, lwin)]
+
+
+@pytest.mark.parametrize("pack_bits", [15, 0])
+@pytest.mark.parametrize("rl,f", [(254, 1), (256, 16), (512, 32)])
+def test_csr_decode_kernel_matches_plain(cuda, rl, f, pack_bits):
+    """csr_decode in both output forms (pk, or tgt and win), with the
+    alternating runs off (rl = c, f = 1) and on (odd features' runs
+    reversed), buckets deeper than c = 254."""
+    args = [t.to(cuda) for t in _csr_case(np.random.default_rng(rl + f))]
+    before = kernels.CSR_DECODE.launches
+    got = D.csr_decode(*args, 254, rl, f, pack_bits)
+    want = D.csr_decode_plain(*args, 254, rl, f, pack_bits)
+    torch.cuda.synchronize()
+    assert kernels.CSR_DECODE.launches == before + 1
+    assert len(got) == len(want) == (1 if pack_bits else 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[0] == I32_MAX).any()) and bool((got[0] != I32_MAX).any())
+
+
+def test_csr_decode_kernel_on_an_empty_part(cuda):
+    """No feature and no location (an empty u64 part): every lane pads."""
+    idx = torch.zeros(40, dtype=torch.int32, device=cuda)
+    found = torch.ones(40, dtype=torch.bool, device=cuda)
+    offs = torch.zeros(1, dtype=torch.int64, device=cuda)
+    loc = torch.zeros(0, dtype=torch.int32, device=cuda)
+    for pb in (15, 0):
+        for out in D.csr_decode(idx, found, offs, loc, loc, 3, 4, 2, pb):
+            assert bool((out == I32_MAX).all())
+
+
+@pytest.mark.parametrize("k", ["16", "18"])
+def test_fixture_csr_on_the_card_matches_golden(cuda, tmp_path, monkeypatch,
+                                                k):
+    """The fixture's database staged as CSR (MC_DEVICE_LAYOUT=0 and the
+    budget of the CSR bytes at k = 16, MC_DEVICE_LAYOUT=0 at k = 18)
+    through csr_decode, per read (and at k = 16 as a summary): the
+    goldens."""
+    from metacache_tpu_torch.classify import runner as R
+    from metacache_tpu_torch.db.database import Database
+    from metacache_tpu_torch.ops.probe import make_bucket_index
+    from metacache_tpu_torch.ops.table import csr_bytes
+    monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+    db = str(tmp_path / "db")
+    assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
+                 f"{DATA}/taxonomy", "-kmerlen", k]) == 0
+    monkeypatch.setenv("MC_DEVICE_LAYOUT", "0")
+    if k == "16":
+        p = Database.load(db).parts[0]
+        need = csr_bytes(p, make_bucket_index(p.unique_features)[0].nbytes)
+        monkeypatch.setattr(R, "hbm_budget_bytes", lambda device: need)
+    gold, args = ("fmt_0.txt", []) if k == "16" else \
+        ("k18_single.txt", ["-mapped-only", "-precision", "-ground-truth",
+                            "-tophits"])
+    drop = ("# time:", "# speed:", "threads", DATA, "/tmp")
+
+    def run(extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(["query", db, f"{DATA}/reads_single.fa"] + args +
+                        extra) == 0
+        return [l for l in buf.getvalue().splitlines()
+                if not any(d in l for d in drop)]
+    with open(os.path.join(DATA, "golden", gold)) as f:
+        want = [l for l in f.read().splitlines()
+                if not any(d in l for d in drop)]
+    kernels.reset_counts()
+    assert run([]) == want
+    assert kernels.CSR_DECODE.launches > 0
+    if k == "16":
+        i = next(j for j, l in enumerate(want) if "queries:" in l)
+        assert run(["-no-map"])[-len(want[i:]):] == want[i:]
 
 
 def test_fixture_two_tier_on_the_card_matches_golden(cuda, tmp_path,

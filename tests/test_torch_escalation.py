@@ -308,10 +308,11 @@ def test_device_layout_choice(monkeypatch, case, item):
     at head 45, the first of the heads whose rows cost the least (45 and
     61: 64-lane heads and overflow rows), as JAX's tie rule keeps it;
     MC_CLASSED=1 changes nothing (host rows have no classed cells); a
-    budget no two-tier head fits (the CSR fallback) raises
-    NotImplementedError naming its ROADMAP item."""
+    budget no two-tier head fits takes the CSR layout, ROADMAP ``item``
+    A10 (head 0, its bytes ``csr_bytes`` with the bucket index's), and
+    one below those bytes raises MemoryError with JAX's advice."""
     from metacache_tpu_torch.ops.table import FeatureTable as TFT
-    from metacache_tpu_torch.ops.table import device_layout
+    from metacache_tpu_torch.ops.table import csr_bytes, device_layout
     rng = np.random.default_rng(9)
     f = np.repeat(rng.choice(2**31, 500, replace=False).astype(np.uint32),
                   rng.integers(1, 101, 500))
@@ -322,13 +323,17 @@ def test_device_layout_choice(monkeypatch, case, item):
     monkeypatch.delenv("MC_CLASSED", raising=False)
     if case == "classed":
         monkeypatch.setenv("MC_CLASSED", "1")
-    budget = 1 if case == "csr" else 1 << 30
     if item is None:
-        head, dense_b, _staged = device_layout(ft, spf, 10, budget,
+        head, dense_b, _staged = device_layout(ft, spf, 10, 1 << 30,
                                                allow_dense=False)
         # dense rows: 2 meta lanes + spf slots, padded to 8 lanes
         assert head == 45 and dense_b == ft.num_features * 104 * 4 + 512
-        assert device_layout(ft, spf, 10, budget)[0] == spf
+        assert device_layout(ft, spf, 10, 1 << 30)[0] == spf
         return
-    with pytest.raises(NotImplementedError, match=item):
-        device_layout(ft, spf, 10, budget, allow_dense=False)
+    need = csr_bytes(ft, 1000)
+    assert need == ft.num_features * 12 + 8 + len(f) * 8 + 1000
+    assert device_layout(ft, spf, 10, need, allow_dense=False,
+                         index_bytes=1000)[::2] == (0, need)
+    with pytest.raises(MemoryError, match="even in CSR layout"):
+        device_layout(ft, spf, 10, need - 1, allow_dense=False,
+                      index_bytes=1000)

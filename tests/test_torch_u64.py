@@ -383,7 +383,7 @@ def test_u64_layout_budget_counts_the_bucket_index():
     """The rows and the bucket index share the budget: the dense rows
     stage where both fit, two-tier rows where the dense rows fit only
     without the index, and no layout where the budget holds the index
-    alone (the runner then raises naming A10)."""
+    alone (the runner then stages the CSR layout, as JAX's does)."""
     ft = _u64_table(np.random.default_rng(71))
     ltgt, lwin = unpack_locations(ft.locations)
     ib = _index_bytes(ft)
@@ -445,8 +445,8 @@ def test_collision_free_bits64_is_the_least_width(seed):
 
 def test_u64_device_layout_refuses_what_jax_does_not_stage():
     """Unpackable slots, and a low-32 collision within a bucket at every
-    index width, raise MemoryError, where JAX's runner falls back to its
-    CSR probe."""
+    index width, raise MemoryError, where the runner falls back to the
+    CSR layout, as JAX's does."""
     f = np.asarray([1 << 40, (1 << 40) + 5], np.uint64)
     offs = np.asarray([0, 1, 2], np.int64)
     with pytest.raises(MemoryError, match="slot-packable"):
