@@ -86,14 +86,24 @@ saved CSR and fills the probe rows on the card.
   staged as u64 two-tier rows under a smaller MC_HBM_GB, the same rank
   histogram;
 - host-side modes on the 944 Mbp database: -cov-percentile 50 on 2^16
-  reads and -align on 256 reads (each lines equal under
+  reads and -align on 128 reads (each lines equal under
   MC_FUSED_CANDIDATES=0; -align's share of blocks on the read's true
-  genome), and the interactive mode fed two lines, whose lines equal
-  the two direct queries';
+  genome), and the interactive mode fed two lines of 2,048 reads, whose
+  lines equal the two direct queries';
 - the non-fused batch within free memory: the two-part database's
-  non-fused per-read query, and 2^15 of its reads with -allhits, once
+  non-fused per-read query, and 2^14 of its reads with -allhits, once
   more beside a ballast tensor that leaves 12 GiB free: several
   launches, the same lines;
+- grids of devices: the 944 Mbp database under -table-shards 4 on
+  cuda:0 repeated four times (and on four distinct cards where the host
+  has them), its four feature ranges staged two-tier; the summary's
+  2^20 reads through the sharded steps (B1 on each position's quarter
+  of a batch, B6 heads, the exchange, B4; the flagged reads redone
+  through B7 and B4) with the unsharded histogram, a profile of 2^17
+  of them beside the unsharded one's, and the per-read phase's 2^16
+  reads with byte-identical lines; -replicate 2 on cuda:0 repeated (one
+  staged copy), the same lines; and two processes of the multi-process
+  dryrun worker joined by gloo, each checking its rows on the card;
 - the CSR layout (databases no row layout fits): the 944 Mbp database
   under the MC_HBM_GB whose budget admits its CSR bytes and no row
   layout (the window is computed from the database's bytes and
@@ -165,10 +175,13 @@ PAIRS_PER_READ = 1 << 16   # pairs of the per-read and many-target phases
 # -align re-reads the top target's record from its source FASTA for
 # every read (as JAX and the reference binary do); the 944 Mbp genomes
 # are written one file a genome, so a re-read scans about 1 MB
-ALIGN_READS = 256
-REPL_READS = 4096          # reads a line of the interactive-mode phase
+ALIGN_READS = 128
+REPL_READS = 2048          # reads a line of the interactive-mode phase
 K18_PER_READ = 1 << 14     # reads and pairs of the k = 18 per-read phase
-ALLHITS_READS = 1 << 15    # -allhits reads of the ballast phase
+ALLHITS_READS = 1 << 14    # -allhits reads of the ballast phase
+SHARDS = 4                 # -table-shards of the grid phase
+REPLICAS = 2               # -replicate of the grid phase
+GRID_PROFILE_READS = 1 << 17   # reads of the grid phase's profiles
 # kernels no main path launches: B8's work is done by B7 (ops/rows.py)
 FOLDED = {"oidx_decode": "full_decode"}
 # the least time of a kernel: the larger of its bytes over the card's
@@ -1076,8 +1089,10 @@ def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):
     rows; the split route (B3, then B4) on the same runs; the widest row,
     1024 x 32768, in both. Times the split form alone, the fused form and
     the split route in turns at 8192 x 4096 (presorted 256) and
-    8192 x 1024 (presorted 64), each beside its bound. The kernels
-    line's row is the form that MC_SPLIT_CAND's default runs."""
+    8192 x 1024 (presorted 64), each beside its bound; the shapes of the
+    paired and multi-part paths (b4_paired_multipart_shapes) and of the
+    -table-shards path (b4_grid_shapes). The kernels line's row is the
+    form that MC_SPLIT_CAND's default runs."""
     from metacache_tpu_torch.ops import candidates as C
     from metacache_tpu_torch.ops.rows import split_candidates
     b, l2 = alt.shape
@@ -1158,7 +1173,8 @@ def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):
         srt, mw, 15, sorted_input=True, **kw))
     fused_dms = kernel_ms(lambda: C.candidates_packed(alt, mw, 15,
                                                       presorted=r, **kw))
-    pr10 = b4_pr10_shapes(C, plain, mwir, dev, errs)
+    paths = b4_paired_multipart_shapes(C, plain, mwir, dev, errs)
+    paths.update(b4_grid_shapes(C, plain, mwir, dev, errs))
     if split_candidates():
         row = dict(ms=split_ms, plain_ms=sweep_plain_ms, host_us=split_hus,
                    device_ms=split_dms,
@@ -1186,10 +1202,10 @@ def phase_parity_b4(results, rng, dev, alt, rnd, alt1k, wide, r):
         fused_plain_ms=fused_plain_ms, b3_b4_ms=route_ms,
         b3_b4_bound_ms=fused_b[0], turns_fused_b3b4_fused=reads,
         fused_8192x1024_ms=fused1k_ms, b3_b4_8192x1024_ms=route1k_ms,
-        bound_8192x1024_ms=fused1k_b[0], turns_8192x1024=reads1k, **pr10)
+        bound_8192x1024_ms=fused1k_b[0], turns_8192x1024=reads1k, **paths)
 
 
-def b4_pr10_shapes(C, plain, mwir, dev, errs):
+def b4_paired_multipart_shapes(C, plain, mwir, dev, errs):
     """B4 (sorting its own rows) at the shapes the paired and multi-part
     paths give it: the paired summary's rows of 8,192 slots (32 features
     x 256-lane runs, 8192 pairs), dedup 3; the multi-part per-read
@@ -1223,6 +1239,39 @@ def b4_pr10_shapes(C, plain, mwir, dev, errs):
         out[f"{name}_bound_ms"] = bound(
             pk.numel() * 4 + rows * 4 + rows * 2 * 16,
             sort_ops(rows, l2, pre or 1, 1) + pk.numel() * 8)[0]
+    return out
+
+
+def b4_grid_shapes(C, plain, mwir, dev, errs):
+    """B4 (sorting its own rows) at the shapes the -table-shards 4
+    summary gives it (run_shards): a position's 1,024 rows of a
+    4,096-row batch after the exchange, each row SHARDS shard blocks of
+    16 features side by side -- the head step's runs of 64 lanes
+    (1024 x 4096, presorted 64) and the redo's runs of 256 (1024 x
+    16384, presorted 256). The runs alternate across the block
+    boundaries, as presorted_runs (parallel/rows_mesh.py) takes them.
+    Walk 32, K = 2, tolerance 0, on all rows. Their own generator.
+    -> their ms, device ms and bounds."""
+    rng = np.random.default_rng(1504)
+    out = {}
+    for name, runs in (("grid_head_1024x4096_presorted64", 64),
+                       ("grid_redo_1024x16384_presorted256", 256)):
+        pk = torch.from_numpy(alternating_runs(rng, 1024, SHARDS * 16,
+                                               runs)).to(dev)
+        mw = mwir(pk, 2)
+        kw = dict(walk_elems=32, max_candidates=2, presorted=runs)
+        got = torch.stack(C.candidates_packed(pk, mw, 15, **kw), dim=2)
+        errs[name] = check_equal(f"B4 {name}", got, plain(pk, mw, **kw))
+        rows, l2 = pk.shape
+        out[f"{name}_ms"] = cuda_ms(lambda: C.candidates_packed(
+            pk, mw, 15, **kw))
+        out[f"{name}_device_ms"] = kernel_ms(lambda: C.candidates_packed(
+            pk, mw, 15, **kw), reps=5)
+        out[f"{name}_plain_ms"] = cuda_ms(lambda: plain(pk, mw, **kw))
+        # the rows and mwir read once, (rows, K=2, 4) results written
+        out[f"{name}_bound_ms"] = bound(
+            pk.numel() * 4 + rows * 4 + rows * 2 * 16,
+            sort_ops(rows, l2, runs, 1) + pk.numel() * 8)[0]
     return out
 
 
@@ -1678,11 +1727,12 @@ def phase_build(tmp, name, genomes, species, gen_s, host_check=False,
     return db, maxwin, db_parts
 
 
-def _query(db_path, reads_path, args, out, runner=None):
+def _query(db_path, reads_path, args, out, runner=None, devices=None):
     """A query through the runner; ``db_path``: a path or a loaded
     Database; ``reads_path``: a path or a list (two files a pair under
     -pairfiles). ``runner``: staged tables to reuse under other flags,
     of those that change no staged state (pairing, output, insert size).
+    ``devices``: the new runner's devices (-replicate, -table-shards).
     -> (runner, results, staging seconds)."""
     from metacache_tpu_torch.classify.options import ClassificationResults
     from metacache_tpu_torch.classify.runner import (QueryRunner,
@@ -1693,7 +1743,7 @@ def _query(db_path, reads_path, args, out, runner=None):
     if runner is None:
         db = Database.load(db_path) if isinstance(db_path, str) else db_path
         t0 = time.time()
-        runner = QueryRunner(db, opt)
+        runner = QueryRunner(db, opt, devices=devices)
         torch.cuda.synchronize()
         stage_s = time.time() - t0
     else:
@@ -1808,6 +1858,7 @@ def phase_profile(tmp, name, runner, tag="", reads="reads.fa",
     for e in evs[:20]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
               f"{e.count:7d} x  {e.key[:90]}")
+    return dict(wall_seconds=wall, device_busy_seconds=busy_us / 1e6)
 
 
 def phase_query_per_read(tmp, name, db, reads, tag="", runner=None):
@@ -1898,12 +1949,14 @@ def phase_other_route(tmp, name, runner, res):
 
 
 def run_config(tmp, name, db, genomes, layout, path_kernels, profile,
-               other_route=False):
+               other_route=False, keep=None):
     """Summary query (the main path), its profile, with ``other_route``
     the same query under the other MC_SPLIT_CAND route, the scan step
     against the plain path, and the per-read path; -> the summary's
     launches, rank histogram, staging seconds and the other route's
-    launches (None without it)."""
+    launches (None without it). ``keep``: a dict that takes the per-read
+    lines ("lines") and a profile of the summary query of the first
+    GRID_PROFILE_READS reads ("profile"), for the grid phases."""
     reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
     del genomes
     runner, launches, res = phase_query_summary(
@@ -1914,10 +1967,17 @@ def run_config(tmp, name, db, genomes, layout, path_kernels, profile,
     other = phase_other_route(tmp, name, runner, res) if other_route \
         else None
     phase_e2e(name, runner, reads)
+    if keep is not None:
+        write_reads(os.path.join(tmp, name, "reads_grid_profile.fa"),
+                    reads[:GRID_PROFILE_READS])
+        keep["profile"] = phase_profile(tmp, name, runner, "-grid-reads",
+                                        reads="reads_grid_profile.fa")
     del runner
     torch.cuda.empty_cache()
-    phase_query_per_read(tmp, name, db, reads[:65536])
+    lines = phase_query_per_read(tmp, name, db, reads[:65536])
     torch.cuda.empty_cache()
+    if keep is not None:
+        keep["lines"] = lines
     return launches, res.statistics.assigned_.copy(), stage_s, other
 
 
@@ -2978,6 +3038,159 @@ def run_repl(tmp, name, db, nreads):
         lines_equal_direct=True)
 
 
+def exchange_bytes(rows: int, wq: int, sketchlen: int, runs: int,
+                   nt: int, pairs: bool) -> float:
+    """Bytes one position receives in the slot exchange of a data group
+    of ``rows`` rows: from each of the other P - 1 shards its (rows / P,
+    Wq * s * runs) int32 slots, two lanes a slot for (tgt, win) pairs;
+    the grid moves P times as much a data group."""
+    return rows * wq * sketchlen * runs * 4 * (nt - 1) / nt * \
+        (2 if pairs else 1)
+
+
+def run_shards(tmp, name, db, hist, lines, base_profile):
+    """[query-shards-944mbp-t4]: -table-shards 4 on a grid of cuda:0
+    repeated four times (and on four distinct cards where the host has
+    them): the database cut into four feature ranges, staged two-tier
+    (buckets deeper than 61 slots); the summary's 2^20 reads through the
+    sharded steps (B1 on each position's quarter of a batch, B6 heads,
+    the exchange, B4; the flagged reads redone through B7 and B4), the
+    unsharded histogram; a profile of the first GRID_PROFILE_READS
+    against the unsharded one of the same reads (``base_profile``); the
+    per-read phase's 2^16 reads, byte-identical to the unsharded
+    ``lines``. -> the launches of the repeated-card grid's summary."""
+    from metacache_tpu_torch import kernels
+    sub = os.path.join(tmp, name)
+    grids = [("cuda:0x4", [torch.device("cuda", 0)] * SHARDS)]
+    if torch.cuda.device_count() >= SHARDS:
+        grids.append(("cuda:0-3", [torch.device("cuda", i)
+                                   for i in range(SHARDS)]))
+    launches = None
+    for label, devs in grids:
+        kernels.reset_counts()
+        runner, res, stage_s = _query(
+            db, os.path.join(sub, "reads.fa"),
+            ["-no-map", "-table-shards", str(SHARDS)], io.StringIO(),
+            devices=devs)
+        grew = launch_counts()
+        launches = launches or grew
+        st = runner._shards
+        n = res.statistics.total()
+        if runner._ntab != SHARDS or not st.slot_bits or \
+                st.head_slots != min(61, st.slots_per_feature - 1):
+            raise AssertionError(f"shards: layout {runner.layout}")
+        if not np.array_equal(res.statistics.assigned_, hist):
+            raise AssertionError("-table-shards changed the rank histogram")
+        if min(grew[k] for k in ("sketch", "head_decode", "full_decode",
+                                 "candidates")) <= 0:
+            raise AssertionError(f"-table-shards launches {grew}")
+        batch = runner.opt.batch_windows
+        say(f"query-shards-{name}-t{SHARDS}", grid=label, reads=n,
+            reads_per_min=round(n / (res.time_ms / 60000.0)),
+            seconds=round(res.time_ms / 1000, 3), histogram_equal=True,
+            escalated_reads=runner.esc_reads, layout=runner.layout.replace(
+                " ", ""), staging_seconds=round(stage_s, 3),
+            shard_gib=[round(b / 2**30, 3) for b in st.shard_bytes],
+            shard_seconds=[round(x, 3) for x in st.shard_seconds],
+            shard_features=[len(f) for f in st.features],
+            batch_rows=batch, exchange_bytes_a_position_summary_batch=round(
+                exchange_bytes(batch, 1, 16, 64, SHARDS, False)),
+            max_allocated_gib=round(torch.cuda.max_memory_allocated() /
+                                    2**30, 3), launches=grew)
+        prof = phase_profile(tmp, name, runner, f"-shards{SHARDS}-{label}",
+                             reads="reads_grid_profile.fa")
+        say(f"grid-vs-unsharded-{name}", grid=label, reads=GRID_PROFILE_READS,
+            wall_seconds=round(prof["wall_seconds"], 3),
+            unsharded_wall_seconds=round(base_profile["wall_seconds"], 3),
+            device_busy_seconds=round(prof["device_busy_seconds"], 3),
+            unsharded_device_busy_seconds=round(
+                base_profile["device_busy_seconds"], 3))
+        out_path = os.path.join(sub, f"mapping_shards_{label}.txt")
+        with open(out_path, "w") as out:
+            _r, res2, _s = _query(db, os.path.join(sub, "reads_per_read.fa"),
+                                  ["-table-shards", str(SHARDS)], out,
+                                  runner=runner)
+        got = mapping_lines(out_path)
+        if got != lines:
+            raise AssertionError("-table-shards changed the mapping lines")
+        say(f"query-per-read-{name}-shards{SHARDS}", grid=label,
+            reads=len(got), seconds=round(res2.time_ms / 1000, 3),
+            lines_equal=True, exchange_bytes_a_position_batch=round(
+                exchange_bytes(len(got), 1, 16, 256, SHARDS, False)),
+            max_allocated_gib=round(torch.cuda.max_memory_allocated() /
+                                    2**30, 3))
+        del runner, _r
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return launches
+
+
+def run_replicate(tmp, name, db, lines):
+    """[query-replicate-944mbp-r2]: -replicate 2 over cuda:0 repeated:
+    the two replicas share one staged copy of the tables, each classifies
+    half of every batch (B1 and B4 on its rows); the per-read phase's
+    2^16 reads, byte-identical to the unsharded lines."""
+    sub = os.path.join(tmp, name)
+    out_path = os.path.join(sub, "mapping_replicate.txt")
+    with open(out_path, "w") as out:
+        runner, res, stage_s = _query(
+            db, os.path.join(sub, "reads_per_read.fa"),
+            ["-replicate", str(REPLICAS)], out,
+            devices=[torch.device("cuda", 0)] * REPLICAS)
+    got = mapping_lines(out_path)
+    shared = all(parts[0] is runner._replicas[0][1][0]
+                 for _d, parts in runner._replicas)
+    if runner._nrep != REPLICAS or not shared or got != lines:
+        raise AssertionError(f"-replicate: {runner._nrep} replicas, one "
+                             f"copy {shared}, lines equal {got == lines}")
+    say(f"query-replicate-{name}-r{REPLICAS}", reads=len(got),
+        seconds=round(res.time_ms / 1000, 3), lines_equal=True,
+        one_staged_copy=shared, layout=runner.layout,
+        staged_gib=round(runner.staged_bytes / 2**30, 3),
+        staging_seconds=round(stage_s, 3))
+    del runner
+    torch.cuda.empty_cache()
+
+
+def run_multihost():
+    """[multihost-2proc]: two processes of the dryrun worker
+    (metacache_tpu_torch/parallel/multihost_dryrun.py) on the card,
+    joined by gloo, two positions of cuda:0 each: each runs the sharded
+    step over its rows of one global batch and holds them against the
+    single-device step; both must print MULTIHOST_OK."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("MC_TORCH_DEVICE", None)
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "metacache_tpu_torch.parallel.multihost_dryrun",
+         "--coordinator", f"localhost:{port}", "--nprocs", "2", "--pid",
+         str(pid), "--local-devices", "2"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    oks = [l for out, _e in outs for l in out.splitlines()
+           if l.startswith("MULTIHOST_OK")]
+    if any(p.returncode for p in procs) or len(oks) != 2:
+        raise AssertionError("multihost dryrun failed: " + " | ".join(
+            f"rc {p.returncode}: {out[-500:]} {err[-1500:]}"
+            for p, (out, err) in zip(procs, outs)))
+    say("multihost-2proc", processes=2, seconds=round(time.time() - t0, 3),
+        lines=oks)
+
+
 def run_k18(tmp, genomes, species, profile):
     """The 944 Mbp genomes at k = 18, the repo's 64-bit configuration
     (tests/test_golden_parity.py:346-352). [build-944mbp-k18]: `build
@@ -3470,14 +3683,21 @@ def main() -> int:
         layout = f"pk{(2 * maxwin).bit_length()}"
         if layout != "pk15":
             raise AssertionError(f"944 Mbp database packs as {layout}")
+        keep = {}
         main_path, hist, stage_s, other = run_config(
             tmp, "944mbp", db, genomes, layout,
-            ("sketch", *cand_kernels()), a.profile, other_route=True)
+            ("sketch", *cand_kernels()), a.profile, other_route=True,
+            keep=keep)
         for k in ("sketch", "candidates"):
             launches[k] = main_path[k]
         # B3 runs on whichever of the two routes splits
         launches["sort"] = main_path["sort"] or other["sort"]
-        pair_paths = [run_pairs_944(tmp, db, genomes, layout, a.profile)]
+        pair_paths = [run_shards(tmp, "944mbp", db, hist, keep["lines"],
+                                 keep["profile"])]
+        run_replicate(tmp, "944mbp", db, keep["lines"])
+        run_multihost()
+        pair_paths.append(run_pairs_944(tmp, db, genomes, layout,
+                                        a.profile))
         run_covpct(tmp, "944mbp", db)
         run_align(tmp, "944mbp", db, genomes, species, ALIGN_READS)
         shutil.rmtree(os.path.join(tmp, "944mbp", "genomes"))
@@ -3531,8 +3751,8 @@ def main() -> int:
         for k in ("bucket_decode", "oidx_decode"):
             launches[k] = pallas[k]
         pair_paths.append(pairs)
-    # the paired and multi-part main paths' launches, each counted from
-    # zero just before its own query
+    # the sharded, paired and multi-part main paths' launches, each
+    # counted from zero just before its own query
     for path in pair_paths:
         for k, v in path.items():
             launches[k] += v

@@ -38,10 +38,16 @@ free (``_nonfused_rows``). -cov-percentile classifies every read again
 on the host after the run, from the candidates of the targets that
 keep their coverage; -align aligns each classified read to its top
 candidate's windows, re-read from the target's FASTA, on the host.
-Options outside the port (-replicate, -table-shards) raise
-NotImplementedError naming their ROADMAP item. The JAX runner's
-TPU-link workarounds (packed result fetches, fixed dispatch shapes) are
-not carried over.
+
+Over a grid of devices (``devices``; parallel/mesh.py), as JAX's runner
+over its mesh: ``-replicate`` stages the parts once a distinct device
+and splits each row batch over the replicas, each running the
+single-device step on its own tables; ``-table-shards`` cuts the one
+part into feature-range shards (parallel/rows_mesh.py) and runs the
+sharded step, escalated on two-tier shards of a summary-only run.
+Either takes the row path for every batch (no scan loop), as JAX's
+does. The JAX runner's TPU-link workarounds (packed result fetches,
+fixed dispatch shapes) are not carried over.
 """
 from __future__ import annotations
 
@@ -64,13 +70,17 @@ from ..ops import windows as win_ops
 from ..seqio.reader import PairingMode, QueryRecord, read_queries
 from ..taxonomy.model import NUM_RANKS, Rank, rank_from_name
 from ..db.state import tables_csr, tables_from_device, tables_from_numpy
-from ..device import free_bytes, get_device, hbm_budget_bytes
+from ..device import free_bytes, hbm_budget_bytes
 from ..ops.probe import make_bucket_index
-from ..ops.pipeline import QueryResult
+from ..ops.pipeline import QueryResult, concat_results
 from ..ops.rows import (fuses, fused_candidates_enabled, query_step_rows,
                         query_step_rows_multipart, query_step_rows_redo_scan,
                         query_step_rows_scan, query_step_rows_scan_head)
 from ..ops.table import csr_bytes, device_layout, unpack_locations
+from ..parallel.mesh import default_devices, distinct, make_mesh, on_device
+from ..parallel.rows_mesh import (merge_blocks, shard_row_table,
+                                  sharded_query_step_rows,
+                                  sharded_query_step_rows_head)
 from ..ops.table_device import (debug_note, dense_bytes,
                                 device_layout_from_csr)
 from . import abundance as abd
@@ -157,6 +167,39 @@ class _CodedBatch:
                            self.codes2[i], self.lens2[i])
 
 
+class _ShardedRowsEsc:
+    """The sharded escalation's result (JAX's runner.py:315-356), for the
+    summary path, which reads only ``cls_tax``: phase 1 (head only,
+    across the shards) classified every read; the reads whose OR-ed
+    ``over`` flag is set are redone through the full-depth sharded step,
+    padded to the grid's row quantum, when ``cls_tax`` is first read.
+    ``redo(rows, nreal)``: the full-depth step on those rows of the
+    batch, of which ``nreal`` are real."""
+
+    def __init__(self, res1: QueryResult, over: torch.Tensor, redo,
+                 quantum: int):
+        self._res1 = res1
+        self._over = over
+        self._redo = redo
+        self._quantum = quantum
+        self._cls = None
+
+    @property
+    def cls_tax(self) -> torch.Tensor:
+        if self._cls is None:
+            cls = self._res1.cls_tax.clone()
+            idx = torch.nonzero(self._over).reshape(-1).cpu().numpy()
+            if len(idx):
+                q = self._quantum
+                sel = np.resize(idx, -(-len(idx) // q) * q)
+                redo = self._redo(torch.from_numpy(sel), len(idx))
+                cls[torch.from_numpy(idx).to(cls.device)] = \
+                    redo.cls_tax[:len(idx)]
+            self._cls = cls
+            self._redo = None
+        return self._cls
+
+
 def slot_pack_bits(target_count: int, max_window: int) -> int:
     """Window bits of the packed slot pk = (tgt << wbits) | win, or 0
     when slots stay unpacked (copied from
@@ -189,10 +232,6 @@ NONFUSED_BYTES_A_SLOT = 96
 HIT_LIST_BYTES_A_SLOT = 12
 
 
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 class QueryRunner:
     """Holds the device-resident database state across query runs."""
 
@@ -202,12 +241,12 @@ class QueryRunner:
     FUSED_MIN_SLOTS = 1024
 
     def __init__(self, db: Database, opt: QueryOptions,
-                 device: torch.device | None = None):
-        self.device = device or get_device()
+                 device: torch.device | None = None, devices=None):
         self.db = db
         self.opt = opt
-        if opt.num_replicas != 1 or opt.table_shards != 1:
-            _unsupported("-replicate / -table-shards", "queue A14")
+        grid = self._choose_grid(db, opt, device, devices)
+        self.device = grid[0, 0]
+        self._nrep, self._ntab = grid.shape
         self.sketching = self._adapt_sketching()
         self.hits_min = opt.classify.resolve_hits_min(
             db.sketching.sketchlen)
@@ -240,23 +279,47 @@ class QueryRunner:
         lineages = self.lineages if db.target_count else \
             np.zeros((1, NUM_RANKS), np.int32)
         self.stage_seconds = []     # a part's staging split, _staged
-        if db.device_parts:
+        self._shards = None
+        on = {}         # a device -> its staged parts: (tables, dense, staged)
+        if self._ntab > 1:
+            # feature-range shards over the grid's "table" axis
+            # (runner.py:458-473)
+            t0 = time.perf_counter()
+            self._pack_bits = 0
+            self._shards = shard_row_table(
+                db.parts[0], self._ntab, db.max_locations_per_feature,
+                layout=os.environ.get("MC_SHARD_LAYOUT", "auto"), grid=grid,
+                lineages=lineages, merge_tax=merge_tax)
+            self.stage_seconds.append({
+                "layout": self.layout, "shards": self._shards.shard_seconds,
+                "seconds": time.perf_counter() - t0})
+        elif db.device_parts:
             # tables built on the card by this process (build+query)
             dtab = db.device_parts[0]
             self._pack_bits = slot_pack_bits(db.target_count, dtab.max_win)
-            staged = [self._take(dtab, lineages, merge_tax)]
+            on[self.device] = [self._take(dtab, lineages, merge_tax)]
         else:
+            # replicas (-replicate) stage once a distinct device, each
+            # within its own budget
             self._pack_bits = slot_pack_bits(
                 db.target_count, max(_max_window(p) for p in db.parts))
-            staged, left = [], self.budget_bytes
-            for p in db.parts:
-                staged.append(self._stage_part(p, lineages, merge_tax,
-                                               left))
-                left -= staged[-1][2]
+            for dev in distinct(grid):
+                staged, left = [], hbm_budget_bytes(dev)
+                with on_device(dev):
+                    for p in db.parts:
+                        staged.append(self._stage_part(
+                            p, lineages, merge_tax, left, dev))
+                        left -= staged[-1][2]
+                on[dev] = staged
+        staged = on.get(self.device, [])
         self.parts = [t for t, _d, _s in staged]
-        self.tables = self.parts[0]      # the single-part paths' tables
+        # the single-part paths' tables; none under table shards
+        self.tables = self.parts[0] if self.parts else None
+        self._replicas = [(dev, [t for t, _d, _s in on[dev]])
+                          for dev in grid[:, 0]] if on else []
         self.dense_bytes = sum(d for _t, d, _s in staged)
-        self.staged_bytes = sum(s for _t, _d, s in staged)
+        self.staged_bytes = sum(self._shards.shard_bytes) if self._shards \
+            else sum(s for _t, _d, s in staged)
         self.esc_reads = 0          # reads escalated to the full-depth redo
         self.row_launches = 0       # launches of the per-read row steps
 
@@ -282,6 +345,39 @@ class QueryRunner:
                 torch.from_numpy(self._rank_of_taxid.astype(np.int32))
                 .to(self.device))
 
+    @staticmethod
+    def _choose_grid(db: Database, opt: QueryOptions, device, devices):
+        """The (data, table) grid of devices, by JAX's rules
+        (runner.py:397-436): ``-replicate`` n <= 0 takes every device,
+        n is capped at the device count and rounded down to a power of
+        two; table shards when ``-table-shards`` n > 1, replicas x shards
+        fit the devices and the database has one part; else replicas
+        when n > 1; else one device. ``devices`` (default: ``device``,
+        else every CUDA device, or the CPU under MC_TORCH_DEVICE=cpu)
+        may repeat a device. A database built in this process
+        (``build+query``) takes no grid (runner.py:489-493)."""
+        devs = list(devices) if devices is not None else \
+            [device] if device is not None else default_devices()
+        ndev = len(devs)
+        nrep = opt.num_replicas
+        if nrep <= 0:
+            nrep = ndev
+        nrep = min(nrep, ndev)
+        while nrep & (nrep - 1):
+            nrep -= 1
+        ntab = opt.table_shards
+        if ntab > 1 and nrep * ntab <= ndev and len(db.parts) == 1:
+            grid = make_mesh(nrep, ntab, devs)
+        elif nrep > 1:
+            grid = make_mesh(nrep, 1, devs)
+        else:
+            grid = make_mesh(1, 1, devs)
+        if grid.size > 1 and db.device_parts:
+            raise RuntimeError(
+                "device-resident build does not support -replicate/"
+                "-table-shards yet; use a saved database")
+        return grid
+
     def _take(self, dtab, lineages, merge_tax):
         """Probe through a DeviceTable (ops/table_device.py).
         -> (tables, dense bytes, staged bytes)."""
@@ -290,7 +386,8 @@ class QueryRunner:
                             wide=dtab.uniq.dtype == torch.int64),
                 dtab.layout_bytes)
 
-    def _stage_part(self, p, lineages, merge_tax, budget: int):
+    def _stage_part(self, p, lineages, merge_tax, budget: int,
+                    device: torch.device | None = None):
         """Stage a loaded part within ``budget`` bytes, as JAX's runner
         stages it (runner.py:505-596): its CSR stream filled into probe
         rows on the card (MC_DEVICE_LAYOUT=1, the default); where the
@@ -302,8 +399,10 @@ class QueryRunner:
         does not. u64 features (k > 16) never stage as host rows: they
         take the CSR layout there, without a budget check, as in JAX.
         MC_DENSE_LIMIT caps only the dense option of u32 features.
-        Records the staging's seconds (``_staged``).
+        Records the staging's seconds (``_staged``). ``device``: where
+        to stage (default: the runner's device).
         -> (tables, dense bytes, staged bytes)."""
+        device = device or self.device
         t0 = time.perf_counter()
         spf = min(p.max_bucket_size, self.db.max_locations_per_feature) or 1
         wide = p.unique_features.dtype == np.uint64
@@ -322,11 +421,11 @@ class QueryRunner:
             try:
                 staged = self._take(device_layout_from_csr(
                     p.unique_features, p.offsets, *unpacked,
-                    device=self.device,
+                    device=device,
                     cap=self.db.max_locations_per_feature or 254,
                     budget_bytes=budget, allow_dense=allow_dense),
                     lineages, merge_tax)
-                return self._staged(staged, t0, t_card, unpack_s)
+                return self._staged(staged, t0, t_card, unpack_s, device)
             except MemoryError:
                 pass             # the host rule, then CSR (runner.py:564)
         index = None if wide else make_bucket_index(p.unique_features)
@@ -344,10 +443,10 @@ class QueryRunner:
                 unpack_s += time.perf_counter() - h0
             t_card = time.perf_counter()
             tables = tables_csr(p.unique_features, p.offsets, *unpacked,
-                                lineages, merge_tax, spf, self.device,
+                                lineages, merge_tax, spf, device,
                                 index=index)
             return self._staged((tables, dense_b, staged_b), t0, t_card,
-                                unpack_s)
+                                unpack_s, device)
         if hsl == spf:
             rows = p.fused_rows(spf, slot_bits=self._pack_bits)
             ovf, hsl = None, 0
@@ -358,18 +457,20 @@ class QueryRunner:
         t_card = time.perf_counter()
         return self._staged((tables_from_numpy(
             p.unique_features, p.offsets, rows, brows, bits, lineages,
-            merge_tax, spf, self._pack_bits, self.device, ovf_rows=ovf,
-            head_slots=hsl), dense_b, staged_b), t0, t_card, unpack_s)
+            merge_tax, spf, self._pack_bits, device, ovf_rows=ovf,
+            head_slots=hsl), dense_b, staged_b), t0, t_card, unpack_s,
+            device)
 
-    def _staged(self, staged, t0: float, t_card: float, unpack_s: float):
+    def _staged(self, staged, t0: float, t_card: float, unpack_s: float,
+                device: torch.device):
         """Record a staged part's seconds (``stage_seconds``): on the
         host before the call that puts the part on the device (from
         ``t0`` to ``t_card``; ``unpack_s`` of them the host's
         unpack_locations), and in that call, waited for (the card's
         fill from the CSR, or the copy of the host's rows or CSR); then
         pass the part on."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         card_s = time.perf_counter() - t_card
         self.stage_seconds.append({"layout": str(staged[0].dense),
                                    "unpack_s": unpack_s,
@@ -384,7 +485,9 @@ class QueryRunner:
     def layout(self) -> str:
         """Probe layout tag of each staged part, comma-separated (e.g.
         "pk15", "('two_tier', 61, True, False, 15)" or "('classed', 61,
-        False, False, 15)")."""
+        False, False, 15)"); table shards: "shards<P>:" and their tag."""
+        if self._shards is not None:
+            return f"shards{self._ntab}:{self._shards.tables[0, 0].dense}"
         return ", ".join(str(t.dense) for t in self.parts)
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
@@ -503,9 +606,11 @@ class QueryRunner:
         summary = self._summary_only()
         if not summary and max_len <= 1024:
             batch_reads = max(batch_reads, 65536)
-        # the summary scan stages one part (runner.py:838-839): a
-        # multi-part summary takes the row path and accumulates there
-        summary = summary and len(self.parts) == 1
+        # the summary scan stages one part on one device (runner.py:838-839):
+        # a multi-part summary, or one over a grid of devices, takes the
+        # row path and accumulates there
+        summary = summary and len(self.parts) == 1 and \
+            self._row_quantum == 1
         extra = []
         try:
             if summary:
@@ -961,7 +1066,8 @@ class QueryRunner:
                 if len(batch[1]):
                     yield batch
 
-        if not (self._summary_only() and len(self.parts) == 1):
+        if not (self._summary_only() and len(self.parts) == 1
+                and self._row_quantum == 1):
             pending = None
             for batch in filtered(batch_reads):
                 dispatched = self._dispatch_coded_pair(*batch)
@@ -1080,7 +1186,7 @@ class QueryRunner:
         launched = []
         if short.any():
             idxs = np.nonzero(short)[0]
-            rows = _round_up_pow2(len(idxs))
+            rows = self._rows_for(len(idxs))
             wmat = np.full((rows, 2, wl), win_ops.PAD_CODE, np.uint8)
             wmat[:len(idxs), 0, :] = c1[idxs, :wl]
             wmat[:len(idxs), 1, :] = c2[idxs, :wl]
@@ -1100,7 +1206,7 @@ class QueryRunner:
                       win_ops.num_windows(int(l2[i]), sk))
                 lbuckets.setdefault(_bucket_wq(nw), []).append(i)
             for wq, idxs in sorted(lbuckets.items()):
-                rows = _round_up_pow2(len(idxs))
+                rows = self._rows_for(len(idxs))
                 wmat = np.full((rows, wq, wl), win_ops.PAD_CODE, np.uint8)
                 vmat = np.zeros((rows, wq), np.int32)
                 mwir = np.full(rows, 2, np.int32)
@@ -1130,7 +1236,7 @@ class QueryRunner:
         launched = []
         if short.any():
             idxs = np.nonzero(short)[0]
-            rows = _round_up_pow2(len(idxs))
+            rows = self._rows_for(len(idxs))
             wmat = np.full((rows, 1, wl), win_ops.PAD_CODE, np.uint8)
             wmat[:len(idxs), 0, :] = codes[idxs, :wl]
             vmat = np.zeros((rows, 1), np.int32)
@@ -1147,7 +1253,7 @@ class QueryRunner:
                 nw = win_ops.num_windows(int(lens[i]), sk)
                 lbuckets.setdefault(_bucket_wq(nw), []).append(int(i))
             for wq, idxs in sorted(lbuckets.items()):
-                rows = _round_up_pow2(len(idxs))
+                rows = self._rows_for(len(idxs))
                 wmat = np.full((rows, wq, wl), win_ops.PAD_CODE, np.uint8)
                 vmat = np.zeros((rows, wq), np.int32)
                 mwir = np.full(rows, 2, np.int32)
@@ -1167,13 +1273,14 @@ class QueryRunner:
         return dict(max_candidates=k, fast_top2=self._fast_top2,
                     **self._fused_flags(), **self._sweep_params(mwir, wq))
 
-    def _nonfused_rows(self, slots: int, emit_hits: bool) -> int:
+    def _nonfused_rows(self, slots: int, emit_hits: bool,
+                       device: torch.device | None = None) -> int:
         """The most rows of ``slots`` match slots a launch of the
-        non-fused result path takes in the device memory free now (the
-        fused kernels work in shared memory and take a batch whole).
-        ``emit_hits``: the launch also lists its hits (-allhits).
-        Raises MemoryError when not even one row fits."""
-        free = free_bytes(self.device)
+        non-fused result path takes in the memory free now on ``device``
+        (default: the runner's; the fused kernels work in shared memory
+        and take a batch whole). ``emit_hits``: the launch also lists its
+        hits (-allhits). Raises MemoryError when not even one row fits."""
+        free = free_bytes(device or self.device)
         row_b = max(slots, 1) * (NONFUSED_BYTES_A_SLOT +
                                  (HIT_LIST_BYTES_A_SLOT if emit_hits else 0))
         r = free // row_b
@@ -1184,41 +1291,76 @@ class QueryRunner:
                 "tables")
         return int(r)
 
-    # copied from metacache_tpu/classify/runner.py:1563-1588, without
-    # the mesh branches
+    @property
+    def _row_quantum(self) -> int:
+        """Batch row counts must split evenly over the grid
+        (runner.py:679-681)."""
+        return self._nrep * self._ntab
+
+    def _rows_for(self, n: int) -> int:
+        """Rows of a launch of ``n`` reads: a power of two, and a
+        multiple of the grid's positions."""
+        q = self._row_quantum
+        return -(-max(_round_up_pow2(n), q) // q) * q
+
+    # copied from metacache_tpu/classify/runner.py:1510-1588
     def _launch_rows(self, wmat, vmat, mwir, wq, k):
         """One row batch through ``query_step_rows``, or over every part
-        through ``query_step_rows_multipart``. A batch bound for the
-        non-fused result path goes in launches of as many rows as the
-        free device memory holds (``_nonfused_rows``), whose results
-        concatenate in row order; the flags come from the whole batch,
-        so every launch takes the same route and sweep. Where a batch
-        takes several launches, each launch's per-hit lists (-allhits)
-        go to the host as it ends, so they hold no device memory the
-        launches after it were sized to take."""
-        sk = self.sketching
-        step, tables = (query_step_rows, self.tables) \
-            if len(self.parts) == 1 else \
-            (query_step_rows_multipart, self.parts)
+        through ``query_step_rows_multipart``, split evenly over the
+        replicas (-replicate), each on its device's staged tables, or
+        through the sharded step over the table shards (-table-shards).
+        A batch bound for the non-fused result path goes in launches of
+        as many rows as the free device memory holds
+        (``_nonfused_rows``), whose results concatenate in row order; the
+        flags come from the whole batch, so every launch takes the same
+        route and sweep. Where a batch takes several launches, each
+        launch's per-hit lists (-allhits) go to the host as it ends, so
+        they hold no device memory the launches after it were sized to
+        take."""
         flags = self._step_flags(mwir, wq, k)
-        n = len(mwir)
-        per_launch = n
-        if not fuses(flags["fused_candidates"], flags["fast_top2"], k,
-                     flags.get("walk_elems", 0), flags.get("dedup_walk", 0),
-                     flags["emit_hits"]):
-            slots = wq * sk.sketchlen * sum(t.spf for t in self.parts)
-            per_launch = min(n, self._nonfused_rows(slots,
-                                                    flags["emit_hits"]))
+        if self._shards is not None:
+            return self._launch_sharded(wmat, vmat, mwir, wq, flags)
+        per = len(mwir) // len(self._replicas)
+        out = []
+        for r, (dev, parts) in enumerate(self._replicas):
+            rows = slice(r * per, (r + 1) * per)
+            with on_device(dev):
+                out.append(self._launch_parts(
+                    dev, parts, wmat[rows], vmat[rows], mwir[rows], wq,
+                    flags))
+        if len(out) == 1:
+            return out[0]
+        # the per-row fields join on the runner's device; where a
+        # replica's launches sent its per-hit lists to the host
+        # (_launches), every replica's go there, so that none lands in
+        # the device memory those launches were sized to leave free
+        hits_at = torch.device("cpu") if any(
+            r.hit_qid.device.type == "cpu" for r in out) else self.device
+        return concat_results([QueryResult(
+            *(x.to(self.device, non_blocking=True) for x in r[:6]),
+            *(x.to(hits_at, non_blocking=hits_at.type != "cpu")
+              for x in r[6:])) for r in out], per, len(mwir))
+
+    def _nonfused_launch(self, n: int, slots: int, flags: dict,
+                         device: torch.device, share: float = 1.0,
+                         quantum: int = 1) -> int:
+        """Rows a launch takes of a batch of ``n``: all of them on the
+        fused route, else what ``_nonfused_rows`` lets ``device`` hold,
+        of which it works ``share``, rounded down to ``quantum``."""
+        if fuses(flags["fused_candidates"], flags["fast_top2"],
+                 flags["max_candidates"], flags.get("walk_elems", 0),
+                 flags.get("dedup_walk", 0), flags["emit_hits"]):
+            return n
+        r = int(self._nonfused_rows(slots, flags["emit_hits"], device) /
+                share)
+        return min(n, max(r // quantum, 1) * quantum)
+
+    def _launches(self, n: int, per_launch: int, flags: dict, launch):
+        """``launch(rows)`` for slices of ``per_launch`` rows of ``n``,
+        joined in row order."""
         results = []
         for i in range(0, n, per_launch):
-            res = step(
-                self._to_dev(wmat[i:i + per_launch]),
-                self._to_dev(vmat[i:i + per_launch]),
-                self._to_dev(mwir[i:i + per_launch]),
-                tables, self.hits_min,
-                self.opt.classify.hits_diff_fraction, self.highest_rank,
-                self.merge_rank, k=sk.kmerlen, sketchlen=sk.sketchlen,
-                windows_per_query=wq, pack_bits=self._pack_bits, **flags)
+            res = launch(slice(i, i + per_launch))
             if per_launch < n and flags["emit_hits"]:
                 res = res._replace(hit_qid=res.hit_qid.cpu(),
                                    hit_tgt=res.hit_tgt.cpu(),
@@ -1226,7 +1368,71 @@ class QueryRunner:
             results.append(res)
         self.row_launches += len(results)
         return results[0] if len(results) == 1 else \
-            _concat_results(results, per_launch, n)
+            concat_results(results, per_launch, n)
+
+    def _launch_parts(self, dev, parts, wmat, vmat, mwir, wq, flags):
+        """A replica's rows through its parts' tables on ``dev``."""
+        sk = self.sketching
+        step, tables = (query_step_rows, parts[0]) if len(parts) == 1 \
+            else (query_step_rows_multipart, parts)
+        n = len(mwir)
+        per_launch = self._nonfused_launch(
+            n, wq * sk.sketchlen * sum(t.spf for t in parts), flags, dev)
+
+        def to_dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        return self._launches(n, per_launch, flags, lambda rows: step(
+            to_dev(wmat[rows]), to_dev(vmat[rows]), to_dev(mwir[rows]),
+            tables, self.hits_min, self.opt.classify.hits_diff_fraction,
+            self.highest_rank, self.merge_rank, k=sk.kmerlen,
+            sketchlen=sk.sketchlen, windows_per_query=wq,
+            pack_bits=self._pack_bits, **flags))
+
+    def _launch_sharded(self, wmat, vmat, mwir, wq, flags):
+        """A row batch through the table shards (runner.py:1518-1551):
+        escalated where JAX escalates (slot-packed two-tier shards whose
+        head is shallower than their depth, one window a query, a
+        summary-only run, MC_ESCALATE not 0) -- the head-only step, then
+        the full-depth step on the flagged reads (``_ShardedRowsEsc``) --
+        else the full-depth step, in launches that fit the busiest
+        device's free memory where the batch takes the non-fused route.
+        -> a QueryResult on the runner's device (``merge_blocks``)."""
+        st = self._shards
+        sk = self.sketching
+        args = (self.hits_min, self.opt.classify.hits_diff_fraction,
+                self.highest_rank, self.merge_rank)
+        kw = dict(k=sk.kmerlen, sketchlen=sk.sketchlen, **flags)
+        w, v, m = (torch.from_numpy(np.ascontiguousarray(x))
+                   for x in (wmat, vmat, mwir))
+        if (st.slot_bits and 0 < st.head_slots < st.slots_per_feature
+                and wq == 1 and self._summary_only()
+                and os.environ.get("MC_ESCALATE", "1") != "0"):
+            kw.pop("emit_hits")
+            blocks, over = sharded_query_step_rows_head(w, v, m, st, *args,
+                                                        **kw)
+            self.row_launches += 1
+
+            def redo(rows, nreal):
+                self.esc_reads += nreal
+                self.row_launches += 1
+                return merge_blocks(sharded_query_step_rows(
+                    w[rows], v[rows], m[rows], st, *args, **kw),
+                    self.device)
+            return _ShardedRowsEsc(
+                merge_blocks(blocks, self.device),
+                torch.cat([o.to(self.device) for o in over]), redo,
+                self._row_quantum)
+        grid = st.grid
+        busiest = max(distinct(grid), key=lambda d: int((grid == d).sum()))
+        n = len(mwir)
+        per_launch = self._nonfused_launch(
+            n, wq * sk.sketchlen * st.slots_per_feature * self._ntab, flags,
+            busiest, share=(grid == busiest).sum() / grid.size,
+            quantum=self._row_quantum)
+        return self._launches(n, per_launch, flags, lambda rows: merge_blocks(
+            sharded_query_step_rows(w[rows], v[rows], m[rows], st, *args,
+                                    **kw), self.device))
 
     def _collect_batch(self, batch, dispatched, results):
         kind, payload = dispatched
@@ -1310,7 +1516,7 @@ class QueryRunner:
             buckets.setdefault(_bucket_wq(len(w)), []).append(i)
         launched = []
         for wq, idxs in sorted(buckets.items()):
-            rows = _round_up_pow2(len(idxs))
+            rows = self._rows_for(len(idxs))
             wmat = np.full((rows, wq, sk.winlen), win_ops.PAD_CODE,
                            np.uint8)
             vmat = np.zeros((rows, wq), np.int32)
@@ -1605,30 +1811,15 @@ def _round_up_pow2(x: int) -> int:
     return 1 << (x - 1).bit_length()
 
 
-def _concat_results(results, per_launch: int, rows: int) -> QueryResult:
-    """The QueryResults of launches of ``per_launch`` rows (the last may
-    be shorter), in row order, as one of ``rows`` rows: the per-hit
-    lists' row ids move by each launch's first row, and their padding
-    id (a launch's row count) becomes ``rows``."""
-    qids = []
-    for i, res in enumerate(results):
-        b = res.cls_tax.shape[0]
-        q = res.hit_qid
-        qids.append(torch.where(q == b, rows, q + i * per_launch))
-    return QueryResult(*(torch.cat(x) for x in zip(*(
-        r[:6] for r in results))), torch.cat(qids),
-        torch.cat([r.hit_tgt for r in results]),
-        torch.cat([r.hit_win for r in results]))
-
-
 # copied from metacache_tpu/classify/runner.py:2380-2443
 def map_queries_to_targets(infiles: List[str], db: Database,
                            opt: QueryOptions,
                            results: ClassificationResults,
-                           runner: QueryRunner | None = None):
+                           runner: QueryRunner | None = None, devices=None):
     """Reference: map_queries_to_targets (src/classification.cpp:870-881).
-    ``runner`` reuses staged tables across calls."""
-    runner = runner or QueryRunner(db, opt)
+    ``runner`` reuses staged tables across calls; ``devices``: the
+    devices a new runner's grid takes (QueryRunner)."""
+    runner = runner or QueryRunner(db, opt, devices=devices)
     oopt = opt.output
     if oopt.format.map_view_mode != MapViewMode.NONE:
         results.per_read_out.write(

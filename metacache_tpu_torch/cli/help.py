@@ -218,7 +218,9 @@ PERFORMANCE / DEVICES
     -table-shards <n> shard the feature table over n devices by
                       feature range; probes travel via one all-to-all
                       exchange. Combine with -replicate for
-                      2-D meshes.
+                      2-D meshes. One process drives the devices
+                      (every CUDA device; a single-part database
+                      of k <= 16 for shards).
     -threads <n>      number of parallel file-reader threads on the
                       summary path (byte-range partition of each
                       uncompressed input file; classification itself
@@ -302,6 +304,10 @@ ENVIRONMENT
                             auto-sized to ~48M elements per group).
     MC_BUILD_DEBUG=1        print the device build's and staging's
                             per-phase progress.
+    MC_SHARD_LAYOUT=<auto|dense|two_tier>
+                            force the -table-shards shard layout (auto:
+                            two-tier once buckets are deeper than 61
+                            slots).
 
     Not read by the port yet (JAX package knobs of modules still to be
     ported; ROADMAP.md queue A):
@@ -310,8 +316,6 @@ ENVIRONMENT
     MC_ESC_B2=<n>           its flagged-read slice width (item 2).
     MC_NATIVE_FMT=0         the native per-read line formatter (the
                             host pipeline, item 2).
-    MC_SHARD_LAYOUT=<auto|dense|two_tier>
-                            the -table-shards shard layout (A14, item 7).
 """,
     "build+query": """\
 metacache_tpu_torch build+query — build a database in memory and query it

@@ -70,3 +70,20 @@ def classify_candidates(cand_tgt, cand_tax, cand_hits, lineages,
     )[:, 0]
     ok = valid0 & has & (lca_rank <= highest_rank)
     return torch.where(ok, lca_tax, 0).to(torch.int32)
+
+
+def concat_results(results, per_launch: int, rows: int) -> QueryResult:
+    """The QueryResults of launches of ``per_launch`` rows (the last may
+    be shorter), in row order, as one of ``rows`` rows: the per-hit
+    lists' row ids move by each launch's first row, and their padding
+    id (a launch's row count) becomes ``rows``. The per-row fields of
+    every result must lie on one device, and so must the per-hit lists."""
+    qids = []
+    for i, res in enumerate(results):
+        b = res.cls_tax.shape[0]
+        q = res.hit_qid
+        qids.append(torch.where(q == b, rows, q + i * per_launch))
+    return QueryResult(*(torch.cat(x) for x in zip(*(
+        r[:6] for r in results))), torch.cat(qids),
+        torch.cat([r.hit_tgt for r in results]),
+        torch.cat([r.hit_win for r in results]))

@@ -1174,3 +1174,219 @@ def test_fixture_stagings_on_the_card_match_golden(cuda, tmp_path,
             if not any(d in l for d in drop)] == gold
     if staging == "probe-kernels":
         assert kernels.BUCKET_DECODE.launches > 0
+
+
+# ------------------------------------------- grids of devices (A14)
+def _deep_shard_case(seed=13, every=3, b=256):
+    """Reads and a table built from their own sketches: every
+    ``every``-th feature 100 locations deep (> the 61-slot head), the
+    others 5 (tests/test_torch_rows_mesh.py::deep_table)."""
+    from metacache_tpu_torch.ops.table import FeatureTable, pack_locations
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (b, 1, 128), dtype=np.uint8)
+    lens = np.full((b, 1), 100, np.int32)
+    feats = S.sketch_windows(torch.from_numpy(codes.reshape(b, 128)),
+                             torch.from_numpy(lens.reshape(b)), 16,
+                             16).numpy().view(np.uint32)
+    uf = np.unique(feats.reshape(-1))
+    uf = uf[uf != 0xFFFFFFFF]
+    depth = np.where(np.arange(len(uf)) % every == 0, 100, 5)
+    f = np.repeat(uf, depth)
+    j = np.concatenate([np.arange(d) for d in depth])
+    i = np.repeat(np.arange(len(uf)), depth)
+    t, w = ((i + j) % 48).astype(np.int32), (j % 40).astype(np.int32)
+    order = np.lexsort((w, t, f))
+    ft = FeatureTable.build(f[order].copy(), pack_locations(t[order],
+                                                            w[order]),
+                            max_locations_per_feature=254)
+    return ft, codes, lens, lineages(48)
+
+
+@pytest.fixture(params=["repeated", "distinct"])
+def cards(request, cuda):
+    """Four grid positions: cuda:0 repeated, or four distinct cards
+    (skipped on a host with fewer)."""
+    if request.param == "repeated":
+        return [torch.device("cuda", 0)] * 4
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def _sharded(ft, lin, grid, layout):
+    from metacache_tpu_torch.parallel.rows_mesh import shard_row_table
+    return shard_row_table(ft, grid.shape[1], 254, layout=layout,
+                           grid=grid, lineages=lin,
+                           merge_tax=lin[:, 0].copy())
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("layout", ["dense", "two_tier"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_sharded_step_on_the_card_matches_cpu(cards, shape, layout, fused):
+    """The sharded step on a grid of cards against the same step on a
+    grid of the CPU, in all nine QueryResult fields: B1, B7 on two-tier
+    shards, B4 (packed) or B5 (pairs) on the exchanged rows of P blocks
+    of alternating 256-lane runs."""
+    from metacache_tpu_torch.parallel import rows_mesh as RM
+    from metacache_tpu_torch.parallel.mesh import make_mesh
+    ft, codes, lens, lin = _deep_shard_case()
+    mwir = np.full(len(codes), 2, np.int32)
+    flags = dict(walk_elems=32, fast_top2=True, fused_candidates=True) \
+        if fused else dict(fused_candidates=False, emit_hits=True)
+    out = []
+    kernels.reset_counts()
+    for devs in (cards, [torch.device("cpu")] * 4):
+        st = _sharded(ft, lin, make_mesh(*shape, devs), layout)
+        assert bool(st.slot_bits) == (layout == "two_tier")
+        out.append(RM.merge_blocks(RM.sharded_query_step_rows(
+            torch.from_numpy(codes), torch.from_numpy(lens),
+            torch.from_numpy(mwir), st, 1, 0.5, 19, 0, k=16, sketchlen=16,
+            max_candidates=2, **flags), torch.device("cpu")))
+    for name, a, b in zip(out[0]._fields, out[0], out[1]):
+        assert torch.equal(a, b), name
+    assert kernels.SKETCH.launches == 4
+    if layout == "two_tier":
+        assert kernels.FULL_DECODE.launches == 4
+    if fused:
+        kern = kernels.CANDIDATES if layout == "two_tier" else \
+            kernels.CANDIDATES_UNPACKED
+        assert kern.launches == 4
+
+
+def test_sharded_head_step_on_the_card_matches_cpu(cards):
+    """Escalation phase 1 over two-tier shards: B6 on every position,
+    the over flags OR-ed through the exchange, B4 on the head slots;
+    the card equals the CPU, and some reads escalate, some do not."""
+    from metacache_tpu_torch.parallel import rows_mesh as RM
+    from metacache_tpu_torch.parallel.mesh import make_mesh
+    ft, codes, lens, lin = _deep_shard_case(21, every=37)
+    mwir = np.full(len(codes), 2, np.int32)
+    out = []
+    kernels.reset_counts()
+    for devs in (cards, [torch.device("cpu")] * 4):
+        st = _sharded(ft, lin, make_mesh(2, 2, devs), "two_tier")
+        blocks, over = RM.sharded_query_step_rows_head(
+            torch.from_numpy(codes), torch.from_numpy(lens),
+            torch.from_numpy(mwir), st, 1, 0.5, 19, 0, k=16, sketchlen=16,
+            max_candidates=2, walk_elems=32, fast_top2=True)
+        out.append((RM.merge_blocks(blocks, torch.device("cpu")).cls_tax,
+                    torch.cat([o.cpu() for o in over])))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    assert out[0][1].any() and not out[0][1].all()
+    assert kernels.HEAD_DECODE.launches == 4
+    assert kernels.CANDIDATES.launches == 4
+
+
+@pytest.mark.parametrize("extra", [["-table-shards", "4"],
+                                   ["-table-shards", "2", "-replicate", "2"],
+                                   ["-replicate", "2"]])
+def test_grid_queries_on_the_card_match_golden(cards, tmp_path, monkeypatch,
+                                               extra):
+    """-table-shards (two-tier shards; the summary escalated through B6,
+    the redo through B7) and -replicate over four grid positions of
+    cards: the per-read golden and the golden summary."""
+    from metacache_tpu_torch.classify.runner import QueryRunner as QR
+    from metacache_tpu_torch.cli.main import (Args, parse_query_options,
+                                              run_query)
+    from metacache_tpu_torch.db.database import Database
+    monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+    monkeypatch.setenv("MC_SHARD_LAYOUT", "two_tier")
+    db = str(tmp_path / "db")
+    assert main(["build", db, f"{DATA}/genomes.fa", "-taxonomy",
+                 f"{DATA}/taxonomy"]) == 0
+    tdb = Database.load(db)
+    drop = ("# time:", "# speed:", "threads", DATA, "/tmp")
+
+    def query(args):
+        opt, _, _ = parse_query_options(Args(args + extra))
+        runner = QR(tdb, opt, devices=cards)
+        assert runner._row_quantum == 4 if "-table-shards" in extra and \
+            "-replicate" not in extra else runner._row_quantum in (2, 4)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert run_query(tdb, [f"{DATA}/reads_single.fa"], opt,
+                             runner=runner) == 0
+        return [l for l in buf.getvalue().splitlines()
+                if not any(d in l for d in drop)]
+    with open(os.path.join(DATA, "golden", "fmt_0.txt")) as f:
+        gold = [l for l in f.read().splitlines()
+                if not any(d in l for d in drop)]
+    kernels.reset_counts()
+    assert query([]) == gold
+    assert kernels.SKETCH.launches > 0
+    kernels.reset_counts()
+    summary = query(["-no-map"])
+    i = next(j for j, l in enumerate(gold) if "queries:" in l)
+    assert summary[-len(gold[i:]):] == gold[i:]
+    if "-table-shards" in extra:
+        assert kernels.HEAD_DECODE.launches > 0
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_replicas_hit_lists_on_the_card(cuda, monkeypatch, split):
+    """-replicate 2 over cuda:0 repeated on a -allhits batch: where each
+    replica's rows take several launches, the merged result keeps the
+    per-hit lists on the host, where those launches sent them, and the
+    per-row fields on the card; in one launch a replica everything stays
+    on the card. The values equal one launch's either way."""
+    from metacache_tpu_torch.classify import runner as R
+    from metacache_tpu_torch.cli.main import Args, parse_query_options
+    from metacache_tpu_torch.db.build import BuildOptions, build_database
+    monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+    tdb = build_database(BuildOptions(
+        infiles=[f"{DATA}/genomes.fa"], taxonomy_dir=f"{DATA}/taxonomy"))
+    opt, _, _ = parse_query_options(Args(["-allhits", "-replicate", "2"]))
+    rng = np.random.default_rng(15)
+    n, wl = 64, tdb.sketching.winlen
+    wins = rng.integers(0, 4, (n, 1, wl), dtype=np.uint8)
+    valid = np.full((n, 1), wl, np.int32)
+    mwir = np.full(n, 2, np.int32)
+    out = []
+    for small in (False, split):
+        if small:
+            slots = tdb.sketching.sketchlen * tdb.parts[0].max_bucket_size
+            monkeypatch.setattr(R, "free_bytes", lambda device: 8 * slots * (
+                R.NONFUSED_BYTES_A_SLOT + R.HIT_LIST_BYTES_A_SLOT))
+        runner = R.QueryRunner(tdb, opt, devices=[torch.device("cuda", 0)] * 2)
+        out.append(runner._launch_rows(wins, valid, mwir, 1,
+                                       opt.classify.max_candidates))
+    res = out[1]
+    assert all(x.device.type == "cuda" for x in res[:6])
+    assert all(x.device.type == ("cpu" if split else "cuda")
+               for x in res[6:])
+    for name, a, b in zip(res._fields, out[0], res):
+        assert torch.equal(a.cpu(), b.cpu()), name
+
+
+def test_multihost_dryrun_on_the_card(cuda):
+    """Two dryrun processes joined by gloo, each on two grid positions of
+    the cards (cuda:0 repeated on one card), check their rows against
+    the single-device step on the card."""
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(DATA))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("MC_TORCH_DEVICE", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "metacache_tpu_torch.parallel.multihost_dryrun",
+         "--coordinator", f"localhost:{port}", "--nprocs", "2", "--pid",
+         str(pid), "--local-devices", "2"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err[-2000:]
+        assert f"MULTIHOST_OK pid={pid} procs=2" in out, out + err[-2000:]
+        assert "classified=8" in out
