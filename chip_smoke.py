@@ -1844,7 +1844,13 @@ def phase_profile(tmp, name, runner, tag="", reads="reads.fa",
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in evs)
-    part = {}
+    # the host-to-device copies by source: pageable memory makes the copy
+    # wait for its stream; the runner's infeed copies from pinned buffers
+    h2d = {kind: sum(e.count for e in evs
+                     if e.key == f"Memcpy HtoD ({kind} -> Device)")
+           for kind in ("Pageable", "Pinned")}
+    part = dict(h2d_pageable_events=h2d["Pageable"],
+                h2d_pinned_events=h2d["Pinned"])
     if share:
         mine = [e for e in evs if any(k in e.key for k in share)]
         us = sum(e.self_device_time_total for e in mine)
@@ -1858,7 +1864,8 @@ def phase_profile(tmp, name, runner, tag="", reads="reads.fa",
     for e in evs[:20]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
               f"{e.count:7d} x  {e.key[:90]}")
-    return dict(wall_seconds=wall, device_busy_seconds=busy_us / 1e6)
+    return dict(wall_seconds=wall, device_busy_seconds=busy_us / 1e6,
+                h2d_pageable_events=h2d["Pageable"])
 
 
 def phase_query_per_read(tmp, name, db, reads, tag="", runner=None):
@@ -1912,6 +1919,63 @@ def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
         tolerance=0, max_abs_err=err, classified=int((got != 0).sum()))
 
 
+def summary_again(tmp, name, runner, env, reads="reads.fa"):
+    """The summary query of an earlier phase's reads once more on the same
+    staged tables under ``env``, a main path of its own (counts zeroed
+    just before it, read just after). -> (results, launches, runner's
+    redo dispatches of this query)."""
+    from metacache_tpu_torch import kernels
+    from metacache_tpu_torch.classify.options import ClassificationResults
+    from metacache_tpu_torch.classify.runner import map_queries_to_targets
+    res = ClassificationResults(io.StringIO(), io.StringIO(), io.StringIO())
+    done = len(runner.redo_dispatches)
+    with environ(**env):
+        kernels.reset_counts()
+        map_queries_to_targets([os.path.join(tmp, name, reads)], runner.db,
+                               runner.opt, res, runner)
+        torch.cuda.synchronize()
+        grew = {k: v.launches for k, v in kernels.ALL.items()}
+    return res, grew, runner.redo_dispatches[done:]
+
+
+def phase_prefetch(tmp, name, runner, res, profile):
+    """[prefetch-<name>]: the summary query on the same staged tables with
+    the pipelined scan (the default: each batch's sketch and bucket probe
+    on a side stream one batch ahead) and without it (MC_PREFETCH=0),
+    warm, in turns (off, on, on, off): the same rank histogram, the same
+    launches (B1 and B4 a batch), each run's wall and reads/min; with
+    ``profile`` a trace of each (device busy, idle share, host-to-device
+    copies from pageable and pinned memory)."""
+    nreads = res.statistics.total()
+    want = path_of("sketch", *cand_kernels())(runner,
+                                              -(-nreads // SCAN_BATCH))
+    runs = {"on": [], "off": []}
+    for tag in ("off", "on", "on", "off"):
+        env = {"MC_PREFETCH": "0"} if tag == "off" else {}
+        r, grew, _d = summary_again(tmp, name, runner, env)
+        if grew != want:
+            raise AssertionError(f"prefetch {tag}: launches {grew}, "
+                                 f"expected {want}")
+        if not np.array_equal(r.statistics.assigned_,
+                              res.statistics.assigned_):
+            raise AssertionError(f"prefetch {tag} changed the histogram")
+        runs[tag].append(r.time_ms / 1000)
+    traces = {}
+    if profile:
+        for tag, env in (("on", {}), ("off", {"MC_PREFETCH": "0"})):
+            with environ(**env):
+                traces[tag] = phase_profile(tmp, name, runner,
+                                            f"-prefetch-{tag}")
+    say(f"prefetch-{name}", reads=nreads, histogram_equal=True,
+        launches_equal=True,
+        **{f"prefetch_{t}_seconds": [round(x, 3) for x in v]
+           for t, v in runs.items()},
+        **{f"prefetch_{t}_reads_per_min": round(nreads / (min(v) / 60))
+           for t, v in runs.items()},
+        **{f"prefetch_{t}_{k}": round(x, 4) for t, tr in traces.items()
+           for k, x in tr.items()})
+
+
 def phase_other_route(tmp, name, runner, res):
     """The summary query once more on the same staged tables under the
     other MC_SPLIT_CAND route, a main path of its own (counts zeroed
@@ -1949,14 +2013,16 @@ def phase_other_route(tmp, name, runner, res):
 
 
 def run_config(tmp, name, db, genomes, layout, path_kernels, profile,
-               other_route=False, keep=None):
+               other_route=False, keep=None, prefetch=False):
     """Summary query (the main path), its profile, with ``other_route``
     the same query under the other MC_SPLIT_CAND route, the scan step
     against the plain path, and the per-read path; -> the summary's
     launches, rank histogram, staging seconds and the other route's
     launches (None without it). ``keep``: a dict that takes the per-read
     lines ("lines") and a profile of the summary query of the first
-    GRID_PROFILE_READS reads ("profile"), for the grid phases."""
+    GRID_PROFILE_READS reads ("profile"), for the grid phases.
+    ``prefetch``: the summary with and without the pipelined scan
+    (``phase_prefetch``)."""
     reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
     del genomes
     runner, launches, res = phase_query_summary(
@@ -1964,6 +2030,8 @@ def run_config(tmp, name, db, genomes, layout, path_kernels, profile,
     stage_s = runner.stage_s
     if profile:
         phase_profile(tmp, name, runner)
+    if prefetch:
+        phase_prefetch(tmp, name, runner, res, profile)
     other = phase_other_route(tmp, name, runner, res) if other_route \
         else None
     phase_e2e(name, runner, reads)
@@ -2077,12 +2145,31 @@ def phase_e2e_two_tier(name, runner, reads, cpu, copy_s,
     # included), and the kernels' own device time
     rep = torch.arange(b) % max(len(sel), 1)
     fr, ir, mr = (x[rep].to(dev) for x in (fk, ik, mw))
+    # the fused dispatch: phase 1 of the stack and a redo slice of half a
+    # batch of its flagged reads on the side stream, against the two apart
+    from metacache_tpu_torch.device import SideStream
+    side = SideStream(dev)
+    b2 = b // 2
+    rslice = (fr[:b2][None], ir[:b2][None], mr[:b2].to(torch.int32)[None])
+    fused = R.query_step_rows_scan_head_fused(*dstack, *rslice, t, *args,
+                                              side=side, **kw)
+    apart = (*R.query_step_rows_scan_head(*dstack, t, *args, prefetch=True,
+                                          side=side, **kw),
+             R.query_step_rows_redo_scan(*rslice, t, *args, **rkw))
+    fused_err = max(check_equal(f"fused {i}", g.cpu(), w.cpu())
+                    for i, (g, w) in enumerate(zip(fused, apart)))
     steps = {
         "phase1": lambda: R.query_step_rows_scan_head(*dstack, t, *args,
                                                       **kw),
         "redo": lambda: R.query_step_rows_redo(fr, ir, mr, t, *args, **rkw),
         "full_depth": lambda: R.query_step_rows_scan(
-            *dstack, t, *args, windows_per_query=1, **kw)}
+            *dstack, t, *args, windows_per_query=1, **kw),
+        "fused_half_redo": lambda: R.query_step_rows_scan_head_fused(
+            *dstack, *rslice, t, *args, side=side, **kw),
+        "apart_half_redo": lambda: (
+            R.query_step_rows_scan_head(*dstack, t, *args, prefetch=True,
+                                        side=side, **kw),
+            R.query_step_rows_redo_scan(*rslice, t, *args, **rkw))}
     times = {}
     for k, fn in steps.items():
         times[f"{k}_batch_ms"] = cuda_ms(fn)
@@ -2090,6 +2177,7 @@ def phase_e2e_two_tier(name, runner, reads, cpu, copy_s,
     say(f"e2e-parity-{name}", reads=b, tolerance=0, max_abs_err=err,
         plain="CPU tensors of the same tables", cpu_copy_seconds=round(
             copy_s, 3), flagged=len(sel), classified=int((merged != 0).sum()),
+        fused_vs_apart_max_abs_err=fused_err, fused_redo_reads=b2,
         **fold, **times)
 
 
@@ -2271,11 +2359,7 @@ def run_two_tier(tmp, profile):
     layout = "('two_tier', 61, True, False, 15)"       # pair-packed heads
 
     def escalated(runner, batches):
-        redo = -(-runner.esc_reads // SCAN_BATCH)
-        want = {k: 0 for k in kernels.ALL}
-        want.update({k: batches + redo for k in cand_kernels()},
-                    sketch=batches, head_decode=batches, full_decode=redo)
-        return want
+        return escalated_launches(runner.redo_dispatches, batches)
     runner, launches, res = phase_query_summary(tmp, name, db, reads,
                                                 layout, escalated)
     esc_reads = runner.esc_reads
@@ -2325,6 +2409,7 @@ def run_two_tier(tmp, profile):
             phase_profile(tmp, name, runner, "-full-depth")
         finally:
             del os.environ["MC_ESCALATE"]
+    phase_escalation_routes(tmp, name, runner, res, esc_reads, profile)
     # one CPU copy of the 24 GiB of tables for the single reads' and the
     # pairs' steps
     t0 = time.time()
@@ -2366,6 +2451,83 @@ def run_two_tier(tmp, profile):
     pairs = run_pairs_two_tier(tmp, name, db, m1, m2, layout, escalated,
                                profile)
     return launches, pallas, pairs
+
+
+def escalated_launches(dispatches, batches: int) -> dict:
+    """The launches an escalated summary of ``batches`` phase-1 batches
+    makes with these redo dispatches (the runner's ``redo_dispatches``:
+    route, batches, reads a batch, real reads): B1, B6 and B4 a phase-1
+    batch; B7 and B4 a redo batch of any width (the fused dispatch's
+    MC_ESC_B2-wide slices, padded with sentinel features, count as
+    batches); the row redo (MC_PREFETCH=0) sketches its batches again
+    (B1)."""
+    from metacache_tpu_torch import kernels
+    redo = sum(k for _r, k, _w, _g in dispatches)
+    rows = sum(k for r, k, _w, _g in dispatches if r == "rows")
+    want = {k: 0 for k in kernels.ALL}
+    want.update({k: batches + redo for k in cand_kernels()},
+                sketch=batches + rows, head_decode=batches,
+                full_decode=redo)
+    return want
+
+
+ESC_SCAN_K = "8"    # stacks of the escalation routes' summaries
+
+
+def phase_escalation_routes(tmp, name, runner, res, esc_reads, profile):
+    """[escalation-routes-<name>]: the escalated summary once more on the
+    same staged tables under MC_SCAN_K=8 (16 stacks, so that phase 1
+    dispatches after flagged reads were collected), on each route of the
+    redo: the fused dispatch (the default: slices of MC_ESC_B2 = 4096
+    flagged reads a batch redone on the side stream beside a later phase
+    1), separate redo stacks (MC_ESC_FUSED=0), and the reads' rows through
+    the full-depth scan (MC_PREFETCH=0). Each gives the default summary's
+    rank histogram and escalated reads, the launches its redo dispatches
+    predict (``escalated_launches``), its wall and reads/min; with
+    ``profile`` a trace of the fused and the separate route."""
+    nreads = res.statistics.total()
+    batches = -(-nreads // SCAN_BATCH)
+    out = {}
+    for tag, env in (("fused", {}), ("separate", {"MC_ESC_FUSED": "0"}),
+                     ("rows", {"MC_PREFETCH": "0"})):
+        env = dict(env, MC_SCAN_K=ESC_SCAN_K)
+        before = runner.esc_reads
+        r, grew, disp = summary_again(tmp, name, runner, env)
+        esc = runner.esc_reads - before
+        routes = collections.Counter(d[0] for d in disp)
+        # the fused route redoes the last stacks' reads in separate stacks
+        want_routes = {"fused": {"fused", "feats"}, "separate": {"feats"},
+                       "rows": {"rows"}}[tag]
+        if not np.array_equal(r.statistics.assigned_,
+                              res.statistics.assigned_):
+            raise AssertionError(f"{tag}: the rank histogram changed")
+        if esc != esc_reads or sum(d[3] for d in disp) != esc:
+            raise AssertionError(f"{tag}: {esc} escalated reads, redone "
+                                 f"{sum(d[3] for d in disp)}, expected "
+                                 f"{esc_reads}")
+        need = {"fused": "fused", "separate": "feats", "rows": "rows"}[tag]
+        if need not in routes or not set(routes) <= want_routes or any(
+                (d[0] == "fused") != (d[2] == SCAN_BATCH // 2) or
+                d[1] > int(ESC_SCAN_K) for d in disp):
+            raise AssertionError(f"{tag}: redo dispatches {disp}")
+        want = escalated_launches(disp, batches)
+        if grew != want:
+            raise AssertionError(f"{tag}: launches {grew}, expected {want}")
+        out[tag] = r
+        trace = {}
+        if profile and tag != "rows":
+            with environ(**env):
+                trace = phase_profile(tmp, name, runner, f"-esc-{tag}")
+        say(f"escalation-routes-{name}-{tag}", reads=nreads,
+            scan_k=int(ESC_SCAN_K), histogram_equal=True,
+            escalated_reads=esc, redo_dispatches=dict(routes),
+            redo_batches=sum(d[1] for d in disp),
+            redo_batch_reads=sorted({d[2] for d in disp}),
+            seconds=round(r.time_ms / 1000, 3),
+            reads_per_min=round(nreads / (r.time_ms / 60000.0)),
+            launches={k: v for k, v in grew.items() if v},
+            **{k: round(v, 4) for k, v in trace.items()})
+    return out
 
 
 def phase_dense_limit(tmp, name, db, dense_hist):
@@ -2571,7 +2733,77 @@ def predict_routes(runner, lens) -> dict:
     return dict(sorted(out.items()), widest_row_slots=widest)
 
 
-def run_long_reads(tmp, name, db, genomes, nreads, profile, narrow, wide):
+def ballast_rank_join(sub, name, runner, path, dev=torch.device("cuda")):
+    """[nonfused-ballast-<name>-rank-join]: the long reads of ``path``
+    (all past 47 windows, so every batch sweeps by the rank join on the
+    non-fused path) on the runner's tables, per read with -tophits, once
+    as they come, then beside a ballast tensor that leaves free a third
+    of the largest batch's sized bytes (rows x padded width x
+    RANK_JOIN_BYTES_A_SLOT; at least two rows): more launches, the same
+    lines, the memory the query took beside the ballast within what was
+    free, and each launch's bytes a padded slot (route_spy's work) within
+    the sizing's figure."""
+    from metacache_tpu_torch.classify import runner as RN
+    from metacache_tpu_torch.device import free_bytes
+    runs = {}
+    ballast = None
+    for tag in ("alone", "ballast"):
+        if tag == "ballast":
+            widest = max(x["width"] for x in runs["alone"]["stats"])
+            sized = max(x["rows"] * x["width"]
+                        for x in runs["alone"]["stats"]) *                 RN.RANK_JOIN_BYTES_A_SLOT
+            keep = max(sized // 3, 2 * widest * RN.RANK_JOIN_BYTES_A_SLOT)
+            torch.cuda.empty_cache()
+            ballast = torch.empty(max(free_bytes(dev) - keep, 0),
+                                  dtype=torch.uint8, device=dev)
+        free = free_bytes(dev)
+        stats: list = []
+        before = runner.row_launches
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        restore = route_spy(stats)
+        out_path = os.path.join(sub, f"rank-join-{tag}.txt")
+        try:
+            with open(out_path, "w") as out:
+                _query(None, path, ["-tophits"], out, runner)
+        finally:
+            restore()
+        peak = max([torch.cuda.max_memory_allocated()] +
+                   [x["peak"] for x in stats])
+        runs[tag] = dict(stats=stats, lines=mapping_lines(out_path),
+                         launches=runner.row_launches - before,
+                         free=free, took=peak - held)
+    del ballast
+    torch.cuda.empty_cache()
+    alone, split = runs["alone"], runs["ballast"]
+    a_slot = max(x["work"] / (x["rows"] * x["width"])
+                 for x in split["stats"])
+    if {x["sweep"] for x in alone["stats"] + split["stats"]} != \
+            {"rank-join"} or any(x["fused"] for x in split["stats"]):
+        raise AssertionError("a long read's batch did not sweep by the "
+                             "rank join")
+    if split["lines"] != alone["lines"] or \
+            split["launches"] <= alone["launches"] or \
+            split["took"] > split["free"] or \
+            a_slot > RN.RANK_JOIN_BYTES_A_SLOT:
+        raise AssertionError(
+            f"rank-join ballast: lines equal {split['lines'] == alone['lines']}"
+            f", launches {alone['launches']} -> {split['launches']}, took "
+            f"{split['took']} of {split['free']} free bytes, "
+            f"{a_slot:.2f} bytes a padded slot")
+    say(f"nonfused-ballast-{name}-rank-join", reads=len(alone["lines"]),
+        batches=alone["launches"], launches_beside_ballast=split["launches"],
+        widest_row_slots=max(x["width"] for x in alone["stats"]),
+        most_rows_a_launch=max(x["rows"] for x in split["stats"]),
+        free_gib_beside_ballast=round(split["free"] / 2**30, 3),
+        took_gib=round(split["took"] / 2**30, 3),
+        bytes_per_padded_slot_max=round(a_slot, 2),
+        sized_bytes_per_padded_slot=RN.RANK_JOIN_BYTES_A_SLOT,
+        lines_equal=True)
+
+
+def run_long_reads(tmp, name, db, genomes, nreads, profile, narrow, wide,
+                   ballast=False):
     """[query-long-<name>]: ``nreads`` long reads against a database
     with per-read output and -tophits, on the default routes (the
     kernel ``narrow`` on rows one block holds, its wide form ``wide`` on
@@ -2582,7 +2814,9 @@ def run_long_reads(tmp, name, db, genomes, nreads, profile, narrow, wide):
     row, the sweeps, the peak device memory and the launches; then the
     routes predicted from the runner's batching for the same lengths
     (which must equal the measured ones) and for log-normal spreads of
-    0.7 and 1.5 beside the assumed 1. -> the default run's launches."""
+    0.7 and 1.5 beside the assumed 1. With ``ballast``, the reads that
+    sweep by the rank join once more beside a ballast
+    (``ballast_rank_join``). -> the default run's launches."""
     from metacache_tpu_torch import kernels
     path = os.path.join(tmp, name, "reads_long.fa")
     t0 = time.time()
@@ -2590,6 +2824,17 @@ def run_long_reads(tmp, name, db, genomes, nreads, profile, narrow, wide):
                                     nreads)
     write_long_reads(path, codes, offs)
     lens = np.diff(offs)
+    rank_join = os.path.join(tmp, name, "reads_rank_join.fa")
+    if ballast:
+        # mwir = 2 + length // stride past MAX_DEDUP_WALK: the rank join
+        from metacache_tpu_torch.classify.runner import QueryRunner
+        from metacache_tpu_torch.config import SketchingOptions
+        stride = SketchingOptions().resolved().winstride
+        sel = np.nonzero(lens >= (QueryRunner.MAX_DEDUP_WALK - 1) *
+                         stride)[0]
+        write_long_reads(rank_join, np.concatenate(
+            [codes[offs[i]:offs[i + 1]] for i in sel]),
+            np.concatenate([[0], np.cumsum(lens[sel])]))
     say(f"long-reads-{name}", reads=nreads, bases=int(offs[-1]),
         median_bp=int(np.median(lens)), mean_bp=round(float(lens.mean()), 1),
         p99_bp=int(np.percentile(lens, 99)), max_bp=int(lens.max()),
@@ -2671,6 +2916,9 @@ def run_long_reads(tmp, name, db, genomes, nreads, profile, narrow, wide):
         if profile and tag == "":
             phase_profile(tmp, name, runner, "-long", reads="reads_long.fa",
                           share=WIDE_KERNELS)
+        if ballast and tag == "":
+            ballast_rank_join(os.path.join(tmp, name), name, runner,
+                              rank_join)
         if tag == "":
             pred = {}
             for sigma in (0.7, 1.0, 1.5):
@@ -3411,12 +3659,29 @@ def run_pairs_two_tier(tmp, name, db, m1, m2, layout, escalated, profile):
     if full != path_of("sketch", "full_decode", *cand_kernels())(
             runner, -(-len(m1) // SCAN_BATCH)):
         raise AssertionError(f"full-depth pair launches {full}")
+    # without the prefetched scan, pairs keep no phase-1 sketches to redo
+    # from, so they do not escalate (JAX's runner.py:1172-1177)
+    with environ(MC_PREFETCH="0"):
+        from metacache_tpu_torch import kernels
+        kernels.reset_counts()
+        before = runner.esc_reads
+        runner, res1, _s = _query(db, paths, ["-pairfiles", "-no-map"],
+                                  io.StringIO(), runner)
+        unpiped = launch_counts()
+    if runner.esc_reads != before or unpiped != full or not np.array_equal(
+            res1.statistics.assigned_, res.statistics.assigned_):
+        raise AssertionError(f"MC_PREFETCH=0 pairs: escalated "
+                             f"{runner.esc_reads - before}, launches "
+                             f"{unpiped}")
     say(f"escalation-pair-{name}", pairs=len(m1), escalated_pairs=esc,
         escalated_share=round(esc / len(m1), 6),
         redo_batches=grew["full_decode"], launches=grew,
         full_depth_pairs_per_min=round(res0.statistics.total() /
                                        (res0.time_ms / 60000.0)),
-        full_depth_launches=full, histogram_equal=True)
+        full_depth_launches=full, histogram_equal=True,
+        prefetch_off_escalated_pairs=0,
+        prefetch_off_pairs_per_min=round(res1.statistics.total() /
+                                         (res1.time_ms / 60000.0)))
     del runner
     torch.cuda.empty_cache()
     return grew
@@ -3687,7 +3952,7 @@ def main() -> int:
         main_path, hist, stage_s, other = run_config(
             tmp, "944mbp", db, genomes, layout,
             ("sketch", *cand_kernels()), a.profile, other_route=True,
-            keep=keep)
+            keep=keep, prefetch=True)
         for k in ("sketch", "candidates"):
             launches[k] = main_path[k]
         # B3 runs on whichever of the two routes splits
@@ -3708,7 +3973,7 @@ def main() -> int:
             genomes=genomes, per_read=True)["csr_decode"]
         long_path = run_long_reads(tmp, "944mbp", db, genomes, LONG_READS,
                                    a.profile, "candidates",
-                                   "candidates_wide")
+                                   "candidates_wide", ballast=True)
         launches["candidates_wide"] = long_path["candidates_wide"]
         pair_paths.append(run_multipart(tmp, db_parts, genomes))
         k18 = run_k18(tmp, genomes, species, a.profile)

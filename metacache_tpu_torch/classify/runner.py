@@ -70,12 +70,15 @@ from ..ops import windows as win_ops
 from ..seqio.reader import PairingMode, QueryRecord, read_queries
 from ..taxonomy.model import NUM_RANKS, Rank, rank_from_name
 from ..db.state import tables_csr, tables_from_device, tables_from_numpy
-from ..device import free_bytes, hbm_budget_bytes
+from ..device import Infeed, SideStream, free_bytes, hbm_budget_bytes
 from ..ops.probe import make_bucket_index
 from ..ops.pipeline import QueryResult, concat_results
-from ..ops.rows import (fuses, fused_candidates_enabled, query_step_rows,
-                        query_step_rows_multipart, query_step_rows_redo_scan,
-                        query_step_rows_scan, query_step_rows_scan_head)
+from ..ops.rows import (fuses, fused_candidates_enabled, nonfused_sweep,
+                        query_step_rows, query_step_rows_multipart,
+                        query_step_rows_redo_scan, query_step_rows_scan,
+                        query_step_rows_scan_head,
+                        query_step_rows_scan_head_fused)
+from ..ops.candidates import padded_width
 from ..ops.table import csr_bytes, device_layout, unpack_locations
 from ..parallel.mesh import default_devices, distinct, make_mesh, on_device
 from ..parallel.rows_mesh import (merge_blocks, shard_row_table,
@@ -220,16 +223,35 @@ def _max_window(p) -> int:
         if p.num_locations else 0
 
 
-# device bytes a match slot of a row takes on the non-fused result path
-# (ops/rows.py::rows_to_result: its row sorts, scans and taxon merge),
-# measured on an NVIDIA H100 80GB HBM3 at 700 W: a 65,536-read batch of
-# 16 x 503 slots a row over a two-part 944 Mbp database peaked 41.28 GiB
-# above its 19.0 GiB of tables (chip_smoke.py, run_multipart), 84 bytes
-# a slot; rounded up to 96 for the caching allocator's block rounding
+# device bytes a slot of a row's padded width (ops/candidates.py::
+# padded_width) takes on the non-fused result path (ops/rows.py::
+# rows_to_result: its row sorts, scans and taxon merge), by the branch's
+# sweep (ops/rows.py::nonfused_sweep). Peaks allocated a padded slot on
+# random rows of 1 to 256 windows, on an NVIDIA H100 80GB HBM3 at 700 W
+# (tools/torch_nonfused_mem.py): walk 75.5-78.1, dedup 109.3-111.0, rank
+# join 141-183 (reserved up to 208); launches sized at these figures ran
+# beside a ballast leaving 1, 2 or 4 GiB free, where 96 and 128 a dedup
+# slot and 192 a rank-join slot ran out of memory. The walk's figure
+# also covers a 65,536-read batch of 16 x 503 slots a row over a two-part
+# 944 Mbp database, which peaked at 84 bytes a slot (chip_smoke.py,
+# run_multipart)
 NONFUSED_BYTES_A_SLOT = 96
+DEDUP_BYTES_A_SLOT = 160
+RANK_JOIN_BYTES_A_SLOT = 256
 # -allhits adds a launch's per-hit lists (QueryResult.hit_qid, hit_tgt,
 # hit_win: an int32 each a slot), which go to the host as it ends
 HIT_LIST_BYTES_A_SLOT = 12
+
+
+def nonfused_row_bytes(slots: int, sweep: str, emit_hits: bool) -> int:
+    """Device bytes a row of ``slots`` match slots takes on the non-fused
+    result path under ``sweep`` (ops/rows.py::nonfused_sweep), with its
+    per-hit lists where ``emit_hits``."""
+    a_slot = {"dedup": DEDUP_BYTES_A_SLOT,
+              "rank-join": RANK_JOIN_BYTES_A_SLOT}.get(
+                  sweep, NONFUSED_BYTES_A_SLOT)
+    return padded_width(max(slots, 1)) * (
+        a_slot + (HIT_LIST_BYTES_A_SLOT if emit_hits else 0))
 
 
 class QueryRunner:
@@ -321,7 +343,18 @@ class QueryRunner:
         self.staged_bytes = sum(self._shards.shard_bytes) if self._shards \
             else sum(s for _t, _d, s in staged)
         self.esc_reads = 0          # reads escalated to the full-depth redo
+        # the full-depth redo's dispatches: (route, batches, reads a batch,
+        # real reads) with route "feats" (phase 1's saved sketches and
+        # bucket probes), "fused" (inside phase 1's dispatch) or "rows"
+        # (the reads' rows through the full-depth scan, MC_PREFETCH=0)
+        self.redo_dispatches: list = []
         self.row_launches = 0       # launches of the per-read row steps
+        # the summary path's pipeline on the runner's device: a side
+        # stream for prefetched stages and fused redo batches, and the
+        # pinned infeed of the scan stacks, a buffer for each dispatch in
+        # flight and one being filled
+        self._side = SideStream(self.device)
+        self._infeed = Infeed(self.device, self.DEPTH + 1)
 
         # copied from metacache_tpu/classify/runner.py:655-676
         ids, ranks = [], []
@@ -489,9 +522,6 @@ class QueryRunner:
         if self._shards is not None:
             return f"shards{self._ntab}:{self._shards.tables[0, 0].dense}"
         return ", ".join(str(t.dense) for t in self.parts)
-
-    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # copied from metacache_tpu/classify/runner.py:703-717
     def _sweep_params(self, mwir, wq: int) -> dict:
@@ -663,39 +693,64 @@ class QueryRunner:
             for rd_ in extra:
                 rd_.close()
 
-    # copied from metacache_tpu/classify/runner.py:957-1125 with the
-    # escalation branches of the feats-reuse redo (:975-1034); the row
-    # re-dispatch (:1035-1052) and the fused dispatch (MC_ESC_FUSED) serve
-    # routes the port does not take
+    # copied from metacache_tpu/classify/runner.py:957-1125
     def _run_scan_native_packed(self, reader, batch_reads: int,
                                 scan_k: int, results, extra_readers=None):
         """Summary fast path fed by the native packed reader: clean short
-        reads arrive 2-bit packed and are stacked scan_k batches deep;
-        long/ambiguous reads ride the coded per-read path. The remainder
-        pads to a full stack whose payload carries the real read count.
-        On two-tier tables with packed slots the stacks classify
-        head-only and the flagged reads are redone at full depth."""
+        reads arrive 2-bit packed and are stacked scan_k batches deep
+        (straight into the pinned infeed); long/ambiguous reads ride the
+        coded per-read path. The remainder pads to a full stack whose
+        payload carries the real read count. On two-tier tables with
+        packed slots the stacks classify head-only and the flagged reads
+        are redone at full depth: on phase 1's sketches and bucket probes
+        where the scan prefetches, inside a later phase 1's dispatch
+        (MC_ESC_FUSED) once half a slice of MC_ESC_B2 reads a batch has
+        gathered, else (MC_PREFETCH=0) their rows through the full-depth
+        scan."""
         opt = self.opt
         wl = self.sketching.winlen
         pending: collections.deque = collections.deque()
         take = scan_k * batch_reads
         esc = self._escalation_ok() and self._hist_dev is not None
-        self._esc_redo = []      # (feats, idx, lens) of flagged reads
+        prefetch = self._prefetch()
+        # JAX's fused escalation (runner.py:977-985); the port runs the
+        # redo slice on the side stream beside phase 1
+        esc_fused = (esc and prefetch and
+                     os.environ.get("MC_ESC_FUSED", "1") == "1")
+        try:
+            esc_b2 = int(os.environ.get("MC_ESC_B2", str(batch_reads // 2)))
+        except ValueError:
+            esc_b2 = batch_reads // 2
+        self._esc_redo = []      # (feats, idx, lens) or (rows, lens) chunks
         self._esc_nredo = 0
 
         def flush(dispatched):
             self._flush(pending, dispatched, results)
 
-        def scan_dispatch(pa, la, n):
+        def scan_dispatch(stack, n):
+            la = np.zeros(take, np.int32)
+            np.concatenate([l for _, l in stack], out=la[:n])
             # crop rows to the stack's max read length (4-byte quantum)
-            q = min(-(-int(la.max(initial=0)) // 16) * 4, pa.shape[1]) \
-                if n else 4
-            pac = np.ascontiguousarray(pa[:, :max(q, 4)])
-            if esc:
-                return (None, ("scanesc", (n, la, *self._dispatch_scan_head(
-                    pac, la, scan_k, batch_reads))))
-            return (None, ("scan", (n, self._dispatch_scan(
-                pac, la, scan_k, batch_reads))))
+            q = min(-(-int(la.max(initial=0)) // 16) * 4,
+                    stack[0][0].shape[1]) if n else 4
+            rows = [c[:, :max(q, 4)] for c, _ in stack]
+            if not esc:
+                return (None, ("scan", (n, self._dispatch_scan(
+                    rows, la, scan_k, batch_reads))))
+            if esc_fused and self._esc_nredo >= (scan_k * esc_b2) // 2:
+                rf, ri, rlens, got = self._carve_redo(scan_k * esc_b2)
+                self.redo_dispatches.append(("fused", scan_k, esc_b2, got))
+                return (None, ("scanesc2", (n, la, got,
+                                            *self._dispatch_scan_head_fused(
+                                                rows, la, scan_k,
+                                                batch_reads, rf, ri, rlens,
+                                                esc_b2))))
+            cls, over, fk, ik = self._dispatch_scan_head(rows, la, scan_k,
+                                                         batch_reads)
+            if prefetch:
+                return (None, ("scanesc", (n, la, cls, over, fk, ik, None)))
+            # the row redo (runner.py:1035-1052) re-sends the rows
+            return (None, ("scanesc", (n, la, cls, over, None, None, rows)))
 
         buf: list = []
         nbuf = 0
@@ -748,20 +803,12 @@ class QueryRunner:
                     buf.append((packed, plens))
                     nbuf += len(plens)
                 while nbuf >= take:
-                    pa = np.concatenate([c for c, _ in buf])
-                    la = np.concatenate([l for _, l in buf])
-                    flush(scan_dispatch(pa[:take], la[:take], take))
-                    buf = [(pa[take:], la[take:])]
+                    stack, buf = _split_rows(buf, take)
+                    flush(scan_dispatch(stack, take))
                     nbuf -= take
                     self._flush_redo(pending, scan_k, batch_reads, results)
             if nbuf:
-                pa = np.concatenate([c for c, _ in buf])
-                la = np.concatenate([l for _, l in buf])
-                n = len(la)
-                pa = np.concatenate(
-                    [pa, np.zeros((take - n, pa.shape[1]), np.uint8)])
-                la = np.concatenate([la, np.zeros(take - n, np.int32)])
-                flush(scan_dispatch(pa, la, n))
+                flush(scan_dispatch(buf, nbuf))
             self._drain(pending, scan_k, batch_reads, results)
         finally:
             stop.set()
@@ -782,16 +829,30 @@ class QueryRunner:
 
     def _flush_redo(self, pending, scan_k: int, bsz: int, results,
                     final: bool = False):
-        """Full-depth phase 2 on phase 1's sketches and bucket probes for
-        the reads that touched a bucket deeper than the head, a stack at
-        a time (with ``final``, also the last partial one); unlike the
-        JAX runner's fixed-shape stacks, a redo stack is only as deep as
-        its reads need."""
+        """Full-depth phase 2 for the reads that touched a bucket deeper
+        than the head, a stack at a time (with ``final``, also the last
+        partial one): on phase 1's sketches and bucket probes, or, where
+        phase 1 kept none (MC_PREFETCH=0), their rows through the
+        full-depth scan (runner.py:1024-1052); unlike the JAX runner's
+        fixed-shape stacks, a redo stack is only as deep as its reads
+        need."""
         while self._esc_nredo >= scan_k * bsz or (final and self._esc_nredo):
             k2 = min(scan_k, -(-self._esc_nredo // bsz))
-            rf, ri, rlens, got = self._carve_redo(k2 * bsz)
-            self._flush(pending, (None, ("scan", (got, self._dispatch_redo(
-                rf, ri, rlens, k2, bsz)))), results)
+            if len(self._esc_redo[0]) == 2:
+                chunks, self._esc_redo = _split_rows(self._esc_redo, k2 * bsz)
+                got = sum(len(l) for _, l in chunks)
+                la = np.zeros(k2 * bsz, np.int32)
+                np.concatenate([l for _, l in chunks], out=la[:got])
+                self._esc_nredo -= got
+                route = "rows"
+                out = self._dispatch_scan([r for r, _ in chunks], la, k2,
+                                          bsz)
+            else:
+                rf, ri, rlens, got = self._carve_redo(k2 * bsz)
+                route = "feats"
+                out = self._dispatch_redo(rf, ri, rlens, k2, bsz)
+            self.redo_dispatches.append((route, k2, bsz, got))
+            self._flush(pending, (None, ("scan", (got, out))), results)
 
     def _drain(self, pending, scan_k: int, bsz: int, results):
         """Collect every dispatch in flight, then the redo of the reads
@@ -802,41 +863,63 @@ class QueryRunner:
         while pending:
             self._collect_batch(*pending.popleft(), results)
 
-    def _scan_inputs(self, codes, lens, scan_k: int, bsz: int):
-        """Stacked 2-bit packed rows -> (windows, valid, mwir) host arrays
-        of the scan steps (runner.py:1910-1921)."""
+    def _scan_inputs(self, rows, lens, scan_k: int, bsz: int, *extra):
+        """Stacked 2-bit packed rows -> (windows, valid, mwir, *extra) of
+        the scan steps on the device, and mwir on the host
+        (runner.py:1910-1921). ``rows``: blocks of packed rows, in order,
+        each cropped or zero-filled to the widest; stacked straight into
+        the infeed's next pinned buffer, with ``extra`` host arrays for
+        the same copy; rows past them (a short stack) are empty reads.
+        ``lens``: the stack's read lengths, 0 past the real ones."""
         sk = self.sketching
         opt = self.opt
         wl = sk.winlen
         stride = self.db.sketching.winstride
-        wmat = np.ascontiguousarray(codes).reshape(
-            scan_k, bsz, 1, codes.shape[1])
+        n, q = scan_k * bsz, max(r.shape[1] for r in rows)
         mwir_max = 2 + max(wl, opt.classify.insert_size_max) // stride
         vdt = np.uint8 if wl < 256 else np.int32
         mdt = np.uint8 if mwir_max < 256 else np.int32
-        vmat = np.where(lens >= sk.kmerlen, lens, 0).astype(
-            vdt).reshape(scan_k, bsz, 1)
         mwir = (2 + np.maximum(lens, opt.classify.insert_size_max)
-                // stride).astype(mdt).reshape(scan_k, bsz)
-        return wmat, vmat, mwir
+                // stride).astype(mdt)
+        w, v, m, *more = self._infeed.stage(
+            ((n, q), np.uint8), ((n,), vdt), ((n,), mdt),
+            *((a.shape, a.dtype) for a in extra))
+        _fill_rows(w, rows)
+        np.copyto(v, np.where(lens >= sk.kmerlen, lens, 0), casting="unsafe")
+        m[:] = mwir
+        for x, a in zip(more, extra):
+            x[...] = a
+        wmat, vmat, mw, *more = self._infeed.send()
+        return (wmat.reshape(scan_k, bsz, 1, q), vmat.reshape(scan_k, bsz, 1),
+                mw.reshape(scan_k, bsz), *more), mwir
 
-    def _dispatch_scan(self, codes, lens, scan_k: int, bsz: int):
+    def _dispatch_scan(self, rows, lens, scan_k: int, bsz: int):
         """One scan over scan_k stacked short-read batches of 2-bit packed
-        rows; -> (scan_k, bsz) classified taxa on the device (adapted from
-        metacache_tpu/classify/runner.py:1895-1932)."""
+        rows (``_scan_inputs``); -> (scan_k, bsz) classified taxa on the
+        device (adapted from metacache_tpu/classify/runner.py:1895-1932)."""
         sk = self.sketching
         opt = self.opt
-        wmat, vmat, mwir = self._scan_inputs(codes, lens, scan_k, bsz)
+        dev, mwir = self._scan_inputs(rows, lens, scan_k, bsz)
         return query_step_rows_scan(
-            self._to_dev(wmat), self._to_dev(vmat), self._to_dev(mwir),
-            self.tables, self.hits_min, opt.classify.hits_diff_fraction,
-            self.highest_rank, self.merge_rank,
-            k=sk.kmerlen, sketchlen=sk.sketchlen, windows_per_query=1,
-            max_candidates=opt.classify.max_candidates,
+            *dev, self.tables, self.hits_min,
+            opt.classify.hits_diff_fraction, self.highest_rank,
+            self.merge_rank, k=sk.kmerlen, sketchlen=sk.sketchlen,
+            windows_per_query=1, max_candidates=opt.classify.max_candidates,
             pack_bits=self._pack_bits, infeed_packed=True,
             fast_top2=self._fast_top2,
             fused_candidates=self._fused_candidates,
-            **self._sweep_params(mwir.reshape(-1).astype(np.int32), 1))
+            prefetch=self._prefetch(), side=self._side,
+            **self._sweep_params(mwir.astype(np.int32), 1))
+
+    # copied from metacache_tpu/classify/runner.py:1659-1669
+    def _prefetch(self) -> bool:
+        """The software-pipelined scan (ops/rows.py: batch i+1's sketch
+        and bucket probe on the side stream beside batch i's probe rows
+        and candidates): for row layouts, whose bucket-row index finds the
+        rows ahead, not the CSR layout; the same results.
+        MC_PREFETCH=0 disables."""
+        return os.environ.get("MC_PREFETCH", "1") != "0" and \
+            not self.tables.csr
 
     # copied from metacache_tpu/classify/runner.py:1671-1693
     def _escalation_ok(self, wq: int = 1) -> bool:
@@ -863,22 +946,46 @@ class QueryRunner:
                 wq * sk.sketchlen * t.spf >= self.FUSED_MIN_SLOTS)
 
     # copied from metacache_tpu/classify/runner.py:1695-1731
-    def _dispatch_scan_head(self, codes, lens, scan_k: int, bsz: int):
-        """Escalation phase 1 (head-only probe) over prepacked rows;
-        -> (cls (K, B), over_bits (K, B/32), feats (K, B, F), idx
-        (K, B, F)) device tensors."""
+    def _dispatch_scan_head(self, rows, lens, scan_k: int, bsz: int):
+        """Escalation phase 1 (head-only probe) over prepacked rows
+        (``_scan_inputs``); -> (cls (K, B), over_bits (K, B/32), feats
+        (K, B, F), idx (K, B, F)) device tensors."""
         sk = self.sketching
         opt = self.opt
-        wmat, vmat, mwir = self._scan_inputs(codes, lens, scan_k, bsz)
+        dev, mwir = self._scan_inputs(rows, lens, scan_k, bsz)
         return query_step_rows_scan_head(
-            self._to_dev(wmat), self._to_dev(vmat), self._to_dev(mwir),
-            self.tables, self.hits_min, opt.classify.hits_diff_fraction,
-            self.highest_rank, self.merge_rank, k=sk.kmerlen,
-            sketchlen=sk.sketchlen,
+            *dev, self.tables, self.hits_min,
+            opt.classify.hits_diff_fraction, self.highest_rank,
+            self.merge_rank, k=sk.kmerlen, sketchlen=sk.sketchlen,
             max_candidates=opt.classify.max_candidates,
             walk_elems=int(mwir.max()) * sk.sketchlen, fast_top2=True,
             fused_candidates=self._fused_candidates,
-            pack_bits=self._pack_bits, infeed_packed=True)
+            pack_bits=self._pack_bits, infeed_packed=True,
+            prefetch=self._prefetch(), side=self._side)
+
+    # copied from metacache_tpu/classify/runner.py:1808-1851
+    def _dispatch_scan_head_fused(self, rows, lens, scan_k: int, bsz: int,
+                                  rfeats, ridx, rlens, b2: int):
+        """One dispatch of phase 1 on fresh reads and phase 2 on a slice
+        of b2 earlier flagged reads a batch
+        (query_step_rows_scan_head_fused: the slice on the side stream,
+        beside phase 1); -> (cls1, over_bits, feats, idx, cls2 (K, b2))
+        device tensors."""
+        sk = self.sketching
+        opt = self.opt
+        stride = self.db.sketching.winstride
+        rmwir = (2 + np.maximum(rlens, opt.classify.insert_size_max)
+                 // stride).astype(np.int32).reshape(scan_k, b2)
+        (*dev, rm), mwir = self._scan_inputs(rows, lens, scan_k, bsz, rmwir)
+        F = sk.sketchlen
+        return query_step_rows_scan_head_fused(
+            *dev, rfeats.reshape(scan_k, b2, F), ridx.reshape(scan_k, b2, F),
+            rm, self.tables, self.hits_min, opt.classify.hits_diff_fraction,
+            self.highest_rank, self.merge_rank, k=sk.kmerlen, sketchlen=F,
+            max_candidates=opt.classify.max_candidates,
+            walk_elems=int(max(mwir.max(), rmwir.max(initial=2))) * F,
+            fast_top2=True, fused_candidates=self._fused_candidates,
+            pack_bits=self._pack_bits, infeed_packed=True, side=self._side)
 
     # copied from metacache_tpu/classify/runner.py:1733-1764
     def _carve_redo(self, need: int):
@@ -924,9 +1031,10 @@ class QueryRunner:
                 // stride).astype(np.int32)
         F = feats.shape[-1]
         wq = max(F // sk.sketchlen, 1)
+        (mwir_dev,) = self._infeed.put(mwir.reshape(scan_k, bsz))
         return query_step_rows_redo_scan(
             feats.reshape(scan_k, bsz, F), idx.reshape(scan_k, bsz, F),
-            self._to_dev(mwir.reshape(scan_k, bsz)), self.tables,
+            mwir_dev, self.tables,
             self.hits_min, opt.classify.hits_diff_fraction,
             self.highest_rank, self.merge_rank,
             max_candidates=opt.classify.max_candidates, fast_top2=True,
@@ -1083,22 +1191,27 @@ class QueryRunner:
         scan_k = max(1, min(int(os.environ.get("MC_SCAN_K", "32")),
                             -(-npairs // bsz)))
         take = scan_k * bsz
-        # the port's phase 1 always returns its sketches and bucket
-        # probes, which JAX's returns only with its prefetch carry
-        # (runner.py:1175-1177): pairs escalate wherever the layout lets
-        esc = self._escalation_ok(wq=2) and self._hist_dev is not None
+        # the paired redo reuses phase 1's sketches and bucket probes,
+        # which only the prefetched scan keeps (runner.py:1172-1177):
+        # under MC_PREFETCH=0 pairs do not escalate
+        esc = self._escalation_ok(wq=2) and self._hist_dev is not None \
+            and self._prefetch()
         self._esc_redo = []
         self._esc_nredo = 0
         pending: collections.deque = collections.deque()
 
-        def dispatch(c1, l1, c2, l2, n):
-            k = len(l1) // bsz
+        def dispatch(chunks, n):
+            # a remainder stack is only as deep as its pairs need
+            k = -(-n // bsz)
+            l1, l2 = np.zeros(k * bsz, np.int32), np.zeros(k * bsz, np.int32)
+            np.concatenate([c[1] for c in chunks], out=l1[:n])
+            np.concatenate([c[3] for c in chunks], out=l2[:n])
             if esc:
                 lsum = (l1.astype(np.int64) + l2).astype(np.int32)
                 return (None, ("scanesc", (n, lsum, *self._dispatch_scan_pair(
-                    c1, l1, c2, l2, k, bsz, head=True))))
+                    chunks, l1, l2, k, bsz, head=True), None)))
             return (None, ("scan", (n, self._dispatch_scan_pair(
-                c1, l1, c2, l2, k, bsz))))
+                chunks, l1, l2, k, bsz))))
 
         buf: list = []
         nbuf = 0
@@ -1112,32 +1225,25 @@ class QueryRunner:
                                  for x in (c1[:, :wl], l1, c2[:, :wl], l2)))
                 nbuf += int(short.sum())
             while nbuf >= take:
-                c1a, l1a, c2a, l2a = (np.concatenate(x) for x in zip(*buf))
-                self._flush(pending, dispatch(c1a[:take], l1a[:take],
-                                              c2a[:take], l2a[:take], take),
-                            results)
-                buf = [(c1a[take:], l1a[take:], c2a[take:], l2a[take:])]
+                chunks, buf = _split_rows(buf, take)
+                self._flush(pending, dispatch(chunks, take), results)
                 nbuf -= take
                 self._flush_redo(pending, scan_k, bsz, results)
         if nbuf:
             # the remainder, padded to whole batches with empty pairs
-            c1a, l1a, c2a, l2a = (np.concatenate(x) for x in zip(*buf))
-            pad = -nbuf % bsz
-            c1a, c2a = (np.concatenate([c, np.zeros((pad, c.shape[1]),
-                                                    np.uint8)])
-                        for c in (c1a, c2a))
-            l1a, l2a = (np.concatenate([x, np.zeros(pad, x.dtype)])
-                        for x in (l1a, l2a))
-            self._flush(pending, dispatch(c1a, l1a, c2a, l2a, nbuf), results)
+            self._flush(pending, dispatch(buf, nbuf), results)
         self._drain(pending, scan_k, bsz, results)
 
     # copied from metacache_tpu/classify/runner.py:1281-1322 and
     # :1766-1806
-    def _dispatch_scan_pair(self, c1, l1, c2, l2, scan_k: int, bsz: int,
+    def _dispatch_scan_pair(self, chunks, l1, l2, scan_k: int, bsz: int,
                             head: bool = False):
         """One scan over scan_k stacked batches of short pairs, two coded
-        windows a query; -> (scan_k, bsz) classified taxa on the device,
-        or with ``head`` escalation phase 1's (cls, over_bits, feats
+        windows a query, stacked from ``chunks`` of (codes1, lens1,
+        codes2, lens2) straight into the infeed's next pinned buffer, then
+        empty pairs (``l1``, ``l2``: the stack's mate lengths, 0 past the
+        real ones); -> (scan_k, bsz) classified taxa on the device, or
+        with ``head`` escalation phase 1's (cls, over_bits, feats
         (K, B, 2s), idx). Phase 1 on pairs takes the runner's sweep for
         two windows, where single reads take the walk alone
         (runner.py:1725 against :1802)."""
@@ -1145,22 +1251,26 @@ class QueryRunner:
         opt = self.opt
         wl = sk.winlen
         stride = self.db.sketching.winstride
-        wmat = np.empty((len(l1), 2, wl), np.uint8)
-        wmat[:, 0] = c1[:, :wl]
-        wmat[:, 1] = c2[:, :wl]
-        vmat = np.stack([np.where(l1 >= sk.kmerlen, l1, 0),
-                         np.where(l2 >= sk.kmerlen, l2, 0)], axis=1)
+        n = scan_k * bsz
         mwir = (2 + np.maximum(l1.astype(np.int64) + l2,
                                opt.classify.insert_size_max) // stride)
-        args = (self._to_dev(wmat.reshape(scan_k, bsz, 2, wl)),
-                self._to_dev(vmat.astype(np.int32).reshape(scan_k, bsz, 2)),
-                self._to_dev(mwir.astype(np.int32).reshape(scan_k, bsz)),
-                self.tables, self.hits_min, opt.classify.hits_diff_fraction,
-                self.highest_rank, self.merge_rank)
+        w, v, m = self._infeed.stage(((n, 2, wl), np.uint8),
+                                     ((n, 2), np.int32), ((n,), np.int32))
+        _fill_rows(w[:, 0], [c[0] for c in chunks])
+        _fill_rows(w[:, 1], [c[2] for c in chunks])
+        v[:, 0] = np.where(l1 >= sk.kmerlen, l1, 0)
+        v[:, 1] = np.where(l2 >= sk.kmerlen, l2, 0)
+        m[:] = mwir
+        wmat, vmat, mw = self._infeed.send()
+        args = (wmat.reshape(scan_k, bsz, 2, wl), vmat.reshape(scan_k, bsz, 2),
+                mw.reshape(scan_k, bsz), self.tables, self.hits_min,
+                opt.classify.hits_diff_fraction, self.highest_rank,
+                self.merge_rank)
         kw = dict(k=sk.kmerlen, sketchlen=sk.sketchlen,
                   max_candidates=opt.classify.max_candidates,
                   pack_bits=self._pack_bits,
                   fused_candidates=self._fused_candidates,
+                  prefetch=self._prefetch(), side=self._side,
                   **self._sweep_params(mwir.astype(np.int32), 2))
         if head:
             return query_step_rows_scan_head(*args, fast_top2=True, **kw)
@@ -1273,16 +1383,20 @@ class QueryRunner:
         return dict(max_candidates=k, fast_top2=self._fast_top2,
                     **self._fused_flags(), **self._sweep_params(mwir, wq))
 
-    def _nonfused_rows(self, slots: int, emit_hits: bool,
+    def _nonfused_rows(self, slots: int, flags: dict,
                        device: torch.device | None = None) -> int:
         """The most rows of ``slots`` match slots a launch of the
         non-fused result path takes in the memory free now on ``device``
         (default: the runner's; the fused kernels work in shared memory
-        and take a batch whole). ``emit_hits``: the launch also lists its
-        hits (-allhits). Raises MemoryError when not even one row fits."""
+        and take a batch whole), by the sweep and the per-hit lists
+        (-allhits) that ``flags`` (``_step_flags``) give it
+        (``nonfused_row_bytes``). Raises MemoryError when not even one row
+        fits."""
         free = free_bytes(device or self.device)
-        row_b = max(slots, 1) * (NONFUSED_BYTES_A_SLOT +
-                                 (HIT_LIST_BYTES_A_SLOT if emit_hits else 0))
+        row_b = nonfused_row_bytes(
+            slots, nonfused_sweep(flags.get("walk_elems", 0),
+                                  flags.get("dedup_walk", 0), slots),
+            flags["emit_hits"])
         r = free // row_b
         if r < 1:
             raise MemoryError(
@@ -1351,8 +1465,7 @@ class QueryRunner:
                  flags["max_candidates"], flags.get("walk_elems", 0),
                  flags.get("dedup_walk", 0), flags["emit_hits"]):
             return n
-        r = int(self._nonfused_rows(slots, flags["emit_hits"], device) /
-                share)
+        r = int(self._nonfused_rows(slots, flags, device) / share)
         return min(n, max(r // quantum, 1) * quantum)
 
     def _launches(self, n: int, per_launch: int, flags: dict, launch):
@@ -1436,11 +1549,24 @@ class QueryRunner:
 
     def _collect_batch(self, batch, dispatched, results):
         kind, payload = dispatched
+        if kind == "scanesc2":
+            # the fused escalation dispatch (runner.py:1603-1616): count
+            # the redone slice, whose first ``got`` reads are real, then
+            # phase 1 as below
+            n, la, got, cls_dev, over_dev, fk, ik, cls2 = payload
+            if got:
+                hist = rank_histogram(cls2, got, *self._hist_dev)
+                results.statistics.assigned_ += \
+                    hist.cpu().numpy().astype(np.int64)
+                results.query_count += got
+            kind, payload = "scanesc", (n, la, cls_dev, over_dev, fk, ik,
+                                        None)
         if kind == "scanesc":
             # escalation phase 1 (runner.py:1617-1644): count the reads
-            # the head classified exactly, queue the flagged ones, with
-            # their sketches and bucket probes, for the full-depth redo
-            n, la, cls_dev, over_dev, fk, ik = payload
+            # the head classified exactly, queue the flagged ones for the
+            # full-depth redo, with their sketches and bucket probes, or
+            # their packed rows where phase 1 kept none (``rows``)
+            n, la, cls_dev, over_dev, fk, ik, rows = payload
             hist = rank_histogram(cls_dev, n, *self._hist_dev,
                                   over_bits=over_dev)
             bits = over_dev.cpu().numpy().reshape(-1)
@@ -1448,11 +1574,15 @@ class QueryRunner:
                     .astype(bool).reshape(-1))
             mask[n:] = False
             idxs = np.nonzero(mask)[0]
-            if len(idxs):
+            if len(idxs) and rows is not None:
+                self._esc_redo.append((np.concatenate(rows)[idxs],
+                                       la[idxs]))
+            elif len(idxs):
                 F = fk.shape[-1]
-                sel = self._to_dev(idxs)
+                (sel,) = self._infeed.put(idxs)
                 self._esc_redo.append((fk.reshape(-1, F)[sel],
                                        ik.reshape(-1, F)[sel], la[idxs]))
+            if len(idxs):
                 self._esc_nredo += len(idxs)
                 self.esc_reads += len(idxs)
             results.statistics.assigned_ += \
@@ -1612,11 +1742,13 @@ class QueryRunner:
 
         need_allhits = oopt.analysis.show_all_hits
         raw_hdrs = getattr(batch, "headers", None)
-        fast_ok = (raw_hdrs is not None and not make_truth
-                   and not track_matches and not save_mappings
-                   and not show_align and rank_counts is not None
+        fast_ok = (raw_hdrs is not None and not need_allhits
+                   and not make_truth and not track_matches
+                   and not save_mappings and not show_align
+                   and rank_counts is not None
                    and not writer.show_gt and not writer.show_allhits
-                   and not writer.show_locations)
+                   and not writer.show_locations
+                   and os.environ.get("MC_NATIVE_FMT", "1") != "0")
         if fast_ok:
             # native whole-batch formatter (MappingLineWriter.lines_batch)
             blob = b"" if writer.suppressed else writer.lines_batch(
@@ -1793,6 +1925,35 @@ def filter_targets_by_coverage(taxonomy, tgt_matches: Dict[int, list],
         if part > percentile * total:
             break
         del tgt_matches[tgt]
+
+
+def _split_rows(chunks: list, n: int):
+    """The first ``n`` rows of ``chunks``, a list of tuples of arrays
+    with rows along axis 0 (in order) -> (those rows as such a list, the
+    rest); views, no copy."""
+    head, rest, got = [], [], 0
+    for c in chunks:
+        m = len(c[0])
+        use = min(m, n - got)
+        if use:
+            head.append(tuple(x[:use] for x in c))
+            got += use
+        if use < m:
+            rest.append(tuple(x[use:] for x in c))
+    return head, rest
+
+
+def _fill_rows(out: np.ndarray, blocks) -> None:
+    """Stack row ``blocks`` into ``out`` (rows, width): each block's
+    rows in turn, zero-filled past its width, and zero rows after the
+    last."""
+    r = 0
+    for b in blocks:
+        w = b.shape[1]
+        out[r:r + len(b), :w] = b
+        out[r:r + len(b), w:] = 0
+        r += len(b)
+    out[r:] = 0
 
 
 # copied from metacache_tpu/classify/runner.py:2350-2364

@@ -271,6 +271,21 @@ ENVIRONMENT
     MC_PACK_STORE=0         with unpacked slots, keep lane rows.
     MC_ESCALATE=0           disable adaptive bucket-depth escalation
                             (every read pays worst-case bucket depth).
+    MC_ESC_FUSED=0          run escalation phase 2 as separate redo
+                            dispatches instead of inside the phase-1
+                            dispatch (the fused default runs each redo
+                            batch on a side stream beside a phase-1
+                            batch).
+    MC_ESC_B2=<n>           flagged-read slice width per fused dispatch
+                            (default: half the batch size).
+    MC_NATIVE_FMT=0         disable the native per-read line formatter
+                            (fall back to the Python writer).
+    MC_PREFETCH=0           disable the software-pipelined scan (the
+                            next batch's sketch and bucket probe on a
+                            side stream beside this batch's probe and
+                            candidates); without it escalated single
+                            reads are redone from their rows and pairs
+                            do not escalate.
     MC_SKETCH_MODE=<sort|extract>
                             the JAX package's choice of sketch
                             selection; both give the same sketches.
@@ -308,14 +323,6 @@ ENVIRONMENT
                             force the -table-shards shard layout (auto:
                             two-tier once buckets are deeper than 61
                             slots).
-
-    Not read by the port yet (JAX package knobs of modules still to be
-    ported; ROADMAP.md queue A):
-    MC_PREFETCH=0           the software-pipelined scan (A6, item 2).
-    MC_ESC_FUSED=0          the fused escalation dispatch (item 2).
-    MC_ESC_B2=<n>           its flagged-read slice width (item 2).
-    MC_NATIVE_FMT=0         the native per-read line formatter (the
-                            host pipeline, item 2).
 """,
     "build+query": """\
 metacache_tpu_torch build+query — build a database in memory and query it

@@ -42,7 +42,8 @@ def classify_candidates(cand_tgt, cand_tax, cand_hits, lineages,
     exists = cand_tax != 0
     hits0 = cand_hits[:, 0]
     valid0 = exists[:, 0] & (hits0 >= hits_min)
-    frac = torch.tensor(hits_diff_frac, dtype=torch.float32, device=dev)
+    # a fill, not a host copy: the summary path copies nothing pageable
+    frac = torch.full((), hits_diff_frac, dtype=torch.float32, device=dev)
     threshold = torch.where(hits0 > hits_min,
                             (hits0 - hits_min).to(torch.float32) * frac,
                             torch.zeros((), dtype=torch.float32, device=dev))

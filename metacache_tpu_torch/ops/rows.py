@@ -29,7 +29,11 @@ rank-join sweep, then either the segmented suffix-max top-k
 and the final ranking, and the per-hit lists of -allhits. ``fuses``
 picks the branch from flags before the probe, as JAX's runner and
 rows.py:142-143 do (``MC_FUSED_CANDIDATES``, runner.py:612-622). A
-Python loop over the K stacked batches takes the place of ``lax.scan``.
+Python loop over the K stacked batches takes the place of ``lax.scan``;
+JAX's scan carries (its ``prefetch``, and the fused escalation's phase 2
+inside phase 1) become work on a side stream (device.SideStream),
+ordered by events: batch i+1's sketch and bucket probe, and a redo
+slice, beside batch i's probe and candidates.
 A query holds windows_per_query windows (a pair: mate 1's, then mate
 2's); ``query_step_rows_multipart`` probes every part of a multi-part
 database and concatenates the parts' slot rows.
@@ -40,6 +44,7 @@ import os
 
 import torch
 
+from ..device import SideStream
 from .candidates import (I32_MAX, candidates_packed, candidates_unpacked,
                          padded_width)
 from .pipeline import QueryResult, classify_candidates
@@ -89,6 +94,16 @@ def fuses(fused_candidates: bool, fast_top2: bool, max_candidates: int,
     lists then). The kernels take rows of every width."""
     return (fused_candidates and fast_top2 and max_candidates <= 4 and
             (walk_elems > 0 or dedup_walk > 0) and not emit_hits)
+
+
+def nonfused_sweep(walk_elems: int, dedup_walk: int, l: int) -> str:
+    """The non-fused branch's sweep of rows of ``l`` match slots
+    (rows.py:200-264): "dedup" (dedup + walk over distinct entries),
+    "walk" (a lane walk, which needs 0 < walk_elems < l) or
+    "rank-join"."""
+    if dedup_walk > 0:
+        return "dedup"
+    return "walk" if 0 < walk_elems < l else "rank-join"
 
 
 def _alt_runs(fused: bool, fast_top2: bool, walk_elems: int,
@@ -492,7 +507,8 @@ def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
     m1 = (mwir - 1)[:, None]
 
     carry_beg = False
-    if dedup_walk > 0:
+    sweep = nonfused_sweep(walk_elems, dedup_walk, l)
+    if sweep == "dedup":
         # compact duplicate (t, w) runs to distinct entries + counts
         # (rows.py:200-217)
         start = (pos == 0) | (tgt != _shifted(tgt, 1, -1)) | \
@@ -527,7 +543,7 @@ def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
         pos = endpos                       # the range's last slot
         lo = beg                           # the begin window, carried
         carry_beg = True
-    elif 0 < walk_elems < l:
+    elif sweep == "walk":
         # rows.py:243-251
         w_lo = win - m1
         hits = torch.ones((b, l), dtype=torch.int32, device=dev)
@@ -771,35 +787,87 @@ def _sketch_stage(wmat, vmat, k: int, sketchlen: int,
                           sketchlen).reshape(b, wq * sketchlen)
 
 
+def _stage1(windows, valid, tables, k: int, sketchlen: int,
+            infeed_packed: bool):
+    """The sketch and bucket-probe stage of one batch -> (feats (B, F),
+    idx (B*F,)): the rows (classed: cell addresses) that ``probe_rows``
+    and ``probe_rows_head`` take as ``idx_pre``."""
+    feats = _sketch_stage(windows, valid, k, sketchlen, infeed_packed)
+    return feats, _bucket_idx(feats.reshape(-1), tables)
+
+
+def _prefetched(windows_k, valid_k, tables, side, k: int, sketchlen: int,
+                infeed_packed: bool):
+    """Stage 1 of the pipelined scan (rows.py:1028-1060, JAX's prefetch
+    carry) for each stacked batch: its sketch and bucket probe, issued on
+    the ``side`` stream (device.SideStream) one batch ahead of the
+    caller's stage 2. Yields (i, feats (B, F), idx (B*F,)) of batch i
+    once batch i+1's stage 1 is issued and the current stream is ordered
+    after batch i's; the caller has made the side stream follow the
+    inputs (``side.follow``)."""
+    def stage1(i):
+        with side.run():
+            return (*_stage1(windows_k[i], valid_k[i], tables, k, sketchlen,
+                             infeed_packed), side.mark())
+
+    nk = windows_k.shape[0]
+    nxt = stage1(0)
+    for i in range(nk):
+        feats, idx, ev = nxt
+        side.join(ev, feats, idx)
+        if i + 1 < nk:
+            nxt = stage1(i + 1)
+        yield i, feats, idx
+
+
+def _side(side, device):
+    """The caller's side stream, or one of the device's own."""
+    return side if side is not None else SideStream(device)
+
+
 def query_step_rows_scan(windows_k, valid_k, mwir_k, tables, hits_min,
                          hits_diff_frac, highest_rank, merge_rank, *,
                          k: int, sketchlen: int, windows_per_query: int,
                          max_candidates: int, walk_elems: int = 0,
                          dedup_walk: int = 0, fast_top2: bool = False,
                          fused_candidates: bool = True, pack_bits: int = 0,
-                         infeed_packed: bool = False) -> torch.Tensor:
+                         infeed_packed: bool = False, prefetch: bool = False,
+                         side: SideStream | None = None) -> torch.Tensor:
     """K stacked row batches -> (K, B) int32 classified taxon ids
     (rows.py:958). ``infeed_packed``: windows_k holds 2-bit codes, four
     bases per byte, low bits first, unpacked here; valid_k and mwir_k
-    may arrive as uint8."""
+    may arrive as uint8. ``prefetch`` (JAX's software-pipelined scan, on
+    a row layout; a CSR part ignores it, as JAX's does): batch i+1's
+    sketch and bucket probe run on the ``side`` stream (the caller's, or
+    a new one of the tables' device) while batch i's probe rows and
+    candidates run on the current stream; the same results."""
     wq = windows_k.shape[2]
     fused, alt = route(fused_candidates, fast_top2, max_candidates,
                         walk_elems, dedup_walk, False, wq * sketchlen,
                         tables.spf)
-    out = []
-    for i in range(windows_k.shape[0]):
-        feats = _sketch_stage(windows_k[i], valid_k[i], k, sketchlen,
-                              infeed_packed)
+
+    def stage2(i, feats, idx=None):
         tgt, win = probe_rows(feats, tables, alt_runs=alt,
-                              pack_bits=pack_bits)
-        res = rows_to_result(
+                              pack_bits=pack_bits, idx_pre=idx)
+        return rows_to_result(
             tgt, win, mwir_k[i], tables.merge_tax, tables.lineages, hits_min,
             hits_diff_frac, highest_rank, merge_rank,
             max_candidates=max_candidates, walk_elems=walk_elems,
             dedup_walk=dedup_walk, fast_top2=fast_top2,
-            fused_candidates=fused, presorted_runs=alt, pack_bits=pack_bits)
-        out.append(res.cls_tax)
-    return torch.stack(out)
+            fused_candidates=fused, presorted_runs=alt,
+            pack_bits=pack_bits).cls_tax
+
+    if prefetch and not tables.csr:
+        side = _side(side, windows_k.device)
+        side.follow(windows_k, valid_k)
+        return torch.stack([
+            stage2(i, feats, idx) for i, feats, idx in _prefetched(
+                windows_k, valid_k, tables, side, k, sketchlen,
+                infeed_packed)])
+    return torch.stack([
+        stage2(i, _sketch_stage(windows_k[i], valid_k[i], k, sketchlen,
+                                infeed_packed))
+        for i in range(windows_k.shape[0])])
 
 
 def _pack_bits32(over: torch.Tensor) -> torch.Tensor:
@@ -813,6 +881,30 @@ def _pack_bits32(over: torch.Tensor) -> torch.Tensor:
     return (ob.reshape(nw, 32) << sh).sum(dim=1, dtype=torch.int32)
 
 
+def _head_result(feats, idx, mwir, tables, hits_min, hits_diff_frac,
+                 highest_rank, merge_rank, *, max_candidates: int,
+                 walk_elems: int, dedup_walk: int, fast_top2: bool,
+                 fused_candidates: bool, pack_bits: int):
+    """Escalation phase 1 of one batch on its sketches and bucket probes
+    (rows.py:1260-1275, :1364-1383): the head-only probe (B6) and its
+    candidates -> (cls (B,), over (ceil(B/32),) bit words). Runs of rl =
+    pow2(hsl) lanes, which B4 takes as presorted where they fill its
+    padded row."""
+    rl = 1 << max(int(tables.head_slots - 1).bit_length(), 0)
+    presorted = rl if padded_width(feats.shape[1] * rl) == \
+        feats.shape[1] * rl else 0
+    pk, ov = probe_rows_head(feats, tables, alt_runs=rl,
+                             pack_bits=pack_bits, idx_pre=idx)
+    res = rows_to_result(
+        pk, pk, mwir, tables.merge_tax, tables.lineages, hits_min,
+        hits_diff_frac, highest_rank, merge_rank,
+        max_candidates=max_candidates, walk_elems=walk_elems,
+        dedup_walk=dedup_walk, fast_top2=fast_top2,
+        fused_candidates=fused_candidates, presorted_runs=presorted,
+        pack_bits=pack_bits)
+    return res.cls_tax, _pack_bits32(ov)
+
+
 def query_step_rows_scan_head(windows_k, valid_k, mwir_k, tables, hits_min,
                               hits_diff_frac, highest_rank, merge_rank, *,
                               k: int, sketchlen: int, max_candidates: int,
@@ -820,7 +912,9 @@ def query_step_rows_scan_head(windows_k, valid_k, mwir_k, tables, hits_min,
                               fast_top2: bool = True,
                               fused_candidates: bool = True,
                               pack_bits: int = 0,
-                              infeed_packed: bool = False):
+                              infeed_packed: bool = False,
+                              prefetch: bool = False,
+                              side: SideStream | None = None):
     """Escalation phase 1 (rows.py:1314-1430): the scan of
     ``query_step_rows_scan`` with one head row per probe (B6) and runs of
     rl = pow2(hsl) lanes, so the slot sort works on F*rl lanes instead of
@@ -828,33 +922,82 @@ def query_step_rows_scan_head(windows_k, valid_k, mwir_k, tables, hits_min,
     words, feats (K, B, F) int32, idx (K, B, F) int32): reads whose bit
     is set touched a bucket deeper than the head and must be redone at
     full depth (``query_step_rows_redo_scan`` on their saved feats and
-    idx); the others are exact. The JAX function returns feats and idx
-    only with prefetch on, its device default; here they cost nothing."""
+    idx); the others are exact. ``prefetch``: stage 1 (sketch and bucket
+    probe) of batch i+1 on the ``side`` stream beside batch i's phase 1,
+    as ``query_step_rows_scan`` pipelines it. The JAX function returns
+    feats and idx only with prefetch on, its device default; here they
+    cost nothing."""
     nk, b, wq = windows_k.shape[:3]
-    hsl = tables.head_slots
-    rl = 1 << max(int(hsl - 1).bit_length(), 0)
     f = wq * sketchlen
-    presorted = rl if padded_width(f * rl) == f * rl else 0
+    kw = dict(max_candidates=max_candidates, walk_elems=walk_elems,
+              dedup_walk=dedup_walk, fast_top2=fast_top2,
+              fused_candidates=fused_candidates, pack_bits=pack_bits)
+    if prefetch:
+        side = _side(side, windows_k.device)
+        side.follow(windows_k, valid_k)
+        stage1 = _prefetched(windows_k, valid_k, tables, side, k, sketchlen,
+                             infeed_packed)
+    else:
+        stage1 = ((i, *_stage1(windows_k[i], valid_k[i], tables, k,
+                               sketchlen, infeed_packed))
+                  for i in range(nk))
     cls, over, feats_k, idx_k = [], [], [], []
-    for i in range(nk):
-        feats = _sketch_stage(windows_k[i], valid_k[i], k, sketchlen,
-                              infeed_packed)
-        idx_c = _bucket_idx(feats.reshape(-1), tables)
-        pk, ov = probe_rows_head(feats, tables, alt_runs=rl,
-                                 pack_bits=pack_bits, idx_pre=idx_c)
-        res = rows_to_result(
-            pk, pk, mwir_k[i], tables.merge_tax, tables.lineages, hits_min,
-            hits_diff_frac, highest_rank, merge_rank,
-            max_candidates=max_candidates, walk_elems=walk_elems,
-            dedup_walk=dedup_walk, fast_top2=fast_top2,
-            fused_candidates=fused_candidates, presorted_runs=presorted,
-            pack_bits=pack_bits)
-        cls.append(res.cls_tax)
-        over.append(_pack_bits32(ov))
+    for i, feats, idx in stage1:
+        c, o = _head_result(feats, idx, mwir_k[i], tables, hits_min,
+                            hits_diff_frac, highest_rank, merge_rank, **kw)
+        cls.append(c)
+        over.append(o)
         feats_k.append(feats)
-        idx_k.append(idx_c.reshape(b, f))
+        idx_k.append(idx.reshape(b, f))
     return (torch.stack(cls), torch.stack(over), torch.stack(feats_k),
             torch.stack(idx_k))
+
+
+def query_step_rows_scan_head_fused(windows_k, valid_k, mwir_k, redo_feats_k,
+                                    redo_idx_k, redo_mwir_k, tables,
+                                    hits_min, hits_diff_frac, highest_rank,
+                                    merge_rank, *, k: int, sketchlen: int,
+                                    max_candidates: int, walk_elems: int = 0,
+                                    fast_top2: bool = True,
+                                    fused_candidates: bool = True,
+                                    pack_bits: int = 0,
+                                    infeed_packed: bool = False,
+                                    side: SideStream | None = None):
+    """Escalation phases 1 and 2 in one dispatch (rows.py:1192-1305, JAX's
+    fused escalation): iteration i classifies fresh batch i head-only on
+    the current stream, with batch i+1's stage 1 prefetched on the
+    ``side`` stream, and redoes slice i of earlier flagged reads at full
+    depth (``query_step_rows_redo``: B7, then B4, on their saved feats
+    and idx, redo_feats_k and redo_idx_k (K, B2, F), redo_mwir_k (K, B2))
+    on the side stream too, after that stage 1, so that the redo runs
+    beside phase 1. -> (cls1 (K, B), over (K, ceil(B/32)), feats (K, B,
+    F), idx (K, B, F), cls2 (K, B2)), all ordered on the current
+    stream."""
+    nk, b, wq = windows_k.shape[:3]
+    if wq != 1:
+        raise ValueError("the fused escalation is the short-read scan path")
+    kw = dict(max_candidates=max_candidates, walk_elems=walk_elems,
+              fast_top2=fast_top2, fused_candidates=fused_candidates,
+              pack_bits=pack_bits)
+    side = _side(side, windows_k.device)
+    side.follow(windows_k, valid_k, redo_feats_k, redo_idx_k, redo_mwir_k)
+    cls1, over, feats_k, idx_k, cls2 = [], [], [], [], []
+    for i, feats, idx in _prefetched(windows_k, valid_k, tables, side, k,
+                                     sketchlen, infeed_packed):
+        with side.run():
+            cls2.append(query_step_rows_redo(
+                redo_feats_k[i], redo_idx_k[i], redo_mwir_k[i], tables,
+                hits_min, hits_diff_frac, highest_rank, merge_rank, **kw))
+        c, o = _head_result(feats, idx, mwir_k[i], tables, hits_min,
+                            hits_diff_frac, highest_rank, merge_rank,
+                            dedup_walk=0, **kw)
+        cls1.append(c)
+        over.append(o)
+        feats_k.append(feats)
+        idx_k.append(idx.reshape(b, sketchlen))
+    side.join(side.mark(), *cls2)
+    return (torch.stack(cls1), torch.stack(over), torch.stack(feats_k),
+            torch.stack(idx_k), torch.stack(cls2))
 
 
 def query_step_rows_redo(feats, idx_c, mwir, tables, hits_min,

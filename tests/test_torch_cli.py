@@ -208,11 +208,14 @@ def test_paired_goldens(dbfile, gold):
 def test_paired_summary_statistics(dbfile, monkeypatch, pairing):
     """-no-map: the paired scan path (two windows a query), the same
     summary statistics as the per-read path."""
+    import inspect
     from metacache_tpu_torch.classify.runner import QueryRunner
     scans = []
     dispatch = QueryRunner._dispatch_scan_pair
+    depth = inspect.signature(dispatch)
     monkeypatch.setattr(QueryRunner, "_dispatch_scan_pair",
-                        lambda self, *a, **k: scans.append(a[4]) or
+                        lambda self, *a, **k: scans.append(depth.bind(
+                            self, *a, **k).arguments["scan_k"]) or
                         dispatch(self, *a, **k))
     files = PAIR_CASES["classified_pairfiles.txt"][:2] \
         if pairing == "-pairfiles" else [f"{DATA}/reads_pairseq.fa"]
@@ -802,14 +805,55 @@ def test_nonfused_batch_splits_into_launches_that_fit(dbfile, monkeypatch,
     whole = _query(dbfile, args)
     assert launches == [1]
     slots = 16 * 2                             # the fixture's spf is 2
-    monkeypatch.setattr(R, "free_bytes",
-                        lambda device: 8 * slots * R.NONFUSED_BYTES_A_SLOT)
+    # the fixture's short reads sweep by the rank join (a walk would
+    # span the whole row)
+    row_b = R.nonfused_row_bytes(slots, "rank-join", "-allhits" in flags)
+    monkeypatch.setattr(R, "free_bytes", lambda device: 8 * row_b)
     launches.clear()
     assert _query(dbfile, args) == whole
     assert launches and launches[0] >= 2
     monkeypatch.setattr(R, "free_bytes", lambda device: 100)
     with pytest.raises(MemoryError, match="100 bytes are free"):
         _query(dbfile, args)
+
+
+def test_nonfused_rank_join_sized_by_padded_width(dbfile, monkeypatch):
+    """The non-fused launch is sized by its sweep and the row's padded
+    width (ops/candidates.py::padded_width): the fixture's rows of 32
+    slots sweep by the rank join, 128 padded slots of 256 bytes. Free
+    memory for 12 such rows at the walk's 96 bytes an unpadded slot (the
+    sizing before the rank join and the dedup sweep were measured) holds
+    one row a launch now: every launch takes one row, and the lines
+    equal one launch's."""
+    from metacache_tpu_torch.classify import runner as R
+    from metacache_tpu_torch.ops.rows import nonfused_sweep
+    assert [nonfused_sweep(*a) for a in ((32, 0, 32), (32, 0, 33),
+                                         (0, 6, 100), (0, 0, 100))] == \
+        ["rank-join", "walk", "dedup", "rank-join"]
+    assert R.nonfused_row_bytes(32, "rank-join", False) == 128 * 256
+    assert R.nonfused_row_bytes(32, "rank-join", True) == 128 * 268
+    assert R.nonfused_row_bytes(8048, "walk", False) == 8192 * 96
+    assert R.nonfused_row_bytes(5000, "dedup", True) == 8192 * 172
+    args = [f"{DATA}/reads_single.fa", "-lowest", "species"]
+    whole = _query(dbfile, args)
+    sized = []
+    real = R.QueryRunner._nonfused_rows
+
+    def spy(self, slots, flags, device=None):
+        assert slots == 32 and nonfused_sweep(
+            flags.get("walk_elems", 0), flags.get("dedup_walk", 0),
+            slots) == "rank-join"
+        sized.append(real(self, slots, flags, device))
+        return sized[-1]
+    monkeypatch.setattr(R.QueryRunner, "_nonfused_rows", spy)
+    old = 12 * 32 * R.NONFUSED_BYTES_A_SLOT
+    monkeypatch.setattr(R, "free_bytes", lambda device: old)
+    assert _query(dbfile, args) == whole
+    assert sized == [1]
+    monkeypatch.setattr(R, "free_bytes", lambda device: 8 * 128 * 256)
+    sized.clear()
+    assert _query(dbfile, args) == whole
+    assert sized == [8]
 
 
 def test_cpu_needs_explicit_opt_in(monkeypatch):
@@ -820,7 +864,8 @@ def test_cpu_needs_explicit_opt_in(monkeypatch):
         get_device()
 
 
-NOT_READ_YET = {"MC_PREFETCH", "MC_ESC_FUSED", "MC_ESC_B2", "MC_NATIVE_FMT"}
+NOT_READ_YET: set = set()
+PIPELINE_KNOBS = {"MC_PREFETCH", "MC_ESC_FUSED", "MC_ESC_B2", "MC_NATIVE_FMT"}
 
 
 def _port_sources():
@@ -838,22 +883,22 @@ def _port_sources():
 def test_help_lists_as_active_only_variables_the_port_reads():
     """Every MC_* variable that `help query` presents as active is read
     (as a quoted name) somewhere in metacache_tpu_torch outside
-    cli/help.py; the ones marked "not read by the port yet" are not."""
+    cli/help.py; none is marked "not read by the port yet" any more: the
+    knobs of the pipelined scan, the fused escalation and the native
+    formatter are active and read."""
     import re
     from metacache_tpu_torch.cli.help import MODES
     env = MODES["query"][MODES["query"].index("ENVIRONMENT"):]
-    active, idle = env.split("Not read by the port yet")
-    active_names = set(re.findall(r"^    (MC_[A-Z0-9_]+)=", active, re.M))
-    idle_names = set(re.findall(r"^    (MC_[A-Z0-9_]+)=", idle, re.M))
-    assert idle_names == NOT_READ_YET
+    assert "Not read by the port yet" not in env
+    active_names = set(re.findall(r"^    (MC_[A-Z0-9_]+)=", env, re.M))
+    assert not NOT_READ_YET & active_names
+    assert PIPELINE_KNOBS <= active_names
     assert {"MC_SKETCH_MODE", "MC_SPLIT_CAND", "MC_PROBE_PALLAS",
             "MC_TORCH_DEVICE", "MC_HBM_GB"} <= active_names
     src = _port_sources()
     for name in active_names:
         assert re.search(rf"[\"']{name}[\"']", src), name
-    for name in idle_names:
-        assert not re.search(rf"[\"']{name}[\"']", src), name
-    assert "bucket,oidx" in active and "always run" in active
+    assert "bucket,oidx" in env and "always run" in env
 
 
 def test_hbm_gb_overrides_the_budget(monkeypatch):

@@ -797,8 +797,10 @@ def _split_on_the_card(tmp_path, monkeypatch, flags):
     args = [f"{DATA}/reads_single.fa"] + flags
     whole = _card_query(db, args)
     assert launches == [1]
-    monkeypatch.setattr(R, "free_bytes",
-                        lambda device: 8 * 32 * R.NONFUSED_BYTES_A_SLOT)
+    # 8 rows a launch: the fixture's rows of 32 slots sweep by the rank
+    # join
+    row_b = R.nonfused_row_bytes(32, "rank-join", "-allhits" in flags)
+    monkeypatch.setattr(R, "free_bytes", lambda device: 8 * row_b)
     launches.clear()
     return whole, _card_query(db, args), launches
 
@@ -1347,8 +1349,8 @@ def test_replicas_hit_lists_on_the_card(cuda, monkeypatch, split):
     for small in (False, split):
         if small:
             slots = tdb.sketching.sketchlen * tdb.parts[0].max_bucket_size
-            monkeypatch.setattr(R, "free_bytes", lambda device: 8 * slots * (
-                R.NONFUSED_BYTES_A_SLOT + R.HIT_LIST_BYTES_A_SLOT))
+            row_b = R.nonfused_row_bytes(slots, "rank-join", True)
+            monkeypatch.setattr(R, "free_bytes", lambda device: 8 * row_b)
         runner = R.QueryRunner(tdb, opt, devices=[torch.device("cuda", 0)] * 2)
         out.append(runner._launch_rows(wins, valid, mwir, 1,
                                        opt.classify.max_candidates))
@@ -1390,3 +1392,164 @@ def test_multihost_dryrun_on_the_card(cuda):
         assert p.returncode == 0, err[-2000:]
         assert f"MULTIHOST_OK pid={pid} procs=2" in out, out + err[-2000:]
         assert "classified=8" in out
+
+
+# ------------------- the pipelined scan, the fused escalation, the infeed
+def _strain_reads(tmp_path, n, seed=21):
+    """2 x 32 strain genomes of 20 kbp (0.3% substitutions) as FASTA,
+    and n reads of 100 bp drawn from them (2 substitutions each) as 2-bit
+    packed rows of 32 bytes (the runner's infeed) and as FASTA. -> (the
+    genome file, the read file, the packed rows (n, 32))."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genomes = []
+    for _b in range(2):
+        base = rng.integers(0, 4, 20000, dtype=np.uint8)
+        for s in range(32):
+            g = base.copy()
+            if s:
+                pos = rng.integers(0, 20000, 60)
+                g[pos] = rng.integers(0, 4, 60)
+            genomes.append(g)
+    gfa = tmp_path / "g.fa"
+    with open(gfa, "wb") as f:
+        for i, g in enumerate(genomes):
+            f.write(b">s%d\n" % i + acgt[g].tobytes() + b"\n")
+    gs = rng.integers(0, len(genomes), n)
+    pos = rng.integers(0, 20000 - 100, n)
+    reads = np.stack(genomes)[gs[:, None], pos[:, None] + np.arange(100)]
+    reads[np.arange(n)[:, None], rng.integers(0, 100, (n, 2))] = \
+        rng.integers(0, 4, (n, 2), dtype=np.uint8)
+    rfa = tmp_path / "r.fa"
+    with open(rfa, "wb") as f:
+        text = acgt[reads]
+        for i in range(n):
+            f.write(b">r%d\n" % i + text[i].tobytes() + b"\n")
+    c4 = np.zeros((n, 128), np.uint8)
+    c4[:, :100] = reads
+    return str(gfa), str(rfa), pack_2bit(c4)
+
+
+def test_streamed_scan_and_fused_dispatch_match_plain_order(cuda, tmp_path):
+    """At the runner's full stack (32 x 8192 reads), on two-tier rows
+    (head 4) of a strain database: the prefetched scan and head scan
+    (stage 1 on a side stream) and the fused dispatch (a redo slice of
+    4096 flagged reads a batch on the side stream beside phase 1) equal
+    the plain order on the same CUDA tensors, twice over (the second
+    pass reuses the allocator's blocks that the first freed across
+    streams)."""
+    from metacache_tpu_torch.db.build import BuildOptions, build_database
+    from metacache_tpu_torch.db.state import tables_from_numpy
+    from metacache_tpu_torch.device import SideStream
+    from metacache_tpu_torch.ops import rows as R
+    from metacache_tpu_torch.ops.probe import make_bucket_index
+    K, B, B2 = 32, 8192, 4096
+    gfa, _rfa, packed = _strain_reads(tmp_path, K * B)
+    ft = build_database(BuildOptions(infiles=[gfa])).parts[0]
+    spf = min(ft.max_bucket_size, 254)
+    wbits = (2 * int((ft.locations & np.uint64(0xFFFFFFFF)).max())) \
+        .bit_length()
+    head, ovf = ft.fused_rows_two_tier(spf, 4, slot_bits=wbits)
+    brows, bits = make_bucket_index(ft.unique_features)
+    lin = lineages(64)
+    t = tables_from_numpy(ft.unique_features, ft.offsets, head, brows, bits,
+                          lin, lin[:, 0].copy(), spf, wbits, cuda,
+                          ovf_rows=ovf, head_slots=4)
+    stack = (torch.from_numpy(packed.reshape(K, B, 1, 32)).to(cuda),
+             torch.full((K, B, 1), 100, dtype=torch.uint8, device=cuda),
+             torch.full((K, B), 2, dtype=torch.uint8, device=cuda))
+    args = (5, 0.5, 19, 0)
+    kw = dict(k=16, sketchlen=16, max_candidates=2, walk_elems=32,
+              fast_top2=True, pack_bits=wbits, infeed_packed=True)
+    side = SideStream(cuda)
+    plain = R.query_step_rows_scan(*stack, t, *args, windows_per_query=1,
+                                   **kw)
+    head_plain = R.query_step_rows_scan_head(*stack, t, *args, **kw)
+    bits_ = head_plain[1].cpu().numpy().reshape(-1)
+    flagged = np.nonzero(((bits_[:, None] >> np.arange(32)) & 1)
+                         .astype(bool).reshape(-1))[0]
+    assert 0 < len(flagged) < K * B
+    sel = torch.from_numpy(np.resize(flagged, K * B2)).to(cuda)
+    rf = head_plain[2].reshape(-1, 16)[sel].reshape(K, B2, 16)
+    ri = head_plain[3].reshape(-1, 16)[sel].reshape(K, B2, 16)
+    rm = torch.full((K, B2), 2, dtype=torch.int32, device=cuda)
+    rkw = dict(max_candidates=2, walk_elems=32, fast_top2=True,
+               pack_bits=wbits)
+    redo_plain = R.query_step_rows_redo_scan(rf, ri, rm, t, *args, **rkw)
+    for _ in range(2):
+        got = R.query_step_rows_scan(*stack, t, *args, windows_per_query=1,
+                                     prefetch=True, side=side, **kw)
+        heads = R.query_step_rows_scan_head(*stack, t, *args, prefetch=True,
+                                            side=side, **kw)
+        fused = R.query_step_rows_scan_head_fused(
+            *stack, rf, ri, rm, t, *args, side=side, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain)
+        for g, p in zip(heads, head_plain):
+            assert torch.equal(g, p)
+        for g, p in zip(fused, (*head_plain, redo_plain)):
+            assert torch.equal(g, p)
+    assert (plain != 0).sum() > K * B // 2
+
+
+def test_infeed_ring_on_the_card(cuda):
+    """Infeed through 4 pinned buffers: 6 stacks of different contents,
+    each read by the current stream only after a long sleep there, so
+    that the copy stream runs ahead and reuses the ring's buffers: every
+    stack arrives whole."""
+    from metacache_tpu_torch.device import Infeed
+    feed = Infeed(cuda, 4)
+    rng = np.random.default_rng(3)
+    sums, want = [], []
+    for i in range(6):
+        rows = rng.integers(0, 256, (8192 * 32, 32), dtype=np.uint8)
+        lens = rng.integers(0, 128, 8192 * 32).astype(np.int32)
+        torch.cuda._sleep(20_000_000)
+        w, v = feed.put(rows[:, :8 + 4 * i], lens)
+        sums.append((w.to(torch.int64).sum(), v.to(torch.int64).sum()))
+        want.append((int(rows[:, :8 + 4 * i].astype(np.int64).sum()),
+                     int(lens.astype(np.int64).sum())))
+    torch.cuda.synchronize()
+    assert [(int(a), int(b)) for a, b in sums] == want
+
+
+def test_pinned_ring_summary_matches_plain_loop(cuda, tmp_path, monkeypatch):
+    """The runner's summary of DEPTH + 2 stacks of 8192 reads of different
+    contents (MC_SCAN_K=1), which reach the card through its ring of
+    DEPTH + 1 pinned buffers and the prefetched scan, gives the rank
+    histogram of the plain loop: each stack's scan step on pageable
+    copies, without prefetch, and the rank histogram of its classes."""
+    from metacache_tpu_torch.classify.options import ClassificationResults
+    from metacache_tpu_torch.classify.runner import (map_queries_to_targets,
+                                                     rank_histogram)
+    from metacache_tpu_torch.cli.main import Args, parse_query_options
+    from metacache_tpu_torch.db.database import Database
+    from metacache_tpu_torch.ops import rows as R
+    monkeypatch.delenv("MC_TORCH_DEVICE", raising=False)
+    monkeypatch.setenv("MC_SCAN_K", "1")
+    n = (QueryRunner.DEPTH + 2) * 8192
+    gfa, rfa, packed = _strain_reads(tmp_path, n, seed=22)
+    db = str(tmp_path / "db")
+    assert main(["build", db, gfa]) == 0
+    opt, _, _ = parse_query_options(Args(["-no-map"]))
+    runner = QueryRunner(Database.load(db), opt)
+    res = ClassificationResults(io.StringIO(), io.StringIO(), io.StringIO())
+    map_queries_to_targets([rfa], runner.db, opt, res, runner)
+    torch.cuda.synchronize()
+    hist = 0
+    sk = runner.sketching
+    for s in range(n // 8192):
+        rows = packed[s * 8192:(s + 1) * 8192, :28]
+        cls = R.query_step_rows_scan(
+            torch.from_numpy(rows.reshape(1, 8192, 1, 28)).to(cuda),
+            torch.full((1, 8192, 1), 100, dtype=torch.uint8, device=cuda),
+            torch.full((1, 8192), 2, dtype=torch.uint8, device=cuda),
+            runner.tables, runner.hits_min, opt.classify.hits_diff_fraction,
+            runner.highest_rank, runner.merge_rank, k=sk.kmerlen,
+            sketchlen=sk.sketchlen, windows_per_query=1,
+            max_candidates=opt.classify.max_candidates,
+            pack_bits=runner._pack_bits, infeed_packed=True,
+            fast_top2=runner._fast_top2, walk_elems=32)
+        hist = hist + rank_histogram(cls, 8192, *runner._hist_dev).cpu()
+    assert res.statistics.total() == n
+    assert np.array_equal(res.statistics.assigned_, hist.numpy())

@@ -630,9 +630,10 @@ def test_replicas_keep_split_hit_lists_on_the_host(fixture_db, monkeypatch):
     tdb, _jdb, _jr, wins = fixture_db
     opt, _, _ = parse_query_options(Args(["-allhits", "-replicate", "2"]))
     runner = R.QueryRunner(tdb, opt, devices=CPU8)
-    slots = 16 * 2                # the fixture's spf is 2; one part
-    monkeypatch.setattr(R, "free_bytes", lambda device: 8 * slots * (
-        R.NONFUSED_BYTES_A_SLOT + R.HIT_LIST_BYTES_A_SLOT))
+    # 8 rows a launch: the fixture's spf is 2, one part; mwir 2 gives a
+    # walk over the whole row, so the rank join sweeps
+    row_b = R.nonfused_row_bytes(16 * 2, "rank-join", True)
+    monkeypatch.setattr(R, "free_bytes", lambda device: 8 * row_b)
     runner.device = torch.device("meta")
     n = len(wins)
     res = runner._launch_rows(wins, np.full((n, 1), wins.shape[2], np.int32),
