@@ -14,8 +14,9 @@ saved CSR and fills the probe rows on the card.
   unique + 12 x 52-strain + 1 x 256-strain genomes of 1 Mbp, 944 Mbp,
   buckets at the 254 cap), whose (target, window) slots pack into int32,
   held equal to a host build of the same genomes, and `query` through
-  kernels B1 and B4, which sorts each row itself (or B1, B3 and B4 on
-  the split route, MC_SPLIT_CAND=1); the same query once more on the
+  kernels B1, dense_decode (the rows' probe) and B4, which sorts each
+  row itself (or B1, dense_decode, B3 and B4 on the split route,
+  MC_SPLIT_CAND=1); the same query once more on the
   other route, and under each other staging, all with the same rank
   histogram: host rows
   (MC_DEVICE_LAYOUT=0), the bucket probe through B9
@@ -23,8 +24,9 @@ saved CSR and fills the probe rows on the card.
   (MC_DENSE_LIMIT=1 MC_CLASSED=1);
 - unpacked slots: `build` of a many-target database (one 8 Mbp genome
   plus 36 species x 256 strains of 50 kbp, 9217 targets, 469 Mbp), whose
-  slots do not pack into int32, and `query` through B1 and B5; once more
-  with MC_DENSE_LIMIT=1, which stages it two-tier;
+  slots do not pack into int32, and `query` through B1, dense_decode and
+  B5; once more with MC_DENSE_LIMIT=1, which stages it two-tier (lane
+  rows, dense_decode too);
 - long windows: the same 944 Mbp genomes at `-winlen 255` (the
   reference's 255 preset), built in two steps, `build` without the
   256-strain group and `modify` with it, through kernel B2; `query` of
@@ -184,6 +186,9 @@ REPLICAS = 2               # -replicate of the grid phase
 GRID_PROFILE_READS = 1 << 17   # reads of the grid phase's profiles
 # kernels no main path launches: B8's work is done by B7 (ops/rows.py)
 FOLDED = {"oidx_decode": "full_decode"}
+# the probe of dense rows, two-tier lane rows and u64 rows, a launch a
+# batch (a part) wherever such rows are staged
+DENSE = "dense_decode"
 # the least time of a kernel: the larger of its bytes over the card's
 # memory rate and its integer operations over the 32-bit rate outside
 # the tensor cores (H100 SXM, NVIDIA's data sheet)
@@ -701,6 +706,7 @@ def phase_parity(results):
     phase_parity_wide(results, rng, dev)
     phase_parity_decode(results, rng, dev)
     phase_parity_csr(results, np.random.default_rng(99), dev)
+    phase_parity_dense(results, np.random.default_rng(17), dev)
     phase_parity_probe(results, rng, dev)
 
 
@@ -1529,6 +1535,126 @@ def phase_parity_csr(results, rng, dev):
                                         for k, v in out.items()})
 
 
+def dense_rows(g, dev, nf: int, width: int, meta: int,
+               deep_every: int = 64):
+    """(nf, width) int32 rows on the card (made there from generator
+    ``g``): random slot lanes below 2^30 (packed pk15 slots, or targets
+    and windows), ``meta`` feature lanes of random values (a row's lo and
+    hi for u64 features), then the count lane: 1-16 locations, every
+    ``deep_every``-th row 200-399 (past the 254 cap), as the 944 Mbp
+    database's buckets."""
+    rows = torch.randint(0, 1 << 30, (nf, width), generator=g, device=dev,
+                         dtype=torch.int32)
+    rows[:, :meta] = torch.randint(-2**31, 2**31 - 1, (nf, meta),
+                                   generator=g, device=dev,
+                                   dtype=torch.int32)
+    cnt = torch.randint(1, 17, (nf,), generator=g, device=dev,
+                        dtype=torch.int32)
+    cnt[::deep_every] = torch.randint(200, 400, (cnt[::deep_every].numel(),),
+                                      generator=g, device=dev,
+                                      dtype=torch.int32)
+    rows[:, meta] = cnt
+    return rows
+
+
+def dense_probes(g, dev, rows, n: int, wide: bool):
+    """n probes of ``rows``: row ids (1% past the table) and their
+    features, 10% of them misses and 1% the sentinel; int64 features
+    from the two meta lanes where ``wide``."""
+    nf = rows.shape[0]
+    idx = torch.randint(0, nf, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    r = rows[idx.to(torch.int64)]
+    flat = ((r[:, 1].to(torch.int64) << 32) |
+            (r[:, 0].to(torch.int64) & 0xFFFFFFFF)) if wide else r[:, 0]
+    miss = torch.rand(n, generator=g, device=dev) < 0.1
+    flat = torch.where(miss, flat ^ 0x5A5A, flat)
+    flat[::97] = -1
+    idx[::101] = nf + 5
+    return idx, flat
+
+
+def phase_parity_dense(results, rng, dev):
+    """dense_decode against its plain version at the main paths' 131,072
+    probes (8192 reads x 16 features), c 254, rl 256 (f 16): the 944 Mbp
+    summary's dense pk15 rows (1 M rows of 256 lanes, 1 GiB, past the L2
+    cache; also at rl 254, f 1), the many-target summary's dense (tgt,
+    win) lanes (512 K rows of 510 lanes, pack_bits 0), and at 16,384
+    probes the many-target two-tier lanes (head 30, as MC_DENSE_LIMIT=1
+    stages them), the k = 18 u64 dense pk15 rows and the u64 two-tier
+    rows (head 60). Bound: the rl output lanes a probe, each probe's row
+    id, feature and meta lanes once, and the slots its count keeps."""
+    from metacache_tpu_torch.ops import probe_decode as D
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    n, f, c, rl = 131072, 16, 254, 256
+    main = dense_rows(g, dev, 1 << 20, 2 + c, 1)
+    lanes = dense_rows(g, dev, 1 << 19, 2 + 2 * c, 1)
+    lt_head = dense_rows(g, dev, 1 << 16, 64, 1, deep_every=4)
+    lt_ovf = torch.randint(0, 1 << 30, (1 << 14, 2 * (c - 30)), generator=g,
+                           device=dev, dtype=torch.int32)
+    lt_head[:, 2] = torch.randint(0, 1 << 14, (1 << 16,), generator=g,
+                                  device=dev, dtype=torch.int32)
+    u64 = dense_rows(g, dev, 1 << 16, 3 + c, 2)
+    u64_head = dense_rows(g, dev, 1 << 16, 64, 2, deep_every=4)
+    u64_ovf = torch.randint(0, 1 << 30, (1 << 14, c - 60), generator=g,
+                            device=dev, dtype=torch.int32)
+    u64_head[:, 3] = torch.randint(0, 1 << 14, (1 << 16,), generator=g,
+                                   device=dev, dtype=torch.int32)
+    small = 16384
+    # name -> (rows, ovf, hsl, slot_bits, pack_bits, probes, rl, f, u64)
+    cases = {"944mbp_pk15": (main, None, 0, 15, 15, n, rl, f, False),
+             "pk15_rl254_f1": (main, None, 0, 15, 15, n, c, 1, False),
+             "many_target_tgt_win": (lanes, None, 0, 0, 0, n, rl, f, False),
+             "two_tier_tgt_win_h30": (lt_head, lt_ovf, 30, 0, 0, small, rl,
+                                      f, False),
+             "k18_u64_pk15": (u64, None, 0, 15, 15, small, rl, f, True),
+             "k18_u64_two_tier_h60": (u64_head, u64_ovf, 60, 15, 15, small,
+                                      rl, f, True)}
+    out = {}
+    for name, (rows, ovf, hsl, sb, pb, nn, r_, ff, wide) in cases.items():
+        idx, flat = dense_probes(g, dev, rows, nn, wide)
+
+        def call():
+            return D.dense_decode(rows, ovf, idx, flat, hsl, c, r_, ff, sb,
+                                  pb)
+
+        def plain():
+            return D.dense_decode_plain(rows, ovf, idx, flat, hsl, c, r_,
+                                        ff, sb, pb)
+        err = max(check_equal(f"dense_decode {name}", a, b)
+                  for a, b in zip(call(), plain()))
+        # what the data needs: each probe's id, feature and meta lanes
+        # (the overflow id too), the slots its count keeps, the outputs
+        nm = 2 if wide else 1
+        row = rows[torch.clamp(idx.to(torch.int64), max=rows.shape[0] - 1)]
+        kept = int(torch.where(D.meta_match(row, flat),
+                               torch.clamp(row[:, nm], 0, c), 0).sum())
+        nouts = 1 if pb else 2
+        nbytes = nn * r_ * 4 * nouts + nn * (4 + 4 * nm) + \
+            nn * 4 * (nm + (2 if ovf is not None else 1)) + \
+            kept * 4 * (1 if sb else 2)
+        b_ms, by = bound(nbytes, nn * r_ * nouts)
+        out[name] = dict(max_abs_err=err, ms=cuda_ms(call),
+                         kernel_ms=kernel_ms(call), host_us=host_us(call),
+                         plain_ms=cuda_ms(plain), bound_ms=b_ms,
+                         bound_by=by, slots_read=kept)
+        if name == "944mbp_pk15":
+            _record(results, "dense_decode", err=err, ms=out[name]["ms"],
+                    plain_ms=out[name]["plain_ms"],
+                    device_ms=out[name]["kernel_ms"],
+                    host_us=out[name]["host_us"], nbytes=nbytes,
+                    nops=nn * r_ * nouts,
+                    shape="131072 probes, f=16, c=254, rl=256, pk15 dense "
+                          "rows, 1 M-row table")
+        say(f"parity-dense_decode-{name}", probes=nn, c=c, rl=r_, f=ff,
+            hsl=hsl, slot_bits=sb, pack_bits=pb, tolerance=0, **out[name])
+    del main, lanes, lt_head, lt_ovf, u64, u64_head, u64_ovf
+    torch.cuda.empty_cache()
+    say("parity-dense_decode", tolerance=0,
+        max_abs_err=max(o["max_abs_err"] for o in out.values()),
+        cases={k: v["max_abs_err"] for k, v in out.items()})
+
+
 def probe_stream(rng, nf: int):
     """A (feature, tgt, win) build stream of nf distinct features: 80%
     with 1..61 locations, 20% with 62..100 (deeper than a 61-slot head),
@@ -1844,13 +1970,19 @@ def phase_profile(tmp, name, runner, tag="", reads="reads.fa",
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in evs)
+    # torch's concatenate and flip kernels: the probe's slot-run
+    # reshaping before dense_decode wrote the runs itself
+    reshape = {op: sum(e.count for e in evs if key in e.key)
+               for op, key in (("cat", "CatArrayBatchedCopy"),
+                               ("flip", "flip"))}
     # the host-to-device copies by source: pageable memory makes the copy
     # wait for its stream; the runner's infeed copies from pinned buffers
     h2d = {kind: sum(e.count for e in evs
                      if e.key == f"Memcpy HtoD ({kind} -> Device)")
            for kind in ("Pageable", "Pinned")}
     part = dict(h2d_pageable_events=h2d["Pageable"],
-                h2d_pinned_events=h2d["Pinned"])
+                h2d_pinned_events=h2d["Pinned"],
+                cat_kernels=reshape["cat"], flip_kernels=reshape["flip"])
     if share:
         mine = [e for e in evs if any(k in e.key for k in share)]
         us = sum(e.self_device_time_total for e in mine)
@@ -1947,7 +2079,7 @@ def phase_prefetch(tmp, name, runner, res, profile):
     ``profile`` a trace of each (device busy, idle share, host-to-device
     copies from pageable and pinned memory)."""
     nreads = res.statistics.total()
-    want = path_of("sketch", *cand_kernels())(runner,
+    want = path_of("sketch", DENSE, *cand_kernels())(runner,
                                               -(-nreads // SCAN_BATCH))
     runs = {"on": [], "off": []}
     for tag in ("off", "on", "on", "off"):
@@ -1995,7 +2127,7 @@ def phase_other_route(tmp, name, runner, res):
                                runner.db, runner.opt, res1, runner)
         torch.cuda.synchronize()
         grew = {k: v.launches for k, v in kernels.ALL.items()}
-        want = path_of("sketch", *cand_kernels())(
+        want = path_of("sketch", DENSE, *cand_kernels())(
             runner, -(-nreads // SCAN_BATCH))
     if grew != want:
         raise AssertionError(f"MC_SPLIT_CAND={other}: launches {grew}, "
@@ -2191,7 +2323,7 @@ def run_stagings(tmp, name, db, hist, stage_s):
     from metacache_tpu_torch import kernels
     n = 1 << 20
     layout = "pk15"
-    dense = ("sketch", *cand_kernels())
+    dense = ("sketch", DENSE, *cand_kernels())
     out = {"device_staging_seconds": round(stage_s, 3)}
 
     def classed(runner, batches):
@@ -2532,14 +2664,14 @@ def phase_escalation_routes(tmp, name, runner, res, esc_reads, profile):
 
 def phase_dense_limit(tmp, name, db, dense_hist):
     """The many-target database under MC_DENSE_LIMIT=1: two-tier (tgt,
-    win) lane rows, torch-op decode and B5, no escalation; its histogram
+    win) lane rows, dense_decode and B5, no escalation; its histogram
     equals the dense run's."""
     os.environ["MC_DENSE_LIMIT"] = "1"
     try:
         runner, _l, res = phase_query_summary(
             tmp, name, db, 1 << 20,
             lambda r: r.tables.head_slots > 0 and r._pack_bits == 0,
-            path_of("sketch", "candidates_unpacked"))
+            path_of("sketch", DENSE, "candidates_unpacked"))
     finally:
         del os.environ["MC_DENSE_LIMIT"]
     if not np.array_equal(res.statistics.assigned_, dense_hist):
@@ -2603,7 +2735,7 @@ def run_long_windows(tmp, genomes, species, profile):
     layout = f"pk{(2 * maxwin).bit_length()}"
     runner, launches, _res = phase_query_summary(
         tmp, name, db, reads, layout,
-        path_of("sketch_long", *cand_kernels()))
+        path_of("sketch_long", DENSE, *cand_kernels()))
     say(f"staging-{name}", layout=runner.layout,
         dense_gib=round(runner.dense_bytes / 2**30, 3),
         staged_gib=round(runner.tables.nbytes() / 2**30, 3),
@@ -3490,7 +3622,7 @@ def run_k18(tmp, genomes, species, profile):
     runner, grew, res = phase_query_summary(
         tmp, name, db, reads,
         lambda r: r.layout.startswith("u64pk") and r.tables.wide,
-        path_of("sketch64", *cand_kernels()))
+        path_of("sketch64", DENSE, *cand_kernels()))
     hist = res.statistics.assigned_.copy()
     dense_b = runner.dense_bytes
     brows = runner.tables.bucket_rows
@@ -3546,7 +3678,7 @@ def run_k18(tmp, genomes, species, profile):
         runner, grew2, res2 = phase_query_summary(
             tmp, name, db, len(reads),
             lambda r: r.layout.startswith("('u64_two_tier'"),
-            path_of("sketch64", *cand_kernels()))
+            path_of("sketch64", DENSE, *cand_kernels()))
     if not np.array_equal(res2.statistics.assigned_, hist):
         raise AssertionError("u64 two-tier: the rank histogram differs")
     if runner.staged_bytes > runner.budget_bytes:
@@ -3599,7 +3731,7 @@ def run_pairs_944(tmp, db, genomes, layout, profile):
     name = "944mbp"
     runner, grew, res, (m1, m2) = run_pairs(
         tmp, name, db, genomes, PAIRS, layout,
-        path_of("sketch", *cand_kernels()), profile)
+        path_of("sketch", DENSE, *cand_kernels()), profile)
     phase_e2e_pairs(name, runner, m1, m2, SCAN_BATCH)
     sub = os.path.join(tmp, name)
     files = write_pairs(sub, "pairs_sub", m1[:PAIRS_PER_READ],
@@ -3620,7 +3752,7 @@ def run_pairs_many_target(tmp, db, genomes):
     name = "many-target"
     runner, grew, res, (m1, m2) = run_pairs(
         tmp, name, db, genomes, PAIRS_PER_READ, "True",
-        path_of("sketch", "candidates_unpacked"), False)
+        path_of("sketch", DENSE, "candidates_unpacked"), False)
     phase_e2e_pairs(name, runner, m1, m2, 2048)
     phase_pairs_per_read(tmp, name, db, write_pairs(
         os.path.join(tmp, name), "pairs", m1, m2), runner,
@@ -3951,9 +4083,9 @@ def main() -> int:
         keep = {}
         main_path, hist, stage_s, other = run_config(
             tmp, "944mbp", db, genomes, layout,
-            ("sketch", *cand_kernels()), a.profile, other_route=True,
+            ("sketch", DENSE, *cand_kernels()), a.profile, other_route=True,
             keep=keep, prefetch=True)
-        for k in ("sketch", "candidates"):
+        for k in ("sketch", "candidates", DENSE):
             launches[k] = main_path[k]
         # B3 runs on whichever of the two routes splits
         launches["sort"] = main_path["sort"] or other["sort"]
@@ -3995,8 +4127,9 @@ def main() -> int:
         # slots do not pack: the dense layout of (tgt, win) lane pairs
         main_path, hist, _s, _o = run_config(
             tmp, "many-target", db, genomes, "True",
-            ("sketch", "candidates_unpacked"), a.profile)
+            ("sketch", DENSE, "candidates_unpacked"), a.profile)
         launches["candidates_unpacked"] = main_path["candidates_unpacked"]
+        launches[DENSE] += main_path[DENSE]
         phase_dense_limit(tmp, "many-target", db, hist)
         run_csr_window(tmp, "many-target", db, hist,
                        ("sketch", "candidates_unpacked"))

@@ -1,4 +1,5 @@
-// B6 to B9 and csr_decode: the probe decode for Hopper (sm_90a).
+// B6 to B9, csr_decode and dense_decode: the probe decode for Hopper
+// (sm_90a).
 //
 // The two-tier layout keeps one head row per feature,
 // [feature, count, ovf_idx, slot * (W - 3)], and one overflow row per
@@ -65,6 +66,25 @@
 // each output lane once (coalesced). Bound: device-memory bytes, the
 // output's rl lanes a probe (134 MB at 131,072 probes, rl 256, packed)
 // most of them; the slots read are 8 bytes each.
+//
+// dense_decode: the dense and two-tier lane rows' probe, which JAX
+// leaves to XLA (metacache_tpu/ops/rows.py:624-838: a row gather, the
+// overflow row's gather, masks, the slot encoding, a concatenate to rl
+// and a flip). Rows: u32 dense [feat, count, slots], u32 two-tier heads
+// [feat, count, ovf_idx, slots] with overflow rows [slots], and the u64
+// forms with two meta lanes [flo, fhi, ...]; slots are one pk lane each
+// (slot_bits > 0) or tgt lanes then win lanes (slot_bits = 0), C of them
+// in a dense row, H in a head and C - H in an overflow row. One warp a
+// probe, as csr_decode: every lane reads the probe's row id, feature and
+// meta lanes (broadcast loads of one sector), lane l then takes output
+// lanes l, l + 32, ..., reads slot j (mirrored for odd features) only
+// where j < min(count, C), from the head below H and from the overflow
+// row past it, re-encodes it in registers (MODE: pk passed through,
+// re-based onto pack_bits, unpacked to (tgt, win), or (tgt, win) packed)
+// and writes each output lane once (coalesced). Bound: device-memory
+// bytes, the output's rl lanes a probe (134 MB at 131,072 probes, rl
+// 256, packed) most of them; a probe reads only the slots its count
+// keeps.
 //
 // The kernels clamp probe and overflow indices into their tables, as
 // the XLA gathers in front of the Pallas kernels do. A probe is odd when
@@ -325,6 +345,96 @@ csr_decode_kernel(const int32_t* __restrict__ idx,
   }
 }
 
+// dense_decode's output encodings (mc_dense_decode picks one)
+enum DenseMode {
+  kPass = 0,    // stored pk, pack_bits = slot_bits
+  kRebase = 1,  // stored pk re-based onto pack_bits
+  kUnpack = 2,  // stored pk -> (tgt, win)
+  kPack = 3,    // stored (tgt, win) -> pk
+  kLanes = 4    // stored (tgt, win) -> (tgt, win)
+};
+
+// WIDE: u64 features (int64 bit patterns, two meta lanes). ovf null:
+// dense rows (H = C). Slot j lives at head lane hb + j below H, else at
+// overflow lane j - H; a win lane sits H (head) or C - H (overflow)
+// lanes past its tgt lane. Masked and padding lanes are I32_MAX, which
+// every encoding maps to I32_MAX.
+template <bool WIDE, int MODE>
+__global__ void __launch_bounds__(kThreads)
+dense_decode_kernel(const int32_t* __restrict__ head, int64_t nf, int hw,
+                    const int32_t* __restrict__ ovf, int64_t novf, int ow,
+                    const int32_t* __restrict__ idx,
+                    const void* __restrict__ flat, int64_t n, int hsl,
+                    int c, int rl, int f, int slot_bits, int pack_bits,
+                    int32_t* __restrict__ out0, int32_t* __restrict__ out1) {
+  constexpr bool kStoredPk = MODE <= kUnpack;
+  constexpr int kMeta = WIDE ? 2 : 1;
+  const int64_t probe = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (probe >= n) return;  // the whole warp: one probe a warp
+  const int32_t* row = head + clamp_row(idx[probe], nf) * hw;
+  bool found;
+  if constexpr (WIDE) {
+    const int64_t fv = static_cast<const int64_t*>(flat)[probe];
+    found = row[0] == (int32_t)fv && row[1] == (int32_t)(fv >> 32) &&
+            fv != -1;
+  } else {
+    const int32_t fv = static_cast<const int32_t*>(flat)[probe];
+    found = row[0] == fv && fv != -1;
+  }
+  const int cnt = found ? row[kMeta] : 0;
+  const int lim = cnt < c ? (cnt > 0 ? cnt : 0) : c;
+  const bool two = ovf != nullptr;
+  const int hs = two ? hsl : c;          // slots in the head
+  const int os = c - hs;                 // slots in the overflow row
+  const int32_t* hrow = row + kMeta + (two ? 2 : 1);
+  const int32_t* orow =
+      two && lim > hs ? ovf + clamp_row(found ? row[kMeta + 1] : 0, novf) * ow
+                      : nullptr;
+  const bool odd = (probe % f) & 1;
+  const uint32_t smask = (1u << slot_bits) - 1u;
+  int32_t* o0 = out0 + probe * rl;
+  int32_t* o1 = MODE == kUnpack || MODE == kLanes ? out1 + probe * rl
+                                                  : nullptr;
+  for (int p = lane; p < rl; p += 32) {
+    const int j = odd ? rl - 1 - p : p;
+    int32_t a = kI32Max, b = kI32Max;
+    if (j < lim) {
+      const int32_t* src = j < hs ? hrow + j : orow + (j - hs);
+      a = src[0];
+      if constexpr (!kStoredPk) b = src[j < hs ? hs : os];
+    }
+    const uint32_t u = (uint32_t)a;
+    if constexpr (MODE == kPass) {
+      o0[p] = a;
+    } else if constexpr (MODE == kRebase) {
+      o0[p] = a == kI32Max ? kI32Max
+                           : (int32_t)(((u >> slot_bits) << pack_bits) |
+                                       (u & smask));
+    } else if constexpr (MODE == kUnpack) {
+      o0[p] = a == kI32Max ? kI32Max : (int32_t)(u >> slot_bits);
+      o1[p] = a == kI32Max ? kI32Max : (int32_t)(u & smask);
+    } else if constexpr (MODE == kPack) {
+      o0[p] = a == kI32Max ? kI32Max
+                           : (int32_t)((u << pack_bits) | (uint32_t)b);
+    } else {
+      o0[p] = a;
+      o1[p] = b;
+    }
+  }
+}
+
+template <bool WIDE>
+auto dense_decode_for(int mode) {
+  switch (mode) {
+    case kPass: return dense_decode_kernel<WIDE, kPass>;
+    case kRebase: return dense_decode_kernel<WIDE, kRebase>;
+    case kUnpack: return dense_decode_kernel<WIDE, kUnpack>;
+    case kPack: return dense_decode_kernel<WIDE, kPack>;
+    default: return dense_decode_kernel<WIDE, kLanes>;
+  }
+}
+
 inline unsigned blocks_for(int64_t n) {
   return (unsigned)((n * 32 + kThreads - 1) / kThreads);
 }
@@ -404,5 +514,34 @@ extern "C" int mc_csr_decode(const void* idx, const void* found,
       (const int32_t*)idx, (const bool*)found, (const int64_t*)offsets, nf,
       (const int32_t*)ltgt, (const int32_t*)lwin, nloc, n, c, rl, f,
       pack_bits, (int32_t*)out0, (int32_t*)out1);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mc_dense_decode(const void* head, int64_t nf, int hw,
+                               const void* ovf, int64_t novf, int ow,
+                               const void* idx, const void* flat, int wide,
+                               int64_t n, int hsl, int c, int rl, int f,
+                               int slot_bits, int pack_bits, void* out0,
+                               void* out1, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int lanes = slot_bits ? 1 : 2;   // stored lanes a slot
+  const int meta = (wide ? 2 : 1) + (ovf ? 2 : 1);
+  const int hs = ovf ? hsl : c;
+  if (nf <= 0 || c < 1 || rl < c || f < 1 || slot_bits < 0 ||
+      slot_bits > 30 || pack_bits < 0 || pack_bits > 30 || hs < 0 ||
+      hs > c || hw < meta + lanes * hs ||
+      (ovf && (novf <= 0 || ow < lanes * (c - hs))))
+    return (int)cudaErrorInvalidValue;
+  const int mode = slot_bits ? (pack_bits == slot_bits ? kPass
+                                : pack_bits ? kRebase : kUnpack)
+                             : (pack_bits ? kPack : kLanes);
+  if ((mode == kUnpack || mode == kLanes) && out1 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = wide ? dense_decode_for<true>(mode)
+                     : dense_decode_for<false>(mode);
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)head, nf, hw, (const int32_t*)ovf, novf, ow,
+      (const int32_t*)idx, flat, n, hsl, c, rl, f, slot_bits, pack_bits,
+      (int32_t*)out0, (int32_t*)out1);
   return (int)cudaGetLastError();
 }

@@ -126,6 +126,8 @@ def _load():
             lib.mc_bucket_decode.argtypes = [p, i, p, i64, p, p, p]
             lib.mc_csr_decode.argtypes = [p, p, p, i64, p, p, i64, i64, i,
                                           i, i, i, p, p, p]
+            lib.mc_dense_decode.argtypes = [p, i64, i, p, i64, i, p, p, i,
+                                            i64, i, i, i, i, i, i, p, p, p]
             for fn in (lib.mc_sketch_windows, lib.mc_sketch_windows_long,
                        lib.mc_sketch_windows64, lib.mc_sort_packed,
                        lib.mc_candidates_packed,
@@ -133,7 +135,8 @@ def _load():
                        lib.mc_candidates_packed_wide,
                        lib.mc_candidates_unpacked_wide, lib.mc_head_decode,
                        lib.mc_full_decode, lib.mc_oidx_decode,
-                       lib.mc_bucket_decode, lib.mc_csr_decode):
+                       lib.mc_bucket_decode, lib.mc_csr_decode,
+                       lib.mc_dense_decode):
                 fn.restype = ctypes.c_int
             lib.mc_error_string.argtypes = [i]
             lib.mc_error_string.restype = ctypes.c_char_p
@@ -222,6 +225,10 @@ BUCKET_DECODE = Kernel("mc_bucket_decode",
 # (rows.py:784-838)
 CSR_DECODE = Kernel("mc_csr_decode", "metacache_tpu/ops/rows.py:784",
                     "metacache_tpu_torch/csrc/probe_decode.cu")
+# no TPU counterpart: JAX decodes its dense and two-tier lane rows with
+# XLA ops (rows.py:624-838)
+DENSE_DECODE = Kernel("mc_dense_decode", "metacache_tpu/ops/rows.py:624",
+                      "metacache_tpu_torch/csrc/probe_decode.cu")
 ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sketch64": SKETCH64,
        "sort": SORT,
        "candidates": CANDIDATES, "candidates_unpacked": CANDIDATES_UNPACKED,
@@ -229,7 +236,7 @@ ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sketch64": SKETCH64,
        "candidates_unpacked_wide": CANDIDATES_UNPACKED_WIDE,
        "head_decode": HEAD_DECODE, "full_decode": FULL_DECODE,
        "bucket_decode": BUCKET_DECODE, "oidx_decode": OIDX_DECODE,
-       "csr_decode": CSR_DECODE}
+       "csr_decode": CSR_DECODE, "dense_decode": DENSE_DECODE}
 
 
 def wide_work_bytes(b: int, l2: int, pairs: bool, kk: int) -> int:

@@ -17,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .probe_decode import bucket_decode, probe_pallas_enabled
+from .probe_decode import (bucket_decode, high32, low32,  # noqa: F401
+                           probe_pallas_enabled, shift_right_logical)
 
 
 # copied from metacache_tpu/ops/probe.py:36-69 (numpy, no JAX)
@@ -119,16 +120,6 @@ def collision_free_bits64(features: np.ndarray) -> int:
     return int((64 - blen).max()) + 1
 
 
-def low32(flat: torch.Tensor) -> torch.Tensor:
-    """The low 32 bits of int64 u64-bit patterns, as int32 bits."""
-    return ((flat & 0xFFFFFFFF) - ((flat & 0x80000000) << 1)).to(torch.int32)
-
-
-def high32(flat: torch.Tensor) -> torch.Tensor:
-    """The high 32 bits of int64 u64-bit patterns, as int32 bits."""
-    return (flat >> 32).to(torch.int32)
-
-
 # metacache_tpu/ops/probe.py:115-135 as torch ops
 def probe_bucket64(flat: torch.Tensor, bucket_rows: torch.Tensor,
                    bits: int):
@@ -146,13 +137,6 @@ def probe_bucket64(flat: torch.Tensor, bucket_rows: torch.Tensor,
     idx = row[:, 0] + local
     found = match.any(dim=1) & (flat != -1)
     return idx, found
-
-
-def shift_right_logical(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Logical right shift of int32 u32-bit patterns."""
-    if bits == 0:
-        return x
-    return (x >> bits) & ((1 << (32 - bits)) - 1)
 
 
 def probe_bucket(flat: torch.Tensor, bucket_rows: torch.Tensor, bits: int):

@@ -41,6 +41,14 @@ read the rows themselves. Their contracts at that boundary:
   else (tgt, win). It has no Pallas counterpart: JAX leaves these
   gathers to XLA.
 
+- ``dense_decode(rows, ovf, idx, flat, hsl, c, rl, f, slot_bits,
+  pack_bits)`` equals the dense and two-tier branches of JAX's
+  ``probe_rows`` (rows.py:699-838) from its feature rows ``idx_c`` on:
+  the row (and overflow row) gathers, the meta check (two lanes for u64
+  features), the mask to the count, the caller's slot encoding, the pad
+  to rl and the reversal of odd features' runs. It has no Pallas
+  counterpart: JAX leaves these steps to XLA.
+
 where pairpack views the (F, 64) rows as (F / 2, 128). Probe indices
 and overflow ids are clamped into their tables, as XLA's gathers do.
 Odd features ((probe index % f) & 1) get their rl-lane run reversed;
@@ -54,7 +62,9 @@ B7 without ``oidx`` reads the overflow row from the head row it holds,
 where JAX's oidx stage had to find the rows before XLA's gather
 (metacache_tpu/ops/rows.py:716-738). ``oidx_decode`` stays as the
 counterpart of JAX's kernel, held against its plain version. csr_decode
-runs wherever a CSR part is probed.
+runs wherever a CSR part is probed, dense_decode wherever dense rows, or
+two-tier rows that B7 does not take ((tgt, win) lanes, u64 features),
+are probed at full depth.
 """
 from __future__ import annotations
 
@@ -77,6 +87,23 @@ def probe_pallas_enabled(stage: str) -> bool:
     if v in ("", "0"):
         return False
     return v == "1" or stage in {s.strip() for s in v.split(",")}
+
+
+def low32(flat: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 u64-bit patterns, as int32 bits."""
+    return ((flat & 0xFFFFFFFF) - ((flat & 0x80000000) << 1)).to(torch.int32)
+
+
+def high32(flat: torch.Tensor) -> torch.Tensor:
+    """The high 32 bits of int64 u64-bit patterns, as int32 bits."""
+    return (flat >> 32).to(torch.int32)
+
+
+def shift_right_logical(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Logical right shift of int32 u32-bit patterns."""
+    if bits == 0:
+        return x
+    return (x >> bits) & ((1 << (32 - bits)) - 1)
 
 
 def _check(t: torch.Tensor, name: str, ndim: int):
@@ -328,4 +355,116 @@ def csr_decode(idx: torch.Tensor, found: torch.Tensor, offsets: torch.Tensor,
                            loc_tgt.shape[0], n, c, rl, f, pack_bits,
                            outs[0].data_ptr(),
                            outs[-1].data_ptr() if not pack_bits else None)
+    return outs
+
+
+def _encode(lanes, slot_bits: int, pack_bits: int):
+    """Slots as stored -> the caller's encoding: (pk,) packed with
+    ``pack_bits``, or (tgt, win) when 0 (rows.py:798-815)."""
+    if slot_bits:
+        pks = lanes[0]
+        if pack_bits == slot_bits:
+            return (pks,)
+        pad_ = pks == I32_MAX
+        tgts = torch.where(pad_, I32_MAX, shift_right_logical(pks, slot_bits))
+        wins = torch.where(pad_, I32_MAX, pks & ((1 << slot_bits) - 1))
+    else:
+        tgts, wins = lanes
+    if pack_bits:
+        return (torch.where(tgts != I32_MAX, (tgts << pack_bits) | wins,
+                            I32_MAX),)
+    return tgts, wins
+
+
+def meta_match(rows: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """Fused-row feature verification (rows.py:65-77): one meta lane for
+    u32 features, two (lo, hi) for u64 ones (int64 bit patterns)."""
+    if flat.dtype == torch.int64:
+        return (rows[:, 0] == low32(flat)) & (rows[:, 1] == high32(flat)) & \
+            (flat != -1)
+    return (rows[:, 0] == flat) & (flat != -1)
+
+
+def dense_decode_plain(rows, ovf, idx, flat, hsl: int, c: int, rl: int,
+                       f: int, slot_bits: int, pack_bits: int):
+    """Plain version of dense_decode: the (N, rl) int32 lanes, (pk,) or
+    (tgt, win), as JAX's XLA ops compute them (rows.py:699-838)."""
+    nm = 2 if flat.dtype == torch.int64 else 1
+    r = _rows(rows, idx)
+    found = meta_match(r, flat)
+    cnt = torch.where(found, r[:, nm], 0)
+    j = torch.arange(c, dtype=torch.int32, device=rows.device)[None, :]
+    hit = j < cnt[:, None]
+    nl = 1 if slot_bits else 2
+    if ovf is not None:
+        # two-tier: head [meta, count, ovf_idx, lane*H ...], overflow
+        # [lane*(C-H) ...]
+        ow, hb = c - hsl, nm + 2
+        orow = _rows(ovf, torch.where(found, r[:, nm + 1], 0))
+        lanes = tuple(torch.cat([r[:, hb + k * hsl:hb + (k + 1) * hsl],
+                                 orow[:, k * ow:(k + 1) * ow]], dim=1)
+                      for k in range(nl))
+    else:
+        hb = nm + 1
+        lanes = tuple(r[:, hb + k * c:hb + (k + 1) * c] for k in range(nl))
+    lanes = tuple(torch.where(hit, x, I32_MAX) for x in lanes)
+    return tuple(_reverse_odd(_padded(x, rl), f)
+                 for x in _encode(lanes, slot_bits, pack_bits))
+
+
+def dense_decode(rows: torch.Tensor, ovf: torch.Tensor | None,
+                 idx: torch.Tensor, flat: torch.Tensor, hsl: int, c: int,
+                 rl: int, f: int, slot_bits: int, pack_bits: int) -> tuple:
+    """(F, W) dense rows, or two-tier head rows with their (NOVF + 1, OW)
+    overflow rows ``ovf`` (None: dense), (N,) int32 row indices and
+    features (int32 bit patterns; int64 for u64 features, two meta
+    lanes) -> the probes' first min(count, c) slots as (N, rl) int32
+    lanes in the caller's encoding, (pk,) with pack_bits > 0, else (tgt,
+    win); I32_MAX past the count and up to rl, odd features' runs
+    reversed ((probe index % f) & 1; f = 1 reverses none). Slots are
+    stored as one pk lane each with ``slot_bits`` window bits, or as tgt
+    lanes then win lanes (slot_bits = 0): c of them in a dense row, hsl
+    in a head and c - hsl in an overflow row."""
+    _check(rows, "rows", 2)
+    _check(idx, "idx", 1)
+    wide = flat.dtype == torch.int64
+    if flat.dim() != 1 or flat.dtype not in (torch.int32, torch.int64) or \
+            idx.shape != flat.shape or \
+            len({rows.device, idx.device, flat.device}) != 1:
+        raise ValueError("flat must be int32 or int64 and match idx, on "
+                         "the rows' device")
+    nl = 1 if slot_bits else 2
+    meta = (2 if wide else 1) + (1 if ovf is None else 2)
+    hs = c if ovf is None else hsl
+    if rows.shape[0] == 0 or c < 1 or rl < c or f < 1 or \
+            not 0 <= hs <= c or rows.shape[1] < meta + nl * hs or \
+            not 0 <= slot_bits < 31 or not 0 <= pack_bits < 31:
+        raise ValueError(f"bad dense decode shape: rows "
+                         f"{tuple(rows.shape)}, hsl {hsl}, c {c}, rl {rl}, "
+                         f"f {f}, slot_bits {slot_bits}, pack_bits "
+                         f"{pack_bits}")
+    if ovf is not None:
+        _check(ovf, "ovf", 2)
+        if ovf.device != rows.device or ovf.shape[0] == 0 or \
+                ovf.shape[1] < nl * (c - hsl):
+            raise ValueError(f"bad overflow rows {tuple(ovf.shape)} for "
+                             f"hsl {hsl}, c {c}")
+    if not rows.is_cuda:
+        return dense_decode_plain(rows, ovf, idx, flat, hsl, c, rl, f,
+                                  slot_bits, pack_bits)
+    rows, idx, flat = rows.contiguous(), idx.contiguous(), flat.contiguous()
+    if ovf is not None:
+        ovf = ovf.contiguous()
+    n = idx.shape[0]
+    outs = tuple(torch.empty((n, rl), dtype=torch.int32, device=rows.device)
+                 for _ in range(1 if pack_bits else 2))
+    if n:
+        kernels.DENSE_DECODE(
+            rows.data_ptr(), rows.shape[0], rows.shape[1],
+            None if ovf is None else ovf.data_ptr(),
+            0 if ovf is None else ovf.shape[0],
+            0 if ovf is None else ovf.shape[1], idx.data_ptr(),
+            flat.data_ptr(), int(wide), n, hsl if ovf is not None else 0, c,
+            rl, f, slot_bits, pack_bits, outs[0].data_ptr(),
+            None if pack_bits else outs[1].data_ptr())
     return outs

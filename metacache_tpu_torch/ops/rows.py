@@ -7,13 +7,17 @@ index, or by a search of u64 features, then its slots read one by one by
 the csr_decode kernel): sketch (B1, or B2
 for windows wider than 128) -> bucket-row probe (B9 when
 ``MC_PROBE_PALLAS`` names its stage) + row gather -> match slots ->
-candidates -> ranked LCA. Two-tier rows with packed slots decode
-through B7 (head + overflow rows, the overflow row read from the head
-row it already holds: B8's work, folded in) or, in escalation phase 1,
-B6 (head rows only); classed cells decode as torch ops, as the JAX
-package decodes them with XLA ops, and so do the u64 tables' rows (k >
-16: two meta lanes, a bucket index of the low 32 bits), which JAX keeps
-out of its decode kernels (rows.py:588, :716).
+candidates -> ranked LCA. Two-tier rows of u32 features with packed
+slots decode through B7 (head + overflow rows, the overflow row read
+from the head row it already holds: B8's work, folded in) or, in
+escalation phase 1, B6 (head rows only). Dense rows (packed slots or
+(tgt, win) lanes), two-tier (tgt, win) lane rows and the u64 tables'
+dense and two-tier rows (k > 16: two meta lanes, a bucket index of the
+low 32 bits) decode through dense_decode, one pass from the feature
+rows to the encoded, padded and reversed runs, where JAX runs XLA ops
+(rows.py:699-838). Classed cells decode as torch ops, as the JAX
+package decodes them with XLA ops, and so do the u64 and classed heads
+of escalation phase 1 (rows.py:545-621).
 
 ``rows_to_result`` has JAX's two branches. The fused one runs the
 candidate kernels: slots that pack into int32 (pack_bits > 0) go
@@ -48,9 +52,10 @@ from ..device import SideStream
 from .candidates import (I32_MAX, candidates_packed, candidates_unpacked,
                          padded_width)
 from .pipeline import QueryResult, classify_candidates
-from .probe import (high32, low32, probe_bucket, probe_bucket64,
-                    probe_bucket_classed, shift_right_logical)
-from .probe_decode import _rows, csr_decode, full_decode, head_decode
+from .probe import (probe_bucket, probe_bucket64, probe_bucket_classed,
+                    shift_right_logical)
+from .probe_decode import (_encode, _rows, csr_decode, dense_decode,
+                           full_decode, head_decode, meta_match)
 from .sketch import (LANES, sketch_windows, sketch_windows_packed,
                      unpack_2bit)
 
@@ -67,16 +72,6 @@ def split_candidates() -> bool:
     sort fused in, any other value B3 and then B4's sweep; unset, the
     port's default ``SPLIT_CAND_DEFAULT``."""
     return os.environ.get("MC_SPLIT_CAND", SPLIT_CAND_DEFAULT) != "0"
-
-
-def _meta_match(rows: torch.Tensor, flat: torch.Tensor,
-                wide: bool = False) -> torch.Tensor:
-    """Fused-row feature verification (rows.py:65-77): one meta lane for
-    u32 features, two (lo, hi) for u64 ones (int64 bit patterns)."""
-    if wide:
-        return (rows[:, 0] == low32(flat)) & (rows[:, 1] == high32(flat)) & \
-            (flat != -1)
-    return (rows[:, 0] == flat) & (flat != -1)
 
 
 def fused_candidates_enabled() -> bool:
@@ -215,24 +210,6 @@ def _classed_probe(flat, tables, c: int, idx_c):
     return torch.where(j < cnt[:, None], pks, I32_MAX)
 
 
-def _encode(lanes, slot_bits: int, pack_bits: int):
-    """Slots as stored -> the caller's encoding: (pk,) packed with
-    ``pack_bits``, or (tgt, win) when 0 (rows.py:798-815)."""
-    if slot_bits:
-        pks = lanes[0]
-        if pack_bits == slot_bits:
-            return (pks,)
-        pad_ = pks == I32_MAX
-        tgts = torch.where(pad_, I32_MAX, shift_right_logical(pks, slot_bits))
-        wins = torch.where(pad_, I32_MAX, pks & ((1 << slot_bits) - 1))
-    else:
-        tgts, wins = lanes
-    if pack_bits:
-        return (torch.where(tgts != I32_MAX, (tgts << pack_bits) | wins,
-                            I32_MAX),)
-    return tgts, wins
-
-
 def _emit(lanes, b: int, f: int, alt_runs: int):
     """(B*F, C) slot lanes -> (B, F*C) rows; with ``alt_runs=r`` each
     feature's run is padded to r lanes and odd features' runs reversed
@@ -265,15 +242,19 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
     feature rows (classed: cell addresses), found by an earlier bucket
     probe (rows.py:665-669).
 
-    Two-tier tables with packed slots decode head and overflow rows
-    through B7, which reads each probe's overflow row from lane 2 of the
-    head row it holds. JAX runs B8 for that first where its oidx stage
-    is named (rows.py:716-738): its kernel had to find the rows before
-    XLA gathered them, while B7 reads them itself, so the port runs B7
-    alone under every ``MC_PROBE_PALLAS`` (B8's contract, ``found ?
-    row[2] : 0``, is B7's branch without ``oidx``). (tgt, win) lane rows
-    and classed cells decode as torch ops, as the JAX package decodes
-    them with XLA ops (rows.py:699-701, 750-758). A CSR part
+    Two-tier tables of u32 features with packed slots decode head and
+    overflow rows through B7, which reads each probe's overflow row from
+    lane 2 of the head row it holds. JAX runs B8 for that first where
+    its oidx stage is named (rows.py:716-738): its kernel had to find the
+    rows before XLA gathered them, while B7 reads them itself, so the
+    port runs B7 alone under every ``MC_PROBE_PALLAS`` (B8's contract,
+    ``found ? row[2] : 0``, is B7's branch without ``oidx``). Dense rows
+    (packed slots or (tgt, win) lanes, u32 or u64 features), two-tier
+    (tgt, win) lane rows and u64 two-tier rows decode through
+    dense_decode, which reads the rows, checks the meta lanes, masks to
+    the count, encodes, pads and reverses in one pass, where JAX runs
+    XLA ops (rows.py:699-838). Classed cells decode as torch ops, as the
+    JAX package decodes them with XLA ops (rows.py:518-542). A CSR part
     (``tables.csr``) finds its rows (``_csr_rows``) and reads its slots
     through csr_decode, which writes the encoded, padded and reversed
     runs itself; it is never probed with ``idx_pre`` (no escalation and
@@ -282,73 +263,37 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
     c = tables.spf
     flat = feats.reshape(-1)
     slot_bits = tables.slot_bits
+    rl, fr = (alt_runs, f) if alt_runs else (c, 1)
     if tables.csr:
         assert idx_pre is None, "a CSR part recomputes its rows"
         idx, found = _csr_rows(flat, tables)
-        out = [x.reshape(b, -1) for x in csr_decode(
-            idx, found, tables.offsets, tables.loc_tgt, tables.loc_win, c,
-            alt_runs or c, f if alt_runs else 1, pack_bits)]
-        return (out[0], out[0]) if pack_bits else tuple(out)
-    idx_c = _bucket_idx(flat, tables) if idx_pre is None \
-        else idx_pre.reshape(-1)
-    hsl = tables.head_slots
-    if tables.classed:
-        pks = _classed_probe(flat, tables, c, idx_c)
-        return _emit(_encode((pks,), slot_bits, pack_bits), b, f, alt_runs)
-    if tables.wide:
-        return _emit(_encode((_wide_slots(flat, tables, c, idx_c),),
-                             slot_bits, pack_bits), b, f, alt_runs)
-    if hsl and slot_bits:
-        pks = full_decode(tables.fused_rows, tables.ovf_rows, idx_c, flat,
-                          hsl, c, alt_runs or c, f if alt_runs else 1)
-        return _emit(_encode((pks,), slot_bits, pack_bits), b, f, 0)
-    rows = tables.fused_rows[idx_c.to(torch.int64)]   # ONE row gather
-    found = _meta_match(rows, flat)
-    cnt = torch.where(found, rows[:, 1], 0)
-    j = torch.arange(c, dtype=torch.int32, device=feats.device)[None, :]
-    hit = j < cnt[:, None]
-    if hsl:
-        # two-tier (tgt, win) lanes: head [feat, count, ovf_idx, tgt*H,
-        # win*H], overflow [tgt*(C-H), win*(C-H)]
-        ow = c - hsl
-        orow = tables.ovf_rows[torch.where(found, rows[:, 2], 0).to(
-            torch.int64)]
-        tgts = torch.cat([rows[:, 3:3 + hsl], orow[:, :ow]], dim=1)
-        wins = torch.cat([rows[:, 3 + hsl:3 + 2 * hsl], orow[:, ow:2 * ow]],
-                         dim=1)
-        lanes = (torch.where(hit, tgts, I32_MAX),
-                 torch.where(hit, wins, I32_MAX))
-    elif slot_bits:
-        lanes = (torch.where(hit, rows[:, 2:2 + c], I32_MAX),)
+        out = csr_decode(idx, found, tables.offsets, tables.loc_tgt,
+                         tables.loc_win, c, rl, fr, pack_bits)
     else:
-        lanes = (torch.where(hit, rows[:, 2:2 + c], I32_MAX),
-                 torch.where(hit, rows[:, 2 + c:2 + 2 * c], I32_MAX))
-    return _emit(_encode(lanes, slot_bits, pack_bits), b, f, alt_runs)
+        idx_c = _bucket_idx(flat, tables) if idx_pre is None \
+            else idx_pre.reshape(-1)
+        hsl = tables.head_slots
+        if tables.classed:
+            pks = _classed_probe(flat, tables, c, idx_c)
+            return _emit(_encode((pks,), slot_bits, pack_bits), b, f,
+                         alt_runs)
+        if hsl and slot_bits and not tables.wide:
+            pks = full_decode(tables.fused_rows, tables.ovf_rows, idx_c,
+                              flat, hsl, c, rl, fr)
+            return _emit(_encode((pks,), slot_bits, pack_bits), b, f, 0)
+        out = dense_decode(tables.fused_rows,
+                           tables.ovf_rows if hsl else None, idx_c, flat,
+                           hsl, c, rl, fr, slot_bits, pack_bits)
+    out = [x.reshape(b, -1) for x in out]
+    return (out[0], out[0]) if pack_bits else tuple(out)
 
 
 def _wide_rows(flat, tables, idx_c):
-    """u64 features' head or dense rows, gathered (as JAX keeps them in
-    XLA, rows.py:588, :716) -> (rows, found, cnt)."""
+    """u64 features' head rows, gathered (as JAX keeps them in XLA,
+    rows.py:588) -> (rows, found, cnt)."""
     rows = tables.fused_rows[idx_c.to(torch.int64)]
-    found = _meta_match(rows, flat, wide=True)
+    found = meta_match(rows, flat)
     return rows, found, torch.where(found, rows[:, 2], 0)
-
-
-def _wide_slots(flat, tables, c: int, idx_c):
-    """u64 features' packed slots to depth c (rows.py:699-770): dense
-    rows [flo, fhi, count, pk * C], or two-tier heads [flo, fhi, count,
-    ovf_idx, pk * H] and overflow rows [pk * (C - H)], masked past the
-    count."""
-    rows, found, cnt = _wide_rows(flat, tables, idx_c)
-    hsl = tables.head_slots
-    if hsl:
-        orow = tables.ovf_rows[torch.where(found, rows[:, 3], 0).to(
-            torch.int64)]
-        pks = torch.cat([rows[:, 4:4 + hsl], orow[:, :c - hsl]], dim=1)
-    else:
-        pks = rows[:, 3:3 + c]
-    j = torch.arange(c, dtype=torch.int32, device=flat.device)[None, :]
-    return torch.where(j < cnt[:, None], pks, I32_MAX)
 
 
 def probe_rows_head(feats: torch.Tensor, tables, alt_runs: int,

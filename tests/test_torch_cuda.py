@@ -9,7 +9,9 @@ database through B2 against the CPU run; a k = 18 database through the
 64-bit sketch kernel against the reference's k18 goldens; a non-fused
 batch split into launches by the free memory; the multi-part step on
 random tables against the same step on the CPU; the CSR layout through
-csr_decode against the goldens; tolerance 0.
+csr_decode against the goldens; dense_decode on the dense and two-tier
+lane rows (u32 and u64 features) against its plain version; tolerance
+0.
 
 Needs an NVIDIA GPU (marker `cuda`; skipped without one). Imports no
 JAX, so it also runs on a GPU host without JAX:
@@ -991,6 +993,164 @@ def test_csr_decode_kernel_on_an_empty_part(cuda):
     for pb in (15, 0):
         for out in D.csr_decode(idx, found, offs, loc, loc, 3, 4, 2, pb):
             assert bool((out == I32_MAX).all())
+
+
+# ------------------------------------------ dense_decode's row layouts
+# name -> (c, head slots (0: dense), u64 features, slots stored as one pk
+# lane (else tgt lanes then win lanes), 64-lane rows pair-packed, a power
+# of two >= c for the alternating runs)
+DENSE_LAYOUTS = {
+    "pk_dense": (100, 0, False, True, False, 128),
+    "pk_dense_paired": (50, 0, False, True, True, 64),
+    "lanes_dense": (30, 0, False, False, False, 32),
+    "lanes_two_tier": (40, 10, False, False, False, 64),
+    "u64_dense": (60, 0, True, True, False, 64),
+    "u64_two_tier": (100, 20, True, True, False, 128),
+}
+DENSE_SLOT_BITS = 18
+
+
+def dense_pack_cases():
+    """(layout, pack_bits) pairs: a stored pk re-encoded to its own
+    width, another width and (tgt, win); stored lanes to (tgt, win) and
+    packed."""
+    return [(name, pb) for name, lay in DENSE_LAYOUTS.items()
+            for pb in ((DENSE_SLOT_BITS, DENSE_SLOT_BITS + 2, 0) if lay[3]
+                       else (0, DENSE_SLOT_BITS + 2))]
+
+
+def dense_case(layout, f, seed=5, nf=500, n=384):
+    """Rows of ``layout`` (DENSE_LAYOUTS) over nf distinct features and
+    n probes of their rows, n / f reads of f features. Counts 0..c, with
+    count 0, count = c and counts past c among them; slot lanes past the
+    count hold garbage; two-tier heads past the head point at overflow
+    rows (one past the overflow table); one row holds the sentinel. Probes: hits, misses,
+    the sentinel (also at the sentinel's row), row indices past the
+    table (odd ones on pair-packed rows, where JAX clamps the 128-lane
+    row and then takes a half, so both clamps meet only there) and, for
+    u64 features, the row's low 32 bits with other high bits. -> dict of
+    numpy arrays: rows (F, W) int32 (pair-packed: W = 64), ovf or None,
+    feats (n / f, f) uint32 or uint64, idx (n,) int32, and the shape."""
+    c, hsl, wide, pk, paired, alt = DENSE_LAYOUTS[layout]
+    rng = np.random.default_rng(seed)
+    sb = DENSE_SLOT_BITS
+    nl = 1 if pk else 2
+    nm = 2 if wide else 1
+    hs = hsl or c
+    w = 64 if paired else nm + (2 if hsl else 1) + nl * hs + 3
+    assert nm + (2 if hsl else 1) + nl * hs <= w
+    dt = np.uint64 if wide else np.uint32
+    top = 2**64 - 2 if wide else 2**32 - 2
+    feats = np.unique(rng.integers(1, top, nf + 50, dtype=dt))[:nf]
+    feats = rng.permutation(feats)
+    feats[7] = np.iinfo(dt).max                   # the sentinel's row
+    cnt = rng.integers(0, c + 1, nf)
+    cnt[:20] = 0
+    cnt[20:40] = c
+    cnt[40:50] = c + 7
+    tgt = rng.integers(0, 1 << (29 - sb), (nf, w))
+    win = rng.integers(0, 1 << sb, (nf, w))
+    rows = ((tgt << sb) | win) if pk else np.where(rng.random((nf, w)) < 0.5,
+                                                   tgt, win)
+    rows = rows.astype(np.int64).astype(np.int32)
+    fv = feats.view(np.int64 if wide else np.int32)
+    if wide:
+        rows[:, 0] = (fv & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        rows[:, 1] = (fv >> 32).astype(np.int32)
+    else:
+        rows[:, 0] = fv
+    rows[:, nm] = cnt
+    ovf = None
+    if hsl:
+        deep = np.flatnonzero(cnt > hsl)
+        rows[:, nm + 1] = 0
+        rows[deep, nm + 1] = np.arange(1, len(deep) + 1)
+        rows[deep[0], nm + 1] = len(deep) + 9     # past the overflow rows
+        ow = nl * (c - hsl) + 5
+        ot = rng.integers(0, 1 << (29 - sb), (len(deep) + 1, ow))
+        owin = rng.integers(0, 1 << sb, (len(deep) + 1, ow))
+        ovf = (((ot << sb) | owin) if pk else
+               np.where(rng.random(ot.shape) < 0.5, ot, owin)).astype(
+                   np.int64).astype(np.int32)
+    idx = rng.integers(0, nf, n)
+    flat = feats[idx]
+    u = rng.random(n)
+    miss = u < 0.15
+    flat[miss] = rng.integers(1, top, int(miss.sum()), dtype=dt)
+    flat[(u >= 0.15) & (u < 0.2)] = np.iinfo(dt).max
+    flat[3] = np.iinfo(dt).max
+    idx[3] = 7
+    past = (u >= 0.2) & (u < 0.3)
+    k = rng.integers(0, 40, int(past.sum()))
+    idx[past] = nf + (2 * k + 1 if paired else k)
+    flat[past] = np.where(k % 2 == 0, feats[nf - 1], flat[past])
+    if wide:
+        hi = (u >= 0.3) & (u < 0.4)
+        flat[hi] ^= np.uint64(1) << rng.integers(32, 64, int(hi.sum()),
+                                                 dtype=np.uint64)
+    return dict(rows=rows, ovf=ovf, feats=flat.reshape(-1, f),
+                idx=idx.astype(np.int32), c=c, hsl=hsl, wide=wide, pk=pk,
+                paired=paired, alt=alt, sb=sb if pk else 0)
+
+
+def dense_tables(case, dev):
+    """The port's DeviceTables over ``dense_case``'s rows on ``dev``."""
+    from metacache_tpu_torch.db.state import DeviceTables
+    d = case
+    ovf = None if d["ovf"] is None else torch.from_numpy(d["ovf"]).to(dev)
+    return DeviceTables(
+        torch.from_numpy(d["rows"]).to(dev),
+        torch.zeros((1, 64), dtype=torch.int32, device=dev),
+        torch.zeros((1, 21), dtype=torch.int32, device=dev),
+        torch.zeros(1, dtype=torch.int32, device=dev),
+        num_features=d["rows"].shape[0], bucket_bits=1, spf=d["c"],
+        slot_bits=d["sb"], ovf_rows=ovf, head_slots=d["hsl"],
+        packed=d["paired"], wide=d["wide"])
+
+
+def dense_feats(case, dev) -> torch.Tensor:
+    """``dense_case``'s features as the port's int32 or int64 bit
+    patterns."""
+    x = case["feats"]
+    return torch.from_numpy(x.view(np.int64 if case["wide"] else np.int32)
+                            ).to(dev)
+
+
+@pytest.mark.parametrize("f", [1, 16])
+@pytest.mark.parametrize("alt", [False, True])
+@pytest.mark.parametrize("layout,pack_bits", dense_pack_cases())
+def test_dense_decode_kernel_matches_plain(cuda, layout, pack_bits, alt, f):
+    """dense_decode on each row layout and output encoding, alternating
+    runs off (rl = c, f = 1) and on, against its plain version on the
+    same CUDA tensors; and probe_rows on the card, through the kernel,
+    against probe_rows on CPU tensors."""
+    from metacache_tpu_torch.ops import rows as trows
+    d = dense_case(layout, f)
+    c, hsl = d["c"], d["hsl"]
+    rl, fr = (d["alt"], f) if alt else (c, 1)
+    t = dense_tables(d, cuda)
+    flat = dense_feats(d, cuda).reshape(-1)
+    idx = torch.from_numpy(d["idx"]).to(cuda)
+    args = (t.fused_rows, t.ovf_rows if hsl else None, idx, flat, hsl, c,
+            rl, fr, d["sb"], pack_bits)
+    before = kernels.DENSE_DECODE.launches
+    got = D.dense_decode(*args)
+    want = D.dense_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.DENSE_DECODE.launches == before + 1
+    assert len(got) == len(want) == (1 if pack_bits else 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[0] == I32_MAX).any()) and bool((got[0] != I32_MAX).any())
+    alt_runs = d["alt"] if alt else 0
+    on_card = trows.probe_rows(dense_feats(d, cuda), t, alt_runs=alt_runs,
+                               pack_bits=pack_bits, idx_pre=idx)
+    on_cpu = trows.probe_rows(dense_feats(d, "cpu"),
+                              dense_tables(d, "cpu"), alt_runs=alt_runs,
+                              pack_bits=pack_bits, idx_pre=idx.cpu())
+    assert kernels.DENSE_DECODE.launches == before + 2
+    for g, w in zip(on_card, on_cpu):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("k", ["16", "18"])

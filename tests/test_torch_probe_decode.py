@@ -139,8 +139,9 @@ def test_probe_rows_two_tier_matches_xla(layout, alt, pack, monkeypatch):
 
 
 def test_two_tier_lane_rows_match_xla(monkeypatch):
-    """Two-tier (tgt, win) lane rows (pack bits 0), decoded by torch ops,
-    against the XLA branch (rows.py:750-758), from one FeatureTable."""
+    """Two-tier (tgt, win) lane rows (pack bits 0), decoded by
+    dense_decode (its plain version on the CPU), against the XLA branch
+    (rows.py:750-758), from one FeatureTable."""
     from metacache_tpu.ops.table import FeatureTable, pack_locations
     monkeypatch.setenv("MC_PROBE_PALLAS", "0")
     rng = np.random.default_rng(4)
