@@ -189,6 +189,9 @@ FOLDED = {"oidx_decode": "full_decode"}
 # the probe of dense rows, two-tier lane rows and u64 rows, a launch a
 # batch (a part) wherever such rows are staged
 DENSE = "dense_decode"
+# the step's tail: the ranked LCA (every step) and the rank histogram (every
+# summary stack on the card)
+TAIL = ("classify_lca", "rank_hist")
 # the least time of a kernel: the larger of its bytes over the card's
 # memory rate and its integer operations over the 32-bit rate outside
 # the tensor cores (H100 SXM, NVIDIA's data sheet)
@@ -707,6 +710,7 @@ def phase_parity(results):
     phase_parity_decode(results, rng, dev)
     phase_parity_csr(results, np.random.default_rng(99), dev)
     phase_parity_dense(results, np.random.default_rng(17), dev)
+    phase_parity_tail(results, np.random.default_rng(18), dev)
     phase_parity_probe(results, rng, dev)
 
 
@@ -1655,6 +1659,173 @@ def phase_parity_dense(results, rng, dev):
         cases={k: v["max_abs_err"] for k, v in out.items()})
 
 
+# the targets of each species in the smoke databases' taxonomies: 944 Mbp
+# (64 unique + 12 x 52 + 1 x 256 genomes) and many-target (1 + 36 x 256)
+GROUPS_944 = (1,) * 64 + (52,) * 12 + (256,)
+GROUPS_MANY = (1,) + (256,) * 36
+NUM_RANKS = 21
+
+
+def tail_taxonomy(groups):
+    """The lineages and taxon table of a smoke database's taxonomy
+    (write_taxonomy: species under Bacteria, the domain, under root),
+    target i's sequence-level taxon 2,000,000 + i. ``groups``: the
+    targets of each species. -> (lineages (t, 21), species of each
+    target, ascending taxon ids, their ranks), numpy int32."""
+    sp = np.repeat(np.arange(len(groups)), groups)
+    t = len(sp)
+    lin = np.zeros((t, NUM_RANKS), np.int32)
+    lin[:, 0] = 2_000_000 + np.arange(t)
+    lin[:, 4] = 1000 + sp
+    lin[:, 19] = 2
+    lin[:, 20] = 1
+    ids = np.concatenate([[1, 2], 1000 + np.arange(len(groups)),
+                          lin[:, 0]]).astype(np.int32)
+    ranks = np.concatenate([[20, 19], np.full(len(groups), 4),
+                            np.zeros(t)]).astype(np.int32)
+    return lin, sp, ids, ranks
+
+
+def tail_candidates(rng, groups, sp, b: int, k: int):
+    """A batch's top candidates as B4 gives them: b reads, up to k
+    targets each (a read finds 0 with probability 0.1, else a geometric
+    count of 1-k), the first a random target, each later one of its
+    species with probability 0.8, hits descending from 3-16 (16
+    features a read); absent candidates are target -1, hits 0.
+    -> (tgt, hits) numpy int32."""
+    starts = np.concatenate([[0], np.cumsum(groups)[:-1]])
+    size = np.asarray(groups)
+    t = len(sp)
+    base = rng.integers(0, t, b)
+    own = starts[sp[base]][:, None] + (rng.random((b, k)) *
+                                       size[sp[base]][:, None]).astype(int)
+    tgt = np.where(rng.random((b, k)) < 0.8, own, rng.integers(0, t, (b, k)))
+    tgt[:, 0] = base
+    hits = np.clip(rng.integers(3, 17, (b, 1)) - np.cumsum(
+        rng.integers(0, 4, (b, k)), axis=1) + rng.integers(0, 4, (b, 1)),
+        1, 16)
+    n = np.where(rng.random(b) < 0.1, 0, np.minimum(rng.geometric(0.5, b), k))
+    gone = np.arange(k)[None, :] >= n[:, None]
+    return (np.where(gone, -1, tgt).astype(np.int32),
+            np.where(gone, 0, hits).astype(np.int32))
+
+
+def lca_rows_read(tax, hits, hits_min: int, frac: float) -> int:
+    """The lineage rows classify_lca must read for these candidates: the
+    included ones (the plain version's include mask)."""
+    exists = tax != 0
+    h0 = hits[:, 0]
+    thr = torch.where(h0 > hits_min, (h0 - hits_min).float() * frac,
+                      torch.zeros((), device=h0.device))
+    inc = hits.float() > thr[:, None]
+    inc[:, 0] = True
+    return int(torch.cumprod((inc & exists).int(), dim=1).sum())
+
+
+def phase_parity_tail(results, rng, dev):
+    """The step's tail against its plain versions, tolerance 0:
+    classify_lca at the 944 Mbp summary's batch (8192 reads, K = 2, the
+    lookup form of the fused branch and the form with taxa given) and
+    at the many-target merge's (K = 8, -lowest species: merge rank 4),
+    on the databases' taxonomies; rank_hist on a stack of 32 batches
+    (262,144 reads), with and without escalation phase 1's overflow
+    bits. No single PyTorch call computes either function (library_ms
+    None). Bounds: classify_lca the candidates' ints, the included
+    candidates' lineage rows and the classes; rank_hist the reads' taxa
+    (and overflow words), the taxon table once and the bins."""
+    from metacache_tpu_torch.classify.runner import (rank_histogram,
+                                                     rank_histogram_plain)
+    from metacache_tpu_torch.ops import pipeline as P
+    hits_min, frac, highest = 5, 1.0, 19     # the query's defaults
+    out = {}
+    for name, groups, k, merge_rank in (("944mbp", GROUPS_944, 2, 0),
+                                        ("many-target", GROUPS_MANY, 8, 4)):
+        lin, sp, _i, _r = tail_taxonomy(groups)
+        merge_tax = lin[:, merge_rank].copy()
+        tgt, hits = tail_candidates(rng, groups, sp, SCAN_BATCH, k)
+        tgt_d, hits_d, lin_d, mt_d = (torch.from_numpy(a).to(dev)
+                                      for a in (tgt, hits, lin, merge_tax))
+        tax_d = P.classify_with_taxa_plain(tgt_d, hits_d, mt_d, lin_d,
+                                           hits_min, frac, highest,
+                                           merge_rank)[0]
+        args = (hits_min, frac, highest, merge_rank)
+        forms = {
+            "lookup": (lambda: P.classify_with_taxa(
+                tgt_d, hits_d, mt_d, lin_d, *args),
+                lambda: P.classify_with_taxa_plain(
+                tgt_d, hits_d, mt_d, lin_d, *args), 16),
+            "taxa": (lambda: (P.classify_candidates(
+                tgt_d, tax_d, hits_d, lin_d, *args),),
+                lambda: (P.classify_candidates_plain(
+                    tgt_d, tax_d, hits_d, lin_d, *args),), 12)}
+        rows = lca_rows_read(tax_d, hits_d, hits_min, frac)
+        for form, (call, plain, per_cand) in forms.items():
+            err = max(check_equal(f"classify_lca {name} {form}", a, b_)
+                      for a, b_ in zip(call(), plain()))
+            nbytes = SCAN_BATCH * k * per_cand + rows * NUM_RANKS * 4 + \
+                SCAN_BATCH * 4
+            b_ms, by = bound(nbytes, rows * NUM_RANKS)
+            tag = f"{name}_K{k}_{form}"
+            out[tag] = dict(max_abs_err=err, ms=cuda_ms(call),
+                            kernel_ms=kernel_ms(call), host_us=host_us(call),
+                            plain_ms=cuda_ms(plain), bound_ms=b_ms,
+                            bound_by=by, lineage_rows_read=rows,
+                            classified=int((call()[-1] != 0).sum()))
+            if name == "944mbp" and form == "lookup":
+                _record(results, "classify_lca", err=err,
+                        ms=out[tag]["ms"], plain_ms=out[tag]["plain_ms"],
+                        device_ms=out[tag]["kernel_ms"],
+                        host_us=out[tag]["host_us"], nbytes=nbytes,
+                        nops=rows * NUM_RANKS,
+                        shape="8192 reads x 2 candidates, lookup form, "
+                              "944 targets x 21 ranks")
+            say(f"parity-classify_lca-{name}", reads=SCAN_BATCH, k=k,
+                form=form, merge_rank=merge_rank, tolerance=0,
+                library_ms=None, **out[tag])
+    lin, sp, ids, ranks = tail_taxonomy(GROUPS_944)
+    m = 32 * SCAN_BATCH
+    pick = rng.random(m)
+    cls = np.where(pick < 0.45, lin[rng.integers(0, len(sp), m), 0],
+                   np.where(pick < 0.85, 1000 + rng.integers(
+                       0, len(GROUPS_944), m), np.where(pick < 0.9, 1, 0)))
+    over = rng.random(m) < 0.05
+    words = (over.reshape(-1, 32).astype(np.int64) <<
+             np.arange(32)).sum(axis=1).astype(np.uint32).view(np.int32)
+    cls_d, ids_d, ranks_d, over_d = (torch.from_numpy(np.ascontiguousarray(
+        a, dtype=np.int32)).to(dev) for a in (cls, ids, ranks, words))
+    n = m - 1000                 # the last stack of a query: padded reads
+    hist = {}
+    for masked in (False, True):
+        ob = over_d if masked else None
+
+        def call():
+            return rank_histogram(cls_d, n, ids_d, ranks_d, over_bits=ob)
+
+        def plain():
+            return rank_histogram_plain(cls_d, n, ids_d, ranks_d,
+                                        over_bits=ob)
+        tag = "masked" if masked else "plain_stack"
+        err = check_equal(f"rank_hist {tag}", call(), plain())
+        nbytes = m * 4 + (words.nbytes if masked else 0) + \
+            len(ids) * 8 + (NUM_RANKS + 1) * 8
+        nops = m * max(1, len(ids).bit_length())
+        b_ms, by = bound(nbytes, nops)
+        hist[tag] = dict(max_abs_err=err, ms=cuda_ms(call),
+                         kernel_ms=kernel_ms(call), host_us=host_us(call),
+                         plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=by,
+                         counted=int(call().sum()))
+        if not masked:
+            _record(results, "rank_hist", err=err, ms=hist[tag]["ms"],
+                    plain_ms=hist[tag]["plain_ms"],
+                    device_ms=hist[tag]["kernel_ms"],
+                    host_us=hist[tag]["host_us"], nbytes=nbytes, nops=nops,
+                    shape="a stack of 262,144 reads, 944 Mbp taxonomy "
+                          f"({len(ids)} taxa)")
+        say("parity-rank_hist-stack", reads=m, n=n, masked=masked,
+            taxa=len(ids), tolerance=0, library_ms=None, **hist[tag])
+    del cls_d, over_d
+
+
 def probe_stream(rng, nf: int):
     """A (feature, tgt, win) build stream of nf distinct features: 80%
     with 1..61 locations, 20% with 62..100 (deeper than a 61-slot head),
@@ -1931,12 +2102,28 @@ def cand_kernels():
     return ("sort", "candidates") if split_candidates() else ("candidates",)
 
 
+def stacks(runner, batches: int, scan_k: int | None = None) -> int:
+    """rank_hist's launches in a summary of ``batches`` batches on the
+    scan: one a stack of min(MC_SCAN_K, batches) batches (the last stack
+    may be shorter or padded), none where the runner counts its
+    histogram on the host (no taxon table on the card)."""
+    if runner._hist_dev is None:
+        return 0
+    k = int(scan_k or os.environ.get("MC_SCAN_K", "32"))
+    return -(-batches // max(1, min(k, batches)))
+
+
 def path_of(*names):
-    """Launch expectation of a dense path: each named kernel once per
-    8192-read batch, every other kernel never."""
+    """Launch expectation of a dense path: each named kernel and
+    classify_lca (the step's tail) once per 8192-read batch, rank_hist
+    once a stack, every other kernel never."""
     from metacache_tpu_torch import kernels
-    return lambda runner, batches: {
-        k: batches if k in names else 0 for k in kernels.ALL}
+
+    def want(runner, batches):
+        w = {k: batches if k in names else 0 for k in kernels.ALL}
+        w.update(classify_lca=batches, rank_hist=stacks(runner, batches))
+        return w
+    return want
 
 
 # the kernels of B4's and B5's wide form (csrc/candidates_wide.cu): the
@@ -1980,9 +2167,19 @@ def phase_profile(tmp, name, runner, tag="", reads="reads.fa",
     h2d = {kind: sum(e.count for e in evs
                      if e.key == f"Memcpy HtoD ({kind} -> Device)")
            for kind in ("Pageable", "Pinned")}
+    # the step's tail: its two kernels, where torch ran dozens a batch
+    tail = {op: [e for e in evs if key in e.key]
+            for op, key in (("lca", "lca_kernel"),
+                            ("hist", "rank_hist_kernel"))}
     part = dict(h2d_pageable_events=h2d["Pageable"],
                 h2d_pinned_events=h2d["Pinned"],
-                cat_kernels=reshape["cat"], flip_kernels=reshape["flip"])
+                cat_kernels=reshape["cat"], flip_kernels=reshape["flip"],
+                kernel_events=sum(e.count for e in evs),
+                **{f"{op}_kernels": sum(e.count for e in x)
+                   for op, x in tail.items()},
+                **{f"{op}_device_ms": round(sum(
+                    e.self_device_time_total for e in x) / 1e3, 4)
+                   for op, x in tail.items()})
     if share:
         mine = [e for e in evs if any(k in e.key for k in share)]
         us = sum(e.self_device_time_total for e in mine)
@@ -2330,7 +2527,9 @@ def run_stagings(tmp, name, db, hist, stage_s):
         redo = -(-runner.esc_reads // SCAN_BATCH)
         want = {k: 0 for k in kernels.ALL}
         want.update({k: batches + redo for k in cand_kernels()},
-                    sketch=batches)
+                    sketch=batches, classify_lca=batches + redo,
+                    rank_hist=stacks(runner, batches) +
+                    len(runner.redo_dispatches))
         return want
     for tag, env, lay, expect in (
             ("host-rows", {"MC_DEVICE_LAYOUT": "0"}, layout, path_of(*dense)),
@@ -2585,21 +2784,24 @@ def run_two_tier(tmp, profile):
     return launches, pallas, pairs
 
 
-def escalated_launches(dispatches, batches: int) -> dict:
+def escalated_launches(dispatches, batches: int, scan_k: int = 32) -> dict:
     """The launches an escalated summary of ``batches`` phase-1 batches
     makes with these redo dispatches (the runner's ``redo_dispatches``:
-    route, batches, reads a batch, real reads): B1, B6 and B4 a phase-1
-    batch; B7 and B4 a redo batch of any width (the fused dispatch's
-    MC_ESC_B2-wide slices, padded with sentinel features, count as
-    batches); the row redo (MC_PREFETCH=0) sketches its batches again
-    (B1)."""
+    route, batches, reads a batch, real reads): B1, B6, B4 and
+    classify_lca a phase-1 batch; B7, B4 and classify_lca a redo batch of
+    any width (the fused dispatch's MC_ESC_B2-wide slices, padded with
+    sentinel features, count as batches); the row redo (MC_PREFETCH=0)
+    sketches its batches again (B1); rank_hist once a phase-1 stack of
+    ``scan_k`` batches and once a redo dispatch."""
     from metacache_tpu_torch import kernels
     redo = sum(k for _r, k, _w, _g in dispatches)
     rows = sum(k for r, k, _w, _g in dispatches if r == "rows")
     want = {k: 0 for k in kernels.ALL}
     want.update({k: batches + redo for k in cand_kernels()},
                 sketch=batches + rows, head_decode=batches,
-                full_decode=redo)
+                full_decode=redo, classify_lca=batches + redo,
+                rank_hist=-(-batches // max(1, min(scan_k, batches))) +
+                len(dispatches))
     return want
 
 
@@ -2642,7 +2844,7 @@ def phase_escalation_routes(tmp, name, runner, res, esc_reads, profile):
                 (d[0] == "fused") != (d[2] == SCAN_BATCH // 2) or
                 d[1] > int(ESC_SCAN_K) for d in disp):
             raise AssertionError(f"{tag}: redo dispatches {disp}")
-        want = escalated_launches(disp, batches)
+        want = escalated_launches(disp, batches, int(ESC_SCAN_K))
         if grew != want:
             raise AssertionError(f"{tag}: launches {grew}, expected {want}")
         out[tag] = r
@@ -2998,6 +3200,10 @@ def run_long_reads(tmp, name, db, genomes, nreads, profile, narrow, wide,
         fused = [x for x in stats if x["fused"]]
         other = [x for x in stats if not x["fused"]]
         wides = [x for x in fused if x["wide"]]
+        if grew["classify_lca"] != len(stats):
+            raise AssertionError(f"classify_lca launched "
+                                 f"{grew['classify_lca']} times in "
+                                 f"{len(stats)} steps")
         if tag == "":
             main_path = grew
             if not (wides and grew["sketch"] > 0 and
@@ -3087,6 +3293,7 @@ def run_merge_many_target(tmp, db, genomes):
     moved to the CPU and run through rows_to_result there, all nine
     QueryResult fields equal to the card's rows (query ids taken
     relative to the block)."""
+    from metacache_tpu_torch import kernels
     from metacache_tpu_torch.ops import rows as R
     name = "many-target"
     path = os.path.join(tmp, name, "reads_merge.fa")
@@ -3102,6 +3309,7 @@ def run_merge_many_target(tmp, db, genomes):
     R.rows_to_result = keep
     restore = route_spy(stats)
     out_path = os.path.join(tmp, name, "merge.txt")
+    kernels.reset_counts()
     try:
         with open(out_path, "w") as out:
             runner, res, stage_s = _query(
@@ -3110,11 +3318,14 @@ def run_merge_many_target(tmp, db, genomes):
     finally:
         restore()
         R.rows_to_result = real
+    lca = kernels.CLASSIFY_LCA.launches
     with open(out_path) as f:
         nlines = sum(1 for l in f if not l.startswith("#"))
     n = res.statistics.total()
-    if n != MERGE_READS or nlines != n or any(x["fused"] for x in stats):
-        raise AssertionError(f"{n} reads, {nlines} lines, routes {stats}")
+    if n != MERGE_READS or nlines != n or any(x["fused"] for x in stats) \
+            or lca != len(stats):
+        raise AssertionError(f"{n} reads, {nlines} lines, routes {stats}, "
+                             f"classify_lca launches {lca}")
     a, kw, got = max(calls, key=lambda c: c[0][0].shape[0])
     tgt, win, mwir = a[:3]
     b, l = tgt.shape
@@ -3140,7 +3351,7 @@ def run_merge_many_target(tmp, db, genomes):
         reads_per_min=round(n / (res.time_ms / 60000.0)),
         seconds=round(res.time_ms / 1000, 3),
         classified_fraction=round(res.statistics.assigned() / n, 6),
-        batches=len(stats), rows=b, width=l,
+        batches=len(stats), rows=b, width=l, classify_lca_launches=lca,
         sweeps=dict(collections.Counter(x["sweep"] for x in stats)),
         card_vs_cpu_blocks=3, block_rows=blk, fields=len(got._fields),
         tolerance=0, max_abs_err=err,
@@ -3462,7 +3673,7 @@ def run_shards(tmp, name, db, hist, lines, base_profile):
         if not np.array_equal(res.statistics.assigned_, hist):
             raise AssertionError("-table-shards changed the rank histogram")
         if min(grew[k] for k in ("sketch", "head_decode", "full_decode",
-                                 "candidates")) <= 0:
+                                 "candidates", "classify_lca")) <= 0:
             raise AssertionError(f"-table-shards launches {grew}")
         batch = runner.opt.batch_windows
         say(f"query-shards-{name}-t{SHARDS}", grid=label, reads=n,
@@ -3864,6 +4075,10 @@ def run_multipart(tmp, db, genomes):
                                          f"{len(lines[kind + tag])} lines")
                 counts = launch_counts()
                 fused = sum(x["fused"] for x in stats)
+                if counts["classify_lca"] != len(stats):
+                    raise AssertionError(f"{kind}{tag}: classify_lca "
+                                         f"{counts['classify_lca']}, "
+                                         f"{len(stats)} steps")
                 if tag == "":
                     grew.update(counts)
                     if counts["sketch"] != len(stats) or \
@@ -4085,7 +4300,7 @@ def main() -> int:
             tmp, "944mbp", db, genomes, layout,
             ("sketch", DENSE, *cand_kernels()), a.profile, other_route=True,
             keep=keep, prefetch=True)
-        for k in ("sketch", "candidates", DENSE):
+        for k in ("sketch", "candidates", DENSE, *TAIL):
             launches[k] = main_path[k]
         # B3 runs on whichever of the two routes splits
         launches["sort"] = main_path["sort"] or other["sort"]
@@ -4129,7 +4344,8 @@ def main() -> int:
             tmp, "many-target", db, genomes, "True",
             ("sketch", DENSE, "candidates_unpacked"), a.profile)
         launches["candidates_unpacked"] = main_path["candidates_unpacked"]
-        launches[DENSE] += main_path[DENSE]
+        for k in (DENSE, *TAIL):
+            launches[k] += main_path[k]
         phase_dense_limit(tmp, "many-target", db, hist)
         run_csr_window(tmp, "many-target", db, hist,
                        ("sketch", "candidates_unpacked"))
@@ -4146,6 +4362,8 @@ def main() -> int:
         main_path, pallas, pairs = run_two_tier(tmp, a.profile)
         for k in ("head_decode", "full_decode"):
             launches[k] = main_path[k]
+        for k in TAIL:
+            launches[k] += main_path[k]
         for k in ("bucket_decode", "oidx_decode"):
             launches[k] = pallas[k]
         pair_paths.append(pairs)

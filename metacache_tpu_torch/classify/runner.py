@@ -62,7 +62,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .. import native
+from .. import kernels, native
 from ..config import SketchingOptions, max_windows_in_range
 from ..db.database import Database
 from ..native import decode_header as _decode_header
@@ -96,10 +96,48 @@ from .output import MapViewMode
 def rank_histogram(cls: torch.Tensor, n: int, taxid_sorted: torch.Tensor,
                    rank_of: torch.Tensor,
                    over_bits: torch.Tensor | None = None) -> torch.Tensor:
-    """Summary rank histogram on the card: (NUM_RANKS + 1,) counts of the
-    first ``n`` classified taxa by rank (runner.py:106-128). Reads whose
-    bit is set in ``over_bits`` (32 reads a word, escalation phase 1) are
-    left out: the redo counts them (runner.py:76-102)."""
+    """Summary rank histogram on the card: (NUM_RANKS + 1,) int64 counts
+    of the first ``n`` classified taxa by rank (runner.py:106-128). Reads
+    whose bit is set in ``over_bits`` (32 reads a word, escalation phase
+    1) are left out: the redo counts them (runner.py:76-102). ``cls``:
+    int32 taxa of any shape, read flat; ``taxid_sorted`` the ascending
+    int32 taxon ids and ``rank_of`` their int32 ranks. CUDA tensors
+    launch the rank_hist kernel (csrc/classify.cu), CPU tensors take
+    ``rank_histogram_plain``."""
+    ts = [cls, taxid_sorted, rank_of] + \
+        ([] if over_bits is None else [over_bits])
+    if any(t.dtype != torch.int32 for t in ts) or \
+            len({t.device for t in ts}) != 1:
+        raise ValueError("cls, taxid_sorted, rank_of and over_bits must be "
+                         "int32 tensors on one device")
+    m = cls.numel()
+    nt = taxid_sorted.numel()
+    if taxid_sorted.dim() != 1 or rank_of.shape != taxid_sorted.shape or \
+            nt < 1 or (over_bits is not None and over_bits.numel() * 32 < m):
+        raise ValueError(f"bad rank histogram tables: taxid_sorted "
+                         f"{tuple(taxid_sorted.shape)}, rank_of "
+                         f"{tuple(rank_of.shape)}, over_bits for {m} reads")
+    if not cls.is_cuda:
+        return rank_histogram_plain(cls, n, taxid_sorted, rank_of, over_bits)
+    out = torch.zeros(NUM_RANKS + 2, dtype=torch.int64, device=cls.device)
+    if m:
+        cls = cls.reshape(-1).contiguous()
+        taxid_sorted, rank_of = taxid_sorted.contiguous(), rank_of.contiguous()
+        if over_bits is not None:
+            over_bits = over_bits.reshape(-1).contiguous()
+        kernels.RANK_HIST(
+            cls.data_ptr(), m, max(int(n), 0), taxid_sorted.data_ptr(), nt,
+            rank_of.data_ptr(),
+            None if over_bits is None else over_bits.data_ptr(), NUM_RANKS,
+            out.data_ptr())
+    return out[:NUM_RANKS + 1]
+
+
+def rank_histogram_plain(cls: torch.Tensor, n: int,
+                         taxid_sorted: torch.Tensor, rank_of: torch.Tensor,
+                         over_bits: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """rank_histogram in torch ops (the plain version of rank_hist)."""
     cls = cls.reshape(-1)
     nt = taxid_sorted.shape[0]
     pos = torch.clamp(torch.searchsorted(taxid_sorted, cls), max=nt - 1)

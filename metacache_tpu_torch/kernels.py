@@ -24,7 +24,7 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("sketch.cu", "candidates.cu", "candidates_unpacked.cu",
-           "candidates_wide.cu", "probe_decode.cu")
+           "candidates_wide.cu", "probe_decode.cu", "classify.cu")
 HEADERS = ("block.cuh", "row_sort.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "metacache_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -98,6 +98,7 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+            f32 = ctypes.c_float
             lib.mc_sketch_windows.argtypes = [p, p, p, i64, i, i, i, i, p]
             lib.mc_sketch_windows_long.argtypes = [p, p, p, i64, i, i64, i,
                                                    i, p]
@@ -128,6 +129,9 @@ def _load():
                                           i, i, i, p, p, p]
             lib.mc_dense_decode.argtypes = [p, i64, i, p, i64, i, p, p, i,
                                             i64, i, i, i, i, i, i, p, p, p]
+            lib.mc_classify_lca.argtypes = [p, p, p, p, i64, p, i64, i, i64,
+                                            i, i, f32, i, i, p, p, p]
+            lib.mc_rank_hist.argtypes = [p, i64, i64, p, i64, p, p, i, p, p]
             for fn in (lib.mc_sketch_windows, lib.mc_sketch_windows_long,
                        lib.mc_sketch_windows64, lib.mc_sort_packed,
                        lib.mc_candidates_packed,
@@ -136,7 +140,8 @@ def _load():
                        lib.mc_candidates_unpacked_wide, lib.mc_head_decode,
                        lib.mc_full_decode, lib.mc_oidx_decode,
                        lib.mc_bucket_decode, lib.mc_csr_decode,
-                       lib.mc_dense_decode):
+                       lib.mc_dense_decode, lib.mc_classify_lca,
+                       lib.mc_rank_hist):
                 fn.restype = ctypes.c_int
             lib.mc_error_string.argtypes = [i]
             lib.mc_error_string.restype = ctypes.c_char_p
@@ -229,6 +234,15 @@ CSR_DECODE = Kernel("mc_csr_decode", "metacache_tpu/ops/rows.py:784",
 # XLA ops (rows.py:624-838)
 DENSE_DECODE = Kernel("mc_dense_decode", "metacache_tpu/ops/rows.py:624",
                       "metacache_tpu_torch/csrc/probe_decode.cu")
+# no TPU counterpart: JAX's ranked LCA and its candidate-taxon lookup
+# are XLA ops (pipeline.py:317-361, rows.py:171-173)
+CLASSIFY_LCA = Kernel("mc_classify_lca",
+                      "metacache_tpu/ops/pipeline.py:317",
+                      "metacache_tpu_torch/csrc/classify.cu")
+# no TPU counterpart: JAX's summary rank histogram is XLA ops
+# (classify/runner.py:76-128)
+RANK_HIST = Kernel("mc_rank_hist", "metacache_tpu/classify/runner.py:76",
+                   "metacache_tpu_torch/csrc/classify.cu")
 ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sketch64": SKETCH64,
        "sort": SORT,
        "candidates": CANDIDATES, "candidates_unpacked": CANDIDATES_UNPACKED,
@@ -236,7 +250,8 @@ ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sketch64": SKETCH64,
        "candidates_unpacked_wide": CANDIDATES_UNPACKED_WIDE,
        "head_decode": HEAD_DECODE, "full_decode": FULL_DECODE,
        "bucket_decode": BUCKET_DECODE, "oidx_decode": OIDX_DECODE,
-       "csr_decode": CSR_DECODE, "dense_decode": DENSE_DECODE}
+       "csr_decode": CSR_DECODE, "dense_decode": DENSE_DECODE,
+       "classify_lca": CLASSIFY_LCA, "rank_hist": RANK_HIST}
 
 
 def wide_work_bytes(b: int, l2: int, pairs: bool, kk: int) -> int:

@@ -3,13 +3,19 @@
 Port of metacache_tpu/ops/pipeline.py: ``QueryResult`` (:64) and
 ``classify_candidates`` (:317-361),
 with the same float32 threshold, cumprod include mask and first-index
-argmax rank picks.
+argmax rank picks; ``classify_with_taxa`` also does the candidate-taxon
+lookup before it (metacache_tpu/ops/rows.py:171-173).
+
+CUDA tensors launch the hand-written kernel classify_lca
+(csrc/classify.cu); CPU tensors take the plain versions below.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from .. import kernels
 
 
 class QueryResult(NamedTuple):
@@ -31,12 +37,106 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mask.to(torch.uint8), dim=1).to(torch.int32)
 
 
+def _check_lca(cand_tgt, cand_hits, lineages, cand_tax=None,
+               merge_tax=None):
+    ts = [cand_tgt, cand_hits] + [t for t in (cand_tax,) if t is not None]
+    if any(t.dtype != torch.int32 or t.dim() != 2 or t.shape != ts[0].shape
+           for t in ts) or ts[0].shape[1] < 1:
+        raise ValueError("cand_tgt, cand_hits and cand_tax must be int32 "
+                         "tensors of one (B, K) shape, K >= 1")
+    if lineages.dtype != torch.int32 or lineages.dim() != 2 or \
+            lineages.shape[0] < 1 or not 1 <= lineages.shape[1] <= 32:
+        raise ValueError(f"lineages must be an int32 (T, R) table, T >= 1, "
+                         f"R <= 32: {tuple(lineages.shape)}")
+    if merge_tax is not None and (merge_tax.dtype != torch.int32 or
+                                  merge_tax.dim() != 1 or
+                                  merge_tax.shape[0] < 1):
+        raise ValueError("merge_tax must be a non-empty int32 vector")
+    devs = {t.device for t in ts + [lineages] +
+            [t for t in (merge_tax,) if t is not None]}
+    if len(devs) != 1:
+        raise ValueError("the candidates and tables must share one device")
+
+
+def _launch_lca(cand_tgt, cand_hits, cand_tax, merge_tax, lineages,
+                hits_min, hits_diff_frac, highest_rank, merge_rank):
+    """classify_lca on CUDA tensors; ``cand_tax`` None: the lookup form,
+    -> (cand_tax, cls_tax)."""
+    b, k = cand_tgt.shape
+    dev = cand_tgt.device
+    cand_tgt, cand_hits, lineages = (t.contiguous() for t in (
+        cand_tgt, cand_hits, lineages))
+    cls = torch.empty((b,), dtype=torch.int32, device=dev)
+    if cand_tax is None:
+        merge_tax = merge_tax.contiguous()
+        cand_tax = torch.empty((b, k), dtype=torch.int32, device=dev)
+        tax_in, lookup = None, (merge_tax.data_ptr(), merge_tax.shape[0],
+                                cand_tax.data_ptr())
+    else:
+        cand_tax = cand_tax.contiguous()
+        tax_in, lookup = cand_tax.data_ptr(), (None, 0, None)
+    if b:
+        mt, ntax, tax_out = lookup
+        kernels.CLASSIFY_LCA(
+            cand_tgt.data_ptr(), cand_hits.data_ptr(), tax_in, mt, ntax,
+            lineages.data_ptr(), lineages.shape[0], lineages.shape[1], b, k,
+            int(hits_min), float(hits_diff_frac), int(highest_rank),
+            int(merge_rank), tax_out, cls.data_ptr())
+    return cand_tax, cls
+
+
 def classify_candidates(cand_tgt, cand_tax, cand_hits, lineages,
                         hits_min: int, hits_diff_frac: float,
                         highest_rank: int, merge_rank: int) -> torch.Tensor:
     """Ranked LCA of the top candidates (reference: classify,
     src/classification.cpp:146-189): the lowest rank >= rank(cand0.tax)
-    at which all included candidates' lineages agree with candidate 0's."""
+    at which all included candidates' lineages agree with candidate 0's.
+    (B, K) int32 candidates, (T, R) int32 lineages -> (B,) int32 taxa."""
+    _check_lca(cand_tgt, cand_hits, lineages, cand_tax=cand_tax)
+    if not cand_tgt.is_cuda:
+        return classify_candidates_plain(
+            cand_tgt, cand_tax, cand_hits, lineages, hits_min,
+            hits_diff_frac, highest_rank, merge_rank)
+    return _launch_lca(cand_tgt, cand_hits, cand_tax, None, lineages,
+                       hits_min, hits_diff_frac, highest_rank,
+                       merge_rank)[1]
+
+
+def classify_with_taxa(cand_tgt, cand_hits, merge_tax, lineages,
+                       hits_min: int, hits_diff_frac: float,
+                       highest_rank: int, merge_rank: int) -> tuple:
+    """The candidates' taxa, ``merge_tax`` of each target where it is one
+    (cand_tgt >= 0, clamped into the table), else 0, and their
+    classify_candidates -> (cand_tax, cls_tax)."""
+    _check_lca(cand_tgt, cand_hits, lineages, merge_tax=merge_tax)
+    if not cand_tgt.is_cuda:
+        return classify_with_taxa_plain(
+            cand_tgt, cand_hits, merge_tax, lineages, hits_min,
+            hits_diff_frac, highest_rank, merge_rank)
+    return _launch_lca(cand_tgt, cand_hits, None, merge_tax, lineages,
+                       hits_min, hits_diff_frac, highest_rank, merge_rank)
+
+
+def classify_with_taxa_plain(cand_tgt, cand_hits, merge_tax, lineages,
+                             hits_min: int, hits_diff_frac: float,
+                             highest_rank: int, merge_rank: int) -> tuple:
+    """classify_with_taxa in torch ops (the plain version of
+    classify_lca's lookup form)."""
+    ntax = merge_tax.shape[0]
+    cand_tax = torch.where(
+        cand_tgt >= 0,
+        merge_tax[torch.clamp(cand_tgt, 0, ntax - 1).to(torch.int64)], 0)
+    return cand_tax, classify_candidates_plain(
+        cand_tgt, cand_tax, cand_hits, lineages, hits_min, hits_diff_frac,
+        highest_rank, merge_rank)
+
+
+def classify_candidates_plain(cand_tgt, cand_tax, cand_hits, lineages,
+                              hits_min: int, hits_diff_frac: float,
+                              highest_rank: int,
+                              merge_rank: int) -> torch.Tensor:
+    """classify_candidates in torch ops (the plain version of
+    classify_lca)."""
     num_ranks = lineages.shape[1]
     dev = cand_tgt.device
     exists = cand_tax != 0

@@ -30,7 +30,10 @@ blocks (ops/candidates.py). The non-fused branch is the torch counterpart of
 JAX's XLA code (rows.py:181-467): a row sort, the walk, dedup or
 rank-join sweep, then either the segmented suffix-max top-k
 (``_fast_top2_result``) or the best range per target, the taxon merge
-and the final ranking, and the per-hit lists of -allhits. ``fuses``
+and the final ranking, and the per-hit lists of -allhits. Both branches
+end in the classify_lca kernel (ops/pipeline.py): the ranked LCA, after
+the candidate-taxon lookup where the candidates come without taxa
+(``classify_with_taxa``), where JAX runs XLA ops. ``fuses``
 picks the branch from flags before the probe, as JAX's runner and
 rows.py:142-143 do (``MC_FUSED_CANDIDATES``, runner.py:612-622). A
 Python loop over the K stacked batches takes the place of ``lax.scan``;
@@ -51,7 +54,7 @@ import torch
 from ..device import SideStream
 from .candidates import (I32_MAX, candidates_packed, candidates_unpacked,
                          padded_width)
-from .pipeline import QueryResult, classify_candidates
+from .pipeline import QueryResult, classify_candidates, classify_with_taxa
 from .probe import (probe_bucket, probe_bucket64, probe_bucket_classed,
                     shift_right_logical)
 from .probe_decode import (_encode, _rows, csr_decode, dense_decode,
@@ -426,12 +429,8 @@ def rows_to_result(tgt, win, mwir, merge_tax_of_target, lineages,
             cand_tgt, cand_hits, cand_beg, cand_end = candidates_unpacked(
                 tgt, win, mwir, walk_elems=walk, dedup_walk=dedup_walk,
                 max_candidates=kk, presorted=presorted_runs)
-        cand_tax = torch.where(
-            cand_tgt >= 0,
-            merge_tax_of_target[torch.clamp(cand_tgt, 0, ntax - 1).to(
-                torch.int64)], 0)
-        cls_tax = classify_candidates(
-            cand_tgt, cand_tax, cand_hits, lineages,
+        cand_tax, cls_tax = classify_with_taxa(
+            cand_tgt, cand_hits, merge_tax_of_target, lineages,
             hits_min, hits_diff_frac, highest_rank, merge_rank)
         return QueryResult(cand_tgt, cand_tax, cand_hits, cand_beg,
                            cand_end, cls_tax, *_hit_lists(None, None,
@@ -618,8 +617,7 @@ def _fast_top2_result(tgt, win, hits, lo, is_match, carry_beg, hit_tgt,
     comp = torch.where(newt & is_match, sufmax + g * kb, neg_inf)
 
     shift = int(l2).bit_length() - 1
-    ntax = merge_tax_of_target.shape[0]
-    out = [[] for _ in range(5)]          # tgt, tax, hits, beg, end
+    out = [[] for _ in range(4)]          # tgt, hits, beg, end
     for _ in range(kk):
         mx = comp.max(dim=1, keepdim=True).values
         ok = mx[:, 0] > 0
@@ -634,18 +632,17 @@ def _fast_top2_result(tgt, win, hits, lo, is_match, carry_beg, hit_tgt,
         else:
             beg_b = torch.gather(win, 1, torch.clamp(
                 lo_b, 0, l - 1).to(torch.int64)[:, None])[:, 0]
-        tg = torch.where(ok, t_b, -1)
-        out[0].append(tg)
-        out[1].append(torch.where(ok, merge_tax_of_target[torch.clamp(
-            tg, 0, ntax - 1).to(torch.int64)], 0))
-        out[2].append(torch.where(ok, bestkey >> shift, 0).to(torch.int32))
-        out[3].append(torch.where(ok, beg_b, 0))
-        out[4].append(torch.where(ok, w_b, 0))
+        # tg is -1 exactly where ok is false, so the lookup gives taxon 0
+        # there
+        out[0].append(torch.where(ok, t_b, -1))
+        out[1].append(torch.where(ok, bestkey >> shift, 0).to(torch.int32))
+        out[2].append(torch.where(ok, beg_b, 0))
+        out[3].append(torch.where(ok, w_b, 0))
         comp = torch.where(comp == mx, neg_inf, comp)
-    cand_tgt, cand_tax, cand_hits, cand_beg, cand_end = (
+    cand_tgt, cand_hits, cand_beg, cand_end = (
         torch.stack(x, dim=1) for x in out)
-    cls_tax = classify_candidates(
-        cand_tgt, cand_tax, cand_hits, lineages,
+    cand_tax, cls_tax = classify_with_taxa(
+        cand_tgt, cand_hits, merge_tax_of_target, lineages,
         hits_min, hits_diff_frac, highest_rank, merge_rank)
     return QueryResult(cand_tgt, cand_tax, cand_hits, cand_beg, cand_end,
                        cls_tax, *_hit_lists(hit_tgt, hit_win, dev))

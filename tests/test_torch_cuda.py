@@ -10,8 +10,9 @@ database through B2 against the CPU run; a k = 18 database through the
 batch split into launches by the free memory; the multi-part step on
 random tables against the same step on the CPU; the CSR layout through
 csr_decode against the goldens; dense_decode on the dense and two-tier
-lane rows (u32 and u64 features) against its plain version; tolerance
-0.
+lane rows (u32 and u64 features) against its plain version; the step's
+tail, classify_lca (both forms) and rank_hist, against their plain
+versions; tolerance 0.
 
 Needs an NVIDIA GPU (marker `cuda`; skipped without one). Imports no
 JAX, so it also runs on a GPU host without JAX:
@@ -1713,3 +1714,150 @@ def test_pinned_ring_summary_matches_plain_loop(cuda, tmp_path, monkeypatch):
         hist = hist + rank_histogram(cls, 8192, *runner._hist_dev).cpu()
     assert res.statistics.total() == n
     assert np.array_equal(res.statistics.assigned_, hist.numpy())
+
+
+# ------------------------------- the step's tail: classify_lca, rank_hist
+NUM_RANKS = 21
+LCA_PARAMS = ((5, 0.5), (5, 1.0), (0, 0.9))   # (hits_min, hits_diff_frac)
+
+
+def lca_lineages(rng, t):
+    """(t, 21) int32 lineages: sequence-level taxa -1 .. -t at rank 0,
+    species of 4 targets (rank 4), genera of 16 (rank 6), families of 64
+    (rank 10), domain and root (ranks 19, 20); about a tenth of the ranks
+    cleared (rank 0 in one target of 50), so that lineages have gaps
+    below and above their first set rank at or above merge_rank."""
+    ids = np.arange(t)
+    lin = np.zeros((t, NUM_RANKS), np.int32)
+    lin[:, 0] = -ids - 1
+    lin[:, 4] = 1000 + ids // 4
+    lin[:, 6] = 100000 + ids // 16
+    lin[:, 10] = 200000 + ids // 64
+    lin[:, 19] = 2
+    lin[:, 20] = 1
+    gaps = rng.random((t, NUM_RANKS)) < 0.1
+    gaps[:, 0] = rng.random(t) < 0.02
+    lin[gaps] = 0
+    return lin
+
+
+def lca_case(seed, b, k, t=1024):
+    """Candidates of b reads, k a read, over t targets, for the hits_min
+    and fractions of LCA_PARAMS: -> dict(tgt, hits, tax, merge_tax,
+    lin), numpy int32. A read's targets lie within 12 of one another
+    (its species, genus or family agree), target t - 1 in every 17th
+    read; about 15% of the candidates are absent (target -1, taxon 0),
+    at every position, the first included, and 5% of the targets have
+    taxon 0 (merge_tax); hits descend; every 5th read has ties at the
+    threshold (hits0 = 5 + 2h, the others h or h + 1: at frac 0.5 the
+    threshold is h), every 7th has hits0 - 5 near 2^24 + 3 and the
+    others near 2^24 + 4, where the float32 threshold's rounding decides
+    the include."""
+    rng = np.random.default_rng(seed)
+    lin = lca_lineages(rng, t)
+    merge_tax = lin[:, 0].copy()
+    merge_tax[rng.random(t) < 0.05] = 0
+    base = rng.integers(0, t, (b, 1))
+    tgt = np.clip(base + rng.integers(-12, 13, (b, k)), 0, t - 1)
+    tgt[::17, rng.integers(0, k)] = t - 1
+    hits = -np.sort(-rng.integers(0, 40, (b, k)), axis=1)
+    h = rng.integers(1, 15, (b, 1))
+    tie = np.where(rng.random((b, k)) < 0.5, h, h + 1)
+    tie[:, 0] = 5 + 2 * h[:, 0]
+    hits[::5] = tie[::5]
+    big = 2**24 + rng.integers(2, 7, (b, k))
+    big[:, 0] = 5 + 2**24 + 3
+    hits[::7] = big[::7]
+    absent = rng.random((b, k)) < 0.15
+    tgt = np.where(absent, -1, tgt)
+    tax = np.where(tgt >= 0, merge_tax[np.maximum(tgt, 0)], 0)
+    return {n: np.ascontiguousarray(a, dtype=np.int32) for n, a in (
+        ("tgt", tgt), ("hits", hits), ("tax", tax),
+        ("merge_tax", merge_tax), ("lin", lin))}
+
+
+def hist_case(seed, m, nt=300):
+    """A stack of m classified taxa and the taxonomy's tables: ->
+    (cls, taxid_sorted, rank_of, over_bits), numpy int32. nt ascending
+    ids (some negative), ranks 0-21; cls: 60% ids of the table, the rest
+    absent ids between them, ids past the last and below the first, and
+    0; over bits at random (10%), words 0 and the last all set."""
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.choice(np.arange(-500, 50000), nt, replace=False))
+    rank_of = rng.integers(0, NUM_RANKS + 1, nt)
+    cls = rng.integers(ids[0] - 10, ids[-1] + 10, m)
+    own = rng.random(m) < 0.6
+    cls[own] = ids[rng.integers(0, nt, int(own.sum()))]
+    cls[rng.random(m) < 0.1] = 0
+    cls[:3] = (ids[-1] + 1, ids[0] - 1, 2**31 - 1)
+    over = rng.random(-(-m // 32) * 32) < 0.1
+    over[:32] = True
+    over[-32:] = True
+    words = (over.reshape(-1, 32).astype(np.int64) <<
+             np.arange(32)).sum(axis=1)
+    return (cls.astype(np.int32), ids.astype(np.int32),
+            rank_of.astype(np.int32),
+            words.astype(np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("b,k", [(512, 1), (512, 2), (512, 4), (512, 8),
+                                 (512, 40), (8192, 2), (8192, 8)])
+@pytest.mark.parametrize("hits_min,frac", LCA_PARAMS)
+def test_classify_lca_kernel_matches_plain(cuda, b, k, hits_min, frac):
+    """classify_lca, both forms, against the plain versions on the same
+    CUDA tensors, merge_rank and highest_rank across the ranks; K = 40
+    takes two turns of 32 candidates; one launch a call."""
+    from metacache_tpu_torch.ops import pipeline as P
+    d = {n: torch.from_numpy(a).to(cuda)
+         for n, a in lca_case(b * 31 + k, b, k).items()}
+    for merge_rank, highest in ((0, 20), (4, 4), (4, 19), (6, 20),
+                                (19, 20), (0, 0)):
+        args = (hits_min, frac, highest, merge_rank)
+        before = kernels.CLASSIFY_LCA.launches
+        got = P.classify_candidates(d["tgt"], d["tax"], d["hits"], d["lin"],
+                                    *args)
+        tax, cls = P.classify_with_taxa(d["tgt"], d["hits"], d["merge_tax"],
+                                        d["lin"], *args)
+        assert kernels.CLASSIFY_LCA.launches == before + 2
+        want = P.classify_candidates_plain(d["tgt"], d["tax"], d["hits"],
+                                           d["lin"], *args)
+        wtax, wcls = P.classify_with_taxa_plain(
+            d["tgt"], d["hits"], d["merge_tax"], d["lin"], *args)
+        assert torch.equal(got, want)
+        assert torch.equal(tax, wtax) and torch.equal(cls, wcls)
+        assert torch.equal(cls, want)
+
+
+def test_classify_lca_refuses_what_it_cannot_take(cuda):
+    """Ranks past a warp, an empty table and tensors on two devices
+    raise; nothing falls back to the plain version."""
+    from metacache_tpu_torch.ops import pipeline as P
+    d = {n: torch.from_numpy(a).to(cuda)
+         for n, a in lca_case(3, 64, 2).items()}
+    wide = torch.zeros((8, 33), dtype=torch.int32, device=cuda)
+    for bad in (wide, d["lin"][:0], d["lin"].cpu()):
+        with pytest.raises(ValueError):
+            P.classify_candidates(d["tgt"], d["tax"], d["hits"], bad, 5,
+                                  0.5, 20, 0)
+
+
+@pytest.mark.parametrize("m,n", [(1000, 1000), (8192 * 2, 9000),
+                                 (262144, 262144), (262144, 200000)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_rank_hist_kernel_matches_plain(cuda, m, n, masked):
+    """rank_hist against rank_histogram_plain on the same CUDA tensors:
+    a stack of up to 262,144 reads, with and without overflow bits, n at
+    and below the stack; one launch a call."""
+    from metacache_tpu_torch.classify.runner import (rank_histogram,
+                                                     rank_histogram_plain)
+    cls, ids, ranks, over = (torch.from_numpy(a).to(cuda)
+                             for a in hist_case(m, m))
+    over = over if masked else None
+    before = kernels.RANK_HIST.launches
+    got = rank_histogram(cls, n, ids, ranks, over_bits=over)
+    assert kernels.RANK_HIST.launches == before + 1
+    want = rank_histogram_plain(cls, n, ids, ranks, over_bits=over)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert int(got.sum()) == min(n, m) - (
+        0 if over is None else int(((over.cpu().numpy().view(np.uint32)[
+            :, None] >> np.arange(32)) & 1).reshape(-1)[:min(n, m)].sum()))
