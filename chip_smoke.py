@@ -14,14 +14,16 @@ saved CSR and fills the probe rows on the card.
   unique + 12 x 52-strain + 1 x 256-strain genomes of 1 Mbp, 944 Mbp,
   buckets at the 254 cap), whose (target, window) slots pack into int32,
   held equal to a host build of the same genomes, and `query` through
-  kernels B1, dense_decode (the rows' probe) and B4, which sorts each
-  row itself (or B1, dense_decode, B3 and B4 on the split route,
-  MC_SPLIT_CAND=1); the same query once more on the
-  other route, and under each other staging, all with the same rank
-  histogram: host rows
-  (MC_DEVICE_LAYOUT=0), the bucket probe through B9
-  (MC_PROBE_PALLAS=bucket), and the size-classed cells with escalation
-  (MC_DENSE_LIMIT=1 MC_CLASSED=1);
+  kernels B1, B9 (the bucket probe of every row layout), dense_decode
+  (the rows' probe) and B4, which sorts each row itself (or B1, B9,
+  dense_decode, B3 and B4 on the split route, MC_SPLIT_CAND=1); the
+  same query once more on the other route, and under each other
+  staging, all with the same rank histogram: host rows
+  (MC_DEVICE_LAYOUT=0, B9 on the host's 65-lane index), and the
+  size-classed cells with escalation (MC_DENSE_LIMIT=1 MC_CLASSED=1:
+  classed_bucket and classed_decode's head form in phase 1, its full
+  form in the redo), where classed_bucket and classed_decode are held
+  against their plain versions at the main path's probes;
 - unpacked slots: `build` of a many-target database (one 8 Mbp genome
   plus 36 species x 256 strains of 50 kbp, 9217 targets, 469 Mbp), whose
   slots do not pack into int32, and `query` through B1, dense_decode and
@@ -39,11 +41,11 @@ saved CSR and fills the probe rows on the card.
   the card's budget, so it stages pair-packed two-tier rows, and `query`
   with escalation: a head-only phase through B1, B6 and B4, and a
   full-depth redo of the reads that touched a deeper bucket through B7
-  and B4; once more with MC_ESCALATE=0 (B7 on every batch) and with
-  MC_PROBE_PALLAS=1 (B9 for the bucket probe; B8's overflow-row id is
-  folded into B7, which must launch B8 no time and equal B8 then B7 on
-  the query's own probes), which must give the same result, per read
-  too;
+  and B4 (B9 the bucket probe of phase 1); once more with MC_ESCALATE=0
+  (B7 on every batch) and with MC_PROBE_PALLAS=1, which changes no
+  route (B8's overflow-row id is folded into B7, which must launch B8
+  no time and equal B8 then B7 on the query's own probes) and must give
+  the same result, per read too;
 - long reads: 2^14 reads of log-normal lengths (median 480 bp, clipped
   to 200-19,000 bp, the reference's long-read workload; the spread is
   assumed) against the 944 Mbp database with per-read output and
@@ -1859,6 +1861,67 @@ def build_probe_table(stream, dev):
             chunks, budget_bytes=T.dense_bytes(nf, 100, 13) - 1)
 
 
+def b9_timed(tag, brows, flat, bits, **kv):
+    """[parity-B9-<tag>]: B9 on one index against its plain version
+    (tolerance 0), timed: device ms (CUDA graph), wrapper ms, plain ms,
+    host us a call, and the bound of its bytes (the feature, its L-lane
+    row, idx and found a probe) and operations (a compare, a select and
+    an add a lane)."""
+    from metacache_tpu_torch.ops import probe_decode as D
+    n = flat.shape[0]
+    lanes = 64 if brows.shape[1] == 128 else brows.shape[1]
+    got = D.bucket_decode(brows, flat, bits)
+    want = D.bucket_decode_plain(brows, flat, bits)
+    err = max(check_equal(f"B9 {tag} idx", got[0], want[0]),
+              check_equal(f"B9 {tag} found", got[1], want[1]))
+
+    def call():
+        return D.bucket_decode(brows, flat, bits)
+    ms, dms = cuda_ms(call), kernel_ms(call)
+    pms = cuda_ms(lambda: D.bucket_decode_plain(brows, flat, bits))
+    hus = host_us(call)
+    b_ms, by = bound(n * (flat.element_size() + 4 * lanes + 4 + 1),
+                     n * lanes * 3)
+    say(f"parity-B9-{tag}", lanes=lanes, bucket_bits=bits, probes=n,
+        tolerance=0, max_abs_err=err, ms=ms, kernel_device_ms=dms,
+        host_us_per_call=hus, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        found_share=round(float(got[1].float().mean()), 4), **kv)
+
+
+def parity_b9_host(rng, feats, flat, dev):
+    """B9 on the host's bucket-row indexes of the probe table's sorted
+    features (ops/probe.py::make_bucket_index): 64 lanes at its default
+    bits and 65 lanes (one 4-byte load a lane twice: the width of the
+    944 Mbp database's MC_DEVICE_LAYOUT=0 index) at the fewest bits whose
+    deepest bucket holds at most 64 features;
+    and the u64 index (make_bucket_index64) of as many random 64-bit
+    features, probed by int64 bit patterns; the same 131,072 probes."""
+    from metacache_tpu_torch.ops.probe import (make_bucket_index,
+                                               make_bucket_index64)
+    n = flat.shape[0]
+    rows, bits = make_bucket_index(feats)
+    b9_timed("host64", torch.from_numpy(rows).to(dev), flat, bits)
+    b65 = next(b for b in range(12, 24) if int(np.bincount(
+        feats >> np.uint32(32 - b)).max()) <= 64)
+    rows, bits = make_bucket_index(feats, b65)
+    b9_timed(f"host{rows.shape[1]}", torch.from_numpy(rows).to(dev), flat,
+             bits)
+    del rows
+    f64 = np.unique(rng.integers(0, 2**64 - 1, len(feats), dtype=np.uint64))
+    index = make_bucket_index64(f64)
+    if index is None:
+        raise AssertionError("the u64 probe table has a low-32 collision")
+    rows, bits = index
+    q = f64[rng.integers(0, len(f64), n)]
+    u = rng.random(n)
+    q[u < 0.3] = rng.integers(0, 2**64 - 1, int((u < 0.3).sum()),
+                              dtype=np.uint64)
+    q[::100] = np.uint64(2**64 - 1)
+    b9_timed("u64", torch.from_numpy(rows).to(dev),
+             torch.from_numpy(q.view(np.int64)).to(dev), bits,
+             features=len(f64))
+
+
 def phase_parity_probe(results, rng, dev):
     """B9 and B8 at the main path's 131,072 probes (8192 reads x 16
     features) on a 2 M-feature table built on the card by the device
@@ -1895,19 +1958,21 @@ def phase_parity_probe(results, rng, dev):
     pms = cuda_ms(lambda: D.bucket_decode_plain(dt.brows, flat, dt.bbits))
     # per probe: the feature, its 64-lane (256 B) bucket row, idx + found
     hus = host_us(lambda: D.bucket_decode(dt.brows, flat, dt.bbits))
+    shape = (f"131072 probes, {dt.bbits} bucket bits, 2 M-feature table, "
+             "pair-packed")
     b_ms, by = _record(results, "bucket_decode", err=max(errs), ms=ms,
                        plain_ms=pms, device_ms=dms, host_us=hus,
                        nbytes=n * (4 + 256 + 4 + 1),
-                       nops=n * 64 * 3,
-                       shape=f"131072 probes, {dt.bbits} bucket bits, "
-                             "2 M-feature table")
-    say("parity-B9", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
-        kernel_device_ms=dms, host_us_per_call=hus, plain_ms=pms,
-        bound_ms=b_ms, bound_by=by,
+                       nops=n * 64 * 3, shape=shape)
+    say("parity-B9", index="pair-packed", lanes=64, probes=n, tolerance=0,
+        max_abs_err=max(errs), ms=ms, kernel_device_ms=dms,
+        host_us_per_call=hus, plain_ms=pms, bound_ms=b_ms, bound_by=by,
         found_share=round(float(found.float().mean()), 4),
         table_build_seconds=round(build_s, 3), features=dt.nf,
         locations=dt.num_locations, bucket_bits=dt.bbits,
         head_rows=tuple(dt.head.shape))
+    parity_b9_host(rng, dt.uniq.cpu().numpy().view(np.uint32),
+                   flat, dev)
     head = dt.head.view(-1, 64)
     ovf = dt.ovf
     idx = torch.clamp(idx, 0, dt.nf - 1)
@@ -2113,15 +2178,25 @@ def stacks(runner, batches: int, scan_k: int | None = None) -> int:
     return -(-batches // max(1, min(k, batches)))
 
 
+def probes_through_b9(runner) -> bool:
+    """Whether the runner's tables find their rows through B9: every row
+    layout but the classed cells (classed_bucket), and a u32 CSR part (a
+    u64 one is searched)."""
+    t = runner.tables
+    return t.bucket_rows is not None and not t.classed
+
+
 def path_of(*names):
-    """Launch expectation of a dense path: each named kernel and
-    classify_lca (the step's tail) once per 8192-read batch, rank_hist
-    once a stack, every other kernel never."""
+    """Launch expectation of a dense path: each named kernel, the bucket
+    probe (B9, where ``probes_through_b9``) and classify_lca (the step's
+    tail) once per 8192-read batch, rank_hist once a stack, every other
+    kernel never."""
     from metacache_tpu_torch import kernels
 
     def want(runner, batches):
         w = {k: batches if k in names else 0 for k in kernels.ALL}
-        w.update(classify_lca=batches, rank_hist=stacks(runner, batches))
+        w.update(classify_lca=batches, rank_hist=stacks(runner, batches),
+                 bucket_decode=batches if probes_through_b9(runner) else 0)
         return w
     return want
 
@@ -2171,9 +2246,19 @@ def phase_profile(tmp, name, runner, tag="", reads="reads.fa",
     tail = {op: [e for e in evs if key in e.key]
             for op, key in (("lca", "lca_kernel"),
                             ("hist", "rank_hist_kernel"))}
+    # the bucket probe's kernels, and torch's row gathers and reductions
+    # (the bucket probe's before B9 took every route)
+    tail.update({op: [e for e in evs if key in e.key]
+                 for op, key in (("b9", "bucket_decode_kernel"),
+                                 ("classed_bucket", "classed_bucket_kernel"),
+                                 ("classed_decode", "classed_decode_kernel"))})
+    gathers = sum(e.count for e in evs if "index_elementwise" in e.key or
+                  "gather" in e.key)
     part = dict(h2d_pageable_events=h2d["Pageable"],
                 h2d_pinned_events=h2d["Pinned"],
                 cat_kernels=reshape["cat"], flip_kernels=reshape["flip"],
+                index_kernels=gathers, reduce_kernels=sum(
+                    e.count for e in evs if "reduce_kernel" in e.key),
                 kernel_events=sum(e.count for e in evs),
                 **{f"{op}_kernels": sum(e.count for e in x)
                    for op, x in tail.items()},
@@ -2510,13 +2595,18 @@ def phase_e2e_two_tier(name, runner, reads, cpu, copy_s,
         **fold, **times)
 
 
-def run_stagings(tmp, name, db, hist, stage_s):
+def run_stagings(tmp, name, db, hist, stage_s, genomes, results,
+                 profile=False):
     """The 944 Mbp summary query under the other stagings, each a main
     path of its own, each with the default's rank histogram: host rows
-    filled in numpy and copied (MC_DEVICE_LAYOUT=0), the bucket probe
-    through B9 (MC_PROBE_PALLAS=bucket), and the size-classed cells
-    (MC_DENSE_LIMIT=1 MC_CLASSED=1) with escalation (phase 1 and the redo
-    as torch ops, then B4). -> B9's launches."""
+    filled in numpy and copied (MC_DEVICE_LAYOUT=0), probed through B9 as
+    every row layout is, and the size-classed cells (MC_DENSE_LIMIT=1
+    MC_CLASSED=1) with escalation (phase 1 through classed_bucket and
+    classed_decode's head form, the redo through classed_decode at full
+    depth, then B4); on the classed cells, classed_bucket and
+    classed_decode at the main path's probes (``phase_parity_classed``);
+    with ``profile`` a trace of the classed summary. -> the classed
+    summary's launches."""
     from metacache_tpu_torch import kernels
     n = 1 << 20
     layout = "pk15"
@@ -2527,14 +2617,14 @@ def run_stagings(tmp, name, db, hist, stage_s):
         redo = -(-runner.esc_reads // SCAN_BATCH)
         want = {k: 0 for k in kernels.ALL}
         want.update({k: batches + redo for k in cand_kernels()},
-                    sketch=batches, classify_lca=batches + redo,
+                    sketch=batches, classed_bucket=batches,
+                    classed_decode=batches + redo,
+                    classify_lca=batches + redo,
                     rank_hist=stacks(runner, batches) +
                     len(runner.redo_dispatches))
         return want
     for tag, env, lay, expect in (
             ("host-rows", {"MC_DEVICE_LAYOUT": "0"}, layout, path_of(*dense)),
-            ("b9", {"MC_PROBE_PALLAS": "bucket"}, layout,
-             path_of(*dense, "bucket_decode")),
             ("classed", {"MC_DENSE_LIMIT": "1", "MC_CLASSED": "1"},
              "('classed', 61, False, False, 15)", classed)):
         with environ(**env):
@@ -2545,18 +2635,108 @@ def run_stagings(tmp, name, db, hist, stage_s):
                                  "the default staging's")
         out[f"{tag}_staging_seconds"] = round(runner.stage_s, 3)
         out[f"{tag}_staged_gib"] = round(runner.tables.nbytes() / 2**30, 3)
-        if tag == "b9":
-            b9 = grew["bucket_decode"]
+        if tag == "host-rows":
+            out["host_rows_bucket_lanes"] = runner.tables.bucket_rows.shape[1]
         if tag == "classed":
             if not 0 < runner.esc_reads < n:
                 raise AssertionError("the classed query did not escalate")
             out.update(classed_escalated_reads=runner.esc_reads,
                        classed_redo_batches=grew["candidates"]
                        - n // SCAN_BATCH)
+            launches = grew
+            phase_parity_classed(results, runner, genomes, name)
+            if profile:
+                with environ(**env):
+                    phase_profile(tmp, name, runner, "-classed")
         del runner
         torch.cuda.empty_cache()
     say(f"stagings-{name}", histograms_equal=True, **out)
-    return b9
+    return launches
+
+
+def main_path_probes(runner, genomes, b: int = SCAN_BATCH):
+    """The bucket probe's input on the summary path: B1's sketches of b
+    reads of ``genomes`` (100 bp, the runner's packed infeed rows), (b *
+    16,) int32 features on the card."""
+    from metacache_tpu_torch.ops.sketch import sketch_windows_packed
+    reads = sample_reads(np.random.default_rng(41), genomes, b)
+    packed, lens, _m = packed_stack(reads, b)
+    dev = torch.device("cuda")
+    return sketch_windows_packed(
+        packed.reshape(b, -1).to(dev), lens.reshape(b).to(torch.int32).to(
+            dev), runner.sketching.kmerlen, 16).reshape(-1)
+
+
+def phase_parity_classed(results, runner, genomes, name):
+    """[parity-classed_bucket-<name>] and [parity-classed_decode-<name>]
+    (full and head): the two kernels on the classed cells the summary
+    staged, at the main path's 131,072 probes (B1's sketches of 8192
+    reads), each against its plain version on the same CUDA tensors
+    (tolerance 0), timed: device ms (CUDA graph), wrapper ms, plain ms,
+    host us a call, bound. classed_decode's head form (rl =
+    pow2(hsl), f = 16) is escalation phase 1's, a launch a batch; its
+    full form (rl = pow2(c)) the redo's."""
+    from metacache_tpu_torch.ops import probe_decode as D
+    t = runner.tables
+    flat = main_path_probes(runner, genomes)
+    n = flat.shape[0]
+    bits, hsl, c, sb = t.bucket_bits, t.head_slots, t.spf, t.slot_bits
+    pidx, found = D.classed_bucket(t.bucket_rows, flat, bits)
+    wp, wf = D.classed_bucket_plain(t.bucket_rows, flat, bits)
+    err = max(check_equal("classed_bucket pidx", pidx, wp),
+              check_equal("classed_bucket found", found, wf))
+
+    def bucket():
+        return D.classed_bucket(t.bucket_rows, flat, bits)
+    ms, dms = cuda_ms(bucket), kernel_ms(bucket)
+    pms = cuda_ms(lambda: D.classed_bucket_plain(t.bucket_rows, flat, bits))
+    hus = host_us(bucket)
+    # per probe: the feature, its 256-byte bucket row, pidx and found; the
+    # least work a match, a class test and a rank test of 122 entries
+    b_ms, by = _record(results, "classed_bucket", err=err, ms=ms,
+                       plain_ms=pms, device_ms=dms, host_us=hus,
+                       nbytes=n * (4 + 256 + 4 + 1), nops=n * 122 * 4,
+                       shape=f"131072 probes, {bits} bucket bits, classed "
+                             "944 Mbp index")
+    cls = (pidx & 3)[found]
+    say(f"parity-classed_bucket-{name}", probes=n, tolerance=0,
+        max_abs_err=err, ms=ms, kernel_device_ms=dms, host_us_per_call=hus,
+        plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        found_share=round(float(found.float().mean()), 4),
+        class_shares=[round(float((cls == k).float().mean()), 4)
+                      for k in range(3)])
+    for form, head in (("full", False), ("head", True)):
+        width = hsl if head else c
+        rl = 1 << max(int(width - 1).bit_length(), 0)
+        args = (t.fused_rows, t.ovf_rows, pidx, flat, hsl, c, rl, 16, sb,
+                sb, head)
+        got = D.classed_decode(*args)
+        want = D.classed_decode_plain(*args)
+        err = max(check_equal(f"classed_decode {form} {i}", g, w)
+                  for i, (g, w) in enumerate(zip(got, want)))
+        cnt = D.classed_decode(*args[:-1], True)[1]
+        kept = int(torch.clamp(cnt, 0, width).sum())
+
+        def call():
+            return D.classed_decode(*args)
+        ms, dms = cuda_ms(call), kernel_ms(call)
+        pms = cuda_ms(lambda: D.classed_decode_plain(*args))
+        hus = host_us(call)
+        # per probe: pidx, the feature, the cell's meta lanes, the rl
+        # output lanes (and the count); the slots its count keeps
+        nbytes = n * (4 + 4 + 12 + 4 * rl + (4 if head else 0)) + 4 * kept
+        shape = (f"131072 probes, f=16, hsl={hsl}, c={c}, rl={rl}, "
+                 f"{form} form, classed 944 Mbp cells")
+        if head:
+            b_ms, by = _record(results, "classed_decode", err=err, ms=ms,
+                               plain_ms=pms, device_ms=dms, host_us=hus,
+                               nbytes=nbytes, nops=n * rl, shape=shape)
+        else:
+            b_ms, by = bound(nbytes, n * rl)
+        say(f"parity-classed_decode-{name}", form=form, probes=n, rl=rl,
+            tolerance=0, max_abs_err=err, ms=ms, kernel_device_ms=dms,
+            host_us_per_call=hus, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+            slots_kept=kept)
 
 
 def hbm_gb_for_budget(budget: int) -> str:
@@ -2755,15 +2935,11 @@ def run_two_tier(tmp, profile):
     del runner
     torch.cuda.empty_cache()
 
-    # MC_PROBE_PALLAS=1: B9 in the bucket probe; B7 does B8's work, so B8
-    # launches no time
-    def kernels_on(runner, batches):
-        want = escalated(runner, batches)
-        want.update(bucket_decode=batches)
-        return want
+    # MC_PROBE_PALLAS=1 changes no route: B9 is the bucket probe under
+    # every value, and B7 does B8's work, so B8 launches no time
     with environ(MC_PROBE_PALLAS="1"):
         runner, pallas, res1 = phase_query_summary(tmp, name, db, len(reads),
-                                                   layout, kernels_on)
+                                                   layout, escalated)
     if not np.array_equal(res1.statistics.assigned_,
                           res.statistics.assigned_):
         raise AssertionError("MC_PROBE_PALLAS=1 changed the rank histogram")
@@ -2787,19 +2963,21 @@ def run_two_tier(tmp, profile):
 def escalated_launches(dispatches, batches: int, scan_k: int = 32) -> dict:
     """The launches an escalated summary of ``batches`` phase-1 batches
     makes with these redo dispatches (the runner's ``redo_dispatches``:
-    route, batches, reads a batch, real reads): B1, B6, B4 and
+    route, batches, reads a batch, real reads): B1, B9, B6, B4 and
     classify_lca a phase-1 batch; B7, B4 and classify_lca a redo batch of
     any width (the fused dispatch's MC_ESC_B2-wide slices, padded with
-    sentinel features, count as batches); the row redo (MC_PREFETCH=0)
-    sketches its batches again (B1); rank_hist once a phase-1 stack of
-    ``scan_k`` batches and once a redo dispatch."""
+    sentinel features, count as batches; they take phase 1's feature
+    rows); the row redo (MC_PREFETCH=0) sketches and probes its batches
+    again (B1, B9); rank_hist once a phase-1 stack of ``scan_k`` batches
+    and once a redo dispatch."""
     from metacache_tpu_torch import kernels
     redo = sum(k for _r, k, _w, _g in dispatches)
     rows = sum(k for r, k, _w, _g in dispatches if r == "rows")
     want = {k: 0 for k in kernels.ALL}
     want.update({k: batches + redo for k in cand_kernels()},
-                sketch=batches + rows, head_decode=batches,
-                full_decode=redo, classify_lca=batches + redo,
+                sketch=batches + rows, bucket_decode=batches + rows,
+                head_decode=batches, full_decode=redo,
+                classify_lca=batches + redo,
                 rank_hist=-(-batches // max(1, min(scan_k, batches))) +
                 len(dispatches))
     return want
@@ -3672,8 +3850,9 @@ def run_shards(tmp, name, db, hist, lines, base_profile):
             raise AssertionError(f"shards: layout {runner.layout}")
         if not np.array_equal(res.statistics.assigned_, hist):
             raise AssertionError("-table-shards changed the rank histogram")
-        if min(grew[k] for k in ("sketch", "head_decode", "full_decode",
-                                 "candidates", "classify_lca")) <= 0:
+        if min(grew[k] for k in ("sketch", "bucket_decode", "head_decode",
+                                 "full_decode", "candidates",
+                                 "classify_lca")) <= 0:
             raise AssertionError(f"-table-shards launches {grew}")
         batch = runner.opt.batch_windows
         say(f"query-shards-{name}-t{SHARDS}", grid=label, reads=n,
@@ -4300,7 +4479,7 @@ def main() -> int:
             tmp, "944mbp", db, genomes, layout,
             ("sketch", DENSE, *cand_kernels()), a.profile, other_route=True,
             keep=keep, prefetch=True)
-        for k in ("sketch", "candidates", DENSE, *TAIL):
+        for k in ("sketch", "candidates", DENSE, "bucket_decode", *TAIL):
             launches[k] = main_path[k]
         # B3 runs on whichever of the two routes splits
         launches["sort"] = main_path["sort"] or other["sort"]
@@ -4314,7 +4493,10 @@ def main() -> int:
         run_align(tmp, "944mbp", db, genomes, species, ALIGN_READS)
         shutil.rmtree(os.path.join(tmp, "944mbp", "genomes"))
         run_repl(tmp, "944mbp", db, REPL_READS)
-        run_stagings(tmp, "944mbp", Database.load(db), hist, stage_s)
+        classed = run_stagings(tmp, "944mbp", Database.load(db), hist,
+                               stage_s, genomes, results, a.profile)
+        for k in ("classed_bucket", "classed_decode"):
+            launches[k] = classed[k]
         launches["csr_decode"] = run_csr_window(
             tmp, "944mbp", db, hist, ("sketch", *cand_kernels()),
             genomes=genomes, per_read=True)["csr_decode"]
@@ -4344,7 +4526,7 @@ def main() -> int:
             tmp, "many-target", db, genomes, "True",
             ("sketch", DENSE, "candidates_unpacked"), a.profile)
         launches["candidates_unpacked"] = main_path["candidates_unpacked"]
-        for k in (DENSE, *TAIL):
+        for k in (DENSE, "bucket_decode", *TAIL):
             launches[k] += main_path[k]
         phase_dense_limit(tmp, "many-target", db, hist)
         run_csr_window(tmp, "many-target", db, hist,
@@ -4362,10 +4544,9 @@ def main() -> int:
         main_path, pallas, pairs = run_two_tier(tmp, a.profile)
         for k in ("head_decode", "full_decode"):
             launches[k] = main_path[k]
-        for k in TAIL:
+        for k in ("bucket_decode", *TAIL):
             launches[k] += main_path[k]
-        for k in ("bucket_decode", "oidx_decode"):
-            launches[k] = pallas[k]
+        launches["oidx_decode"] = pallas["oidx_decode"]
         pair_paths.append(pairs)
     # the sharded, paired and multi-part main paths' launches, each
     # counted from zero just before its own query

@@ -306,14 +306,16 @@ ENVIRONMENT
                             flags allow them (rows wider than a
                             block holds take their wide form).
     MC_PROBE_PALLAS=<0|1|list>
-                            extra probe-decode kernels: 0 or unset
-                            none, 1 all, or a comma list of stages from
-                            bucket,oidx (the bucket-row probe, B9; the
-                            overflow-row id, B8, is folded into B7,
-                            which reads it from the head row, so
-                            naming oidx changes nothing). The two-tier
-                            decodes (B6 head only, B7 full depth)
-                            always run.
+                            checked and changes nothing: 0, 1, unset or
+                            a comma list of stages from
+                            bucket,oidx,head,full; any other value is
+                            refused. The probe kernels always run: the
+                            bucket-row probe (B9, every row layout and
+                            a u32 CSR part), the classed cells'
+                            classed_bucket and classed_decode, and the
+                            two-tier decodes (B6 head only, B7 full
+                            depth; the overflow-row id, B8, is folded
+                            into B7, which reads it from the head row).
     MC_BUILD_GBITS=<g>      force 2^g feature-range groups in the
                             bounded-memory device build (default:
                             auto-sized to ~48M elements per group).

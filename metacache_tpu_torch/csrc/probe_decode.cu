@@ -1,5 +1,5 @@
-// B6 to B9, csr_decode and dense_decode: the probe decode for Hopper
-// (sm_90a).
+// B6 to B9, csr_decode, dense_decode, classed_bucket and
+// classed_decode: the probe decode for Hopper (sm_90a).
 //
 // The two-tier layout keeps one head row per feature,
 // [feature, count, ovf_idx, slot * (W - 3)], and one overflow row per
@@ -46,14 +46,36 @@
 // is given one.
 //
 // B8: one thread per probe reads lanes 0 and 2 of its head row (two
-// loads of one 32-byte sector) and writes one int. B9: one warp per
-// probe reads its 256-byte bucket row as one 8-byte load a lane (two
-// logical lanes a lane, coalesced), matches the feature with a ballot
-// (__any_sync) and sums the matching lanes' ranks with a shuffle
-// reduction; lane 0 broadcasts the row's start. Both are bound by
-// device-memory bytes: B9's 256-byte row a probe is nearly all of its
-// traffic, B8's row sector and its 12 bytes of index, feature and
+// loads of one 32-byte sector) and writes one int. B9, the bucket probe
+// of every index (JAX's probe_bucket and probe_bucket64 too): one warp
+// per probe reads its bucket row in chunks of 64 logical lanes, one
+// 8-byte load a lane where the width is even (the pair-packed rows and
+// the host's 64 lanes: one chunk, 256 bytes), two 4-byte loads a lane
+// where it is odd (the host's 65 or 1 + 2^k lanes), matches the feature
+// (u64: its low 32 bits) with a ballot (__any_sync) and sums the matching
+// lanes' ranks with a shuffle reduction; lane 0's first load is the
+// row's start, broadcast; the clamp into the feature table is folded in.
+// Both are bound by device-memory bytes: B9's row a probe is nearly all
+// of its traffic, B8's row sector and its 12 bytes of index, feature and
 // output a probe are all of its.
+//
+// classed_bucket and classed_decode: the size-classed layout's probe,
+// which JAX leaves to XLA (metacache_tpu/ops/probe.py:167-212,
+// ops/rows.py:469-575). classed_bucket is B9's design on the classed
+// index: one warp a probe, one 8-byte load a lane of the 64-lane row
+// [a16_A, a16_B, a16_C, 61 lanes of two 16-bit entries]; the entries'
+// match, JAX's sums of the matching entries' index and class (one
+// shuffle reduction of both, packed) and the rank among the valid
+// entries of that class (four ballots and popcounts) give the cell
+// address. classed_decode is dense_decode's design on the cells: one
+// warp a probe, broadcast loads of the cell's meta lanes in its 64-lane
+// half, lane l then takes output lanes l, l + 32, ..., reads slot j
+// (mirrored for odd features) from the cell below hsl and from class
+// C's overflow row past it, only where j < the count, re-encodes it
+// and writes each output lane once; a head-only flag stops at hsl and
+// writes the count (escalation phase 1). Bound: device-memory bytes,
+// the 256-byte bucket row a probe (classed_bucket) and the rl output
+// lanes a probe (classed_decode).
 //
 // csr_decode: the CSR layout's per-slot gathers, which JAX leaves to
 // XLA (metacache_tpu/ops/rows.py:784-838: an (N, C) index tensor, two
@@ -282,29 +304,222 @@ oidx_decode_kernel(const int32_t* __restrict__ head, int64_t nf, int hw,
   oidx[probe] = (row[0] == fv && fv != -1) ? row[2] : 0;
 }
 
+// B9 on logical rows of L lanes (the pair-packed index: L = 64): lane 0
+// the bucket's start, lane j >= 1 in-bucket rank j - 1, -1 pads. WIDE:
+// int64 u64 bit patterns, the row of the top ``bits`` of 64, the match on
+// the low 32 bits. FIXED: L known at compile time (64: one chunk, the
+// loop unrolled), 0 = the runtime width L. VEC (L even, 8-byte aligned
+// rows): each chunk of 64 lanes is one 8-byte load a lane (logical lanes
+// c0 + 2 * lane and c0 + 2 * lane + 1); else two 4-byte loads (c0 + lane,
+// c0 + 32 + lane). Lane 0's first load holds the start. idx = start + the
+// sum of every matching lane's rank (JAX's sum, not the first match: the
+// sentinel matches every padding lane), in wrapping int32 arithmetic,
+// then clamped into [0, hi] where hi >= 0.
+template <bool WIDE, bool VEC, int FIXED>
 __global__ void __launch_bounds__(kThreads)
-bucket_decode_kernel(const int32_t* __restrict__ brows, int bits,
-                     const int32_t* __restrict__ flat, int64_t n,
-                     int32_t* __restrict__ idx, bool* __restrict__ found) {
+bucket_decode_kernel(const int32_t* __restrict__ brows, int64_t nrows,
+                     int width, int bits, const void* __restrict__ flat,
+                     int64_t n, int64_t hi, int32_t* __restrict__ idx,
+                     bool* __restrict__ found) {
+  const int L = FIXED ? FIXED : width;
+  const int64_t probe = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (probe >= n) return;  // the whole warp: one probe a warp
+  int32_t key;
+  int64_t h;
+  bool sentinel;
+  if constexpr (WIDE) {
+    const int64_t fv = static_cast<const int64_t*>(flat)[probe];
+    h = (int64_t)((uint64_t)fv >> (64 - bits));
+    key = (int32_t)fv;
+    sentinel = fv == -1;
+  } else {
+    const int32_t fv = static_cast<const int32_t*>(flat)[probe];
+    h = (int64_t)((uint32_t)fv >> (32 - bits));
+    key = fv;
+    sentinel = fv == -1;
+  }
+  const int32_t* row = brows + clamp_row(h, nrows) * L;
+  uint32_t local = 0;
+  bool any = false;
+  int32_t start = 0;
+#pragma unroll
+  for (int c0 = 0; c0 < L; c0 += 64) {  // uniform
+    int j0, j1;
+    int32_t v0 = 0, v1 = 0;
+    if constexpr (VEC) {
+      j0 = c0 + 2 * lane;
+      j1 = j0 + 1;
+      if (j0 < L) {  // L even: j1 < L too
+        const int2 v = reinterpret_cast<const int2*>(row + c0)[lane];
+        v0 = v.x;
+        v1 = v.y;
+      }
+    } else {
+      j0 = c0 + lane;
+      j1 = j0 + 32;
+      if (j0 < L) v0 = row[j0];
+      if (j1 < L) v1 = row[j1];
+    }
+    if (c0 == 0) start = v0;
+    const bool m0 = j0 >= 1 && j0 < L && v0 == key;
+    const bool m1 = j1 < L && v1 == key;
+    local += (m0 ? (uint32_t)(j0 - 1) : 0u) + (m1 ? (uint32_t)(j1 - 1) : 0u);
+    any |= m0 || m1;
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    local += __shfl_xor_sync(0xffffffffu, local, o);
+  any = __any_sync(0xffffffffu, any);
+  start = __shfl_sync(0xffffffffu, start, 0);
+  if (lane == 0) {
+    int32_t r = (int32_t)((uint32_t)start + local);
+    if (hi >= 0) r = r < 0 ? 0 : (r > hi ? (int32_t)hi : r);
+    idx[probe] = r;
+    found[probe] = any && !sentinel;
+  }
+}
+
+template <bool WIDE>
+auto bucket_decode_for(int L, bool vec) {
+  if (L == 64 && vec) return bucket_decode_kernel<WIDE, true, 64>;
+  return vec ? bucket_decode_kernel<WIDE, true, 0>
+             : bucket_decode_kernel<WIDE, false, 0>;
+}
+
+// classed_bucket: the size-classed bucket probe. Logical row h (64
+// lanes) = [a16_A, a16_B, a16_C, 61 entry lanes], two 16-bit entries a
+// lane, entry = ((cls << 14) | feat_low) + 1, 0 = empty; entry index
+// idx2 = 2 * (lane - 3) + half. Lane l of the warp loads row lanes 2l
+// and 2l + 1 (one 8-byte load), so it holds entries 4l - 6 .. 4l - 3 in
+// order. j and cls are JAX's sums over the matching entries (one shuffle
+// reduction of j | cls << 16: j's sum stays below 2^16), pre counts the
+// valid entries of class cls before j (four ballots and popcounts), and
+// pidx = found ? ((base_cls + pre * w16_cls) << 2) | cls : 0.
+__global__ void __launch_bounds__(kThreads)
+classed_bucket_kernel(const int32_t* __restrict__ brows, int64_t nrows,
+                      int bits, const int32_t* __restrict__ flat, int64_t n,
+                      int32_t* __restrict__ pidx, bool* __restrict__ found) {
   const int64_t probe = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (probe >= n) return;  // the whole warp: one probe a warp
   const int32_t fv = flat[probe];
-  const uint32_t h = (uint32_t)fv >> (32 - bits);
-  // logical lanes 2 * lane (.x) and 2 * lane + 1 (.y) of row h; lane 0
-  // of the row is the bucket's start, lane j >= 1 in-bucket rank j - 1
-  const int2 v = reinterpret_cast<const int2*>(brows + (int64_t)h * 64)[lane];
-  const bool m0 = lane > 0 && v.x == fv;
-  const bool m1 = v.y == fv;
-  int local = (m0 ? 2 * lane - 1 : 0) + (m1 ? 2 * lane : 0);
-  for (int o = 16; o > 0; o >>= 1)
-    local += __shfl_xor_sync(0xffffffffu, local, o);
-  const bool any = __any_sync(0xffffffffu, m0 || m1);
-  const int32_t start = __shfl_sync(0xffffffffu, v.x, 0);
-  if (lane == 0) {
-    idx[probe] = start + local;
-    found[probe] = any && fv != -1;
+  const int64_t h = (int64_t)((uint32_t)fv >> (32 - bits));
+  const int32_t key = (int32_t)((uint32_t)fv & ((1u << (32 - bits)) - 1u));
+  const int2 v =
+      reinterpret_cast<const int2*>(brows + clamp_row(h, nrows) * 64)[lane];
+  // entries q = 0..3: row lane 2l + (q >> 1), half q & 1
+  uint32_t ent[4];
+  int id2[4];
+  bool live[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = 2 * lane + (q >> 1);
+    const uint32_t w = (uint32_t)(q < 2 ? v.x : v.y);
+    ent[q] = (q & 1) ? (w >> 16) : (w & 0xFFFFu);
+    id2[q] = 2 * (r - 3) + (q & 1);
+    live[q] = r >= 3 && ent[q] != 0;
   }
+  uint32_t acc = 0;
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t e = ent[q] - 1u;
+    if (live[q] && (int32_t)(e & 0x3FFFu) == key) {
+      acc += (uint32_t)id2[q] + ((e >> 14) << 16);
+      any = true;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  any = __any_sync(0xffffffffu, any);
+  const int j = (int)(acc & 0xFFFFu);
+  const int cls = (int)(acc >> 16);
+  int pre = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const bool same = live[q] && (int)((ent[q] - 1u) >> 14) == cls &&
+                      id2[q] < j;
+    pre += __popc(__ballot_sync(0xffffffffu, same));
+  }
+  const int32_t a = __shfl_sync(0xffffffffu, v.x, 0);
+  const int32_t b = __shfl_sync(0xffffffffu, v.y, 0);
+  const int32_t c = __shfl_sync(0xffffffffu, v.x, 1);
+  if (lane == 0) {
+    const bool hit = any && fv != -1;
+    const int32_t base = cls == 0 ? a : (cls == 1 ? b : c);
+    const uint32_t w16 = cls == 0 ? 1u : (cls == 1 ? 2u : 4u);
+    const uint32_t addr = (uint32_t)base + (uint32_t)pre * w16;
+    pidx[probe] = hit ? (int32_t)((addr << 2) | (uint32_t)cls) : 0;
+    found[probe] = hit;
+  }
+}
+
+// classed_decode's output encodings (mc_classed_decode picks one; the
+// cells store pk slots)
+enum ClassedMode { kCPass = 0, kCRebase = 1, kCUnpack = 2 };
+
+// classed_decode: one warp a probe. pidx = (a16 << 2) | cls; the cell is
+// 64-lane half a16 >> 2 of the (P, 128) cells shifted left by 16 * (a16 &
+// 3) lanes, zero filled (cells are 16/32/64 lanes at width-aligned
+// offsets, so none crosses a half). Window lanes 0 and 1 are the feature
+// and the count; class C (cls 2) keeps its overflow row id in lane 2 and
+// its slots from lane 3, the other classes their slots from lane 2. Slot
+// j < hsl comes from the window, j >= hsl (full depth) from the overflow
+// row. HEAD: the first min(count, hsl) slots and the count; else the
+// first min(count, c). Then the caller's encoding (MODE), the padding to
+// rl and the reversed odd runs, each output lane stored once (coalesced).
+template <bool HEAD, int MODE>
+__global__ void __launch_bounds__(kThreads)
+classed_decode_kernel(const int32_t* __restrict__ cells, int64_t nhalf,
+                      const int32_t* __restrict__ ovf, int64_t novf, int ow,
+                      const int32_t* __restrict__ pidx,
+                      const int32_t* __restrict__ flat, int64_t n, int hsl,
+                      int c, int rl, int f, int slot_bits, int pack_bits,
+                      int32_t* __restrict__ out0, int32_t* __restrict__ out1,
+                      int32_t* __restrict__ cnt_out) {
+  const int64_t probe = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (probe >= n) return;  // the whole warp: one probe a warp
+  const uint32_t pi = (uint32_t)pidx[probe];
+  const uint32_t a16 = pi >> 2;
+  const int sh = 16 * (int)(a16 & 3u);
+  const int32_t* half = cells + clamp_row((int64_t)(a16 >> 2), nhalf) * 64;
+  const int32_t fv = flat[probe];
+  const bool found = half[sh] == fv && fv != -1;
+  const int cnt = found ? half[sh + 1] : 0;
+  const bool isC = (pi & 3u) == 2u;
+  const int cap = HEAD ? hsl : c;
+  const int lim = cnt < cap ? (cnt > 0 ? cnt : 0) : cap;
+  const int sb = sh + (isC ? 3 : 2);  // half lane of slot 0
+  const int32_t* orow = nullptr;
+  if (!HEAD && lim > hsl)
+    orow = ovf + clamp_row(found && isC ? half[sh + 2] : 0, novf) * ow;
+  const bool odd = (probe % f) & 1;
+  const uint32_t smask = (1u << slot_bits) - 1u;
+  int32_t* o0 = out0 + probe * rl;
+  int32_t* o1 = MODE == kCUnpack ? out1 + probe * rl : nullptr;
+  for (int p = lane; p < rl; p += 32) {
+    const int j = odd ? rl - 1 - p : p;
+    int32_t a = kI32Max;
+    if (j < lim) {
+      if (j < hsl)
+        a = sb + j < 64 ? half[sb + j] : 0;  // zero filled past the half
+      else
+        a = orow[j - hsl];
+    }
+    const uint32_t u = (uint32_t)a;
+    if constexpr (MODE == kCPass) {
+      o0[p] = a;
+    } else if constexpr (MODE == kCRebase) {
+      o0[p] = a == kI32Max ? kI32Max
+                           : (int32_t)(((u >> slot_bits) << pack_bits) |
+                                       (u & smask));
+    } else {
+      o0[p] = a == kI32Max ? kI32Max : (int32_t)(u >> slot_bits);
+      o1[p] = a == kI32Max ? kI32Max : (int32_t)(u & smask);
+    }
+  }
+  if (HEAD && lane == 0) cnt_out[probe] = cnt;
 }
 
 template <bool PACK>
@@ -487,15 +702,61 @@ extern "C" int mc_oidx_decode(const void* head, int64_t nf, int hw,
   return (int)cudaGetLastError();
 }
 
-extern "C" int mc_bucket_decode(const void* brows, int bits,
-                                const void* flat, int64_t n, void* idx,
+extern "C" int mc_bucket_decode(const void* brows, int64_t nrows, int L,
+                                int bits, const void* flat, int wide,
+                                int64_t n, int64_t hi, void* idx,
                                 void* found, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (bits < 1 || bits > 31) return (int)cudaErrorInvalidValue;
-  bucket_decode_kernel<<<blocks_for(n), kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)brows, bits, (const int32_t*)flat, n, (int32_t*)idx,
+  if (bits < 1 || bits > (wide ? 63 : 31) || L < 2 || nrows <= 0)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = L % 2 == 0 && reinterpret_cast<uintptr_t>(brows) % 8 == 0;
+  auto kernel = wide ? bucket_decode_for<true>(L, vec)
+                     : bucket_decode_for<false>(L, vec);
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)brows, nrows, L, bits, flat, n, hi, (int32_t*)idx,
       (bool*)found);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mc_classed_bucket(const void* brows, int64_t nrows, int bits,
+                                 const void* flat, int64_t n, void* pidx,
+                                 void* found, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (bits < 1 || bits > 31 || nrows <= 0 ||
+      reinterpret_cast<uintptr_t>(brows) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  classed_bucket_kernel<<<blocks_for(n), kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      (const int32_t*)brows, nrows, bits, (const int32_t*)flat, n,
+      (int32_t*)pidx, (bool*)found);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mc_classed_decode(const void* cells, int64_t nhalf,
+                                 const void* ovf, int64_t novf, int ow,
+                                 const void* pidx, const void* flat,
+                                 int64_t n, int hsl, int c, int rl, int f,
+                                 int slot_bits, int pack_bits, int head,
+                                 void* out0, void* out1, void* cnt,
+                                 void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int width = head ? hsl : c;
+  if (nhalf <= 0 || hsl < 1 || hsl > 61 || c < 1 || rl < width || f < 1 ||
+      slot_bits < 1 || slot_bits > 30 || pack_bits < 0 || pack_bits > 30 ||
+      (!head && c > hsl && (ovf == nullptr || novf <= 0 || ow < c - hsl)) ||
+      (head && (pack_bits != slot_bits || cnt == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int mode = pack_bits == slot_bits ? kCPass
+                   : pack_bits ? kCRebase : kCUnpack;
+  if (mode == kCUnpack && out1 == nullptr) return (int)cudaErrorInvalidValue;
+  auto kernel = head ? classed_decode_kernel<true, kCPass>
+                : mode == kCPass ? classed_decode_kernel<false, kCPass>
+                : mode == kCRebase ? classed_decode_kernel<false, kCRebase>
+                                   : classed_decode_kernel<false, kCUnpack>;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cells, nhalf, (const int32_t*)ovf, novf, ow,
+      (const int32_t*)pidx, (const int32_t*)flat, n, hsl, c, rl, f,
+      slot_bits, pack_bits, (int32_t*)out0, (int32_t*)out1, (int32_t*)cnt);
   return (int)cudaGetLastError();
 }
 

@@ -124,7 +124,12 @@ def _load():
             lib.mc_full_decode.argtypes = [p, i64, i, p, i64, i, p, p, p,
                                            i64, i, i, i, i, p, p]
             lib.mc_oidx_decode.argtypes = [p, i64, i, p, p, i64, p, p]
-            lib.mc_bucket_decode.argtypes = [p, i, p, i64, p, p, p]
+            lib.mc_bucket_decode.argtypes = [p, i64, i, i, p, i, i64, i64,
+                                             p, p, p]
+            lib.mc_classed_bucket.argtypes = [p, i64, i, p, i64, p, p, p]
+            lib.mc_classed_decode.argtypes = [p, i64, p, i64, i, p, p, i64,
+                                              i, i, i, i, i, i, i, p, p, p,
+                                              p]
             lib.mc_csr_decode.argtypes = [p, p, p, i64, p, p, i64, i64, i,
                                           i, i, i, p, p, p]
             lib.mc_dense_decode.argtypes = [p, i64, i, p, i64, i, p, p, i,
@@ -139,7 +144,8 @@ def _load():
                        lib.mc_candidates_packed_wide,
                        lib.mc_candidates_unpacked_wide, lib.mc_head_decode,
                        lib.mc_full_decode, lib.mc_oidx_decode,
-                       lib.mc_bucket_decode, lib.mc_csr_decode,
+                       lib.mc_bucket_decode, lib.mc_classed_bucket,
+                       lib.mc_classed_decode, lib.mc_csr_decode,
                        lib.mc_dense_decode, lib.mc_classify_lca,
                        lib.mc_rank_hist):
                 fn.restype = ctypes.c_int
@@ -226,6 +232,13 @@ OIDX_DECODE = Kernel("mc_oidx_decode",
 BUCKET_DECODE = Kernel("mc_bucket_decode",
                        "metacache_tpu/ops/probe_pallas.py:151",
                        "metacache_tpu_torch/csrc/probe_decode.cu")
+# no TPU counterpart: JAX's classed bucket probe and classed cell decode
+# are XLA ops (probe.py:167-212, rows.py:469-575)
+CLASSED_BUCKET = Kernel("mc_classed_bucket",
+                        "metacache_tpu/ops/probe.py:167",
+                        "metacache_tpu_torch/csrc/probe_decode.cu")
+CLASSED_DECODE = Kernel("mc_classed_decode", "metacache_tpu/ops/rows.py:469",
+                        "metacache_tpu_torch/csrc/probe_decode.cu")
 # no TPU counterpart: JAX's CSR probe gathers its slots with XLA
 # (rows.py:784-838)
 CSR_DECODE = Kernel("mc_csr_decode", "metacache_tpu/ops/rows.py:784",
@@ -250,6 +263,7 @@ ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sketch64": SKETCH64,
        "candidates_unpacked_wide": CANDIDATES_UNPACKED_WIDE,
        "head_decode": HEAD_DECODE, "full_decode": FULL_DECODE,
        "bucket_decode": BUCKET_DECODE, "oidx_decode": OIDX_DECODE,
+       "classed_bucket": CLASSED_BUCKET, "classed_decode": CLASSED_DECODE,
        "csr_decode": CSR_DECODE, "dense_decode": DENSE_DECODE,
        "classify_lca": CLASSIFY_LCA, "rank_hist": RANK_HIST}
 

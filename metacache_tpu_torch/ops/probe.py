@@ -7,18 +7,18 @@ u64 features (k > 16) ``make_bucket_index64`` builds them in numpy from
 the top bits and the low 32 bits of each feature, and
 ``probe_bucket64`` probes them with int64 bit patterns.
 ``probe_bucket`` finds each feature's row in the sorted feature array
-with one row gather and an in-lane match, or through kernel B9 when
-``MC_PROBE_PALLAS`` names its stage; ``probe_bucket_classed`` finds its
-cell in the size-classed layout. Features are int32 tensors of u32 bit
-patterns.
+from its bucket row and an in-lane match, through kernel B9 (on every
+index width, u32 and u64); ``probe_bucket_classed`` finds its cell in
+the size-classed layout through kernel classed_bucket. Features are
+int32 tensors of u32 bit patterns.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .probe_decode import (bucket_decode, high32, low32,  # noqa: F401
-                           probe_pallas_enabled, shift_right_logical)
+from .probe_decode import (bucket_decode, classed_bucket,  # noqa: F401
+                           high32, low32, shift_right_logical)
 
 
 # copied from metacache_tpu/ops/probe.py:36-69 (numpy, no JAX)
@@ -120,50 +120,37 @@ def collision_free_bits64(features: np.ndarray) -> int:
     return int((64 - blen).max()) + 1
 
 
-# metacache_tpu/ops/probe.py:115-135 as torch ops
+# metacache_tpu/ops/probe.py:115-135
 def probe_bucket64(flat: torch.Tensor, bucket_rows: torch.Tensor,
-                   bits: int):
-    """(N,) int64 u64-bit features -> (idx int32, found bool): the host
-    index's bucket row of the top `bits` bits (a logical shift), an in-lane
-    match of the LOW 32 bits (make_bucket_index64 keeps them distinct
-    within a bucket); the caller verifies the full feature against the
-    head row's two meta lanes. The sentinel (-1) is never found."""
-    h = ((flat >> (64 - bits)) & ((1 << bits) - 1))
-    row = bucket_rows[h]                      # ONE row gather
-    match = row[:, 1:] == low32(flat)[:, None]
-    lanes = torch.arange(match.shape[1], dtype=torch.int32,
-                         device=flat.device)
-    local = torch.where(match, lanes, 0).sum(dim=1, dtype=torch.int32)
-    idx = row[:, 0] + local
-    found = match.any(dim=1) & (flat != -1)
-    return idx, found
+                   bits: int, hi: int | None = None):
+    """(N,) int64 u64-bit features -> (idx int32, found bool) through B9:
+    the host index's bucket row of the top `bits` bits (a logical shift),
+    an in-lane match of the LOW 32 bits (make_bucket_index64 keeps them
+    distinct within a bucket); the caller verifies the full feature
+    against the head row's two meta lanes. The sentinel (-1) is never
+    found. ``hi``: idx clamped into [0, hi]."""
+    if flat.dtype != torch.int64:
+        raise ValueError("probe_bucket64 takes int64 u64 bit patterns")
+    return bucket_decode(bucket_rows, flat, bits, hi)
 
 
-def probe_bucket(flat: torch.Tensor, bucket_rows: torch.Tensor, bits: int):
-    """(N,) int32 features -> (idx int32, found bool) via one bucket-row
-    gather + lane match (metacache_tpu/ops/probe.py:138-164). A 128-wide
+# metacache_tpu/ops/probe.py:138-164
+def probe_bucket(flat: torch.Tensor, bucket_rows: torch.Tensor, bits: int,
+                 hi: int | None = None):
+    """(N,) int32 features -> (idx int32, found bool) through B9: the
+    bucket row of the top `bits` bits and an in-lane match. A 128-wide
     bucket_rows array is the device builder's pair-packed layout, the
     same memory as its 64-lane logical rows (host widths are 64, 65 or
-    1+2^k, never 128); kernel B9 decodes it when the "bucket" stage is
-    named."""
-    if bucket_rows.shape[1] == 128:
-        if probe_pallas_enabled("bucket"):
-            return bucket_decode(bucket_rows, flat, bits)
-        bucket_rows = bucket_rows.view(-1, 64)
-    h = shift_right_logical(flat, 32 - bits).to(torch.int64)
-    row = bucket_rows[h]                      # ONE row gather
-    match = row[:, 1:] == flat[:, None]
-    lanes = torch.arange(match.shape[1], dtype=torch.int32,
-                         device=flat.device)
-    local = torch.where(match, lanes, 0).sum(dim=1, dtype=torch.int32)
-    idx = row[:, 0] + local
-    found = match.any(dim=1) & (flat != -1)
-    return idx, found
+    1+2^k, never 128). ``hi``: idx clamped into [0, hi]."""
+    if flat.dtype != torch.int32:
+        raise ValueError("probe_bucket takes int32 u32 bit patterns")
+    return bucket_decode(bucket_rows, flat, bits, hi)
 
 
-# metacache_tpu/ops/probe.py:167-212 as torch ops
+# metacache_tpu/ops/probe.py:167-212
 def probe_bucket_classed(flat: torch.Tensor, brows: torch.Tensor, bits: int):
-    """Classed bucket-row probe -> (pidx int32, found bool).
+    """Classed bucket-row probe -> (pidx int32, found bool) through
+    classed_bucket.
 
     brows logical row h (64 lanes, pair-packed) = [a16_A, a16_B, a16_C,
     61 x packed-entry lanes]; each lane holds two entries (low/high 16
@@ -171,32 +158,4 @@ def probe_bucket_classed(flat: torch.Tensor, brows: torch.Tensor, bits: int):
     (ops/table_device.py::_brows_build_classed). The cell address is
     a16_cls + (#earlier same-class entries) * w16(cls); ``pidx`` packs it
     with the class: (addr16 << 2) | cls."""
-    h = shift_right_logical(flat, 32 - bits).to(torch.int64)
-    row = brows.reshape(-1, 64)[h]
-    key_low = flat & ((1 << (32 - bits)) - 1)
-    ent = row[:, 3:64]
-    lanes = torch.arange(61, dtype=torch.int32, device=flat.device)
-    halves = []
-    for x, idx2 in ((ent & 0xFFFF, lanes * 2),
-                    (shift_right_logical(ent, 16), lanes * 2 + 1)):
-        valid = x != 0
-        e = x - 1
-        m = valid & ((e & 0x3FFF) == key_low[:, None])
-        halves.append((m, e >> 14, valid, idx2))
-    found = torch.zeros(flat.shape, dtype=torch.bool, device=flat.device)
-    j = torch.zeros(flat.shape, dtype=torch.int32, device=flat.device)
-    cls = torch.zeros_like(j)
-    for m, c, _v, idx2 in halves:
-        found |= m.any(dim=1)
-        j += torch.where(m, idx2, 0).sum(dim=1, dtype=torch.int32)
-        cls += torch.where(m, c, 0).sum(dim=1, dtype=torch.int32)
-    pre = torch.zeros_like(j)
-    for m, c, v, idx2 in halves:
-        pre += (v & (c == cls[:, None]) & (idx2 < j[:, None])).sum(
-            dim=1, dtype=torch.int32)
-    w16 = torch.where(cls == 0, 1, torch.where(cls == 1, 2, 4))
-    base = torch.where(cls == 0, row[:, 0],
-                       torch.where(cls == 1, row[:, 1], row[:, 2]))
-    addr16 = base + pre * w16
-    found &= flat != -1
-    return torch.where(found, (addr16 << 2) | cls, 0).to(torch.int32), found
+    return classed_bucket(brows, flat, bits)

@@ -1,6 +1,7 @@
 """Probe decode: kernels B6 (two-tier head only), B7 (full depth), B8
-(overflow-row id), B9 (bucket-row index) and csr_decode (the CSR
-layout's per-slot gathers).
+(overflow-row id), B9 (bucket-row index), csr_decode (the CSR layout's
+per-slot gathers), dense_decode (dense and two-tier lane rows),
+classed_bucket and classed_decode (the size-classed cells).
 
 Port of metacache_tpu/ops/probe_pallas.py::head_decode, ::full_decode,
 ::oidx_decode and ::bucket_decode. The two-tier layout
@@ -29,8 +30,17 @@ read the rows themselves. Their contracts at that boundary:
   not the sentinel, else 0;
 - ``bucket_decode(brows, flat, bits)`` equals JAX
   ``bucket_decode(brows[h >> 1], h & 1, flat)`` with h = flat >>> (32 -
-  bits): (start + the in-bucket ranks of the lanes that hold the
-  feature, found = some lane holds it and it is not the sentinel);
+  bits) on pair-packed rows, and JAX's ``probe_bucket`` and
+  ``probe_bucket64`` (probe.py:115-164) on every index: (start + the
+  in-bucket ranks of the lanes that hold the feature, found = some lane
+  holds it and it is not the sentinel);
+- ``classed_bucket(brows, flat, bits)`` equals JAX's
+  ``probe_bucket_classed`` (probe.py:167-212), and ``classed_decode``
+  the classed branches of its ``probe_rows`` and ``probe_rows_head``
+  from the cell addresses on (rows.py:469-575): the cell's window, the
+  meta check, the mask to the count, the overflow row of class C, the
+  caller's encoding, the pad to rl and the reversed odd runs. Neither
+  has a Pallas counterpart: JAX leaves these steps to XLA.
 
 - ``csr_decode(idx, found, offsets, loc_tgt, loc_win, c, rl, f,
   pack_bits)`` equals the CSR branch of JAX's ``probe_rows``
@@ -55,9 +65,11 @@ Odd features ((probe index % f) & 1) get their rl-lane run reversed;
 f = 1 reverses nothing.
 
 CUDA tensors launch the kernels (csrc/probe_decode.cu); CPU tensors take
-the plain versions below. B6 and B7 run wherever their layouts are
-probed; B9 is off unless ``MC_PROBE_PALLAS`` names it, as in JAX
-(probe_pallas_enabled). B8's work is folded into B7 on the query path:
+the plain versions below, whatever ``MC_PROBE_PALLAS`` says (it is
+checked, check_probe_pallas). B9 is the bucket probe of every row
+layout and of a u32 CSR part, classed_bucket and classed_decode the
+probe of the classed cells; B6 and B7 run wherever their layouts are
+probed. B8's work is folded into B7 on the query path:
 B7 without ``oidx`` reads the overflow row from the head row it holds,
 where JAX's oidx stage had to find the rows before XLA's gather
 (metacache_tpu/ops/rows.py:716-738). ``oidx_decode`` stays as the
@@ -77,16 +89,22 @@ from .. import kernels
 I32_MAX = 2**31 - 1
 
 
-# metacache_tpu/ops/probe_pallas.py:43-61 for the stage the port gates;
-# head and full (B6, B7) always run, and B7 does the oidx stage's work
-def probe_pallas_enabled(stage: str) -> bool:
-    """Gate of the off-by-default decode kernel, ``stage`` "bucket"
-    (B9). MC_PROBE_PALLAS: 0 or unset = off, 1 = all stages, or a comma
-    list of stage names ("bucket,head,full,oidx")."""
+PROBE_STAGES = ("bucket", "head", "full", "oidx")
+
+
+# metacache_tpu/ops/probe_pallas.py:43-61 reads MC_PROBE_PALLAS to pick
+# the stages its Pallas kernels take; every stage's kernel always runs
+# on the card here (B9, B6, B7; B7 does the oidx stage's work)
+def check_probe_pallas():
+    """Refuse an MC_PROBE_PALLAS other than unset, 0, 1 or a comma list
+    of stage names from ``PROBE_STAGES``; no value changes a route."""
     v = os.environ.get("MC_PROBE_PALLAS", "")
-    if v in ("", "0"):
-        return False
-    return v == "1" or stage in {s.strip() for s in v.split(",")}
+    if v in ("", "0", "1"):
+        return
+    bad = {x.strip() for x in v.split(",")} - set(PROBE_STAGES)
+    if bad:
+        raise ValueError(f"MC_PROBE_PALLAS={v!r}: expected 0, 1 or a comma "
+                         f"list of {','.join(PROBE_STAGES)}")
 
 
 def low32(flat: torch.Tensor) -> torch.Tensor:
@@ -249,42 +267,254 @@ def oidx_decode(head: torch.Tensor, idx: torch.Tensor,
     return oidx
 
 
-def _bucket_prefix(flat: torch.Tensor, bits: int) -> torch.Tensor:
-    """h = flat >>> (32 - bits) of int32 bit patterns, int64."""
-    return (flat.to(torch.int64) & 0xFFFFFFFF) >> (32 - bits)
-
-
-def bucket_decode_plain(brows, flat, bits: int):
+def bucket_decode_plain(brows, flat, bits: int, hi: int | None = None):
     """Plain version of B9: (idx (N,) int32, found (N,) bool)."""
-    row = brows.reshape(-1, 64)[_bucket_prefix(flat, bits)]
-    match = row[:, 1:] == flat[:, None]
-    lanes = torch.arange(63, dtype=torch.int32, device=flat.device)
+    if flat.dtype == torch.int64:
+        h = (flat >> (64 - bits)) & ((1 << bits) - 1)
+        key = low32(flat)
+    else:
+        h = (flat.to(torch.int64) & 0xFFFFFFFF) >> (32 - bits)
+        key = flat
+    # the pair-packed (R, 128) rows are the logical rows (2R, 64)
+    row = (brows.reshape(-1, 64) if brows.shape[1] == 128 else brows)[h]
+    match = row[:, 1:] == key[:, None]
+    lanes = torch.arange(match.shape[1], dtype=torch.int32,
+                         device=flat.device)
     local = torch.where(match, lanes, 0).sum(dim=1, dtype=torch.int32)
-    return row[:, 0] + local, match.any(dim=1) & (flat != -1)
+    idx = row[:, 0] + local
+    if hi is not None:
+        idx = torch.clamp(idx, 0, max(hi, 0))
+    return idx, match.any(dim=1) & (flat != -1)
 
 
-def bucket_decode(brows: torch.Tensor, flat: torch.Tensor, bits: int):
-    """(2^bits / 2, 128) pair-packed bucket rows and (N,) features
-    (int32 bit patterns) -> (idx (N,) int32 = start + the in-bucket ranks
-    of the lanes of row h = flat >>> (32 - bits) that hold the feature,
-    found (N,) bool) (B9)."""
+def bucket_decode(brows: torch.Tensor, flat: torch.Tensor, bits: int,
+                  hi: int | None = None):
+    """A bucket-row index of 2^bits logical rows [start, features...]
+    (-1 pads): the device builder's pair-packed (2^bits / 2, 128) rows
+    (64 lanes a logical row) or the host's (2^bits, W) rows, W = 64, 65
+    or 1 + 2^k; and (N,) features, int32 u32 bit patterns or int64 u64
+    ones -> (idx (N,) int32 = start + the in-bucket ranks of every lane
+    of row h that holds the feature (u64: its low 32 bits), found (N,)
+    bool = some lane holds it and it is not the sentinel) (B9). h =
+    flat >>> (32 - bits), or >>> (64 - bits) for u64 features. ``hi``:
+    idx clamped into [0, hi] (the feature table's last row)."""
     _check(brows, "brows", 2)
-    _check(flat, "flat", 1)
-    if brows.shape[1] != 128 or brows.shape[0] * 2 != 1 << bits or \
+    check_probe_pallas()
+    w = brows.shape[1]
+    lanes = 64 if w == 128 else w
+    if flat.dim() != 1 or flat.dtype not in (torch.int32, torch.int64) or \
             flat.device != brows.device:
-        raise ValueError(f"bucket rows {tuple(brows.shape)} are not the "
-                         f"pair-packed index of {bits} bits on the "
-                         "features' device")
+        raise ValueError("flat must be a 1-dim int32 or int64 tensor on the "
+                         "bucket rows' device")
+    wide = flat.dtype == torch.int64
+    if lanes < 2 or not 1 <= bits <= (63 if wide else 31) or \
+            brows.shape[0] * w != lanes << bits:
+        raise ValueError(f"bucket rows {tuple(brows.shape)} are not an "
+                         f"index of 2^{bits} rows")
     if not brows.is_cuda:
-        return bucket_decode_plain(brows, flat, bits)
+        return bucket_decode_plain(brows, flat, bits, hi)
     brows, flat = brows.contiguous(), flat.contiguous()
     n = flat.shape[0]
     idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
     found = torch.empty((n,), dtype=torch.bool, device=flat.device)
     if n:
-        kernels.BUCKET_DECODE(brows.data_ptr(), bits, flat.data_ptr(), n,
+        kernels.BUCKET_DECODE(brows.data_ptr(), 1 << bits, lanes, bits,
+                              flat.data_ptr(), int(wide), n,
+                              -1 if hi is None else max(hi, 0),
                               idx.data_ptr(), found.data_ptr())
     return idx, found
+
+
+def classed_bucket_plain(brows, flat, bits: int):
+    """Plain version of classed_bucket: (pidx (N,) int32, found (N,)
+    bool), as JAX's XLA ops compute them (probe.py:167-212)."""
+    h = shift_right_logical(flat, 32 - bits).to(torch.int64)
+    row = brows.reshape(-1, 64)[h]
+    key_low = flat & ((1 << (32 - bits)) - 1)
+    ent = row[:, 3:64]
+    lanes = torch.arange(61, dtype=torch.int32, device=flat.device)
+    halves = []
+    for x, idx2 in ((ent & 0xFFFF, lanes * 2),
+                    (shift_right_logical(ent, 16), lanes * 2 + 1)):
+        valid = x != 0
+        e = x - 1
+        m = valid & ((e & 0x3FFF) == key_low[:, None])
+        halves.append((m, e >> 14, valid, idx2))
+    found = torch.zeros(flat.shape, dtype=torch.bool, device=flat.device)
+    j = torch.zeros(flat.shape, dtype=torch.int32, device=flat.device)
+    cls = torch.zeros_like(j)
+    for m, c, _v, idx2 in halves:
+        found |= m.any(dim=1)
+        j += torch.where(m, idx2, 0).sum(dim=1, dtype=torch.int32)
+        cls += torch.where(m, c, 0).sum(dim=1, dtype=torch.int32)
+    pre = torch.zeros_like(j)
+    for m, c, v, idx2 in halves:
+        pre += (v & (c == cls[:, None]) & (idx2 < j[:, None])).sum(
+            dim=1, dtype=torch.int32)
+    w16 = torch.where(cls == 0, 1, torch.where(cls == 1, 2, 4))
+    base = torch.where(cls == 0, row[:, 0],
+                       torch.where(cls == 1, row[:, 1], row[:, 2]))
+    addr16 = base + pre * w16
+    found &= flat != -1
+    return torch.where(found, (addr16 << 2) | cls, 0).to(torch.int32), found
+
+
+def classed_bucket(brows: torch.Tensor, flat: torch.Tensor, bits: int):
+    """The size-classed bucket probe (classed_bucket): pair-packed
+    (2^bits / 2, 128) bucket rows, logical row h = [a16_A, a16_B, a16_C,
+    61 lanes of two 16-bit entries], entry = ((cls << 14) | feat_low) +
+    1, 0 = empty (ops/table_device.py::_brows_build_classed), and (N,)
+    int32 features -> (pidx (N,) int32 = ((a16_cls + (the valid entries
+    of class cls before the feature's) * w16(cls)) << 2) | cls where
+    found, else 0; found (N,) bool). j and cls are the sums over the
+    entries that hold the feature's low 32 - bits bits, as in JAX."""
+    _check(brows, "brows", 2)
+    _check(flat, "flat", 1)
+    check_probe_pallas()
+    if brows.shape[1] != 128 or brows.shape[0] * 2 != 1 << bits or \
+            flat.device != brows.device:
+        raise ValueError(f"classed bucket rows {tuple(brows.shape)} are not "
+                         f"the pair-packed index of {bits} bits on the "
+                         "features' device")
+    if not brows.is_cuda:
+        return classed_bucket_plain(brows, flat, bits)
+    brows, flat = brows.contiguous(), flat.contiguous()
+    n = flat.shape[0]
+    pidx = torch.empty((n,), dtype=torch.int32, device=flat.device)
+    found = torch.empty((n,), dtype=torch.bool, device=flat.device)
+    if n:
+        kernels.CLASSED_BUCKET(brows.data_ptr(), 1 << bits, bits,
+                               flat.data_ptr(), n, pidx.data_ptr(),
+                               found.data_ptr())
+    return pidx, found
+
+
+# metacache_tpu/ops/rows.py:469-494
+def _classed_window(cells: torch.Tensor, pidx: torch.Tensor):
+    """Each probe's classed cell as a 64-lane window -> (window, cls).
+
+    pidx = (addr16 << 2) | cls; cells = the (P, 128) cell array. Cell
+    bases are 8-unit aligned per class and widths 1/2/4 units at
+    width-aligned offsets, so no cell crosses a 64-lane half: read the
+    half, then shift it left by the cell's 16-lane offset, zero filled.
+    Lanes past the cell's width hold neighbour cells; callers mask by
+    the bucket count, which never exceeds the cell's slots."""
+    a16 = shift_right_logical(pidx, 2)
+    row = cells.view(-1, 64)[(a16 >> 2).to(torch.int64)]
+    src = torch.arange(64, device=pidx.device)[None, :] + \
+        16 * (a16 & 3).to(torch.int64)[:, None]
+    window = torch.where(src < 64,
+                         torch.gather(row, 1, torch.clamp(src, max=63)), 0)
+    return window, pidx & 3
+
+
+# metacache_tpu/ops/rows.py:497-515
+def _classed_head_slots(flat, cells, hsl: int, pidx):
+    """One classed head cell per probe -> (window (N, 64), found, cnt,
+    isC class-C mask, slots (N, hsl) head slot lanes); hsl <= 61."""
+    window, clsv = _classed_window(cells, pidx)
+    found = (window[:, 0] == flat) & (flat != -1)
+    cnt = torch.where(found, window[:, 1], 0)
+    isC = clsv == 2
+    slots = torch.where(isC[:, None], window[:, 3:3 + hsl],
+                        window[:, 2:2 + hsl])
+    return window, found, cnt, isC, slots
+
+
+# metacache_tpu/ops/rows.py:518-542
+def _classed_probe(flat, cells, ovf, hsl: int, c: int, pidx):
+    """Classed head + overflow slots -> pks (N, c) packed slots masked
+    to the bucket count."""
+    window, found, cnt, isC, slots = _classed_head_slots(flat, cells, hsl,
+                                                         pidx)
+    if c > hsl:
+        orow = _rows(ovf, torch.where(found & isC, window[:, 2], 0))
+        pks = torch.cat([slots, orow[:, :c - hsl]], dim=1)
+    else:
+        pks = slots[:, :c]
+    j = torch.arange(c, dtype=torch.int32, device=flat.device)[None, :]
+    return torch.where(j < cnt[:, None], pks, I32_MAX)
+
+
+def classed_decode_plain(cells, ovf, pidx, flat, hsl: int, c: int, rl: int,
+                         f: int, slot_bits: int, pack_bits: int,
+                         head: bool = False):
+    """Plain version of classed_decode, as JAX's XLA ops compute it
+    (rows.py:469-575): the (N, rl) int32 lanes, (pk,) or (tgt, win);
+    ``head``: (pk, cnt)."""
+    if head:
+        _w, _found, cnt, _isC, slots = _classed_head_slots(flat, cells, hsl,
+                                                           pidx)
+        j = torch.arange(hsl, dtype=torch.int32, device=flat.device)
+        pk = torch.where(j[None, :] < torch.clamp(cnt, max=hsl)[:, None],
+                         slots, I32_MAX)
+        return _reverse_odd(_padded(pk, rl), f), cnt
+    pks = _classed_probe(flat, cells, ovf, hsl, c, pidx)
+    return tuple(_reverse_odd(_padded(x, rl), f)
+                 for x in _encode((pks,), slot_bits, pack_bits))
+
+
+def classed_decode(cells: torch.Tensor, ovf: torch.Tensor | None,
+                   pidx: torch.Tensor, flat: torch.Tensor, hsl: int, c: int,
+                   rl: int, f: int, slot_bits: int, pack_bits: int,
+                   head: bool = False):
+    """The (P, 128) classed cells, the (NOVF + 1, OW) overflow rows of
+    the class-C cells deeper than the head, (N,) cell addresses pidx =
+    (a16 << 2) | cls (classed_bucket) and int32 features -> the probes'
+    slots as (N, rl) int32 lanes in the caller's encoding, (pk,) with
+    pack_bits > 0, else (tgt, win): the cell's first min(count, c) slots,
+    hsl from the cell (lane 3 on for class C, lane 2 on for the others)
+    and the rest from the overflow row that class C keeps in lane 2;
+    I32_MAX past the count and up to rl, odd features' runs reversed
+    ((probe index % f) & 1; f = 1 reverses none). ``head``: the first
+    min(count, hsl) slots only (pack_bits must equal slot_bits) -> (pk
+    (N, rl), cnt (N,) int32 bucket counts, 0 on a miss)."""
+    _check(cells, "cells", 2)
+    _check(pidx, "pidx", 1)
+    _check(flat, "flat", 1)
+    width = hsl if head else c
+    if cells.shape[1] != 128 or cells.shape[0] == 0 or \
+            pidx.shape != flat.shape or \
+            len({cells.device, pidx.device, flat.device}) != 1 or \
+            not 1 <= hsl <= 61 or c < 1 or rl < width or f < 1 or \
+            not 0 < slot_bits < 31 or not 0 <= pack_bits < 31 or \
+            (head and pack_bits != slot_bits):
+        raise ValueError(f"bad classed decode shape: cells "
+                         f"{tuple(cells.shape)}, hsl {hsl}, c {c}, rl {rl}, "
+                         f"f {f}, slot_bits {slot_bits}, pack_bits "
+                         f"{pack_bits}, head {head}")
+    if not head and c > hsl:
+        if ovf is None:
+            raise ValueError("the full-depth classed decode needs the "
+                             "overflow rows")
+        _check(ovf, "ovf", 2)
+        if ovf.device != cells.device or ovf.shape[0] == 0 or \
+                ovf.shape[1] < c - hsl:
+            raise ValueError(f"bad overflow rows {tuple(ovf.shape)} for "
+                             f"hsl {hsl}, c {c}")
+    if not cells.is_cuda:
+        return classed_decode_plain(cells, ovf, pidx, flat, hsl, c, rl, f,
+                                    slot_bits, pack_bits, head)
+    cells, pidx, flat = cells.contiguous(), pidx.contiguous(), \
+        flat.contiguous()
+    use_ovf = not head and c > hsl
+    if use_ovf:
+        ovf = ovf.contiguous()
+    n = pidx.shape[0]
+    dev = cells.device
+    outs = tuple(torch.empty((n, rl), dtype=torch.int32, device=dev)
+                 for _ in range(1 if pack_bits else 2))
+    cnt = torch.empty((n,), dtype=torch.int32, device=dev) if head else None
+    if n:
+        kernels.CLASSED_DECODE(
+            cells.data_ptr(), cells.shape[0] * 2,
+            ovf.data_ptr() if use_ovf else None,
+            ovf.shape[0] if use_ovf else 0, ovf.shape[1] if use_ovf else 0,
+            pidx.data_ptr(), flat.data_ptr(), n, hsl, c, rl, f, slot_bits,
+            pack_bits, int(head), outs[0].data_ptr(),
+            None if pack_bits else outs[1].data_ptr(),
+            cnt.data_ptr() if head else None)
+    return (outs[0], cnt) if head else outs
 
 
 def csr_decode_plain(idx, found, offsets, loc_tgt, loc_win, c: int, rl: int,

@@ -5,9 +5,9 @@ size-classed fused-row layouts, plain or pair-packed, and the CSR layout
 (JAX's ``dense=False``: the feature's row found through the bucket
 index, or by a search of u64 features, then its slots read one by one by
 the csr_decode kernel): sketch (B1, or B2
-for windows wider than 128) -> bucket-row probe (B9 when
-``MC_PROBE_PALLAS`` names its stage) + row gather -> match slots ->
-candidates -> ranked LCA. Two-tier rows of u32 features with packed
+for windows wider than 128) -> bucket-row probe (B9; classed_bucket for
+the classed cells) -> row decode -> match slots -> candidates -> ranked
+LCA. Two-tier rows of u32 features with packed
 slots decode through B7 (head + overflow rows, the overflow row read
 from the head row it already holds: B8's work, folded in) or, in
 escalation phase 1, B6 (head rows only). Dense rows (packed slots or
@@ -15,9 +15,10 @@ escalation phase 1, B6 (head rows only). Dense rows (packed slots or
 dense and two-tier rows (k > 16: two meta lanes, a bucket index of the
 low 32 bits) decode through dense_decode, one pass from the feature
 rows to the encoded, padded and reversed runs, where JAX runs XLA ops
-(rows.py:699-838). Classed cells decode as torch ops, as the JAX
-package decodes them with XLA ops, and so do the u64 and classed heads
-of escalation phase 1 (rows.py:545-621).
+(rows.py:699-838). Classed cells decode through classed_decode, at full
+depth and in escalation phase 1, where JAX runs XLA ops
+(rows.py:469-575); the u64 heads of phase 1 decode as torch ops, which
+no runner reaches (u64 rows never escalate, as in JAX).
 
 ``rows_to_result`` has JAX's two branches. The fused one runs the
 candidate kernels: slots that pack into int32 (pack_bits > 0) go
@@ -57,8 +58,9 @@ from .candidates import (I32_MAX, candidates_packed, candidates_unpacked,
 from .pipeline import QueryResult, classify_candidates, classify_with_taxa
 from .probe import (probe_bucket, probe_bucket64, probe_bucket_classed,
                     shift_right_logical)
-from .probe_decode import (_encode, _rows, csr_decode, dense_decode,
-                           full_decode, head_decode, meta_match)
+from .probe_decode import (_encode, check_probe_pallas, classed_decode,
+                           csr_decode, dense_decode, full_decode,
+                           head_decode, meta_match)
 from .sketch import (LANES, sketch_windows, sketch_windows_packed,
                      unpack_2bit)
 
@@ -129,16 +131,17 @@ def route(fused_candidates: bool, fast_top2: bool, max_candidates: int,
 
 
 def _bucket_idx(flat: torch.Tensor, tables) -> torch.Tensor:
-    """The bucket-probe stage: feature rows, or classed cell addresses
-    (pidx), of (N,) features (rows.py:1035-1047). Row layouts only: the
-    CSR layout finds its rows in ``_csr_rows``."""
+    """The bucket-probe stage: feature rows, clamped into the table
+    (B9), or classed cell addresses (pidx, classed_bucket), of (N,)
+    features (rows.py:1035-1047). Row layouts only: the CSR layout finds
+    its rows in ``_csr_rows``."""
     assert not tables.csr, "a CSR part has no rows to find ahead"
     if tables.classed:
         return probe_bucket_classed(flat, tables.bucket_rows,
                                     tables.bucket_bits)[0]
     probe = probe_bucket64 if tables.wide else probe_bucket
-    idx, _found = probe(flat, tables.bucket_rows, tables.bucket_bits)
-    return torch.clamp(idx, 0, max(tables.num_features - 1, 0))
+    return probe(flat, tables.bucket_rows, tables.bucket_bits,
+                 max(tables.num_features - 1, 0))[0]
 
 
 INT64_MIN = -2**63
@@ -146,15 +149,15 @@ INT64_MIN = -2**63
 
 def _csr_rows(flat: torch.Tensor, tables):
     """The CSR layout's row stage (rows.py:670-689) -> (idx int32, found
-    bool): a u32 part through its bucket-row index (B9 where
-    MC_PROBE_PALLAS names it), rows clamped into the table; a u64 or
-    empty part by a binary search of the sign-flipped features, found
-    where the row holds the feature and it is not the sentinel."""
+    bool): a u32 part through its bucket-row index (B9), rows clamped
+    into the table; a u64 or empty part by a binary search of the
+    sign-flipped features, found where the row holds the feature and it
+    is not the sentinel."""
     nf = tables.num_features
     if tables.bucket_rows is not None:
-        idx, found = probe_bucket(flat, tables.bucket_rows,
-                                  tables.bucket_bits)
-        return torch.clamp(idx, 0, nf - 1), found
+        return probe_bucket(flat, tables.bucket_rows, tables.bucket_bits,
+                            nf - 1)
+    check_probe_pallas()
     if nf == 0:
         return (torch.zeros(flat.shape, dtype=torch.int32, device=flat.device),
                 torch.zeros(flat.shape, dtype=torch.bool, device=flat.device))
@@ -162,55 +165,6 @@ def _csr_rows(flat: torch.Tensor, tables):
     idx = torch.clamp(torch.searchsorted(tables.features, key), max=nf - 1)
     found = (tables.features[idx] == key) & (flat != -1)
     return idx.to(torch.int32), found
-
-
-# rows.py:469-494
-def _classed_window(cells: torch.Tensor, pidx: torch.Tensor):
-    """Each probe's classed cell as a 64-lane window -> (window, cls).
-
-    pidx = (addr16 << 2) | cls; cells = the (P, 128) cell array. Cell
-    bases are 8-unit aligned per class and widths 1/2/4 units at
-    width-aligned offsets, so no cell crosses a 64-lane half: read the
-    half, then shift it left by the cell's 16-lane offset, zero filled.
-    Lanes past the cell's width hold neighbour cells; callers mask by
-    the bucket count, which never exceeds the cell's slots."""
-    a16 = shift_right_logical(pidx, 2)
-    row = cells.view(-1, 64)[(a16 >> 2).to(torch.int64)]
-    src = torch.arange(64, device=pidx.device)[None, :] + \
-        16 * (a16 & 3).to(torch.int64)[:, None]
-    window = torch.where(src < 64,
-                         torch.gather(row, 1, torch.clamp(src, max=63)), 0)
-    return window, pidx & 3
-
-
-# rows.py:497-515
-def _classed_head_slots(flat, cells, hsl: int, idx_c):
-    """One classed head cell per probe -> (window (N, 64), found, cnt,
-    isC class-C mask, slots (N, hsl) head slot lanes); hsl <= 61."""
-    window, clsv = _classed_window(cells, idx_c)
-    found = (window[:, 0] == flat) & (flat != -1)
-    cnt = torch.where(found, window[:, 1], 0)
-    isC = clsv == 2
-    slots = torch.where(isC[:, None], window[:, 3:3 + hsl],
-                        window[:, 2:2 + hsl])
-    return window, found, cnt, isC, slots
-
-
-# rows.py:518-542
-def _classed_probe(flat, tables, c: int, idx_c):
-    """Classed head + overflow slots -> pks (N, c) packed slots masked
-    to the bucket count."""
-    hsl = tables.head_slots
-    window, found, cnt, isC, slots = _classed_head_slots(
-        flat, tables.fused_rows, hsl, idx_c)
-    if c > hsl:
-        orow = _rows(tables.ovf_rows, torch.where(found & isC, window[:, 2],
-                                                  0))
-        pks = torch.cat([slots, orow[:, :c - hsl]], dim=1)
-    else:
-        pks = slots[:, :c]
-    j = torch.arange(c, dtype=torch.int32, device=flat.device)[None, :]
-    return torch.where(j < cnt[:, None], pks, I32_MAX)
 
 
 def _emit(lanes, b: int, f: int, alt_runs: int):
@@ -256,8 +210,8 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
     (tgt, win) lane rows and u64 two-tier rows decode through
     dense_decode, which reads the rows, checks the meta lanes, masks to
     the count, encodes, pads and reverses in one pass, where JAX runs
-    XLA ops (rows.py:699-838). Classed cells decode as torch ops, as the
-    JAX package decodes them with XLA ops (rows.py:518-542). A CSR part
+    XLA ops (rows.py:699-838). Classed cells decode through
+    classed_decode, where JAX runs XLA ops (rows.py:469-542). A CSR part
     (``tables.csr``) finds its rows (``_csr_rows``) and reads its slots
     through csr_decode, which writes the encoded, padded and reversed
     runs itself; it is never probed with ``idx_pre`` (no escalation and
@@ -277,16 +231,16 @@ def probe_rows(feats: torch.Tensor, tables, alt_runs: int = 0,
             else idx_pre.reshape(-1)
         hsl = tables.head_slots
         if tables.classed:
-            pks = _classed_probe(flat, tables, c, idx_c)
-            return _emit(_encode((pks,), slot_bits, pack_bits), b, f,
-                         alt_runs)
-        if hsl and slot_bits and not tables.wide:
+            out = classed_decode(tables.fused_rows, tables.ovf_rows, idx_c,
+                                 flat, hsl, c, rl, fr, slot_bits, pack_bits)
+        elif hsl and slot_bits and not tables.wide:
             pks = full_decode(tables.fused_rows, tables.ovf_rows, idx_c,
                               flat, hsl, c, rl, fr)
             return _emit(_encode((pks,), slot_bits, pack_bits), b, f, 0)
-        out = dense_decode(tables.fused_rows,
-                           tables.ovf_rows if hsl else None, idx_c, flat,
-                           hsl, c, rl, fr, slot_bits, pack_bits)
+        else:
+            out = dense_decode(tables.fused_rows,
+                               tables.ovf_rows if hsl else None, idx_c,
+                               flat, hsl, c, rl, fr, slot_bits, pack_bits)
     out = [x.reshape(b, -1) for x in out]
     return (out[0], out[0]) if pack_bits else tuple(out)
 
@@ -302,8 +256,8 @@ def _wide_rows(flat, tables, idx_c):
 def probe_rows_head(feats: torch.Tensor, tables, alt_runs: int,
                     pack_bits: int, idx_pre: torch.Tensor | None = None):
     """Head-only probe, escalation phase 1 (rows.py:545-621): one head
-    row (two-tier, decoded by B6) or head cell (classed, torch ops) per
-    probe; slots past the head are dropped. -> (pk (B, F*rl) packed
+    row (two-tier, decoded by B6) or head cell (classed, decoded by
+    classed_decode) per probe; slots past the head are dropped. -> (pk (B, F*rl) packed
     slots, over (B,) bool: a probed bucket is deeper than the head, so
     the read must be redone at full depth). Needs slot-packed two-tier
     or classed tables and pack_bits == slot_bits."""
@@ -318,14 +272,14 @@ def probe_rows_head(feats: torch.Tensor, tables, alt_runs: int,
         else idx_pre.reshape(-1)
     rl = alt_runs or hsl
     if tables.classed:
-        _w, _found, cnt, _isC, slots = _classed_head_slots(
-            flat, tables.fused_rows, hsl, idx_c)
-        j = torch.arange(hsl, dtype=torch.int32, device=flat.device)
-        pk = torch.where(j[None, :] < torch.clamp(cnt, max=hsl)[:, None],
-                         slots, I32_MAX)
-        pk = _emit((pk,), b, f, alt_runs)[0]
+        pk, cnt = classed_decode(tables.fused_rows, tables.ovf_rows, idx_c,
+                                 flat, hsl, tables.spf, rl,
+                                 f if alt_runs else 1, tables.slot_bits,
+                                 pack_bits, head=True)
     elif tables.wide:
-        # u64 heads decode as torch ops, as JAX's XLA path (rows.py:588)
+        # u64 heads decode as torch ops, as JAX's XLA path (rows.py:588):
+        # no runner escalates u64 rows (classify/runner.py), so no query
+        # reaches this branch
         rows, _found, cnt = _wide_rows(flat, tables, idx_c)
         j = torch.arange(hsl, dtype=torch.int32, device=flat.device)
         pk = torch.where(j[None, :] < torch.clamp(cnt, max=hsl)[:, None],

@@ -10,7 +10,9 @@ database through B2 against the CPU run; a k = 18 database through the
 batch split into launches by the free memory; the multi-part step on
 random tables against the same step on the CPU; the CSR layout through
 csr_decode against the goldens; dense_decode on the dense and two-tier
-lane rows (u32 and u64 features) against its plain version; the step's
+lane rows (u32 and u64 features) against its plain version; B9 on every
+bucket-index width (u32 and u64), classed_bucket and classed_decode
+(full depth and head only) against their plain versions; the step's
 tail, classify_lca (both forms) and rank_hist, against their plain
 versions; tolerance 0.
 
@@ -1286,6 +1288,243 @@ def test_bucket_decode_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert torch.equal(idx, widx) and torch.equal(found, wfound)
     assert bool(found.any()) and not bool(found.all())
+
+
+# ------------------------------------- the bucket probe (B9) and classed
+# widths of a bucket-row index: "pair" = 64-lane rows pair-packed two a
+# 128-lane row (the device builder's), else the host's 64, 65 or 1 + 2^k
+BUCKET_WIDTHS = ("pair", 64, 65, 129)
+
+
+def bucket_case(width, wide=False, seed=3, nf=3000, n=4096 + 17, bits=10):
+    """A bucket-row index of 2^bits logical rows [start, features (u64:
+    their low 32 bits)..., -1 pads] of ``width`` lanes over about nf
+    random features: bucket 5 at full span (every lane holds a feature),
+    the last bucket (the sentinel's) partly filled; and n probes:
+    present features, features of the full and of the last bucket,
+    misses in real buckets (a low bit flipped), random values and
+    sentinels. -> dict(brows (2^bits, W) int32, or (2^(bits-1), 128) for
+    "pair", bits, flat (n,) uint32 or uint64, nf)."""
+    rng = np.random.default_rng(seed)
+    lanes = 64 if width == "pair" else width
+    dt = np.uint64 if wide else np.uint32
+    tb = 64 if wide else 32
+    shift = dt(tb - bits)
+    top = 2**64 - 2 if wide else 2**32 - 2
+    feats = rng.integers(0, top, nf, dtype=dt)
+    low = rng.choice(2**min(31, tb - bits), lanes + 2,
+                     replace=False).astype(dt)
+    full = (dt(5) << shift) | low[:lanes - 1]
+    last = (dt((1 << bits) - 1) << shift) | low[lanes - 1:lanes + 2]
+    feats = np.unique(np.concatenate([feats[(feats >> shift) != 5], full,
+                                      last]))
+    feats = feats[feats != np.iinfo(dt).max]
+    h = (feats >> shift).astype(np.int64)
+    if wide:        # distinct low 32 bits within a bucket
+        lo = feats & dt(0xFFFFFFFF)
+        o = np.lexsort((lo, h))
+        dup = np.zeros(len(feats), bool)
+        dup[o[1:]] = (h[o][1:] == h[o][:-1]) & (lo[o][1:] == lo[o][:-1])
+        feats, h = feats[~dup], h[~dup]
+    starts = np.searchsorted(h, np.arange(1 << bits))
+    col = np.arange(len(feats)) - starts[h]
+    assert col.max() == lanes - 2 and (col[h == 5] >= 0).sum() == lanes - 1
+    rows = np.full((1 << bits, lanes), -1, np.int32)
+    rows[:, 0] = starts
+    rows[h, 1 + col] = (feats & dt(0xFFFFFFFF)).astype(np.uint32).view(
+        np.int32)
+    if width == "pair":
+        rows = rows.reshape(-1, 128)
+    flat = feats[rng.integers(0, len(feats), n)]
+    u = rng.random(n)
+    flat[u < 0.15] = full[rng.integers(0, lanes - 1, int((u < 0.15).sum()))]
+    sel = (u >= 0.15) & (u < 0.2)
+    flat[sel] = last[rng.integers(0, 3, int(sel.sum()))]
+    sel = (u >= 0.2) & (u < 0.4)
+    flat[sel] ^= dt(0x10)
+    sel = (u >= 0.4) & (u < 0.5)
+    flat[sel] = rng.integers(0, top, int(sel.sum()), dtype=dt)
+    flat[(u >= 0.5) & (u < 0.52)] = np.iinfo(dt).max
+    flat[:3] = np.iinfo(dt).max
+    return dict(brows=rows, bits=bits, flat=flat, nf=len(feats))
+
+
+def bucket_flat(case) -> torch.Tensor:
+    """bucket_case's probes as the port's int32 / int64 bit patterns."""
+    f = case["flat"]
+    return torch.from_numpy(f.view(np.int64 if f.dtype == np.uint64
+                                   else np.int32).copy())
+
+
+# depths of the classed case's features: each side of the class ladder's
+# 13, 29 and 61 slots, and past the 61-slot head of class C
+CLASSED_DEPTHS = (1, 2, 12, 13, 14, 28, 29, 30, 60, 61, 62, 80, 100)
+
+
+def classed_csr(seed=17, nf=900, ntgt=60, maxwin=200):
+    """A CSR of nf random u32 features with CLASSED_DEPTHS locations each
+    (every depth at least 5 times), ascending (tgt, win) a feature."""
+    rng = np.random.default_rng(seed)
+    feats = np.unique(rng.integers(0, 2**32 - 1, nf, dtype=np.uint64)
+                      .astype(np.uint32))
+    depth = np.asarray(CLASSED_DEPTHS)[rng.integers(0, len(CLASSED_DEPTHS),
+                                                    len(feats))]
+    depth[:5 * len(CLASSED_DEPTHS)] = np.repeat(CLASSED_DEPTHS, 5)
+    offs = np.concatenate([[0], np.cumsum(depth)]).astype(np.int64)
+    tw = rng.integers(0, ntgt * maxwin, int(offs[-1]))
+    for i in range(len(feats)):
+        tw[offs[i]:offs[i + 1]].sort()
+    return feats, offs, (tw // maxwin).astype(np.int32), \
+        (tw % maxwin).astype(np.int32)
+
+
+def classed_layout(csr, dev):
+    """The port's size-classed staging of ``csr`` (MC_CLASSED=1, dense
+    rows refused) on ``dev``."""
+    from metacache_tpu_torch.ops import table_device as T
+    old = os.environ.get("MC_CLASSED")
+    os.environ["MC_CLASSED"] = "1"
+    try:
+        return T.device_layout_from_csr(*csr, device=dev, cap=254,
+                                        budget_bytes=4 << 20,
+                                        allow_dense=False)
+    finally:
+        if old is None:
+            del os.environ["MC_CLASSED"]
+        else:
+            os.environ["MC_CLASSED"] = old
+
+
+def classed_probes(feats, bits, seed=19, n=4096 + 17):
+    """n probes of a classed layout: stored features, misses that share a
+    stored feature's bucket (its low 32 - bits bits changed) or its low
+    bits (another bucket), random values and sentinels; uint32."""
+    rng = np.random.default_rng(seed)
+    flat = feats[rng.integers(0, len(feats), n)].copy()
+    u = rng.random(n)
+    kb = np.uint32(32 - bits)
+    sel = u < 0.15
+    flat[sel] ^= np.uint32(1) << rng.integers(0, 32 - bits, int(sel.sum()),
+                                              dtype=np.uint32)
+    sel = (u >= 0.15) & (u < 0.25)
+    flat[sel] ^= np.uint32(1) << (kb + rng.integers(0, bits, int(sel.sum()),
+                                                    dtype=np.uint32))
+    sel = (u >= 0.25) & (u < 0.35)
+    flat[sel] = rng.integers(0, 2**32, int(sel.sum()), dtype=np.uint64)
+    flat[(u >= 0.35) & (u < 0.37)] = np.uint32(0xFFFFFFFF)
+    flat[:3] = np.uint32(0xFFFFFFFF)
+    return flat
+
+
+def classed_garbage(cells, n, seed=23):
+    """Cell addresses of every class at every 16-lane offset of the cells
+    and features equal to the addressed lane 0 (hits) or not: the
+    decode's arithmetic on any input. -> (pidx, flat) int32 numpy."""
+    rng = np.random.default_rng(seed)
+    a16 = rng.integers(0, cells.shape[0] * 8, n)
+    pidx = ((a16 << 2) | rng.integers(0, 4, n)).astype(np.int32)
+    win = cells.reshape(-1, 16)[a16]
+    flat = np.where(rng.random(n) < 0.7, win[:, 0],
+                    rng.integers(-2**31, 2**31, n)).astype(np.int32)
+    flat[::50] = -1
+    return pidx, flat
+
+
+@pytest.mark.parametrize("hi", [False, True])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("width", BUCKET_WIDTHS)
+def test_bucket_decode_kernel_widths_match_plain(cuda, width, wide, hi):
+    """B9 on every index width, u32 and u64 features, with and without
+    the clamp, against its plain version on the same CUDA tensors."""
+    d = bucket_case(width, wide)
+    brows = torch.from_numpy(d["brows"]).to(cuda)
+    flat = bucket_flat(d).to(cuda)
+    h = d["nf"] - 1 if hi else None
+    before = kernels.BUCKET_DECODE.launches
+    got = D.bucket_decode(brows, flat, d["bits"], h)
+    want = D.bucket_decode_plain(brows, flat, d["bits"], h)
+    torch.cuda.synchronize()
+    assert kernels.BUCKET_DECODE.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[1].any()) and not bool(got[1].all())
+
+
+def test_classed_bucket_kernel_matches_plain(cuda):
+    """classed_bucket against its plain version on the staged classed
+    index, stored features, misses and sentinels."""
+    lay = classed_layout(classed_csr(), torch.device("cpu"))
+    flat = torch.from_numpy(classed_probes(lay.uniq.numpy().view(np.uint32),
+                                           lay.bbits).view(np.int32))
+    brows, flat = lay.brows.to(cuda), flat.to(cuda)
+    before = kernels.CLASSED_BUCKET.launches
+    got = D.classed_bucket(brows, flat, lay.bbits)
+    want = D.classed_bucket_plain(brows, flat, lay.bbits)
+    torch.cuda.synchronize()
+    assert kernels.CLASSED_BUCKET.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[1].any()) and not bool(got[1].all())
+
+
+@pytest.mark.parametrize("probes", ["staged", "garbage"])
+@pytest.mark.parametrize("mode", ["head", "pass", "rebase", "unpack"])
+@pytest.mark.parametrize("alt,f", [(0, 1), (128, 16), (256, 16)])
+def test_classed_decode_kernel_matches_plain(cuda, alt, f, mode, probes):
+    """classed_decode, full depth in each output encoding and head only,
+    alternating runs off and on, against its plain version on the same
+    CUDA tensors: on the staged cells' own probes, and on addresses of
+    every class and offset."""
+    lay = classed_layout(classed_csr(), torch.device("cpu"))
+    hsl, c, sb = lay.head_slots, lay.spf, lay.slot_bits
+    if probes == "staged":
+        flat = torch.from_numpy(classed_probes(
+            lay.uniq.numpy().view(np.uint32), lay.bbits).view(np.int32))
+        pidx = D.classed_bucket(lay.brows, flat, lay.bbits)[0]
+    else:
+        p, fl = classed_garbage(lay.head.numpy(), 4096 + 17)
+        pidx, flat = torch.from_numpy(p), torch.from_numpy(fl)
+    head = mode == "head"
+    pb = {"head": sb, "pass": sb, "rebase": sb + 2, "unpack": 0}[mode]
+    rl = alt or (hsl if head else c)
+    args = (lay.head.to(cuda), lay.ovf.to(cuda), pidx.to(cuda),
+            flat.to(cuda), hsl, c, rl, f if alt else 1, sb, pb, head)
+    before = kernels.CLASSED_DECODE.launches
+    got = D.classed_decode(*args)
+    want = D.classed_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.CLASSED_DECODE.launches == before + 1
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[0] == I32_MAX).any()) and \
+        bool((got[0] != I32_MAX).any())
+
+
+@pytest.mark.parametrize("alt", [0, 128])
+def test_classed_probe_rows_on_the_card_match_cpu(cuda, alt):
+    """probe_rows and probe_rows_head on the classed cells, on the card
+    (classed_bucket, classed_decode) against the same on CPU tensors."""
+    from metacache_tpu_torch.db.state import tables_from_device
+    from metacache_tpu_torch.ops import rows as trows
+    csr = classed_csr()
+    lin = np.zeros((60, 21), np.int32)
+    tabs = [tables_from_device(classed_layout(csr, d), lin,
+                               lin[:, 0].copy())
+            for d in (cuda, torch.device("cpu"))]
+    flat = classed_probes(csr[0], tabs[1].bucket_bits).view(np.int32)
+    q = torch.from_numpy(flat[:4096].reshape(-1, 16).copy())
+    sb = tabs[1].slot_bits
+    kernels.reset_counts()
+    for head in (False, True):
+        kw = dict(alt_runs=alt or (64 if head else 0), pack_bits=sb)
+        fn = trows.probe_rows_head if head else trows.probe_rows
+        on_card, on_cpu = (fn(q.to(t.bucket_rows.device), t, **kw)
+                           for t in tabs)
+        for g, w in zip(on_card, on_cpu):
+            assert torch.equal(g.cpu(), w)
+    assert kernels.CLASSED_BUCKET.launches == 2
+    assert kernels.CLASSED_DECODE.launches == 2
 
 
 @pytest.mark.parametrize("case", ["dense", "two_tier", "classed"])
