@@ -2247,11 +2247,15 @@ def phase_profile(tmp, name, runner, tag="", reads="reads.fa",
             for op, key in (("lca", "lca_kernel"),
                             ("hist", "rank_hist_kernel"))}
     # the bucket probe's kernels, and torch's row gathers and reductions
-    # (the bucket probe's before B9 took every route)
-    tail.update({op: [e for e in evs if key in e.key]
-                 for op, key in (("b9", "bucket_decode_kernel"),
-                                 ("classed_bucket", "classed_bucket_kernel"),
-                                 ("classed_decode", "classed_decode_kernel"))})
+    # (the bucket probe's before B9 took every route); classed_decode is
+    # two kernels, its head form and its full form
+    tail.update({op: [e for e in evs if any(k in e.key for k in keys)]
+                 for op, keys in (("b9", ("bucket_decode_kernel",)),
+                                  ("classed_bucket",
+                                   ("classed_bucket_kernel",)),
+                                  ("classed_decode",
+                                   ("classed_head_kernel",
+                                    "classed_decode_kernel")))})
     gathers = sum(e.count for e in evs if "index_elementwise" in e.key or
                   "gather" in e.key)
     part = dict(h2d_pageable_events=h2d["Pageable"],

@@ -61,21 +61,34 @@
 //
 // classed_bucket and classed_decode: the size-classed layout's probe,
 // which JAX leaves to XLA (metacache_tpu/ops/probe.py:167-212,
-// ops/rows.py:469-575). classed_bucket is B9's design on the classed
-// index: one warp a probe, one 8-byte load a lane of the 64-lane row
-// [a16_A, a16_B, a16_C, 61 lanes of two 16-bit entries]; the entries'
-// match, JAX's sums of the matching entries' index and class (one
-// shuffle reduction of both, packed) and the rank among the valid
-// entries of that class (four ballots and popcounts) give the cell
-// address. classed_decode is dense_decode's design on the cells: one
-// warp a probe, broadcast loads of the cell's meta lanes in its 64-lane
-// half, lane l then takes output lanes l, l + 32, ..., reads slot j
-// (mirrored for odd features) from the cell below hsl and from class
-// C's overflow row past it, only where j < the count, re-encodes it
-// and writes each output lane once; a head-only flag stops at hsl and
-// writes the count (escalation phase 1). Bound: device-memory bytes,
-// the 256-byte bucket row a probe (classed_bucket) and the rl output
-// lanes a probe (classed_decode).
+// ops/rows.py:469-575). classed_bucket: one warp takes 32 consecutive
+// probes, loads their features at once (one coalesced load) and reads
+// their 64-lane rows [a16_A, a16_B, a16_C, 61 lanes of two 16-bit
+// entries] kCBLanes lanes a probe (8: two 16-byte loads a lane, four
+// probes a step), kCBSteps steps' rows loaded before any is reduced (2:
+// 2 KB of rows in flight a warp, not one 256-byte row behind two
+// dependent loads, in few enough registers that every block of a batch
+// is resident at once); the entries' match, JAX's sums of the matching
+// entries' index and class (one packed reduction over the probe's lanes)
+// and the rank among the valid entries of that class (a second) give the
+// cell address, which goes back to the probe's own lane, so the warp
+// stores 128 bytes of pidx and 32 of found at once. classed_decode's head
+// form (escalation phase 1) is B6's design on the cells: lane i reads
+// probe i's address, feature and its cell's first two lanes (one 8-byte
+// load), writes the count; then groups of 16 threads copy a probe's
+// min(count, hsl) slots, one aligned int4 of the cell's 64-lane half a
+// thread, loaded only where it holds a kept slot (zero past the half),
+// the slots' shift of 2 (classes A, B) or 3 lanes (class C) against the
+// int4s taken from the neighbour's int4 by shuffles, odd probes'
+// int4s stored mirrored, eight steps' loads issued before their stores;
+// cells or outputs that are not 16-byte aligned take its 4-byte path.
+// The full form (the redo) keeps dense_decode's design: one warp a
+// probe, broadcast loads of the cell's meta lanes, lane l then takes
+// output lanes l, l + 32, ..., reads slot j (mirrored for odd features)
+// from the cell below hsl and from class C's overflow row past it, only
+// where j < the count, re-encodes it and writes each output lane once.
+// Bound: device-memory bytes, the 256-byte bucket row a probe
+// (classed_bucket) and the rl output lanes a probe (classed_decode).
 //
 // csr_decode: the CSR layout's per-slot gathers, which JAX leaves to
 // XLA (metacache_tpu/ops/rows.py:784-838: an (N, C) index tensor, two
@@ -132,16 +145,19 @@ __device__ __forceinline__ int4 row_quad(const int32_t* __restrict__ row,
                          : make_int4(0, 0, 0, 0);
 }
 
-// B6's output int4 q of one probe from thread t of its group of g: slots
-// 4q..4q+3 are row lanes 4q+3..4q+6, the last lane of the thread's row
-// int4 q (cur) and the first three of int4 q + 1, taken from thread t + 1
-// by shuffles (the group's last thread loaded its own, nxt); slots at or
-// past lim are I32_MAX. Odd probes store the int4 mirrored, values
-// reversed. Every lane of the warp calls it (the shuffles); live = the
-// probe exists and q < the probe's nq int4s.
+// B6's and classed_decode's output int4 q of one probe from thread t of
+// its group of g: slots 4q..4q+3 are row lanes 4q+shift..4q+shift+3
+// (shift 3: B6's rows; 2 or 3: the classed cells), the last 4 - shift
+// lanes of the thread's row int4 q (cur) and the first shift of int4
+// q + 1, taken from thread t + 1 by shuffles (the group's last thread
+// loaded its own, nxt); slots at or past lim are I32_MAX. Odd probes
+// store the int4 mirrored, values reversed. Every lane of the warp calls
+// it (the shuffles); live = the probe exists and q < the probe's nq
+// int4s.
 __device__ __forceinline__ void put_quad(int4 cur, int4 nxt, int t, int g,
                                          int q, int lim, bool odd, int nq,
-                                         bool live, int32_t* out) {
+                                         bool live, int32_t* out,
+                                         int shift = 3) {
   int nx = __shfl_down_sync(0xffffffffu, cur.x, 1, g);
   int ny = __shfl_down_sync(0xffffffffu, cur.y, 1, g);
   int nz = __shfl_down_sync(0xffffffffu, cur.z, 1, g);
@@ -151,11 +167,12 @@ __device__ __forceinline__ void put_quad(int4 cur, int4 nxt, int t, int g,
     nz = nxt.z;
   }
   if (!live) return;
+  const bool s3 = shift == 3;
   const int j = 4 * q;
-  const int a = j < lim ? cur.w : kI32Max;
-  const int b = j + 1 < lim ? nx : kI32Max;
-  const int c = j + 2 < lim ? ny : kI32Max;
-  const int d = j + 3 < lim ? nz : kI32Max;
+  const int a = j < lim ? (s3 ? cur.w : cur.z) : kI32Max;
+  const int b = j + 1 < lim ? (s3 ? nx : cur.w) : kI32Max;
+  const int c = j + 2 < lim ? (s3 ? ny : nx) : kI32Max;
+  const int d = j + 3 < lim ? (s3 ? nz : ny) : kI32Max;
   int4* dst = reinterpret_cast<int4*>(out);
   if (odd)
     dst[nq - 1 - q] = make_int4(d, c, b, a);
@@ -386,71 +403,152 @@ auto bucket_decode_for(int L, bool vec) {
              : bucket_decode_kernel<WIDE, false, 0>;
 }
 
+// classed_bucket's lanes a probe (32: one 8-byte load a lane; 4, 8 or
+// 16: 64 / P row lanes a lane in 16-byte loads, 32 / P probes a step) and
+// the steps whose rows a warp loads before it reduces any
+// (tools/torch_classed_ab.py times the other choices)
+constexpr int kCBLanes = 8;
+constexpr int kCBSteps = 2;
+// classed_decode's head form: the steps (two probes each) whose loads a
+// warp issues before their stores
+constexpr int kCHSteps = 8;
+
+// Row lane of word r of lane l of a probe's P lanes: P = 32 holds row
+// lanes 2l, 2l + 1 (one int2); P <= 16 the row's int4s l, l + P, ...
+// (each load instruction reads 16 P contiguous bytes of the row), row
+// lanes 4l + 4P (r >> 2) + (r & 3).
+template <int P>
+__device__ __forceinline__ int cb_row_lane(int l, int r) {
+  return P == 32 ? 2 * l + r : 4 * l + 4 * P * (r >> 2) + (r & 3);
+}
+
+// Entry q of lane l's words w (half q & 1 of word q >> 1) -> its 16-bit
+// value; idx2 = its entry index, negative for the base lanes 0-2.
+template <int P>
+__device__ __forceinline__ uint32_t cb_entry(const uint32_t* w, int l, int q,
+                                             int& idx2) {
+  idx2 = 2 * (cb_row_lane<P>(l, q >> 1) - 3) + (q & 1);
+  return (q & 1) ? (w[q >> 1] >> 16) : (w[q >> 1] & 0xFFFFu);
+}
+
 // classed_bucket: the size-classed bucket probe. Logical row h (64
 // lanes) = [a16_A, a16_B, a16_C, 61 entry lanes], two 16-bit entries a
 // lane, entry = ((cls << 14) | feat_low) + 1, 0 = empty; entry index
-// idx2 = 2 * (lane - 3) + half. Lane l of the warp loads row lanes 2l
-// and 2l + 1 (one 8-byte load), so it holds entries 4l - 6 .. 4l - 3 in
-// order. j and cls are JAX's sums over the matching entries (one shuffle
-// reduction of j | cls << 16: j's sum stays below 2^16), pre counts the
-// valid entries of class cls before j (four ballots and popcounts), and
-// pidx = found ? ((base_cls + pre * w16_cls) << 2) | cls : 0.
+// idx2 = 2 * (lane - 3) + half. One warp takes 32 consecutive probes
+// (lane i loads probe p0 + i's feature) and decodes G = 32 / P of them a
+// step, P lanes each, U steps' rows loaded before their reductions. j and
+// cls are JAX's sums over the matching entries (one reduction of j | cls
+// << 16 over the probe's P lanes: j's sum stays below 2^16), pre counts
+// the valid entries of class cls before j (a second), and pidx = found ?
+// ((base_cls + pre * w16_cls) << 2) | cls : 0, which lane i takes from
+// its probe's first lane; the warp then stores every probe's pidx and
+// found at once.
+template <int P, int U>
 __global__ void __launch_bounds__(kThreads)
 classed_bucket_kernel(const int32_t* __restrict__ brows, int64_t nrows,
                       int bits, const int32_t* __restrict__ flat, int64_t n,
                       int32_t* __restrict__ pidx, bool* __restrict__ found) {
-  const int64_t probe = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  constexpr int G = 32 / P;  // probes a step
+  constexpr int R = 64 / P;  // row lanes a lane
+  constexpr unsigned kAll = 0xffffffffu;
+  static_assert((P == 4 || P == 8 || P == 16 || P == 32) &&
+                    32 % (G * U) == 0,
+                "lanes, steps");
   const int lane = threadIdx.x & 31;
-  if (probe >= n) return;  // the whole warp: one probe a warp
-  const int32_t fv = flat[probe];
-  const int64_t h = (int64_t)((uint32_t)fv >> (32 - bits));
-  const int32_t key = (int32_t)((uint32_t)fv & ((1u << (32 - bits)) - 1u));
-  const int2 v =
-      reinterpret_cast<const int2*>(brows + clamp_row(h, nrows) * 64)[lane];
-  // entries q = 0..3: row lane 2l + (q >> 1), half q & 1
-  uint32_t ent[4];
-  int id2[4];
-  bool live[4];
+  const int64_t p0 =
+      (((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5) << 5;
+  if (p0 >= n) return;  // uniform per warp
+  const int32_t fv = p0 + lane < n ? flat[p0 + lane] : -1;
+  const uint32_t kmask = (1u << (32 - bits)) - 1u;
+  const int g = lane / P;        // the lane's probe of a step
+  const int l = lane & (P - 1);  // its place among the probe's lanes
+  const int src = lane - l;      // the probe's first lane
+  const unsigned seg = P == 32 ? kAll : ((1u << P) - 1u) << src;
+  int32_t mine = 0;  // lane i's probe's pidx
+  bool mine_hit = false;
+  for (int i0 = 0; i0 < 32; i0 += G * U) {
+    uint32_t w[U][R];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int r = 2 * lane + (q >> 1);
-    const uint32_t w = (uint32_t)(q < 2 ? v.x : v.y);
-    ent[q] = (q & 1) ? (w >> 16) : (w & 0xFFFFu);
-    id2[q] = 2 * (r - 3) + (q & 1);
-    live[q] = r >= 3 && ent[q] != 0;
-  }
-  uint32_t acc = 0;
-  bool any = false;
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * G + g;
+      const int64_t h = (int64_t)((uint32_t)__shfl_sync(kAll, fv, i) >>
+                                  (32 - bits));
+      const int32_t* row = brows + clamp_row(h, nrows) * 64;
+      if (p0 + i < n) {
+        if constexpr (P == 32) {
+          const int2 v = reinterpret_cast<const int2*>(row)[l];
+          w[u][0] = (uint32_t)v.x;
+          w[u][1] = (uint32_t)v.y;
+        } else {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const uint32_t e = ent[q] - 1u;
-    if (live[q] && (int32_t)(e & 0x3FFFu) == key) {
-      acc += (uint32_t)id2[q] + ((e >> 14) << 16);
-      any = true;
+          for (int k = 0; k < R / 4; ++k) {
+            const int4 v = reinterpret_cast<const int4*>(row)[l + P * k];
+            w[u][4 * k] = (uint32_t)v.x;
+            w[u][4 * k + 1] = (uint32_t)v.y;
+            w[u][4 * k + 2] = (uint32_t)v.z;
+            w[u][4 * k + 3] = (uint32_t)v.w;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) w[u][r] = 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int32_t f = __shfl_sync(kAll, fv, i0 + u * G + g);
+      const int32_t key = (int32_t)((uint32_t)f & kmask);
+      uint32_t acc = 0;
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < 2 * R; ++q) {
+        int idx2;
+        const uint32_t x = cb_entry<P>(w[u], l, q, idx2);
+        const uint32_t e = x - 1u;
+        if (idx2 >= 0 && x != 0 && (int32_t)(e & 0x3FFFu) == key) {
+          acc += (uint32_t)idx2 + ((e >> 14) << 16);
+          any = true;
+        }
+      }
+#pragma unroll
+      for (int o = P / 2; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(kAll, acc, o);
+      const bool hit = (__ballot_sync(kAll, any) & seg) != 0 && f != -1;
+      const int j = (int)(acc & 0xFFFFu);
+      const uint32_t cls = acc >> 16;
+      int pre = 0;
+#pragma unroll
+      for (int q = 0; q < 2 * R; ++q) {
+        int idx2;
+        const uint32_t x = cb_entry<P>(w[u], l, q, idx2);
+        pre += idx2 >= 0 && x != 0 && ((x - 1u) >> 14) == cls && idx2 < j;
+      }
+#pragma unroll
+      for (int o = P / 2; o > 0; o >>= 1)
+        pre += __shfl_xor_sync(kAll, pre, o);
+      // the bases: row lanes 0-2, in the probe's first lanes
+      const int32_t a = __shfl_sync(kAll, (int32_t)w[u][0], src);
+      const int32_t b = __shfl_sync(kAll, (int32_t)w[u][1], src);
+      const int32_t c = __shfl_sync(kAll, (int32_t)w[u][2 % R],
+                                    src + (P == 32 ? 1 : 0));
+      const int32_t base = cls == 0 ? a : (cls == 1 ? b : c);
+      const uint32_t w16 = cls == 0 ? 1u : (cls == 1 ? 2u : 4u);
+      const uint32_t addr = (uint32_t)base + (uint32_t)pre * w16;
+      const int32_t res = hit ? (int32_t)((addr << 2) | cls) : 0;
+      // lane i's probe is probe (i % G) of step (i % (G U)) / G of
+      // iteration i / (G U)
+      const int from = (lane % G) * P;
+      const int32_t rv = __shfl_sync(kAll, res, from);
+      const bool rh = __shfl_sync(kAll, (int)hit, from);
+      if (lane / (G * U) == i0 / (G * U) && (lane % (G * U)) / G == u) {
+        mine = rv;
+        mine_hit = rh;
+      }
     }
   }
-  for (int o = 16; o > 0; o >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  any = __any_sync(0xffffffffu, any);
-  const int j = (int)(acc & 0xFFFFu);
-  const int cls = (int)(acc >> 16);
-  int pre = 0;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const bool same = live[q] && (int)((ent[q] - 1u) >> 14) == cls &&
-                      id2[q] < j;
-    pre += __popc(__ballot_sync(0xffffffffu, same));
-  }
-  const int32_t a = __shfl_sync(0xffffffffu, v.x, 0);
-  const int32_t b = __shfl_sync(0xffffffffu, v.y, 0);
-  const int32_t c = __shfl_sync(0xffffffffu, v.x, 1);
-  if (lane == 0) {
-    const bool hit = any && fv != -1;
-    const int32_t base = cls == 0 ? a : (cls == 1 ? b : c);
-    const uint32_t w16 = cls == 0 ? 1u : (cls == 1 ? 2u : 4u);
-    const uint32_t addr = (uint32_t)base + (uint32_t)pre * w16;
-    pidx[probe] = hit ? (int32_t)((addr << 2) | (uint32_t)cls) : 0;
-    found[probe] = hit;
+  if (p0 + lane < n) {
+    pidx[p0 + lane] = mine;
+    found[p0 + lane] = mine_hit;
   }
 }
 
@@ -458,25 +556,121 @@ classed_bucket_kernel(const int32_t* __restrict__ brows, int64_t nrows,
 // cells store pk slots)
 enum ClassedMode { kCPass = 0, kCRebase = 1, kCUnpack = 2 };
 
-// classed_decode: one warp a probe. pidx = (a16 << 2) | cls; the cell is
-// 64-lane half a16 >> 2 of the (P, 128) cells shifted left by 16 * (a16 &
-// 3) lanes, zero filled (cells are 16/32/64 lanes at width-aligned
-// offsets, so none crosses a half). Window lanes 0 and 1 are the feature
-// and the count; class C (cls 2) keeps its overflow row id in lane 2 and
-// its slots from lane 3, the other classes their slots from lane 2. Slot
-// j < hsl comes from the window, j >= hsl (full depth) from the overflow
-// row. HEAD: the first min(count, hsl) slots and the count; else the
-// first min(count, c). Then the caller's encoding (MODE), the padding to
-// rl and the reversed odd runs, each output lane stored once (coalesced).
-template <bool HEAD, int MODE>
+// classed_decode's head form: pidx = (a16 << 2) | cls; the cell starts
+// at lane sh = 16 * (a16 & 3) of 64-lane half a16 >> 2 (clamped) of the
+// (P, 128) cells (cells are 16/32/64 lanes at width-aligned offsets, so
+// none crosses a half). Cell lanes 0 and 1 are the feature and the count;
+// slot j lies at cell lane j + s, s = 3 for class C (lane 2 holds its
+// overflow row id) and 2 for the others; lanes past the half read 0. Lane
+// i reads probe p0 + i's address, feature and count (VEC: one 8-byte
+// load), writes its count and keeps (half, lim = min(count, hsl), s,
+// parity). VEC (rl a multiple of 4, 16-byte aligned cells and output):
+// a group of 16 threads copies a probe (two probes a step), thread t the
+// half's int4 sh / 4 + t, cell lanes 4t..4t+3, which put_quad shifts by
+// s; hsl <= 61 puts slot 60, the last, in the group's 16th int4, so no
+// group needs the int4 past its own, and output int4s from 16 on are
+// padding. U steps' loads are issued before their stores. Else the warp
+// copies one probe at a time, a lane per output lane.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+classed_head_kernel(const int32_t* __restrict__ cells, int64_t nhalf,
+                    const int32_t* __restrict__ pidx,
+                    const int32_t* __restrict__ flat, int64_t n, int hsl,
+                    int rl, int f, int32_t* __restrict__ pk,
+                    int32_t* __restrict__ cnt_out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t p0 =
+      (((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5) << 5;
+  if (p0 >= n) return;  // uniform per warp
+  const int64_t p = p0 + lane;
+  int32_t hr = 0;  // the cell's half
+  int meta = 0;    // (lim << 6) | sh | (s == 3) << 1 | parity
+  if (p < n) {
+    const uint32_t pi = (uint32_t)pidx[p];
+    const uint32_t a16 = pi >> 2;
+    hr = (int32_t)clamp_row((int64_t)(a16 >> 2), nhalf);
+    const int sh = 16 * (int)(a16 & 3u);
+    const int32_t* cell = cells + (int64_t)hr * 64 + sh;
+    const int32_t fv = flat[p];
+    int32_t feat, count;
+    if constexpr (VEC) {
+      const int2 m = *reinterpret_cast<const int2*>(cell);
+      feat = m.x;
+      count = m.y;
+    } else {
+      feat = cell[0];
+      count = cell[1];
+    }
+    const int cnt = feat == fv && fv != -1 ? count : 0;
+    cnt_out[p] = cnt;
+    const int lim = cnt < hsl ? (cnt > 0 ? cnt : 0) : hsl;
+    meta = (lim << 6) | sh | ((pi & 3u) == 2u ? 2 : 0) | (int)((p % f) & 1);
+  }
+  if constexpr (!VEC) {
+    for (int i = 0; i < 32 && p0 + i < n; ++i) {
+      const int32_t* half =
+          cells + (int64_t)__shfl_sync(0xffffffffu, hr, i) * 64;
+      const int mt = __shfl_sync(0xffffffffu, meta, i);
+      const int lim = mt >> 6;
+      const int sb = (mt & 0x3C) + ((mt & 2) ? 3 : 2);  // half lane of slot 0
+      const bool odd = mt & 1;
+      int32_t* out = pk + (p0 + i) * rl;
+      for (int c = lane; c < rl; c += 32) {
+        const int j = odd ? rl - 1 - c : c;
+        out[c] = j < lim ? (sb + j < 64 ? half[sb + j] : 0) : kI32Max;
+      }
+    }
+  } else {
+    constexpr int U = kCHSteps;
+    constexpr int g = 16;
+    const int t = lane & (g - 1);
+    const int h = lane / g;
+    const int nq = rl >> 2;
+    const int4 zero = make_int4(0, 0, 0, 0);
+    const int4 none = make_int4(kI32Max, kI32Max, kI32Max, kI32Max);
+    for (int i0 = 0; i0 < 32; i0 += 2 * U) {
+      int4 cur[U];
+      int mt[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + 2 * u + h;
+        mt[u] = __shfl_sync(0xffffffffu, meta, i);
+        const int4* half = reinterpret_cast<const int4*>(
+            cells + (int64_t)__shfl_sync(0xffffffffu, hr, i) * 64);
+        const int k = ((mt[u] & 0x3C) >> 2) + t;  // the half's int4
+        const int s = (mt[u] & 2) ? 3 : 2;
+        cur[u] = k < 16 && 4 * t < s + (mt[u] >> 6) ? half[k] : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int64_t pi = p0 + i0 + 2 * u + h;
+        const bool live = pi < n;
+        const bool odd = mt[u] & 1;
+        int32_t* out = pk + pi * rl;
+        put_quad(cur[u], zero, t, g, t, mt[u] >> 6, odd, nq,
+                 live && t < nq, out, (mt[u] & 2) ? 3 : 2);
+        if (live)
+          for (int q = g + t; q < nq; q += g)
+            reinterpret_cast<int4*>(out)[odd ? nq - 1 - q : q] = none;
+      }
+    }
+  }
+}
+
+// classed_decode's full form (the redo): one warp a probe, as
+// dense_decode. The cell as in the head form; class C's overflow row id
+// is its lane 2. Slot j < hsl comes from the cell, j >= hsl from the
+// overflow row: the first min(count, c), then the caller's encoding
+// (MODE), the padding to rl and the reversed odd runs, each output lane
+// stored once (coalesced).
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 classed_decode_kernel(const int32_t* __restrict__ cells, int64_t nhalf,
                       const int32_t* __restrict__ ovf, int64_t novf, int ow,
                       const int32_t* __restrict__ pidx,
                       const int32_t* __restrict__ flat, int64_t n, int hsl,
                       int c, int rl, int f, int slot_bits, int pack_bits,
-                      int32_t* __restrict__ out0, int32_t* __restrict__ out1,
-                      int32_t* __restrict__ cnt_out) {
+                      int32_t* __restrict__ out0, int32_t* __restrict__ out1) {
   const int64_t probe = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (probe >= n) return;  // the whole warp: one probe a warp
@@ -488,11 +682,10 @@ classed_decode_kernel(const int32_t* __restrict__ cells, int64_t nhalf,
   const bool found = half[sh] == fv && fv != -1;
   const int cnt = found ? half[sh + 1] : 0;
   const bool isC = (pi & 3u) == 2u;
-  const int cap = HEAD ? hsl : c;
-  const int lim = cnt < cap ? (cnt > 0 ? cnt : 0) : cap;
+  const int lim = cnt < c ? (cnt > 0 ? cnt : 0) : c;
   const int sb = sh + (isC ? 3 : 2);  // half lane of slot 0
   const int32_t* orow = nullptr;
-  if (!HEAD && lim > hsl)
+  if (lim > hsl)
     orow = ovf + clamp_row(found && isC ? half[sh + 2] : 0, novf) * ow;
   const bool odd = (probe % f) & 1;
   const uint32_t smask = (1u << slot_bits) - 1u;
@@ -519,7 +712,6 @@ classed_decode_kernel(const int32_t* __restrict__ cells, int64_t nhalf,
       o1[p] = a == kI32Max ? kI32Max : (int32_t)(u & smask);
     }
   }
-  if (HEAD && lane == 0) cnt_out[probe] = cnt;
 }
 
 template <bool PACK>
@@ -723,12 +915,13 @@ extern "C" int mc_classed_bucket(const void* brows, int64_t nrows, int bits,
                                  void* found, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (bits < 1 || bits > 31 || nrows <= 0 ||
-      reinterpret_cast<uintptr_t>(brows) % 8 != 0)
+      reinterpret_cast<uintptr_t>(brows) % (kCBLanes == 32 ? 8 : 16) != 0)
     return (int)cudaErrorInvalidValue;
-  classed_bucket_kernel<<<blocks_for(n), kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (const int32_t*)brows, nrows, bits, (const int32_t*)flat, n,
-      (int32_t*)pidx, (bool*)found);
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  classed_bucket_kernel<kCBLanes, kCBSteps>
+      <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const int32_t*)brows, nrows, bits, (const int32_t*)flat, n,
+          (int32_t*)pidx, (bool*)found);
   return (int)cudaGetLastError();
 }
 
@@ -746,17 +939,27 @@ extern "C" int mc_classed_decode(const void* cells, int64_t nhalf,
       (!head && c > hsl && (ovf == nullptr || novf <= 0 || ow < c - hsl)) ||
       (head && (pack_bits != slot_bits || cnt == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (head) {
+    const bool vec = rl % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(cells) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out0) % 16 == 0;
+    const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+    auto kernel = vec ? classed_head_kernel<true> : classed_head_kernel<false>;
+    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)cells, nhalf, (const int32_t*)pidx,
+        (const int32_t*)flat, n, hsl, rl, f, (int32_t*)out0, (int32_t*)cnt);
+    return (int)cudaGetLastError();
+  }
   const int mode = pack_bits == slot_bits ? kCPass
                    : pack_bits ? kCRebase : kCUnpack;
   if (mode == kCUnpack && out1 == nullptr) return (int)cudaErrorInvalidValue;
-  auto kernel = head ? classed_decode_kernel<true, kCPass>
-                : mode == kCPass ? classed_decode_kernel<false, kCPass>
-                : mode == kCRebase ? classed_decode_kernel<false, kCRebase>
-                                   : classed_decode_kernel<false, kCUnpack>;
+  auto kernel = mode == kCPass ? classed_decode_kernel<kCPass>
+                : mode == kCRebase ? classed_decode_kernel<kCRebase>
+                                   : classed_decode_kernel<kCUnpack>;
   kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)cells, nhalf, (const int32_t*)ovf, novf, ow,
       (const int32_t*)pidx, (const int32_t*)flat, n, hsl, c, rl, f,
-      slot_bits, pack_bits, (int32_t*)out0, (int32_t*)out1, (int32_t*)cnt);
+      slot_bits, pack_bits, (int32_t*)out0, (int32_t*)out1);
   return (int)cudaGetLastError();
 }
 

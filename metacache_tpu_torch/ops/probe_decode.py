@@ -367,7 +367,9 @@ def classed_bucket(brows: torch.Tensor, flat: torch.Tensor, bits: int):
     int32 features -> (pidx (N,) int32 = ((a16_cls + (the valid entries
     of class cls before the feature's) * w16(cls)) << 2) | cls where
     found, else 0; found (N,) bool). j and cls are the sums over the
-    entries that hold the feature's low 32 - bits bits, as in JAX."""
+    entries that hold the feature's low 32 - bits bits, as in JAX. On the
+    card the kernel reads the rows in 16-byte loads: a view of them must
+    start 16-byte aligned (the launch is refused otherwise)."""
     _check(brows, "brows", 2)
     _check(flat, "flat", 1)
     check_probe_pallas()
@@ -468,7 +470,9 @@ def classed_decode(cells: torch.Tensor, ovf: torch.Tensor | None,
     I32_MAX past the count and up to rl, odd features' runs reversed
     ((probe index % f) & 1; f = 1 reverses none). ``head``: the first
     min(count, hsl) slots only (pack_bits must equal slot_bits) -> (pk
-    (N, rl), cnt (N,) int32 bucket counts, 0 on a miss)."""
+    (N, rl), cnt (N,) int32 bucket counts, 0 on a miss); on the card the
+    head form copies 16-byte quads where rl is a multiple of 4 and the
+    cells and pk start 16-byte aligned, else 4 bytes at a time."""
     _check(cells, "cells", 2)
     _check(pidx, "pidx", 1)
     _check(flat, "flat", 1)

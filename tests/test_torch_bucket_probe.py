@@ -8,12 +8,20 @@ probe_bucket_classed; classed_decode's plain version, full depth and
 head only, against JAX's _classed_probe and _classed_head_slots, and
 through probe_rows and probe_rows_head against JAX's. A numpy model of
 each kernel's warp algorithm (B9's chunks of 64 lanes and its shuffle
-sum; classed_bucket's 8-byte loads, its packed sum and its ballots;
-classed_decode's output lanes) is held against the plain versions. The
-cases (tests/test_torch_cuda.py::bucket_case, classed_csr) hold misses,
-sentinels, a bucket at full span, counts 0, below, at and past the
-61-slot head and class C's overflow rows. Tolerance 0 (integer
-outputs)."""
+sum; classed_bucket's 32 probes a warp, P lanes a probe and U steps, its
+two segment sums and the results gathered back to the probes' lanes, at
+every lane and step count the source allows; classed_decode's head form
+as 16-byte quads shifted by 2 or 3 lanes from the neighbour's, mirrored
+for odd probes, zero past the half, and its 4-byte path; its full form's
+output lanes) is held against the plain versions. The cases
+(tests/test_torch_cuda.py::bucket_case, classed_csr, classed_kind_probes)
+hold misses, sentinels, garbage addresses, every cell class at even and
+odd indices, counts that leave a warp part-filled, a bucket at full
+span, counts 0, below, at and past the 61-slot head and class C's
+overflow rows. Tolerance 0 (integer outputs)."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -29,8 +37,9 @@ from metacache_tpu_torch.db.state import tables_from_device
 from metacache_tpu_torch.ops import probe as tprobe
 from metacache_tpu_torch.ops import probe_decode as D
 from metacache_tpu_torch.ops import rows as trows
-from test_torch_cuda import (BUCKET_WIDTHS, bucket_case, bucket_flat,
-                             classed_csr, classed_garbage, classed_layout,
+from test_torch_cuda import (BUCKET_WIDTHS, CLASSED_KINDS, bucket_case,
+                             bucket_flat, classed_csr, classed_garbage,
+                             classed_kind_probes, classed_layout,
                              classed_probes)
 
 torch.set_num_threads(2)
@@ -326,52 +335,111 @@ def test_classed_head_rows_match_jax(classed, alt):
     assert over.numpy().any() and not over.numpy().all()
 
 
-def _classed_bucket_model(brows, flat, bits):
-    """classed_bucket as the kernel computes it: lane l of the warp loads
-    row lanes 2l and 2l + 1 (one 8-byte load) and holds entries q = 0..3
-    (lane 2l + (q >> 1), half q & 1); it sums idx2 + (cls << 16) over its
-    matching entries, the warp adds by shuffles; pre is the popcount of
-    four ballots of the valid entries of class cls before j; lanes 0 and
-    1 give the bases."""
-    h = (flat >> np.uint32(32 - bits)).astype(np.int64)
-    key = (flat & np.uint32((1 << (32 - bits)) - 1)).astype(np.int64)
-    row = brows.reshape(-1, 64)[h].view(np.uint32)
+def _kernel_constant(name):
+    """An int constexpr of csrc/probe_decode.cu (the kernels' lanes and
+    steps), so the models follow the source."""
+    src = os.path.join(os.path.dirname(D.__file__), os.pardir, "csrc",
+                       "probe_decode.cu")
+    with open(src) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read()).group(1))
+
+
+LANE = np.arange(32)
+
+
+def _seg_sum(x, p):
+    """The __shfl_xor_sync sum over each aligned segment of p lanes of
+    (W, 32) uint32 / int64 values: every lane ends with its segment's
+    total (uint32: mod 2^32)."""
+    o = p // 2
+    while o:
+        x = x + x[:, LANE ^ o]
+        o //= 2
+    return x
+
+
+def _cb_row_lane(p, lane_in_probe, r):
+    """cb_row_lane: the row lane of word r of a probe's lane l."""
+    l = lane_in_probe
+    return 2 * l + r if p == 32 else 4 * l + 4 * p * (r >> 2) + (r & 3)
+
+
+def _classed_bucket_model(brows, flat, bits, lanes=None, steps=None):
+    """classed_bucket as the kernel computes it: one warp takes 32
+    consecutive probes (lane i loads probe i's feature; past n a
+    sentinel); it decodes G = 32 / P probes a step, P lanes each (P =
+    ``lanes``, kCBLanes by default), lane l of a probe holding row lanes
+    cb_row_lane(l, r), the U = ``steps`` (kCBSteps) steps' rows loaded
+    before any is reduced (rows past n read as zeros); each lane sums
+    idx2 + (cls << 16) over its matching entries and the probe's lanes
+    add by xor shuffles, the match flag by a segment-masked ballot; pre
+    is a second segment sum, the bases come from the probe's first lanes;
+    lane i then takes its probe's result from its probe's first lane."""
+    P = lanes or _kernel_constant("kCBLanes")
+    U = steps or _kernel_constant("kCBSteps")
+    G, R = 32 // P, 64 // P
     n = len(flat)
-    acc = np.zeros((32, n), np.uint32)
-    anym = np.zeros((32, n), bool)
-    ents = []
-    for lane in range(32):
-        for q in range(4):
-            r = 2 * lane + (q >> 1)
-            w = row[:, r]
-            e = (w >> np.uint32(16)) if q & 1 else (w & np.uint32(0xFFFF))
-            id2 = 2 * (r - 3) + (q & 1)
-            live = (r >= 3) & (e != 0)
-            em1 = (e - np.uint32(1)) & np.uint32(0xFFFF)
-            m = live & ((em1 & np.uint32(0x3FFF)).astype(np.int64) == key)
-            acc[lane] += np.where(m, np.uint32(id2 & 0xFFFFFFFF) +
-                                  ((em1 >> np.uint32(14)) << np.uint32(16)),
-                                  np.uint32(0)).astype(np.uint32)
-            anym[lane] |= m
-            ents.append((lane, q, id2, live, em1 >> np.uint32(14)))
-    total = _butterfly(acc)[0]
-    j = (total & np.uint32(0xFFFF)).astype(np.int64)
-    cls = (total >> np.uint32(16)).astype(np.int64)
-    pre = np.zeros(n, np.int64)
-    for q in range(4):
-        ballot = np.zeros(n, np.uint64)
-        for lane, qq, id2, live, ecls in ents:
-            if qq == q:
-                same = live & (ecls.astype(np.int64) == cls) & (id2 < j)
-                ballot |= same.astype(np.uint64) << np.uint64(lane)
-        pre += np.array([bin(int(b)).count("1") for b in ballot])
-    base = np.where(cls == 0, row[:, 0], np.where(cls == 1, row[:, 1],
-                                                  row[:, 2]))
-    w16 = np.where(cls == 0, 1, np.where(cls == 1, 2, 4)).astype(np.uint32)
-    addr = (base + pre.astype(np.uint32) * w16).astype(np.uint32)
-    hit = anym.any(axis=0) & (flat != np.uint32(0xFFFFFFFF))
-    pidx = np.where(hit, (addr << np.uint32(2)) | cls.astype(np.uint32), 0)
-    return _i32(pidx.astype(np.uint32)), hit
+    nw = -(-n // 32)
+    fv = np.full(nw * 32, 0xFFFFFFFF, np.uint32)
+    fv[:n] = flat.view(np.uint32)
+    fv = fv.reshape(nw, 32)
+    pos = np.arange(nw)[:, None] * 32
+    rows = brows.reshape(-1, 64).view(np.uint32)
+    kmask = np.uint32((1 << (32 - bits)) - 1)
+    g, l = LANE // P, LANE % P
+    src = LANE - l
+    rlane = np.stack([_cb_row_lane(P, l, r) for r in range(R)], 1)  # (32, R)
+    mine = np.zeros((nw, 32), np.uint32)
+    mine_hit = np.zeros((nw, 32), bool)
+    for i0 in range(0, 32, G * U):
+        for u in range(U):
+            i = i0 + u * G + g
+            f = fv[:, i]
+            live = pos + i < n
+            h = (f >> np.uint32(32 - bits)).astype(np.int64)
+            w = np.where(live[..., None],
+                         rows[h[..., None], rlane[None]], np.uint32(0))
+            key = f & kmask
+            acc = np.zeros((nw, 32), np.uint32)
+            anym = np.zeros((nw, 32), bool)
+            ents = []
+            for q in range(2 * R):
+                r = rlane[:, q >> 1]
+                x = (w[..., q >> 1] >> np.uint32(16)) if q & 1 else \
+                    (w[..., q >> 1] & np.uint32(0xFFFF))
+                e = x - np.uint32(1)
+                valid = (r >= 3) & (x != 0)
+                idx2 = 2 * (r - 3) + (q & 1)
+                m = valid & ((e & np.uint32(0x3FFF)) == key)
+                acc += np.where(m, (idx2 + ((e >> np.uint32(14)) <<
+                                            np.uint32(16))).astype(np.uint32),
+                                np.uint32(0))
+                anym |= m
+                ents.append((valid, e >> np.uint32(14), idx2))
+            acc = _seg_sum(acc, P)
+            hit = anym.reshape(nw, G, P).any(-1).repeat(P, 1) & \
+                (f != np.uint32(0xFFFFFFFF))
+            j = (acc & np.uint32(0xFFFF)).astype(np.int64)
+            cls = acc >> np.uint32(16)
+            pre = np.zeros((nw, 32), np.int64)
+            for valid, ecls, idx2 in ents:
+                pre += valid & (ecls == cls) & (idx2 < j)
+            pre = _seg_sum(pre, P)
+            a = w[:, src, 0]
+            b = w[:, src, 1]
+            c = w[:, src + (1 if P == 32 else 0), 2 % R]
+            base = np.where(cls == 0, a, np.where(cls == 1, b, c))
+            w16 = np.where(cls == 0, 1, np.where(cls == 1, 2, 4))
+            addr = (base.astype(np.int64) + pre * w16) & 0xFFFFFFFF
+            res = np.where(hit, ((addr << 2) & 0xFFFFFFFF) |
+                           cls.astype(np.int64), 0).astype(np.uint32)
+            frm = (LANE % G) * P
+            sel = (LANE // (G * U) == i0 // (G * U)) & \
+                ((LANE % (G * U)) // G == u)
+            mine[:, sel] = res[:, frm][:, sel]
+            mine_hit[:, sel] = hit[:, frm][:, sel]
+    return _i32(mine.reshape(-1)[:n]), mine_hit.reshape(-1)[:n]
 
 
 def test_classed_bucket_model_matches_plain(classed):
@@ -383,13 +451,123 @@ def test_classed_bucket_model_matches_plain(classed):
     np.testing.assert_array_equal(pf.numpy(), mf)
 
 
+@pytest.mark.parametrize("n", [1, 45, 1500])
+@pytest.mark.parametrize("lanes,steps", [(4, 2), (8, 1), (8, 2), (8, 4),
+                                         (16, 2), (32, 2), (32, 4)])
+def test_classed_bucket_designs_match_plain(classed, lanes, steps, n):
+    """classed_bucket's lane counts (4, 8 or 16 lanes a probe, 16-byte
+    loads; 32, one 8-byte load each) and step counts, on probe counts
+    that leave a warp's last steps part-filled."""
+    tc = classed["tc"]
+    flat = classed["flat"][:n]
+    mp, mf = _classed_bucket_model(tc.brows.numpy(), flat, tc.bbits, lanes,
+                                   steps)
+    pp, pf = D.classed_bucket_plain(tc.brows, _t(flat), tc.bbits)
+    np.testing.assert_array_equal(pp.numpy(), mp)
+    np.testing.assert_array_equal(pf.numpy(), mf)
+
+
+@pytest.mark.parametrize("kind", CLASSED_KINDS)
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("cls", [0, 1, 2])
+def test_classed_bucket_model_kinds_match_plain(classed, cls, parity, kind):
+    """classed_bucket's model against its plain version on 45 probes of
+    one kind (stored features of class ``cls`` cells, misses, sentinels,
+    random features) at even or odd indices."""
+    tc = classed["tc"]
+    flat = classed_kind_probes(tc, cls, parity, kind)[0]
+    mp, mf = _classed_bucket_model(tc.brows.numpy(), flat, tc.bbits)
+    pp, pf = D.classed_bucket_plain(tc.brows, _t(flat), tc.bbits)
+    np.testing.assert_array_equal(pp.numpy(), mp)
+    np.testing.assert_array_equal(pf.numpy(), mf)
+    if kind == "found":
+        assert mf.sum() == len(flat[parity::2])
+        assert ((mp[mf] & 3) == cls).all()
+
+
+def _classed_head_model(cells, pidx, flat, hsl, rl, f, steps=None):
+    """classed_decode's head form as the kernel computes it: one warp
+    takes 32 consecutive probes; lane i reads probe i's cell address
+    (half a16 >> 2, clamped; 16-lane offset sh), the cell's feature and
+    count, and keeps lim = min(count, hsl), the shift s (3 for class C,
+    else 2) and the parity. rl a multiple of 4 (the 16-byte path): groups
+    of 16 threads copy two probes a step, ``steps`` steps' loads first;
+    thread t loads the half's int4 sh / 4 + t where 4t < s + lim and it
+    lies in the half (else zeros), takes the next s lanes from thread t +
+    1 (the group's last thread: zeros) and writes output int4 t, mirrored
+    and reversed for odd probes, slots at or past lim I32_MAX; output
+    int4s from 16 on are padding. Else (the 4-byte path) lane l writes
+    output lanes l, l + 32, ..., slot j from half lane sh + s + j, 0 past
+    the half. ``steps``: kCHSteps by default."""
+    steps = steps or _kernel_constant("kCHSteps")
+    halves = cells.reshape(-1, 64)
+    n = len(flat)
+    nw = -(-n // 32)
+    pi = np.zeros(nw * 32, np.uint32)
+    pi[:n] = pidx.view(np.uint32)
+    fv = np.full(nw * 32, -1, np.int32)
+    fv[:n] = flat
+    a16 = pi >> np.uint32(2)
+    hr = np.minimum(a16 >> np.uint32(2), len(halves) - 1).astype(np.int64)
+    sh = (16 * (a16 & 3)).astype(np.int64)
+    live = np.arange(nw * 32) < n
+    found = (halves[hr, sh] == fv) & (fv != -1)
+    cnt = np.where(found, halves[hr, sh + 1], 0)
+    lim = np.where(live, np.clip(cnt, 0, hsl), 0)
+    s = np.where((pi & 3) == 2, 3, 2)
+    odd = (np.arange(nw * 32) % f) & 1 == 1
+    out = np.full((nw * 32, rl), -12345, np.int32)     # never written
+    if rl % 4:
+        for c in range(rl):
+            j = np.where(odd, rl - 1 - c, c)
+            lane = sh + s + j
+            v = np.where(lane < 64, halves[hr, np.minimum(lane, 63)], 0)
+            out[:, c] = np.where(j < lim, v, I32_MAX)
+        return out[:n], cnt[:n]
+    nq = rl // 4
+    t, grp = LANE & 15, LANE >> 4
+    wbase = np.arange(nw)[:, None] * 32
+    for i0 in range(0, 32, 2 * steps):
+        for u in range(steps):
+            pr = wbase + i0 + 2 * u + grp                   # (W, 32)
+            k = sh[pr] // 4 + t
+            need = (k < 16) & (4 * t < s[pr] + lim[pr])
+            quads = halves[hr[pr]].reshape(nw, 32, 16, 4)
+            cur = np.where(need[..., None], np.take_along_axis(
+                quads, np.minimum(k, 15)[..., None, None], 2)[:, :, 0], 0)
+            nxt = np.where((t < 15)[None, :, None],
+                           cur[:, np.minimum(LANE + 1, 31)], 0)
+            s3 = (s[pr] == 3)[..., None]
+            vals = np.where(s3, np.concatenate([cur[..., 3:], nxt[..., :3]],
+                                               -1),
+                            np.concatenate([cur[..., 2:], nxt[..., :2]], -1))
+            j = 4 * t[:, None] + np.arange(4)
+            vals = np.where(j[None] < lim[pr][..., None], vals, I32_MAX)
+            od = odd[pr]
+            q = np.where(od, nq - 1 - t, t)
+            vals = np.where(od[..., None], vals[..., ::-1], vals)
+            ok = (pr < n) & (t < nq)
+            out4 = out.reshape(nw * 32, nq, 4)
+            out4[pr[ok], q[ok]] = vals[ok]
+            # the padding: thread t of a group stores int4s 16 + t, 32 +
+            # t, ... of its probe (mirrored for odd probes)
+            for q2 in range(16, nq):
+                tl = q2 % 16 + 16 * np.arange(2)        # the two groups
+                p2 = pr[:, tl][pr[:, tl] < n]
+                out4[p2, np.where(odd[p2], nq - 1 - q2, q2)] = I32_MAX
+    return out[:n], cnt[:n]
+
+
 def _classed_decode_model(cells, ovf, pidx, flat, hsl, c, rl, f, sb, pb,
                           head):
-    """classed_decode as the kernel computes it: one warp a probe reads
-    the cell's 64-lane half (a16 >> 2, clamped) at the cell's 16-lane
-    offset, then lane l writes output lanes l, l + 32, ..., slot j
-    (mirrored for odd features) from the half (zero past its end) below
-    hsl, else from the overflow row, re-encoded."""
+    """classed_decode as the kernel computes it (``head``: its head
+    form, _classed_head_model): one warp a probe reads the cell's 64-lane
+    half (a16 >> 2, clamped) at the cell's 16-lane offset, then lane l
+    writes output lanes l, l + 32, ..., slot j (mirrored for odd
+    features) from the half (zero past its end) below hsl, else from the
+    overflow row, re-encoded."""
+    if head:
+        return _classed_head_model(cells, pidx, flat, hsl, rl, f)
     halves = cells.reshape(-1, 64)
     a16 = pidx.view(np.uint32) >> np.uint32(2)
     sh = (16 * (a16 & 3)).astype(np.int64)
@@ -446,6 +624,52 @@ def test_classed_decode_model_matches_plain(classed, alt, f, mode, probes):
     got = D.classed_decode_plain(tc.head, tc.ovf, torch.from_numpy(pidx),
                                  torch.from_numpy(flat), *args)
     assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("mode", ["head", "pass"])
+@pytest.mark.parametrize("kind", CLASSED_KINDS)
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("cls", [0, 1, 2])
+def test_classed_decode_model_kinds_match_plain(classed, cls, parity, kind,
+                                                mode):
+    """classed_decode's model, head form at rl 64 and full form at rl
+    256 (f 16), against its plain version on 45 probes of one kind and
+    class at even or odd indices: stored features, misses, sentinels and
+    garbage addresses."""
+    tc = classed["tc"]
+    flat, pidx = classed_kind_probes(tc, cls, parity, kind)
+    head = mode == "head"
+    args = (tc.head_slots, tc.spf, 64 if head else 256, 16, tc.slot_bits,
+            tc.slot_bits, head)
+    want = _classed_decode_model(tc.head.numpy(), tc.ovf.numpy(), pidx,
+                                 flat, *args)
+    got = D.classed_decode_plain(tc.head, tc.ovf, torch.from_numpy(pidx),
+                                 torch.from_numpy(flat), *args)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert (want[0] != I32_MAX).any() == (kind in ("found", "garbage"))
+
+
+@pytest.mark.parametrize("n", [1, 45, 1024])
+@pytest.mark.parametrize("rl", [61, 64, 100, 256])
+@pytest.mark.parametrize("steps", [4, 8, 16])
+def test_classed_head_designs_match_plain(classed, steps, rl, n):
+    """The head form's model at U = 4, 8 and 16 steps, on rl of the 4-byte
+    path (61) and of the 16-byte path (64; 100 and 256 with padding int4s
+    past the 16th), on n staged probes and n garbage addresses."""
+    tc = classed["tc"]
+    flat = classed["flat"][:n].view(np.int32)
+    pidx = D.classed_bucket(tc.brows, _t(flat), tc.bbits)[0].numpy()
+    gp, gf = classed_garbage(tc.head.numpy(), n)
+    pidx, flat = np.concatenate([pidx, gp]), np.concatenate([flat, gf])
+    want = _classed_head_model(tc.head.numpy(), pidx, flat, tc.head_slots,
+                               rl, 16, steps)
+    got = D.classed_decode_plain(tc.head, None, torch.from_numpy(pidx),
+                                 torch.from_numpy(flat), tc.head_slots,
+                                 tc.spf, rl, 16, tc.slot_bits, tc.slot_bits,
+                                 True)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
 

@@ -12,9 +12,11 @@ random tables against the same step on the CPU; the CSR layout through
 csr_decode against the goldens; dense_decode on the dense and two-tier
 lane rows (u32 and u64 features) against its plain version; B9 on every
 bucket-index width (u32 and u64), classed_bucket and classed_decode
-(full depth and head only) against their plain versions; the step's
-tail, classify_lca (both forms) and rank_hist, against their plain
-versions; tolerance 0.
+(full depth and head only; probes of every cell class and kind at even
+and odd indices, counts that leave a warp part-filled, and the head
+form's 4-byte path on unaligned cells) against their plain versions; the
+step's tail, classify_lca (both forms) and rank_hist, against their
+plain versions; tolerance 0.
 
 Needs an NVIDIA GPU (marker `cuda`; skipped without one). Imports no
 JAX, so it also runs on a GPU host without JAX:
@@ -1430,6 +1432,46 @@ def classed_garbage(cells, n, seed=23):
     return pidx, flat
 
 
+# probe kinds of classed_kind_probes
+CLASSED_KINDS = ("found", "missed", "sentinel", "garbage")
+
+
+def classed_kind_probes(lay, cls, parity, kind, n=45, seed=29):
+    """n probes (a count no multiple of 32, 16, 8 or 4: the kernels'
+    warps and steps end part-filled) of the CPU staging ``lay``, the kind
+    at every even (parity 0) or odd index (the decode's odd probes at f =
+    16), sentinels at cell address 0 between them: stored features of
+    class ``cls`` cells (found), the same with their lowest bit flipped
+    (missed: the bucket's entries miss, the cell's feature differs),
+    sentinels at those cells' addresses, or random features and garbage
+    cell addresses of class ``cls`` (every third at the half's last
+    16-lane offset, where class C's slots run past the half). -> (flat,
+    pidx) int32 numpy: the bucket probe's input and the decode's."""
+    rng = np.random.default_rng(seed + 7 * cls + 3 * parity)
+    flat = np.full(n, -1, np.int32)
+    pidx = np.zeros(n, np.int32)
+    at = np.arange(parity, n, 2)
+    if kind == "garbage":
+        a16 = rng.integers(0, lay.head.shape[0] * 8, len(at))
+        a16[::3] |= 3
+        pidx[at] = (a16 << 2) | cls
+        win = lay.head.numpy().reshape(-1, 16)[a16]
+        flat[at] = np.where(rng.random(len(at)) < 0.6, win[:, 0],
+                            rng.integers(-2**31, 2**31, len(at)))
+        return flat, pidx
+    feats = torch.from_numpy(lay.uniq.numpy()[:900].copy())
+    feats = feats[feats != -1]
+    pi, found = D.classed_bucket_plain(lay.brows, feats, lay.bbits)
+    mine = np.flatnonzero(found.numpy() & ((pi.numpy() & 3) == cls))
+    assert len(mine) > 0, cls
+    pick = mine[rng.integers(0, len(mine), len(at))]
+    pidx[at] = pi.numpy()[pick]
+    flat[at] = {"found": feats.numpy()[pick],
+                "missed": feats.numpy()[pick] ^ 1,
+                "sentinel": -1}[kind]
+    return flat, pidx
+
+
 @pytest.mark.parametrize("hi", [False, True])
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("width", BUCKET_WIDTHS)
@@ -1499,6 +1541,75 @@ def test_classed_decode_kernel_matches_plain(cuda, alt, f, mode, probes):
         assert torch.equal(g, w)
     assert bool((got[0] == I32_MAX).any()) and \
         bool((got[0] != I32_MAX).any())
+
+
+@pytest.mark.parametrize("kind", CLASSED_KINDS)
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("cls", [0, 1, 2])
+def test_classed_bucket_kernel_kinds_match_plain(cuda, cls, parity, kind):
+    """classed_bucket against its plain version on 45 probes of one kind
+    and class: the warp's last steps part-filled."""
+    lay = classed_layout(classed_csr(), torch.device("cpu"))
+    flat = torch.from_numpy(classed_kind_probes(lay, cls, parity, kind)[0])
+    brows, flat = lay.brows.to(cuda), flat.to(cuda)
+    got = D.classed_bucket(brows, flat, lay.bbits)
+    want = D.classed_bucket_plain(brows, flat, lay.bbits)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if kind != "garbage":        # garbage holds some stored features
+        assert bool(got[1].any()) == (kind == "found")
+
+
+@pytest.mark.parametrize("mode", ["head", "pass", "rebase", "unpack"])
+@pytest.mark.parametrize("kind", CLASSED_KINDS)
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("cls", [0, 1, 2])
+def test_classed_decode_kernel_kinds_match_plain(cuda, cls, parity, kind,
+                                                 mode):
+    """classed_decode (head form at rl 64, full form at rl 256, f 16)
+    against its plain version on 45 probes of one kind and class at even
+    or odd indices."""
+    lay = classed_layout(classed_csr(), torch.device("cpu"))
+    hsl, c, sb = lay.head_slots, lay.spf, lay.slot_bits
+    flat, pidx = (torch.from_numpy(a).to(cuda) for a in
+                  classed_kind_probes(lay, cls, parity, kind))
+    head = mode == "head"
+    pb = {"head": sb, "pass": sb, "rebase": sb + 2, "unpack": 0}[mode]
+    args = (lay.head.to(cuda), lay.ovf.to(cuda), pidx, flat, hsl, c,
+            64 if head else 256, 16, sb, pb, head)
+    got = D.classed_decode(*args)
+    want = D.classed_decode_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[0] != I32_MAX).any()) == (kind in ("found",
+                                                         "garbage"))
+
+
+@pytest.mark.parametrize("head,rl", [(True, 61), (True, 64), (True, 128),
+                                     (False, 256)])
+def test_classed_decode_kernel_unaligned_matches_plain(cuda, head, rl):
+    """classed_decode on a cells view offset by one int32 (not 16-byte
+    aligned: the head form's 4-byte path) and, at rl 61, on outputs of a
+    width no multiple of 4, against its plain version on the staged
+    probes and garbage addresses."""
+    lay = classed_layout(classed_csr(), torch.device("cpu"))
+    hsl, c, sb = lay.head_slots, lay.spf, lay.slot_bits
+    flat = torch.from_numpy(classed_probes(
+        lay.uniq.numpy().view(np.uint32), lay.bbits).view(np.int32))
+    pidx = D.classed_bucket(lay.brows, flat, lay.bbits)[0]
+    gp, gf = classed_garbage(lay.head.numpy(), 4096 + 17)
+    pidx = torch.cat([pidx, torch.from_numpy(gp)])
+    flat = torch.cat([flat, torch.from_numpy(gf)])
+    buf = torch.zeros(lay.head.numel() + 1, dtype=torch.int32, device=cuda)
+    cells = buf[1:].view(-1, 128)
+    cells.copy_(lay.head.to(cuda))
+    assert cells.data_ptr() % 16 != 0
+    args = (cells, lay.ovf.to(cuda), pidx.to(cuda), flat.to(cuda), hsl, c,
+            rl, 16, sb, sb, head)
+    got = D.classed_decode(*args)
+    want = D.classed_decode_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("alt", [0, 128])
