@@ -141,6 +141,13 @@ It exits non-zero without a CUDA device. Its last stdout line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
 `--profile` adds torch.profiler traces of the summaries (those of the
 CSR stagings are always traced).
+The builds that run on the host (the 944 Mbp host build held against
+the device build, `build -parts 2`, `build -kmerlen 18`, and the
+-winlen 255 `build` and `modify`) run in a second process of this
+script (``--jobs``, the class ``Background``) beside the queries of the
+phases before the one that needs them; the script waits for it before
+any phase whose routes depend on the card's free memory, and stops it
+when it exits.
 """
 from __future__ import annotations
 
@@ -468,6 +475,15 @@ def write_taxonomy(tax, nsp: int):
     open(os.path.join(tax, "merged.dmp"), "w").close()
 
 
+def by_genome(gsel, ngenomes: int):
+    """(genome, the indices that drew it, increasing) for each genome
+    drawn, from one stable sort of the draws."""
+    order = np.argsort(gsel, kind="stable")
+    cuts = np.searchsorted(gsel[order], np.arange(ngenomes + 1))
+    for g in np.nonzero(cuts[1:] > cuts[:-1])[0]:
+        yield g, order[cuts[g]:cuts[g + 1]]
+
+
 def sample_reads(rng, genomes, n: int, read_len: int = READ_LEN,
                  with_genomes: bool = False):
     """n reads of read_len from uniformly drawn genomes (of any lengths)
@@ -478,8 +494,7 @@ def sample_reads(rng, genomes, n: int, read_len: int = READ_LEN,
     gsel = rng.integers(0, len(genomes), n)
     pos = rng.integers(0, glen[gsel] - read_len)
     reads = np.empty((n, read_len), np.uint8)
-    for g in np.unique(gsel):
-        sel = np.nonzero(gsel == g)[0]
+    for g, sel in by_genome(gsel, len(genomes)):
         reads[sel] = genomes[g][pos[sel, None] + np.arange(read_len)]
     nm = rng.poisson(read_len / 100, n)
     rows = np.repeat(np.arange(n), nm)
@@ -547,8 +562,7 @@ def sample_pairs(rng, genomes, n: int, read_len: int = READ_LEN):
     span = np.arange(read_len)
     m1 = np.empty((n, read_len), np.uint8)
     m2 = np.empty((n, read_len), np.uint8)
-    for g in np.unique(gsel):
-        sel = np.nonzero(gsel == g)[0]
+    for g, sel in by_genome(gsel, len(genomes)):
         m1[sel] = genomes[g][pos[sel, None] + span]
         m2[sel] = genomes[g][(pos[sel] + frag[sel] - read_len)[:, None] +
                              span]
@@ -1729,14 +1743,19 @@ def phase_parity_tail(results, rng, dev):
     classify_lca at the 944 Mbp summary's batch (8192 reads, K = 2, the
     lookup form of the fused branch and the form with taxa given) and
     at the many-target merge's (K = 8, -lowest species: merge rank 4),
-    on the databases' taxonomies; rank_hist on a stack of 32 batches
-    (262,144 reads), with and without escalation phase 1's overflow
-    bits. No single PyTorch call computes either function (library_ms
-    None). Bounds: classify_lca the candidates' ints, the included
-    candidates' lineage rows and the classes; rank_hist the reads' taxa
-    (and overflow words), the taxon table once and the bins."""
-    from metacache_tpu_torch.classify.runner import (rank_histogram,
-                                                     rank_histogram_plain)
+    on the databases' taxonomies; at the edges (K = 40, R = 1, 21 and
+    32, contiguous tables and strided views, 1,000 reads); rank_hist on
+    a stack of 32 batches (262,144 reads), with and without escalation
+    phase 1's overflow bits, and at the edges (one read, a ragged view 3
+    ints past the 16-byte grid, 2^20 taxa). Each line's floor_ms is an
+    empty kernel launched as the kernel is, on its grid, in the same
+    CUDA graph harness. No single PyTorch call computes either function
+    (library_ms None). Bounds: classify_lca the candidates' ints, the
+    included candidates' lineage rows and the classes; rank_hist the
+    reads' taxa (and overflow words), the taxon table once and the
+    bins."""
+    from metacache_tpu_torch import kernels
+    from metacache_tpu_torch.classify import runner as R
     from metacache_tpu_torch.ops import pipeline as P
     hits_min, frac, highest = 5, 1.0, 19     # the query's defaults
     out = {}
@@ -1761,6 +1780,7 @@ def phase_parity_tail(results, rng, dev):
                 lambda: (P.classify_candidates_plain(
                     tgt_d, tax_d, hits_d, lin_d, *args),), 12)}
         rows = lca_rows_read(tax_d, hits_d, hits_min, frac)
+        floor = kernel_ms(lambda: kernels.launch_floor(0, SCAN_BATCH))
         for form, (call, plain, per_cand) in forms.items():
             err = max(check_equal(f"classify_lca {name} {form}", a, b_)
                       for a, b_ in zip(call(), plain()))
@@ -1769,7 +1789,8 @@ def phase_parity_tail(results, rng, dev):
             b_ms, by = bound(nbytes, rows * NUM_RANKS)
             tag = f"{name}_K{k}_{form}"
             out[tag] = dict(max_abs_err=err, ms=cuda_ms(call),
-                            kernel_ms=kernel_ms(call), host_us=host_us(call),
+                            kernel_ms=kernel_ms(call), floor_ms=floor,
+                            host_us=host_us(call),
                             plain_ms=cuda_ms(plain), bound_ms=b_ms,
                             bound_by=by, lineage_rows_read=rows,
                             classified=int((call()[-1] != 0).sum()))
@@ -1784,6 +1805,36 @@ def phase_parity_tail(results, rng, dev):
             say(f"parity-classify_lca-{name}", reads=SCAN_BATCH, k=k,
                 form=form, merge_rank=merge_rank, tolerance=0,
                 library_ms=None, **out[tag])
+    # the edges: K = 40 (five turns), R = 1 and 32, a contiguous table
+    # and a strided view
+    floor = kernel_ms(lambda: kernels.launch_floor(0, 1000))
+    for r in (1, 21, 32):
+        lin = np.zeros((1024, r), np.int32)
+        lin[:, r - 1] = 1
+        if r > 4:
+            lin[:, 4] = 1000 + np.arange(1024) // 16
+        lin[:, 0] = 2_000_000 + np.arange(1024)
+        tgt, hits = tail_candidates(rng, (16,) * 64, np.repeat(
+            np.arange(64), 16), 1000, 40)
+        tgt_d, hits_d, lin_c, mt_d = (torch.from_numpy(a).to(dev) for a in (
+            tgt, hits, lin, lin[:, 0].copy()))
+        merge_rank = min(4, r - 1)
+        args = (hits_min, frac, min(highest, r - 1), merge_rank)
+        wide = torch.zeros((1024, r + 3), dtype=torch.int32, device=dev)
+        wide[:, :r] = lin_c
+        for layout, lin_d in (("contiguous", lin_c),
+                              ("strided", wide[:, :r])):
+            def call():
+                return P.classify_with_taxa(tgt_d, hits_d, mt_d, lin_d,
+                                            *args)
+            err = max(check_equal(f"classify_lca edge R={r} {layout}", a,
+                                  b_) for a, b_ in zip(call(), (
+                                      P.classify_with_taxa_plain(
+                                          tgt_d, hits_d, mt_d, lin_c,
+                                          *args))))
+            say("parity-classify_lca-edge", reads=1000, k=40, ranks=r,
+                table=layout, row_stride=lin_d.stride(0), max_abs_err=err,
+                tolerance=0, kernel_ms=kernel_ms(call), floor_ms=floor)
     lin, sp, ids, ranks = tail_taxonomy(GROUPS_944)
     m = 32 * SCAN_BATCH
     pick = rng.random(m)
@@ -1797,15 +1848,16 @@ def phase_parity_tail(results, rng, dev):
         a, dtype=np.int32)).to(dev) for a in (cls, ids, ranks, words))
     n = m - 1000                 # the last stack of a query: padded reads
     hist = {}
+    floor = kernel_ms(lambda: kernels.launch_floor(1, m))
     for masked in (False, True):
         ob = over_d if masked else None
 
         def call():
-            return rank_histogram(cls_d, n, ids_d, ranks_d, over_bits=ob)
+            return R.rank_histogram(cls_d, n, ids_d, ranks_d, over_bits=ob)
 
         def plain():
-            return rank_histogram_plain(cls_d, n, ids_d, ranks_d,
-                                        over_bits=ob)
+            return R.rank_histogram_plain(cls_d, n, ids_d, ranks_d,
+                                          over_bits=ob)
         tag = "masked" if masked else "plain_stack"
         err = check_equal(f"rank_hist {tag}", call(), plain())
         nbytes = m * 4 + (words.nbytes if masked else 0) + \
@@ -1813,8 +1865,9 @@ def phase_parity_tail(results, rng, dev):
         nops = m * max(1, len(ids).bit_length())
         b_ms, by = bound(nbytes, nops)
         hist[tag] = dict(max_abs_err=err, ms=cuda_ms(call),
-                         kernel_ms=kernel_ms(call), host_us=host_us(call),
-                         plain_ms=cuda_ms(plain), bound_ms=b_ms, bound_by=by,
+                         kernel_ms=kernel_ms(call), floor_ms=floor,
+                         host_us=host_us(call), plain_ms=cuda_ms(plain),
+                         bound_ms=b_ms, bound_by=by,
                          counted=int(call().sum()))
         if not masked:
             _record(results, "rank_hist", err=err, ms=hist[tag]["ms"],
@@ -1825,7 +1878,31 @@ def phase_parity_tail(results, rng, dev):
                           f"({len(ids)} taxa)")
         say("parity-rank_hist-stack", reads=m, n=n, masked=masked,
             taxa=len(ids), tolerance=0, library_ms=None, **hist[tag])
-    del cls_d, over_d
+    # the edges: one read, a ragged view past the 16-byte grid, 2^20 taxa
+    big_ids = np.cumsum(rng.integers(1, 64, 1 << 20)).astype(np.int32)
+    big_ranks = rng.integers(0, NUM_RANKS + 1, 1 << 20).astype(np.int32)
+    big_cls = np.where(rng.random(m) < 0.7, big_ids[rng.integers(
+        0, 1 << 20, m)], rng.integers(0, 1 << 26, m)).astype(np.int32)
+    bi_d, br_d, bc_d = (torch.from_numpy(a).to(dev) for a in (
+        big_ids, big_ranks, big_cls))
+    for edge, c_d, i_d, r_d, nn in (
+            ("one", cls_d[:1], ids_d, ranks_d, 1),
+            ("ragged_offset3", cls_d[3:m - 2], ids_d, ranks_d, n),
+            ("taxa_2^20", bc_d, bi_d, br_d, n)):
+        for masked in (False, True):
+            ob = over_d if masked else None
+
+            def call():
+                return R.rank_histogram(c_d, nn, i_d, r_d, over_bits=ob)
+            err = check_equal(f"rank_hist edge {edge}", call(),
+                              R.rank_histogram_plain(c_d, nn, i_d, r_d,
+                                                     over_bits=ob))
+            say("parity-rank_hist-edge", edge=edge, reads=c_d.numel(),
+                taxa=i_d.numel(), masked=masked, max_abs_err=err,
+                tolerance=0, kernel_ms=kernel_ms(call),
+                floor_ms=kernel_ms(lambda: kernels.launch_floor(
+                    1, c_d.numel())))
+    del cls_d, over_d, bc_d, bi_d, br_d
 
 
 def probe_stream(rng, nf: int):
@@ -2029,15 +2106,11 @@ def phase_parity_probe(results, rng, dev):
         card_seconds=round(out[0][2], 3), cpu_seconds=round(out[1][2], 3))
 
 
-def phase_build(tmp, name, genomes, species, gen_s, host_check=False,
-                parts=1, keep_fasta=False):
-    """`build` through the CLI (the device builder); with ``host_check``
-    a host build of the same genomes must give the same features,
-    offsets and locations; with ``parts`` > 1 also `build -parts`
-    (the host build) of the same genomes; ``keep_fasta``: the genomes
-    are written one FASTA file a genome, which stay (-align re-reads a
-    target's file). -> (database path, max window, the multi-part
-    database's path or None)."""
+def phase_build(tmp, name, genomes, species, gen_s, keep_fasta=False):
+    """`build` through the CLI (the device builder); ``keep_fasta``: the
+    genomes are written one FASTA file a genome, which stay (-align
+    re-reads a target's file, and the host builds of ``Background``
+    read them). -> (database path, max window)."""
     from metacache_tpu_torch import kernels
     from metacache_tpu_torch.cli.main import main as cli
     t0 = time.time()
@@ -2057,27 +2130,6 @@ def phase_build(tmp, name, genomes, species, gen_s, host_check=False,
     if launches <= 0:
         raise AssertionError("build did not launch the sketch kernel")
     p = Database.load(db).parts[0]
-    host = {}
-    if host_check:
-        from metacache_tpu_torch.db.build import BuildOptions, build_database
-        t0 = time.time()
-        hp = build_database(BuildOptions(infiles=[fa], taxonomy_dir=tax))
-        host = dict(host_build_seconds=round(time.time() - t0, 3),
-                    host_build_equal=True)
-        if hp.device_parts or len(hp.parts) != 1:
-            raise AssertionError("the host build did not build on the host")
-        for k in ("unique_features", "offsets", "locations"):
-            if not np.array_equal(getattr(hp.parts[0], k), getattr(p, k)):
-                raise AssertionError(f"device build != host build: {k}")
-        del hp
-    db_parts = None
-    if parts > 1:
-        db_parts = os.path.join(sub, f"db_parts{parts}")
-        t0 = time.time()
-        if cli(["build", db_parts, fa, "-taxonomy", tax, "-parts",
-                str(parts)]) != 0:
-            raise AssertionError(f"build -parts {parts} failed")
-        host[f"parts{parts}_build_seconds"] = round(time.time() - t0, 3)
     if not keep_fasta:
         os.remove(fa)
     maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max())
@@ -2085,8 +2137,89 @@ def phase_build(tmp, name, genomes, species, gen_s, host_check=False,
         bases=sum(len(g) for g in genomes), features=p.num_features,
         locations=p.num_locations, max_bucket=p.max_bucket_size,
         max_window=maxwin, seconds=round(build_s, 3),
-        data_gen_seconds=round(gen_s, 3), sketch_launches=launches, **host)
-    return db, maxwin, db_parts
+        data_gen_seconds=round(gen_s, 3), sketch_launches=launches)
+    return db, maxwin
+
+
+def host_build_check(fa, tax, db) -> dict:
+    """A host build of the genomes in ``fa`` must give the device-built
+    database ``db`` its features, offsets and locations."""
+    from metacache_tpu_torch.db.build import BuildOptions, build_database
+    hp = build_database(BuildOptions(infiles=[fa], taxonomy_dir=tax))
+    if hp.device_parts or len(hp.parts) != 1:
+        raise AssertionError("the host build did not build on the host")
+    p = Database.load(db).parts[0]
+    for k in ("unique_features", "offsets", "locations"):
+        if not np.array_equal(getattr(hp.parts[0], k), getattr(p, k)):
+            raise AssertionError(f"device build != host build: {k}")
+    return dict(host_build_equal=True)
+
+
+def run_jobs(path) -> int:
+    """The second process of ``Background``: the jobs of the JSON list
+    in ``path`` in turn, each a CLI command (``args``) or a host build
+    held against a device build (``host_check``), each printing one
+    ``JOB {...}`` line: its seconds and the kernels it launched."""
+    from metacache_tpu_torch import kernels
+    from metacache_tpu_torch.cli.main import main as cli
+    with open(path) as f:
+        jobs = json.load(f)
+    for job in jobs:
+        kernels.reset_counts()
+        t0 = time.time()
+        if "host_check" in job:
+            out = host_build_check(*job["host_check"])
+        elif cli(job["args"]) != 0:
+            raise AssertionError(f"{' '.join(job['args'])} failed")
+        else:
+            out = {}
+        out.update(seconds=round(time.time() - t0, 3),
+                   launches={k: v for k, v in launch_counts().items() if v})
+        print("JOB " + json.dumps(out), flush=True)
+    return 0
+
+
+BACKGROUND: list = []      # the processes Background started
+
+
+class Background:
+    """Jobs of ``run_jobs`` in a second process of this script, started
+    now; ``wait()`` waits for it and returns the jobs' results in order.
+    Its kernel launches are its own: the counts of this process, which
+    the phases check, do not see them."""
+
+    def __init__(self, tmp, name, jobs):
+        self.name = name
+        path = os.path.join(tmp, f"jobs-{name}.json")
+        with open(path, "w") as f:
+            json.dump(jobs, f)
+        self.out = os.path.join(tmp, f"jobs-{name}.out")
+        self.t0 = time.time()
+        with open(self.out, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--jobs", path],
+                stdout=f)
+        BACKGROUND.append(self.proc)
+
+    def wait(self) -> list:
+        t0 = time.time()
+        rc = self.proc.wait()
+        with open(self.out) as f:
+            done = [json.loads(l[4:]) for l in f if l.startswith("JOB ")]
+        if rc != 0:
+            raise AssertionError(f"background jobs {self.name} exited "
+                                 f"with {rc} after {len(done)} jobs")
+        say(f"background-{self.name}", jobs=len(done),
+            seconds=round(time.time() - self.t0, 3),
+            waited_seconds=round(time.time() - t0, 3))
+        return done
+
+
+def stop_background():
+    for proc in BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
 
 
 def _query(db_path, reads_path, args, out, runner=None, devices=None):
@@ -2117,12 +2250,14 @@ def _query(db_path, reads_path, args, out, runner=None, devices=None):
     return runner, res, stage_s
 
 
-def phase_query_summary(tmp, name, db, reads, layout, expect, pairs=None):
+def phase_query_summary(tmp, name, db, reads, layout, expect, pairs=None,
+                        runner=None):
     """A main path: counts are zeroed just before it and read just
     after, so its launches are its own. ``expect(runner, batches)`` gives
     the launches each kernel must show. ``reads``: the reads to write,
     or the count of those an earlier phase wrote; with ``pairs``, the
-    two files of that many read pairs, queried with -pairfiles.
+    two files of that many read pairs, queried with -pairfiles;
+    ``runner``: staged tables to query (else a runner stages them).
     -> (runner, launches, results)"""
     from metacache_tpu_torch import kernels
     path = os.path.join(tmp, name, "reads.fa")
@@ -2133,7 +2268,8 @@ def phase_query_summary(tmp, name, db, reads, layout, expect, pairs=None):
         write_reads(path, reads)
     args = ["-no-map"] + (["-pairfiles"] if pairs else [])
     kernels.reset_counts()
-    runner, res, stage_s = _query(db, pairs or path, args, io.StringIO())
+    runner, res, stage_s = _query(db, pairs or path, args, io.StringIO(),
+                                  runner)
     grew = {k: v.launches for k, v in kernels.ALL.items()}
     runner.stage_s = stage_s
     if not layout(runner) if callable(layout) else runner.layout != layout:
@@ -2309,7 +2445,8 @@ def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
     """One stack of 8192 reads through the scan step on the card and the
     plain path on CPU tensors of the same tables: rows of ceil(winlen / 4)
     packed bytes (32 at winlen 127, 64 at 255), valid = the read length,
-    mwir = 2 + length // stride, the runner's sweep."""
+    mwir = 2 + length // stride, the runner's sweep. -> that CPU copy of
+    the tables."""
     from metacache_tpu_torch.ops.rows import query_step_rows_scan
     b, rl = min(8192, len(reads)), reads.shape[1]
     nb = (runner.sketching.winlen + 3) // 4
@@ -2335,6 +2472,7 @@ def phase_e2e(name, runner, reads, dev=torch.device("cuda")):
     err = check_equal("end-to-end cls", got, want)
     say(f"e2e-parity-{name}", reads=b, packed_bytes=nb, valid=rl, mwir=mw,
         tolerance=0, max_abs_err=err, classified=int((got != 0).sum()))
+    return cpu
 
 
 def summary_again(tmp, name, runner, env, reads="reads.fa"):
@@ -2438,7 +2576,9 @@ def run_config(tmp, name, db, genomes, layout, path_kernels, profile,
     launches, rank histogram, staging seconds and the other route's
     launches (None without it). ``keep``: a dict that takes the per-read
     lines ("lines") and a profile of the summary query of the first
-    GRID_PROFILE_READS reads ("profile"), for the grid phases.
+    GRID_PROFILE_READS reads ("profile"), for the grid phases, and the
+    runner ("runner") and the scan step's CPU copy of its tables ("cpu"),
+    for the pairs.
     ``prefetch``: the summary with and without the pipelined scan
     (``phase_prefetch``)."""
     reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
@@ -2452,18 +2592,21 @@ def run_config(tmp, name, db, genomes, layout, path_kernels, profile,
         phase_prefetch(tmp, name, runner, res, profile)
     other = phase_other_route(tmp, name, runner, res) if other_route \
         else None
-    phase_e2e(name, runner, reads)
+    cpu = phase_e2e(name, runner, reads)
     if keep is not None:
+        keep["cpu"] = cpu
         write_reads(os.path.join(tmp, name, "reads_grid_profile.fa"),
                     reads[:GRID_PROFILE_READS])
         keep["profile"] = phase_profile(tmp, name, runner, "-grid-reads",
                                         reads="reads_grid_profile.fa")
+    del cpu
+    # the summary's staged tables serve the per-read query
+    lines = phase_query_per_read(tmp, name, db, reads[:65536],
+                                 runner=runner)
+    if keep is not None:
+        keep.update(lines=lines, runner=runner)
     del runner
     torch.cuda.empty_cache()
-    lines = phase_query_per_read(tmp, name, db, reads[:65536])
-    torch.cuda.empty_cache()
-    if keep is not None:
-        keep["lines"] = lines
     return launches, res.statistics.assigned_.copy(), stage_s, other
 
 
@@ -2865,7 +3008,7 @@ def run_two_tier(tmp, profile):
     from metacache_tpu_torch.classify.runner import map_queries_to_targets
     name = "1456mbp-two-tier"
     genomes, species, gen_s = generated(two_tier_genomes)
-    db, maxwin, _p = phase_build(tmp, name, genomes, species, gen_s)
+    db, maxwin = phase_build(tmp, name, genomes, species, gen_s)
     if (2 * maxwin).bit_length() != 15:
         raise AssertionError(f"max window {maxwin}")
     reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20)
@@ -2934,33 +3077,40 @@ def run_two_tier(tmp, profile):
     phase_e2e_pairs(name, runner, m1, m2, SCAN_BATCH, escalated=True,
                     cpu=cpu)
     del cpu
-    lines = phase_query_per_read(tmp, name, db, reads[:65536],
-                                 runner=runner)
-    del runner
-    torch.cuda.empty_cache()
-
     # MC_PROBE_PALLAS=1 changes no route: B9 is the bucket probe under
-    # every value, and B7 does B8's work, so B8 launches no time
-    with environ(MC_PROBE_PALLAS="1"):
-        runner, pallas, res1 = phase_query_summary(tmp, name, db, len(reads),
-                                                   layout, escalated)
+    # every value, and B7 does B8's work, so B8 launches no time. The
+    # stage is read at each probe: the summary's tables serve (before the
+    # per-read query, which leaves its options on the runner)
+    before = runner.esc_reads
+    res1, pallas, dispatches = summary_again(tmp, name, runner,
+                                             {"MC_PROBE_PALLAS": "1"})
+    want = escalated_launches(dispatches, -(-len(reads) // SCAN_BATCH))
+    if pallas != want:
+        raise AssertionError(f"MC_PROBE_PALLAS=1: launches {pallas}, "
+                             f"expected {want}")
     if not np.array_equal(res1.statistics.assigned_,
                           res.statistics.assigned_):
         raise AssertionError("MC_PROBE_PALLAS=1 changed the rank histogram")
-    if runner.esc_reads != esc_reads or pallas["oidx_decode"] != 0:
+    if runner.esc_reads - before != esc_reads or pallas["oidx_decode"] != 0:
         raise AssertionError("MC_PROBE_PALLAS=1 escalated otherwise")
-    # the stage is read at each probe: the summary's tables serve
+    say(f"query-summary-{name}-probe-kernels", reads=res1.statistics.total(),
+        reads_per_min=round(res1.statistics.total() /
+                            (res1.time_ms / 60000.0)),
+        seconds=round(res1.time_ms / 1000, 3), histogram_equal=True,
+        launches=pallas)
+    lines = phase_query_per_read(tmp, name, db, reads[:65536],
+                                 runner=runner)
     with environ(MC_PROBE_PALLAS="1"):
         lines1 = phase_query_per_read(tmp, name, db, reads[:65536],
                                       tag="-probe-kernels", runner=runner)
-    del runner
     if lines1 != lines:
         raise AssertionError("MC_PROBE_PALLAS=1 changed the mapping lines")
     say(f"probe-kernels-{name}", histogram_equal=True, lines_equal=True,
         launches=pallas)
-    torch.cuda.empty_cache()
-    pairs = run_pairs_two_tier(tmp, name, db, m1, m2, layout, escalated,
+    pairs = run_pairs_two_tier(tmp, name, db, m1, m2, layout, runner,
                                profile)
+    del runner
+    torch.cuda.empty_cache()
     return launches, pallas, pairs
 
 
@@ -3068,41 +3218,48 @@ def phase_dense_limit(tmp, name, db, dense_hist):
     torch.cuda.empty_cache()
 
 
-def run_long_windows(tmp, genomes, species, profile):
-    """The 944 Mbp genomes at -winlen 255 (stride 240), through B2: built
-    in two steps (`build` without the 256-strain group, then `modify`
-    with it), 2^20 250 bp reads on the summary path (the main path of
-    B2), the scan step against the plain path, 65,536 reads on the
-    per-read path, and `build+query` of all genomes in one step, whose
-    mapping lines must equal the per-read query's on the modified
-    database. -> the summary's launches."""
-    from metacache_tpu_torch import kernels
-    from metacache_tpu_torch.cli.main import main as cli
-    name = "944mbp-w255"
-    sub = os.path.join(tmp, name)
+def long_window_jobs(tmp, genomes, species) -> list:
+    """The 944 Mbp genomes written for run_long_windows (all but the
+    256-strain group in a.fa, that group in b.fa) -> its `build` and
+    `modify` as jobs of ``Background``."""
+    sub = os.path.join(tmp, "944mbp-w255")
     os.makedirs(sub)
-    t0 = time.time()
     a, b = os.path.join(sub, "a.fa"), os.path.join(sub, "b.fa")
     split = len(genomes) - 256
     write_genomes(a, genomes, species, 0, split)
     write_genomes(b, genomes, species, split)
     tax = os.path.join(sub, "taxonomy")
     write_taxonomy(tax, int(species.max()) + 1)
-    gen_s = time.time() - t0
+    db = os.path.join(sub, "db")
+    return [{"args": ["build", db, a, "-winlen", "255", "-taxonomy", tax]},
+            {"args": ["modify", db, b, "-taxonomy", tax]}]
+
+
+def run_long_windows(tmp, genomes, built, profile):
+    """The 944 Mbp genomes at -winlen 255 (stride 240), through B2: built
+    in two steps (`build` without the 256-strain group, then `modify`
+    with it; ``built``: the results of ``long_window_jobs``), 2^20 250 bp
+    reads on the summary path (the main path of B2), the scan step
+    against the plain path, 65,536 reads on the per-read path, and
+    `build+query` of all genomes in one step, whose mapping lines must
+    equal the per-read query's on the modified database. -> the
+    summary's launches."""
+    from metacache_tpu_torch import kernels
+    from metacache_tpu_torch.cli.main import main as cli
+    name = "944mbp-w255"
+    sub = os.path.join(tmp, name)
+    a, b = os.path.join(sub, "a.fa"), os.path.join(sub, "b.fa")
+    split = len(genomes) - 256
+    tax = os.path.join(sub, "taxonomy")
     db = os.path.join(sub, "db")
     steps = {}
-    for step, args in (("build", ["build", db, a, "-winlen", "255",
-                                  "-taxonomy", tax]),
-                       ("modify", ["modify", db, b, "-taxonomy", tax])):
-        kernels.reset_counts()
-        t0 = time.time()
-        if cli(args) != 0:
-            raise AssertionError(f"{step} failed")
-        steps[step] = dict(seconds=round(time.time() - t0, 3),
-                           sketch_long=kernels.SKETCH_LONG.launches,
-                           sketch=kernels.SKETCH.launches)
+    for step, job in zip(("build", "modify"), built):
+        launched = job["launches"]
+        steps[step] = dict(seconds=job["seconds"],
+                           sketch_long=launched.get("sketch_long", 0),
+                           sketch=launched.get("sketch", 0))
         if steps[step]["sketch_long"] <= 0 or steps[step]["sketch"]:
-            raise AssertionError(f"{step} launches {steps[step]}")
+            raise AssertionError(f"{step} launches {launched}")
     d = Database.load(db)
     p = d.parts[0]
     maxwin = int((p.locations & np.uint64(0xFFFFFFFF)).max())
@@ -3113,7 +3270,7 @@ def run_long_windows(tmp, genomes, species, profile):
     say(f"build-{name}", genomes=len(genomes), build_genomes=split,
         modify_genomes=len(genomes) - split, features=p.num_features,
         locations=p.num_locations, max_bucket=p.max_bucket_size,
-        max_window=maxwin, data_gen_seconds=round(gen_s, 3), **steps)
+        max_window=maxwin, **steps)
     del d, p
     reads = sample_reads(np.random.default_rng(7), genomes, 1 << 20, 250)
     layout = f"pk{(2 * maxwin).bit_length()}"
@@ -3127,9 +3284,10 @@ def run_long_windows(tmp, genomes, species, profile):
     if profile:
         phase_profile(tmp, name, runner)
     phase_e2e(name, runner, reads)
+    # the summary's staged tables serve the per-read query
+    lines = phase_query_per_read(tmp, name, db, reads[:65536],
+                                 runner=runner)
     del runner
-    torch.cuda.empty_cache()
-    lines = phase_query_per_read(tmp, name, db, reads[:65536])
     torch.cuda.empty_cache()
     out = os.path.join(sub, "buildquery.txt")
     kernels.reset_counts()
@@ -3325,7 +3483,8 @@ def run_long_reads(tmp, name, db, genomes, nreads, profile, narrow, wide,
     kernel ``narrow`` on rows one block holds, its wide form ``wide`` on
     wider ones, the non-fused path where JAX's flags do not fuse: ranges
     past 48 windows) and under MC_FUSED_CANDIDATES=0 (every batch
-    non-fused), whose mapping lines must be byte-identical. Prints each
+    non-fused, on the same staged tables), whose mapping lines must be
+    byte-identical. Prints each
     run's reads/min (the runner's clock), batches by route, the widest
     row, the sweeps, the peak device memory and the launches; then the
     routes predicted from the runner's batching for the same lengths
@@ -3358,17 +3517,21 @@ def run_long_reads(tmp, name, db, genomes, nreads, profile, narrow, wide,
         data_gen_seconds=round(time.time() - t0, 3))
     del codes
     db = Database.load(db)
-    lines, main_path = {}, None
-    for tag, env in (("", {}), ("-nonfused", {"MC_FUSED_CANDIDATES": "0"})):
+    lines, main_path, runner = {}, None, None
+    for tag in ("", "-nonfused"):
         stats: list = []
         out_path = os.path.join(tmp, name, f"long{tag}.txt")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
         restore = route_spy(stats)
+        if tag:
+            # MC_FUSED_CANDIDATES=0 on the same staged tables (nonfused)
+            runner._fused_candidates = False
         try:
-            with environ(**env), open(out_path, "w") as out:
-                runner, res, stage_s = _query(db, path, ["-tophits"], out)
+            with open(out_path, "w") as out:
+                runner, res, stage_s = _query(db, path, ["-tophits"], out,
+                                              runner)
         finally:
             restore()
         grew = {k: v.launches for k, v in kernels.ALL.items()}
@@ -3456,8 +3619,9 @@ def run_long_reads(tmp, name, db, genomes, nreads, profile, narrow, wide,
                     read_share_wide=round(p.get("wide_reads", 0) / nreads, 4),
                     read_share_nonfused=round(p.get("nonfused_reads", 0) /
                                               nreads, 4), **p)
-        del runner, res
-        torch.cuda.empty_cache()
+        del res
+    del runner
+    torch.cuda.empty_cache()
     if lines[""] != lines["-nonfused"]:
         diff = sum(x != y for x, y in zip(lines[""], lines["-nonfused"]))
         raise AssertionError(f"MC_FUSED_CANDIDATES=0 changed {diff} of "
@@ -3617,8 +3781,8 @@ def phase_pairs_per_read(tmp, name, db, files, runner=None, checks=()):
     of the same pairs, whose rank histogram the per-read lines' rank
     counts must equal ("summary"), -insertsize 500 ("insertsize"),
     -pairseq on the interleaved file, whose lines must be byte-identical
-    ("pairseq"), and MC_FUSED_CANDIDATES=0 (a runner of its own), whose
-    lines must be byte-identical ("nonfused"). Launches are counted for
+    ("pairseq"), and MC_FUSED_CANDIDATES=0 (``nonfused``), whose lines
+    must be byte-identical ("nonfused"). Launches are counted for
     the -tophits query alone. -> (lines, launches, the summary's runner
     or ``runner``)."""
     sub = os.path.join(tmp, name)
@@ -3626,14 +3790,11 @@ def phase_pairs_per_read(tmp, name, db, files, runner=None, checks=()):
     out = {}
     ran = {}
 
-    def per_read(tag, args, paths, env=None, reuse=True):
+    def per_read(tag, args, paths):
         nonlocal runner
         path = os.path.join(sub, f"pairs{tag}.txt")
-        with environ(**(env or {})), open(path, "w") as f:
-            r, res, stage_s = _query(db, paths, args, f,
-                                     runner if reuse else None)
-        if reuse:
-            runner = r
+        with open(path, "w") as f:
+            runner, res, stage_s = _query(db, paths, args, f, runner)
         lines = mapping_lines(path)
         if len(lines) != res.statistics.total():
             raise AssertionError(f"{tag}: {len(lines)} lines for "
@@ -3669,8 +3830,8 @@ def phase_pairs_per_read(tmp, name, db, files, runner=None, checks=()):
         if seq != out[""]:
             raise AssertionError("-pairseq lines != -pairfiles lines")
     if "nonfused" in checks:
-        nf, _r = per_read("-nonfused", ["-pairfiles", "-tophits"], pair,
-                          {"MC_FUSED_CANDIDATES": "0"}, reuse=False)
+        with nonfused(runner):
+            nf, _r = per_read("-nonfused", ["-pairfiles", "-tophits"], pair)
         if nf != out[""]:
             diff = sum(x != y for x, y in zip(nf, out[""]))
             raise AssertionError(f"MC_FUSED_CANDIDATES=0 changed {diff} "
@@ -3679,6 +3840,20 @@ def phase_pairs_per_read(tmp, name, db, files, runner=None, checks=()):
         checks_passed=list(checks), runs=ran,
         launches={k: v for k, v in grew.items() if v})
     return out[""], grew, runner
+
+
+@contextlib.contextmanager
+def nonfused(runner):
+    """MC_FUSED_CANDIDATES=0 on a runner's staged tables: the runner
+    reads the variable when it stages, and nothing it stages depends on
+    it, so the queries inside take the non-fused result path as a runner
+    staged under the variable would."""
+    was = runner._fused_candidates
+    runner._fused_candidates = False
+    try:
+        yield runner
+    finally:
+        runner._fused_candidates = was
 
 
 def query_lines(db, paths, args, out_path, runner=None, env=None):
@@ -3695,18 +3870,18 @@ def run_covpct(tmp, name, db):
     """[query-covpct-944mbp]: the per-read phase's 2^16 reads with
     -cov-percentile 50 -tophits (mappings saved, targets below the
     coverage percentile dropped, every read classified again on the
-    host), and again under MC_FUSED_CANDIDATES=0: the same lines."""
+    host), and again under MC_FUSED_CANDIDATES=0 (``nonfused``): the
+    same lines. -> the runner, whose staged tables serve run_align and
+    run_repl (the same hit minimum, ranks and candidates)."""
     sub = os.path.join(tmp, name)
     reads = os.path.join(sub, "reads_per_read.fa")
     args = ["-cov-percentile", "50", "-tophits"]
     got, runner, res = query_lines(db, reads, args,
                                    os.path.join(sub, "covpct.txt"))
-    del runner
-    nf, runner, _r = query_lines(db, reads, args,
-                                 os.path.join(sub, "covpct_nonfused.txt"),
-                                 env={"MC_FUSED_CANDIDATES": "0"})
-    del runner
-    torch.cuda.empty_cache()
+    with nonfused(runner):
+        nf, runner, _r = query_lines(
+            db, reads, args, os.path.join(sub, "covpct_nonfused.txt"),
+            runner)
     n = res.statistics.total()
     rows = sum("\t|\t" in l and not l.startswith("#") for l in got)
     if nf != got or rows != n or n != PAIRS_PER_READ:
@@ -3717,16 +3892,17 @@ def run_covpct(tmp, name, db):
         n / (res.time_ms / 60000.0)), seconds=round(res.time_ms / 1000, 3),
         classified_fraction=round(res.statistics.assigned() / n, 6),
         lines_equal_nonfused=True)
+    return runner
 
 
-def run_align(tmp, name, db, genomes, species, nreads):
+def run_align(tmp, name, db, genomes, species, nreads, runner):
     """[query-align-944mbp]: ``nreads`` reads with -align -tophits; each
     classified read's alignment re-reads its top target's record from
     the target's FASTA file (as JAX and the reference binary do), one
     file a genome here. The same output under MC_FUSED_CANDIDATES=0;
     the share of alignment blocks whose subject is the read's true
     genome, and of its species (a strain's reads fit its 0.3%-apart
-    sister strains as well)."""
+    sister strains as well). ``runner``: run_covpct's. -> the runner."""
     import re
     sub = os.path.join(tmp, name)
     reads, gsel = sample_reads(np.random.default_rng(11), genomes, nreads,
@@ -3734,13 +3910,11 @@ def run_align(tmp, name, db, genomes, species, nreads):
     path = os.path.join(sub, "reads_align.fa")
     write_reads(path, reads)
     got, runner, res = query_lines(db, path, ["-align", "-tophits"],
-                                   os.path.join(sub, "align.txt"))
-    del runner
-    nf, runner, _r = query_lines(db, path, ["-align", "-tophits"],
-                                 os.path.join(sub, "align_nonfused.txt"),
-                                 env={"MC_FUSED_CANDIDATES": "0"})
-    del runner
-    torch.cuda.empty_cache()
+                                   os.path.join(sub, "align.txt"), runner)
+    with nonfused(runner):
+        nf, runner, _r = query_lines(
+            db, path, ["-align", "-tophits"],
+            os.path.join(sub, "align_nonfused.txt"), runner)
     if nf != got:
         raise AssertionError("-align: MC_FUSED_CANDIDATES=0 changed lines")
     # a block follows the mapping line of its read (header ">r<i>")
@@ -3767,13 +3941,16 @@ def run_align(tmp, name, db, genomes, species, nreads):
         share_aligned_to_true_species=round(same_species / len(blocks), 4),
         mean_score=round(float(np.mean(scores)), 2),
         lines_equal_nonfused=True)
+    return runner
 
 
-def run_repl(tmp, name, db, nreads):
+def run_repl(tmp, name, db, nreads, runner):
     """[repl-944mbp]: the query mode without read files (the interactive
     mode), fed two lines on a patched stdin, `<reads> -tophits` and
     `<reads> -lowest species`; its mapping lines equal the two direct
-    queries' lines."""
+    queries' lines (the first on ``runner``, run_covpct's; -lowest
+    species stages its own: the runner takes its merge rank when it
+    stages)."""
     from metacache_tpu_torch.cli.main import main as cli
     sub = os.path.join(tmp, name)
     src = os.path.join(sub, "reads_per_read.fa")
@@ -3784,9 +3961,11 @@ def run_repl(tmp, name, db, nreads):
     lines = [["-tophits"], ["-lowest", "species"]]
     direct = []
     for i, args in enumerate(lines):
-        got, runner, _r = query_lines(db, path, args,
-                                      os.path.join(sub, f"repl_{i}.txt"))
-        del runner
+        got, _r, _res = query_lines(db, path, args,
+                                    os.path.join(sub, f"repl_{i}.txt"),
+                                    runner)
+        del _r, _res
+        runner = None
         direct += [l for l in got if "\t|\t" in l and not l.startswith("#")]
     torch.cuda.empty_cache()
     buf = io.StringIO()
@@ -3965,12 +4144,23 @@ def run_multihost():
         lines=oks)
 
 
-def run_k18(tmp, genomes, species, profile):
+def k18_build_job(tmp, genomes, species) -> dict:
+    """The 944 Mbp genomes and their taxonomy written for `build
+    -kmerlen 18` (run_k18) -> that build as a job of ``Background``."""
+    sub = os.path.join(tmp, "944mbp-k18")
+    os.makedirs(sub)
+    fa, tax = write_reference(sub, genomes, species)
+    return {"args": ["build", os.path.join(sub, "db"), fa, "-taxonomy",
+                     tax, "-kmerlen", "18"]}
+
+
+def run_k18(tmp, genomes, built, profile):
     """The 944 Mbp genomes at k = 18, the repo's 64-bit configuration
     (tests/test_golden_parity.py:346-352). [build-944mbp-k18]: `build
-    -kmerlen 18`, the host table build (JAX's device builder is 32-bit
-    only) with the sketches taken on the card by the 64-bit sketch
-    kernel; the bucket index's bits and widest span.
+    -kmerlen 18` (``built``: that job's result, ``k18_build_job``), the
+    host table build (JAX's device builder is 32-bit only) with the
+    sketches taken on the card by the 64-bit sketch kernel; the bucket
+    index's bits and widest span.
     [query-summary-944mbp-k18]: 2^20 reads, -no-map, the main path of the
     64-bit sketch kernel (the runner's packed rows) and B4 on the u64
     dense rows; one stack against the plain path on CPU tensors. Per
@@ -3982,23 +4172,15 @@ def run_k18(tmp, genomes, species, profile):
     [staging-944mbp-k18-csr]: MC_DEVICE_LAYOUT=0 stages the u64 CSR
     layout, as JAX's runner does, the same rank histogram through the
     search and csr_decode (run_csr). -> the summary query's launches."""
-    from metacache_tpu_torch import kernels
-    from metacache_tpu_torch.cli.main import main as cli
     from metacache_tpu_torch.ops.probe import collision_free_bits64
     name = "944mbp-k18"
     sub = os.path.join(tmp, name)
-    os.makedirs(sub)
-    fa, tax = write_reference(sub, genomes, species)
     db = os.path.join(sub, "db")
-    kernels.reset_counts()
-    t0 = time.time()
-    if cli(["build", db, fa, "-taxonomy", tax, "-kmerlen", "18"]) != 0:
-        raise AssertionError("build -kmerlen 18 failed")
-    build_s = time.time() - t0
-    built = launch_counts()
-    if built["sketch64"] <= 0 or built["sketch"] or built["sketch_long"]:
-        raise AssertionError(f"build -kmerlen 18 launches {built}")
-    os.remove(fa)
+    launched = built["launches"]
+    if launched.get("sketch64", 0) <= 0 or launched.get("sketch") or \
+            launched.get("sketch_long"):
+        raise AssertionError(f"build -kmerlen 18 launches {launched}")
+    os.remove(os.path.join(sub, "genomes.fa"))
     p = Database.load(db).parts[0]
     # make_bucket_index64's default width; a low-32 collision within a
     # bucket there is where JAX takes its CSR probe and the port's staging
@@ -4007,8 +4189,9 @@ def run_k18(tmp, genomes, species, profile):
     free_bits = collision_free_bits64(p.unique_features)
     say(f"build-{name}", genomes=len(genomes), kmerlen=18,
         features=p.num_features, locations=p.num_locations,
-        max_bucket=p.max_bucket_size, seconds=round(build_s, 3),
-        sketch64_launches=built["sketch64"], default_bucket_bits=default_bits,
+        max_bucket=p.max_bucket_size, seconds=built["seconds"],
+        sketch64_launches=launched["sketch64"],
+        default_bucket_bits=default_bits,
         low32_collision_at_default_bits=free_bits > default_bits,
         collision_free_bits=free_bits)
     del p
@@ -4095,12 +4278,14 @@ def run_k18(tmp, genomes, species, profile):
     return grew
 
 
-def run_pairs(tmp, name, db, genomes, npairs, layout, expect, profile):
+def run_pairs(tmp, name, db, genomes, npairs, layout, expect, profile,
+              runner=None):
     """[query-pair-<name>]: ``npairs`` read pairs of 2 x 100 bp
     (``sample_pairs``) on the summary path (-pairfiles -no-map; the main
     path of this database's kernels at two windows a query: counts zeroed
-    just before it, read just after), its profile, one stack against the
-    plain path on CPU tensors. -> (runner, launches, results, mates)."""
+    just before it, read just after; on ``runner``'s staged tables where
+    one is given), its profile, one stack against the plain path on CPU
+    tensors. -> (runner, launches, results, mates)."""
     sub = os.path.join(tmp, name)
     t0 = time.time()
     m1, m2 = sample_pairs(np.random.default_rng(17), genomes, npairs)
@@ -4110,23 +4295,25 @@ def run_pairs(tmp, name, db, genomes, npairs, layout, expect, profile):
         data_gen_seconds=round(time.time() - t0, 3))
     runner, grew, res = phase_query_summary(
         tmp, name, db, npairs, layout, expect,
-        pairs=[os.path.join(sub, f) for f in files])
+        pairs=[os.path.join(sub, f) for f in files], runner=runner)
     if profile:
         phase_profile(tmp, name, runner, "-pairs", reads=files)
     return runner, grew, res, (m1, m2)
 
 
-def run_pairs_944(tmp, db, genomes, layout, profile):
+def run_pairs_944(tmp, db, genomes, layout, profile, runner, cpu):
     """[query-pair-944mbp]: 2^20 pairs on the summary path through B1 and
     B4 (rows of 2 x 16 x 256 slots, runs of 256, the dedup sweep), one
     stack against the plain path, then 2^16 of them per read (-tophits,
-    -insertsize 500, -pairseq, MC_FUSED_CANDIDATES=0). -> the summary's
-    launches."""
+    -insertsize 500, -pairseq, MC_FUSED_CANDIDATES=0); on the single
+    reads' ``runner`` and the CPU copy ``cpu`` of its tables (run_config).
+    -> the summary's launches."""
     name = "944mbp"
     runner, grew, res, (m1, m2) = run_pairs(
         tmp, name, db, genomes, PAIRS, layout,
-        path_of("sketch", DENSE, *cand_kernels()), profile)
-    phase_e2e_pairs(name, runner, m1, m2, SCAN_BATCH)
+        path_of("sketch", DENSE, *cand_kernels()), profile, runner)
+    phase_e2e_pairs(name, runner, m1, m2, SCAN_BATCH, cpu=cpu)
+    del cpu
     sub = os.path.join(tmp, name)
     files = write_pairs(sub, "pairs_sub", m1[:PAIRS_PER_READ],
                         m2[:PAIRS_PER_READ], interleaved=True)
@@ -4156,19 +4343,25 @@ def run_pairs_many_target(tmp, db, genomes):
     return grew
 
 
-def run_pairs_two_tier(tmp, name, db, m1, m2, layout, escalated, profile):
+def run_pairs_two_tier(tmp, name, db, m1, m2, layout, runner, profile):
     """[query-pair-1456mbp-two-tier]: 2^20 pairs escalated (phase 1
     through B1, B6 and B4 at two windows a query, the redo of the flagged
-    pairs through B7 and B4), the escalated share and the same histogram
-    under MC_ESCALATE=0 (B7 on every batch); ``run_two_tier`` holds one
+    pairs through B7 and B4) on ``runner``'s staged tables (the single
+    reads'), the escalated share and the same histogram under
+    MC_ESCALATE=0 (B7 on every batch); ``run_two_tier`` holds one
     stack's phase 1 and redo against the plain path. -> the escalated
     query's launches."""
     sub = os.path.join(tmp, name)
     files = write_pairs(sub, "pairs", m1, m2)
     paths = [os.path.join(sub, f) for f in files]
+    done, esc0 = len(runner.redo_dispatches), runner.esc_reads
+
+    def escalated(r, batches):
+        return escalated_launches(r.redo_dispatches[done:], batches)
     runner, grew, res = phase_query_summary(tmp, name, db, len(m1), layout,
-                                            escalated, pairs=paths)
-    esc = runner.esc_reads
+                                            escalated, pairs=paths,
+                                            runner=runner)
+    esc = runner.esc_reads - esc0
     if not (runner._escalation_ok(wq=2) and 0 < esc < len(m1)):
         raise AssertionError(f"pairs escalated {esc} of {len(m1)}")
     if profile:
@@ -4233,69 +4426,70 @@ def run_multipart(tmp, db, genomes):
                           PAIRS_PER_READ)
     pair = [os.path.join(sub, f) for f in write_pairs(sub, "pairs", m1, m2)]
     d = Database.load(db)
-    lines, grew, routes = {}, collections.Counter(), {}
-    for tag, env in (("", {}), ("-nonfused", {"MC_FUSED_CANDIDATES": "0"})):
-        runner = None
+    lines, grew, routes, runner = {}, collections.Counter(), {}, None
+    for tag in ("", "-nonfused"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        with environ(**env):
-            for kind, paths, args in (
-                    ("reads", os.path.join(sub, "reads.fa"), ["-tophits"]),
-                    ("pairs", pair, ["-pairfiles", "-tophits"])):
-                out_path = os.path.join(sub, f"{kind}{tag}.txt")
-                stats: list = []
-                kernels.reset_counts()
-                restore = route_spy(stats)
-                try:
-                    with open(out_path, "w") as out:
-                        runner, res, stage_s = _query(d, paths, args, out,
-                                                      runner)
-                finally:
-                    restore()
-                lines[kind + tag] = mapping_lines(out_path)
-                if len(lines[kind + tag]) != PAIRS_PER_READ:
-                    raise AssertionError(f"{kind}{tag}: "
-                                         f"{len(lines[kind + tag])} lines")
-                counts = launch_counts()
-                fused = sum(x["fused"] for x in stats)
-                if counts["classify_lca"] != len(stats):
-                    raise AssertionError(f"{kind}{tag}: classify_lca "
-                                         f"{counts['classify_lca']}, "
-                                         f"{len(stats)} steps")
-                if tag == "":
-                    grew.update(counts)
-                    if counts["sketch"] != len(stats) or \
-                            counts["candidates"] != fused or not fused:
-                        raise AssertionError(f"{kind}: launches {counts}, "
-                                             f"routes {stats}")
-                elif fused or counts["candidates"]:
-                    raise AssertionError(f"{kind}{tag} fused {fused}")
-                if stage_s:
-                    parts = [dict(layout=str(t.dense).replace(" ", ""),
-                                  spf=t.spf, features=t.num_features,
-                                  gib=round(t.nbytes() / 2**30, 3))
-                             for t in runner.parts]
-                    # the peak of the staging and of this 2^16-read query
-                    say(f"staging-{name}{tag}", parts=parts,
-                        staging_seconds=round(stage_s, 3),
-                        budget_gib=round(runner.budget_bytes / 2**30, 3),
-                        max_allocated_gib=round(
-                            torch.cuda.max_memory_allocated() / 2**30, 3))
-                routes[kind + tag] = dict(
-                    per_min=round(res.statistics.total() /
-                                  (res.time_ms / 60000.0)),
-                    batches=len(stats), fused_batches=fused,
-                    widths=sorted({x["width"] for x in stats}),
-                    sweeps=dict(collections.Counter(x["sweep"]
-                                                    for x in stats)),
-                    launches={k: v for k, v in counts.items() if v})
+        if tag:
+            # MC_FUSED_CANDIDATES=0 on the same staged tables (nonfused)
+            runner._fused_candidates = False
+        for kind, paths, args in (
+                ("reads", os.path.join(sub, "reads.fa"), ["-tophits"]),
+                ("pairs", pair, ["-pairfiles", "-tophits"])):
+            out_path = os.path.join(sub, f"{kind}{tag}.txt")
+            stats: list = []
+            kernels.reset_counts()
+            restore = route_spy(stats)
+            try:
+                with open(out_path, "w") as out:
+                    runner, res, stage_s = _query(d, paths, args, out,
+                                                  runner)
+            finally:
+                restore()
+            lines[kind + tag] = mapping_lines(out_path)
+            if len(lines[kind + tag]) != PAIRS_PER_READ:
+                raise AssertionError(f"{kind}{tag}: "
+                                     f"{len(lines[kind + tag])} lines")
+            counts = launch_counts()
+            fused = sum(x["fused"] for x in stats)
+            if counts["classify_lca"] != len(stats):
+                raise AssertionError(f"{kind}{tag}: classify_lca "
+                                     f"{counts['classify_lca']}, "
+                                     f"{len(stats)} steps")
+            if tag == "":
+                grew.update(counts)
+                if counts["sketch"] != len(stats) or \
+                        counts["candidates"] != fused or not fused:
+                    raise AssertionError(f"{kind}: launches {counts}, "
+                                         f"routes {stats}")
+            elif fused or counts["candidates"]:
+                raise AssertionError(f"{kind}{tag} fused {fused}")
+            if kind == "reads":
+                parts = [dict(layout=str(t.dense).replace(" ", ""),
+                              spf=t.spf, features=t.num_features,
+                              gib=round(t.nbytes() / 2**30, 3))
+                         for t in runner.parts]
+                # the peak of the staging and of this 2^16-read query
+                say(f"staging-{name}{tag}", parts=parts,
+                    staging_seconds=round(stage_s, 3),
+                    budget_gib=round(runner.budget_bytes / 2**30, 3),
+                    max_allocated_gib=round(
+                        torch.cuda.max_memory_allocated() / 2**30, 3))
+            routes[kind + tag] = dict(
+                per_min=round(res.statistics.total() /
+                              (res.time_ms / 60000.0)),
+                batches=len(stats), fused_batches=fused,
+                widths=sorted({x["width"] for x in stats}),
+                sweeps=dict(collections.Counter(x["sweep"]
+                                                for x in stats)),
+                launches={k: v for k, v in counts.items() if v})
         if tag == "":
             err, classified = multipart_card_vs_cpu(runner, reads)
         else:
             ballast_query(sub, name, runner, os.path.join(sub, "reads.fa"),
                           lines["reads-nonfused"])
-        del runner
-        torch.cuda.empty_cache()
+    del runner
+    torch.cuda.empty_cache()
     for kind in ("reads", "pairs"):
         if lines[kind] != lines[kind + "-nonfused"]:
             diff = sum(x != y for x, y in zip(lines[kind],
@@ -4457,10 +4651,13 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace a warm summary query of each "
                          "configuration with torch.profiler")
+    ap.add_argument("--jobs", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if a.jobs:
+        return run_jobs(a.jobs)
     from metacache_tpu_torch import kernels
     CARD = card_line()
     print(f"card: {CARD}", flush=True)
@@ -4471,92 +4668,10 @@ def main() -> int:
     launches = {}
     with tempfile.TemporaryDirectory(dir=os.getcwd(),
                                      prefix=".chip_smoke_") as tmp:
-        genomes, species, gen_s = generated(refseq_skew_genomes)
-        db, maxwin, db_parts = phase_build(tmp, "944mbp", genomes, species,
-                                           gen_s, host_check=True, parts=2,
-                                           keep_fasta=True)
-        layout = f"pk{(2 * maxwin).bit_length()}"
-        if layout != "pk15":
-            raise AssertionError(f"944 Mbp database packs as {layout}")
-        keep = {}
-        main_path, hist, stage_s, other = run_config(
-            tmp, "944mbp", db, genomes, layout,
-            ("sketch", DENSE, *cand_kernels()), a.profile, other_route=True,
-            keep=keep, prefetch=True)
-        for k in ("sketch", "candidates", DENSE, "bucket_decode", *TAIL):
-            launches[k] = main_path[k]
-        # B3 runs on whichever of the two routes splits
-        launches["sort"] = main_path["sort"] or other["sort"]
-        pair_paths = [run_shards(tmp, "944mbp", db, hist, keep["lines"],
-                                 keep["profile"])]
-        run_replicate(tmp, "944mbp", db, keep["lines"])
-        run_multihost()
-        pair_paths.append(run_pairs_944(tmp, db, genomes, layout,
-                                        a.profile))
-        run_covpct(tmp, "944mbp", db)
-        run_align(tmp, "944mbp", db, genomes, species, ALIGN_READS)
-        shutil.rmtree(os.path.join(tmp, "944mbp", "genomes"))
-        run_repl(tmp, "944mbp", db, REPL_READS)
-        classed = run_stagings(tmp, "944mbp", Database.load(db), hist,
-                               stage_s, genomes, results, a.profile)
-        for k in ("classed_bucket", "classed_decode"):
-            launches[k] = classed[k]
-        launches["csr_decode"] = run_csr_window(
-            tmp, "944mbp", db, hist, ("sketch", *cand_kernels()),
-            genomes=genomes, per_read=True)["csr_decode"]
-        long_path = run_long_reads(tmp, "944mbp", db, genomes, LONG_READS,
-                                   a.profile, "candidates",
-                                   "candidates_wide", ballast=True)
-        launches["candidates_wide"] = long_path["candidates_wide"]
-        pair_paths.append(run_multipart(tmp, db_parts, genomes))
-        k18 = run_k18(tmp, genomes, species, a.profile)
-        launches["sketch64"] = k18.pop("sketch64")
-        pair_paths.append(k18)
-        shutil.rmtree(os.path.join(tmp, "944mbp"))
-        shutil.rmtree(os.path.join(tmp, "944mbp-parts2"))
-        main_path = run_long_windows(tmp, genomes, species, a.profile)
-        launches["sketch_long"] = main_path["sketch_long"]
-        shutil.rmtree(os.path.join(tmp, "944mbp-w255"))
-        del genomes, species
-
-        genomes, species, gen_s = generated(many_target_genomes)
-        db, maxwin, _p = phase_build(tmp, "many-target", genomes, species,
-                                     gen_s)
-        if len(genomes) != 9217 or (2 * maxwin).bit_length() != 18:
-            raise AssertionError(f"{len(genomes)} targets, max window "
-                                 f"{maxwin}")
-        # slots do not pack: the dense layout of (tgt, win) lane pairs
-        main_path, hist, _s, _o = run_config(
-            tmp, "many-target", db, genomes, "True",
-            ("sketch", DENSE, "candidates_unpacked"), a.profile)
-        launches["candidates_unpacked"] = main_path["candidates_unpacked"]
-        for k in (DENSE, "bucket_decode", *TAIL):
-            launches[k] += main_path[k]
-        phase_dense_limit(tmp, "many-target", db, hist)
-        run_csr_window(tmp, "many-target", db, hist,
-                       ("sketch", "candidates_unpacked"))
-        long_path = run_long_reads(tmp, "many-target", db, genomes,
-                                   LONG_READS_MANY, False,
-                                   "candidates_unpacked",
-                                   "candidates_unpacked_wide")
-        launches["candidates_unpacked_wide"] = \
-            long_path["candidates_unpacked_wide"]
-        run_merge_many_target(tmp, db, genomes)
-        pair_paths.append(run_pairs_many_target(tmp, db, genomes))
-        shutil.rmtree(os.path.join(tmp, "many-target"))
-
-        main_path, pallas, pairs = run_two_tier(tmp, a.profile)
-        for k in ("head_decode", "full_decode"):
-            launches[k] = main_path[k]
-        for k in ("bucket_decode", *TAIL):
-            launches[k] += main_path[k]
-        launches["oidx_decode"] = pallas["oidx_decode"]
-        pair_paths.append(pairs)
-    # the sharded, paired and multi-part main paths' launches, each
-    # counted from zero just before its own query
-    for path in pair_paths:
-        for k, v in path.items():
-            launches[k] += v
+        try:
+            run_configs(tmp, results, launches, a.profile)
+        finally:
+            stop_background()
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("JAX was imported")
     rows = []
@@ -4584,5 +4699,116 @@ def main() -> int:
     return 0
 
 
+def run_configs(tmp, results, launches, profile):
+    """The configurations in the scratch directory ``tmp``: each main
+    path's launches go into ``launches``, the kernels measured on its
+    tables into ``results``."""
+    genomes, species, gen_s = generated(refseq_skew_genomes)
+    db, maxwin = phase_build(tmp, "944mbp", genomes, species, gen_s,
+                             keep_fasta=True)
+    # the host builds run beside the queries up to run_long_reads, whose
+    # routes follow the card's free memory
+    sub = os.path.join(tmp, "944mbp")
+    fa, tax = os.path.join(sub, "genomes"), os.path.join(sub, "taxonomy")
+    db_parts = os.path.join(sub, "db_parts2")
+    host = Background(tmp, "944mbp", [
+        {"host_check": [fa, tax, db]},
+        {"args": ["build", db_parts, fa, "-taxonomy", tax, "-parts", "2"]},
+        k18_build_job(tmp, genomes, species)])
+    layout = f"pk{(2 * maxwin).bit_length()}"
+    if layout != "pk15":
+        raise AssertionError(f"944 Mbp database packs as {layout}")
+    keep = {}
+    main_path, hist, stage_s, other = run_config(
+        tmp, "944mbp", db, genomes, layout,
+        ("sketch", DENSE, *cand_kernels()), profile, other_route=True,
+        keep=keep, prefetch=True)
+    for k in ("sketch", "candidates", DENSE, "bucket_decode", *TAIL):
+        launches[k] = main_path[k]
+    # B3 runs on whichever of the two routes splits
+    launches["sort"] = main_path["sort"] or other["sort"]
+    # the pairs on the single reads' staged tables and CPU copy
+    pair_paths = [run_pairs_944(tmp, db, genomes, layout, profile,
+                                keep.pop("runner"), keep.pop("cpu"))]
+    torch.cuda.empty_cache()
+    pair_paths.append(run_shards(tmp, "944mbp", db, hist, keep["lines"],
+                                 keep["profile"]))
+    run_replicate(tmp, "944mbp", db, keep["lines"])
+    run_multihost()
+    # one staging serves -cov-percentile, -align and the first REPL line
+    run_repl(tmp, "944mbp", db, REPL_READS, run_align(
+        tmp, "944mbp", db, genomes, species, ALIGN_READS,
+        run_covpct(tmp, "944mbp", db)))
+    classed = run_stagings(tmp, "944mbp", Database.load(db), hist,
+                           stage_s, genomes, results, profile)
+    for k in ("classed_bucket", "classed_decode"):
+        launches[k] = classed[k]
+    launches["csr_decode"] = run_csr_window(
+        tmp, "944mbp", db, hist, ("sketch", *cand_kernels()),
+        genomes=genomes, per_read=True)["csr_decode"]
+    checked, parted, k18_built = host.wait()
+    say("build-944mbp-host", host_build_seconds=checked["seconds"],
+        host_build_equal=checked["host_build_equal"],
+        parts2_build_seconds=parted["seconds"])
+    shutil.rmtree(fa)
+    long_path = run_long_reads(tmp, "944mbp", db, genomes, LONG_READS,
+                               profile, "candidates", "candidates_wide",
+                               ballast=True)
+    launches["candidates_wide"] = long_path["candidates_wide"]
+    pair_paths.append(run_multipart(tmp, db_parts, genomes))
+    # the -winlen 255 builds run beside the k = 18 phases
+    host = Background(tmp, "944mbp-w255",
+                      long_window_jobs(tmp, genomes, species))
+    k18 = run_k18(tmp, genomes, k18_built, profile)
+    launches["sketch64"] = k18.pop("sketch64")
+    pair_paths.append(k18)
+    shutil.rmtree(os.path.join(tmp, "944mbp"))
+    shutil.rmtree(os.path.join(tmp, "944mbp-parts2"))
+    main_path = run_long_windows(tmp, genomes, host.wait(), profile)
+    launches["sketch_long"] = main_path["sketch_long"]
+    shutil.rmtree(os.path.join(tmp, "944mbp-w255"))
+    del genomes, species
+
+    genomes, species, gen_s = generated(many_target_genomes)
+    db, maxwin = phase_build(tmp, "many-target", genomes, species, gen_s)
+    if len(genomes) != 9217 or (2 * maxwin).bit_length() != 18:
+        raise AssertionError(f"{len(genomes)} targets, max window {maxwin}")
+    # slots do not pack: the dense layout of (tgt, win) lane pairs
+    main_path, hist, _s, _o = run_config(
+        tmp, "many-target", db, genomes, "True",
+        ("sketch", DENSE, "candidates_unpacked"), profile)
+    launches["candidates_unpacked"] = main_path["candidates_unpacked"]
+    for k in (DENSE, "bucket_decode", *TAIL):
+        launches[k] += main_path[k]
+    phase_dense_limit(tmp, "many-target", db, hist)
+    run_csr_window(tmp, "many-target", db, hist,
+                   ("sketch", "candidates_unpacked"))
+    long_path = run_long_reads(tmp, "many-target", db, genomes,
+                               LONG_READS_MANY, False, "candidates_unpacked",
+                               "candidates_unpacked_wide")
+    launches["candidates_unpacked_wide"] = \
+        long_path["candidates_unpacked_wide"]
+    run_merge_many_target(tmp, db, genomes)
+    pair_paths.append(run_pairs_many_target(tmp, db, genomes))
+    shutil.rmtree(os.path.join(tmp, "many-target"))
+
+    main_path, pallas, pairs = run_two_tier(tmp, profile)
+    for k in ("head_decode", "full_decode"):
+        launches[k] = main_path[k]
+    for k in ("bucket_decode", *TAIL):
+        launches[k] += main_path[k]
+    launches["oidx_decode"] = pallas["oidx_decode"]
+    pair_paths.append(pairs)
+    # the sharded, paired and multi-part main paths' launches, each
+    # counted from zero just before its own query
+    for path in pair_paths:
+        for k, v in path.items():
+            launches[k] += v
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_background()
+    sys.exit(code)

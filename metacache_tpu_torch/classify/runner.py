@@ -93,6 +93,49 @@ from .options import ClassificationResults, QueryOptions
 from .output import MapViewMode
 
 
+# rank_hist's scratch (csrc/classify.cu): zeroed once and left zeroed
+# by every launch (its last block puts the sums and the ticket back), so
+# no launch needs a fill. Launches that can run at once never share one:
+# outside a capture each (device, stream) keeps its own; a launch that a
+# CUDA graph captures takes one that no other launch ever takes (kept as
+# long as the process, so as long as the graph), since graphs captured
+# on one stream may be replayed at once on several. Slots are zeroed
+# _HIST_SLOTS at a time outside any capture, so a capture takes one
+# zeroed before it began; where none is left, the capture's own slot is
+# zeroed inside the graph.
+_HIST_SLOTS = 64
+_hist_lock = threading.Lock()
+_hist_scratch = {}     # (device index, stream) -> scratch pointer
+_hist_free = {}        # device index -> zeroed pointers not yet taken
+_hist_held = []        # the scratch tensors
+
+
+def _hist_take(dev: torch.device, capturing: bool) -> int:
+    """A zeroed scratch not yet taken on ``dev``."""
+    with _hist_lock:
+        free = _hist_free.setdefault(dev.index, [])
+        if not free:
+            t = torch.zeros(
+                (1 if capturing else _HIST_SLOTS,
+                 kernels.rank_hist_scratch_bytes() // 4),
+                dtype=torch.int32, device=dev)
+            _hist_held.append(t)
+            if capturing:
+                return t.data_ptr()
+            free.extend(row.data_ptr() for row in t)
+        return free.pop()
+
+
+def _hist_scratch_of(dev: torch.device) -> int:
+    if torch._C._cuda_isCurrentStreamCapturing():
+        return _hist_take(dev, True)
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    ptr = _hist_scratch.get(key)
+    if ptr is None:
+        ptr = _hist_scratch[key] = _hist_take(dev, False)
+    return ptr
+
+
 def rank_histogram(cls: torch.Tensor, n: int, taxid_sorted: torch.Tensor,
                    rank_of: torch.Tensor,
                    over_bits: torch.Tensor | None = None) -> torch.Tensor:
@@ -100,10 +143,11 @@ def rank_histogram(cls: torch.Tensor, n: int, taxid_sorted: torch.Tensor,
     of the first ``n`` classified taxa by rank (runner.py:106-128). Reads
     whose bit is set in ``over_bits`` (32 reads a word, escalation phase
     1) are left out: the redo counts them (runner.py:76-102). ``cls``:
-    int32 taxa of any shape, read flat; ``taxid_sorted`` the ascending
-    int32 taxon ids and ``rank_of`` their int32 ranks. CUDA tensors
-    launch the rank_hist kernel (csrc/classify.cu), CPU tensors take
-    ``rank_histogram_plain``."""
+    int32 taxa of any shape, read flat (a view in place, at any offset);
+    ``taxid_sorted`` the ascending int32 taxon ids and ``rank_of`` their
+    int32 ranks. CUDA tensors launch the rank_hist kernel
+    (csrc/classify.cu), one launch that writes every bin; CPU tensors
+    take ``rank_histogram_plain``."""
     ts = [cls, taxid_sorted, rank_of] + \
         ([] if over_bits is None else [over_bits])
     if any(t.dtype != torch.int32 for t in ts) or \
@@ -119,17 +163,19 @@ def rank_histogram(cls: torch.Tensor, n: int, taxid_sorted: torch.Tensor,
                          f"{tuple(rank_of.shape)}, over_bits for {m} reads")
     if not cls.is_cuda:
         return rank_histogram_plain(cls, n, taxid_sorted, rank_of, over_bits)
-    out = torch.zeros(NUM_RANKS + 2, dtype=torch.int64, device=cls.device)
-    if m:
-        cls = cls.reshape(-1).contiguous()
-        taxid_sorted, rank_of = taxid_sorted.contiguous(), rank_of.contiguous()
-        if over_bits is not None:
-            over_bits = over_bits.reshape(-1).contiguous()
-        kernels.RANK_HIST(
-            cls.data_ptr(), m, max(int(n), 0), taxid_sorted.data_ptr(), nt,
-            rank_of.data_ptr(),
-            None if over_bits is None else over_bits.data_ptr(), NUM_RANKS,
-            out.data_ptr())
+    dev = cls.device
+    out = torch.empty(NUM_RANKS + 2, dtype=torch.int64, device=dev)
+    cls = cls.reshape(-1)
+    if not cls.is_contiguous():
+        cls = cls.contiguous()
+    taxid_sorted, rank_of = taxid_sorted.contiguous(), rank_of.contiguous()
+    if over_bits is not None:
+        over_bits = over_bits.reshape(-1).contiguous()
+    kernels.RANK_HIST(
+        cls.data_ptr(), m, max(int(n), 0), taxid_sorted.data_ptr(), nt,
+        rank_of.data_ptr(),
+        None if over_bits is None else over_bits.data_ptr(), NUM_RANKS,
+        out.data_ptr(), _hist_scratch_of(dev))
     return out[:NUM_RANKS + 1]
 
 

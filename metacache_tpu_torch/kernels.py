@@ -135,8 +135,12 @@ def _load():
             lib.mc_dense_decode.argtypes = [p, i64, i, p, i64, i, p, p, i,
                                             i64, i, i, i, i, i, i, p, p, p]
             lib.mc_classify_lca.argtypes = [p, p, p, p, i64, p, i64, i, i64,
-                                            i, i, f32, i, i, p, p, p]
-            lib.mc_rank_hist.argtypes = [p, i64, i64, p, i64, p, p, i, p, p]
+                                            i64, i, i, f32, i, i, p, p, p]
+            lib.mc_rank_hist.argtypes = [p, i64, i64, p, i64, p, p, i, p, p,
+                                         p]
+            lib.mc_rank_hist_scratch_bytes.argtypes = []
+            lib.mc_rank_hist_scratch_bytes.restype = i64
+            lib.mc_launch_floor.argtypes = [i, i64, p]
             for fn in (lib.mc_sketch_windows, lib.mc_sketch_windows_long,
                        lib.mc_sketch_windows64, lib.mc_sort_packed,
                        lib.mc_candidates_packed,
@@ -147,7 +151,7 @@ def _load():
                        lib.mc_bucket_decode, lib.mc_classed_bucket,
                        lib.mc_classed_decode, lib.mc_csr_decode,
                        lib.mc_dense_decode, lib.mc_classify_lca,
-                       lib.mc_rank_hist):
+                       lib.mc_rank_hist, lib.mc_launch_floor):
                 fn.restype = ctypes.c_int
             lib.mc_error_string.argtypes = [i]
             lib.mc_error_string.restype = ctypes.c_char_p
@@ -266,6 +270,25 @@ ALL = {"sketch": SKETCH, "sketch_long": SKETCH_LONG, "sketch64": SKETCH64,
        "classed_bucket": CLASSED_BUCKET, "classed_decode": CLASSED_DECODE,
        "csr_decode": CSR_DECODE, "dense_decode": DENSE_DECODE,
        "classify_lca": CLASSIFY_LCA, "rank_hist": RANK_HIST}
+
+
+def rank_hist_scratch_bytes() -> int:
+    """Device bytes of one scratch of rank_hist (csrc/classify.cu)."""
+    return int(_load().mc_rank_hist_scratch_bytes())
+
+
+def launch_floor(kind: int, n: int) -> None:
+    """Launch an empty kernel on the current stream as classify_lca
+    (kind 0) or rank_hist (1) at ``n`` reads is launched, the same grid
+    and launch attributes: the launch floor of each kernel. Counts no
+    launch of any kernel."""
+    import torch
+    dev = torch.cuda.current_device()
+    err = _load().mc_launch_floor(int(kind), int(n),
+                                  torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError(f"mc_launch_floor failed: CUDA error {err} "
+                           f"({_lib.mc_error_string(err).decode()})")
 
 
 def wide_work_bytes(b: int, l2: int, pairs: bool, kk: int) -> int:

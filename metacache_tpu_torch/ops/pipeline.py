@@ -7,7 +7,9 @@ argmax rank picks; ``classify_with_taxa`` also does the candidate-taxon
 lookup before it (metacache_tpu/ops/rows.py:171-173).
 
 CUDA tensors launch the hand-written kernel classify_lca
-(csrc/classify.cu); CPU tensors take the plain versions below.
+(csrc/classify.cu); CPU tensors take the plain versions below. The
+kernel reads the lineage table in place at its row stride, a strided
+(T, R) view included.
 """
 from __future__ import annotations
 
@@ -61,11 +63,14 @@ def _check_lca(cand_tgt, cand_hits, lineages, cand_tax=None,
 def _launch_lca(cand_tgt, cand_hits, cand_tax, merge_tax, lineages,
                 hits_min, hits_diff_frac, highest_rank, merge_rank):
     """classify_lca on CUDA tensors; ``cand_tax`` None: the lookup form,
-    -> (cand_tax, cls_tax)."""
+    -> (cand_tax, cls_tax). ``lineages`` is read in place, strided rows
+    included (copied only where a row's ranks are not adjacent or rows
+    overlap)."""
     b, k = cand_tgt.shape
     dev = cand_tgt.device
-    cand_tgt, cand_hits, lineages = (t.contiguous() for t in (
-        cand_tgt, cand_hits, lineages))
+    cand_tgt, cand_hits = cand_tgt.contiguous(), cand_hits.contiguous()
+    if lineages.stride(1) != 1 or lineages.stride(0) < lineages.shape[1]:
+        lineages = lineages.contiguous()
     cls = torch.empty((b,), dtype=torch.int32, device=dev)
     if cand_tax is None:
         merge_tax = merge_tax.contiguous()
@@ -79,9 +84,9 @@ def _launch_lca(cand_tgt, cand_hits, cand_tax, merge_tax, lineages,
         mt, ntax, tax_out = lookup
         kernels.CLASSIFY_LCA(
             cand_tgt.data_ptr(), cand_hits.data_ptr(), tax_in, mt, ntax,
-            lineages.data_ptr(), lineages.shape[0], lineages.shape[1], b, k,
-            int(hits_min), float(hits_diff_frac), int(highest_rank),
-            int(merge_rank), tax_out, cls.data_ptr())
+            lineages.data_ptr(), lineages.shape[0], lineages.shape[1],
+            lineages.stride(0), b, k, int(hits_min), float(hits_diff_frac),
+            int(highest_rank), int(merge_rank), tax_out, cls.data_ptr())
     return cand_tax, cls
 
 

@@ -54,7 +54,9 @@ def make_bucket_index(features: np.ndarray, bits: int | None = None):
     return rows, bits
 
 
-# copied from metacache_tpu/ops/probe.py:72-112 (numpy, no JAX)
+# after metacache_tpu/ops/probe.py:72-112 (numpy, no JAX); the collision
+# check sorts one packed key where JAX's lexsorts two keys (the same
+# answer, a fraction of the time)
 def make_bucket_index64(features: np.ndarray, bits: int | None = None):
     """u64-feature bucket-row index: row h (hash = top `bits` of the
     64-bit feature) = [start, low32(f_0) .. low32(f_{S-1})].
@@ -83,11 +85,11 @@ def make_bucket_index64(features: np.ndarray, bits: int | None = None):
         return None
     low = (features & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     h = (features >> np.uint64(64 - bits)).astype(np.int64)
-    # collision check: duplicate low-32 within one bucket
+    # collision check: duplicate low-32 within one bucket, adjacent once
+    # (bucket << 32 | low 32) is sorted (bits <= 26: the key fits)
     if nf:
-        order = np.lexsort((low, h))
-        hl, ll = h[order], low[order]
-        if bool(((hl[1:] == hl[:-1]) & (ll[1:] == ll[:-1])).any()):
+        key = np.sort((h.astype(np.uint64) << np.uint64(32)) | low)
+        if bool((key[1:] == key[:-1]).any()):
             return None
     w = max(64, 1 + (1 << max(0, int(max_span - 1).bit_length())))
     rows = np.full((nbuckets, w), -1, np.int32)
@@ -104,8 +106,16 @@ def collision_free_bits64(features: np.ndarray) -> int:
     (make_bucket_index64's condition), 0 when no two share their low 32
     bits: one more than the longest common top-bit prefix of two features
     of equal low 32 bits, found between neighbours in (low 32, value)
-    order."""
-    low = features & np.uint64(0xFFFFFFFF)
+    order (the features whose low 32 bits no other feature shares are
+    left out first: neighbours of equal low 32 bits stay neighbours)."""
+    low = (features & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    sl = np.sort(low)
+    dup = np.unique(sl[1:][sl[1:] == sl[:-1]])
+    if not len(dup):
+        return 0
+    at = np.minimum(np.searchsorted(dup, low), len(dup) - 1)
+    sel = dup[at] == low
+    features, low = features[sel], low[sel]
     order = np.lexsort((features, low))
     f, lo = features[order], low[order]
     same = lo[1:] == lo[:-1]

@@ -15,8 +15,12 @@ bucket-index width (u32 and u64), classed_bucket and classed_decode
 (full depth and head only; probes of every cell class and kind at even
 and odd indices, counts that leave a warp part-filled, and the head
 form's 4-byte path on unaligned cells) against their plain versions; the
-step's tail, classify_lca (both forms) and rank_hist, against their
-plain versions; tolerance 0.
+step's tail, classify_lca (both forms; R = 1, 21 and 32, K up to 40,
+lineage tables with padded, unpadded, unaligned and non-adjacent rows,
+in a CUDA graph) and rank_hist (one launch a call; empty, ragged and
+unaligned stacks, 2^20 taxa, forty calls in a row, two streams at once,
+in CUDA graphs, two of them replayed at once), against their plain
+versions; tolerance 0.
 
 Needs an NVIDIA GPU (marker `cuda`; skipped without one). Imports no
 JAX, so it also runs on a GPU host without JAX:
@@ -2071,27 +2075,32 @@ NUM_RANKS = 21
 LCA_PARAMS = ((5, 0.5), (5, 1.0), (0, 0.9))   # (hits_min, hits_diff_frac)
 
 
-def lca_lineages(rng, t):
-    """(t, 21) int32 lineages: sequence-level taxa -1 .. -t at rank 0,
-    species of 4 targets (rank 4), genera of 16 (rank 6), families of 64
-    (rank 10), domain and root (ranks 19, 20); about a tenth of the ranks
-    cleared (rank 0 in one target of 50), so that lineages have gaps
-    below and above their first set rank at or above merge_rank."""
+def lca_lineages(rng, t, r=NUM_RANKS):
+    """(t, r) int32 lineages: sequence-level taxa -1 .. -t at rank 0; at
+    r = 21 species of 4 targets (rank 4), genera of 16 (rank 6), families
+    of 64 (rank 10), domain and root (ranks 19, 20); at other r, rank j
+    of 2^(j % 7) targets and root at the last rank; about a tenth of the
+    ranks cleared (rank 0 in one target of 50), so that lineages have
+    gaps below and above their first set rank at or above merge_rank."""
     ids = np.arange(t)
-    lin = np.zeros((t, NUM_RANKS), np.int32)
+    lin = np.zeros((t, r), np.int32)
+    if r == NUM_RANKS:
+        lin[:, 4] = 1000 + ids // 4
+        lin[:, 6] = 100000 + ids // 16
+        lin[:, 10] = 200000 + ids // 64
+        lin[:, 19] = 2
+    else:
+        for j in range(1, r):
+            lin[:, j] = 1000 * (j + 1) + ids // 2 ** (j % 7)
+    lin[:, r - 1] = 1
     lin[:, 0] = -ids - 1
-    lin[:, 4] = 1000 + ids // 4
-    lin[:, 6] = 100000 + ids // 16
-    lin[:, 10] = 200000 + ids // 64
-    lin[:, 19] = 2
-    lin[:, 20] = 1
-    gaps = rng.random((t, NUM_RANKS)) < 0.1
+    gaps = rng.random((t, r)) < 0.1
     gaps[:, 0] = rng.random(t) < 0.02
     lin[gaps] = 0
     return lin
 
 
-def lca_case(seed, b, k, t=1024):
+def lca_case(seed, b, k, t=1024, r=NUM_RANKS):
     """Candidates of b reads, k a read, over t targets, for the hits_min
     and fractions of LCA_PARAMS: -> dict(tgt, hits, tax, merge_tax,
     lin), numpy int32. A read's targets lie within 12 of one another
@@ -2104,7 +2113,7 @@ def lca_case(seed, b, k, t=1024):
     others near 2^24 + 4, where the float32 threshold's rounding decides
     the include."""
     rng = np.random.default_rng(seed)
-    lin = lca_lineages(rng, t)
+    lin = lca_lineages(rng, t, r)
     merge_tax = lin[:, 0].copy()
     merge_tax[rng.random(t) < 0.05] = 0
     base = rng.integers(0, t, (b, 1))
@@ -2133,13 +2142,14 @@ def hist_case(seed, m, nt=300):
     absent ids between them, ids past the last and below the first, and
     0; over bits at random (10%), words 0 and the last all set."""
     rng = np.random.default_rng(seed)
-    ids = np.sort(rng.choice(np.arange(-500, 50000), nt, replace=False))
+    ids = np.sort(rng.choice(np.arange(-500, max(50000, 4 * nt)), nt,
+                             replace=False))
     rank_of = rng.integers(0, NUM_RANKS + 1, nt)
     cls = rng.integers(ids[0] - 10, ids[-1] + 10, m)
     own = rng.random(m) < 0.6
     cls[own] = ids[rng.integers(0, nt, int(own.sum()))]
     cls[rng.random(m) < 0.1] = 0
-    cls[:3] = (ids[-1] + 1, ids[0] - 1, 2**31 - 1)
+    cls[:3] = np.array((ids[-1] + 1, ids[0] - 1, 2**31 - 1))[:m]
     over = rng.random(-(-m // 32) * 32) < 0.1
     over[:32] = True
     over[-32:] = True
@@ -2211,3 +2221,248 @@ def test_rank_hist_kernel_matches_plain(cuda, m, n, masked):
     assert int(got.sum()) == min(n, m) - (
         0 if over is None else int(((over.cpu().numpy().view(np.uint32)[
             :, None] >> np.arange(32)) & 1).reshape(-1)[:min(n, m)].sum()))
+
+
+def _lineage_layout(lin, layout):
+    """The (T, R) table ``lin`` (int32 CUDA) as a view of rows padded to
+    a multiple of 4 ints, contiguous, 4 bytes off the 16-byte grid, or
+    with its ranks not adjacent (the transpose of an (R, T) table, which
+    the wrapper copies); the padding holds garbage."""
+    t, r = lin.shape
+    rp = -(-r // 4) * 4
+    if layout == "contiguous":
+        return lin
+    if layout == "columns":
+        return lin.t().contiguous().t()
+    big = torch.full((t, rp + 4), 7, dtype=torch.int32, device=lin.device)
+    first = 1 if layout == "unaligned" else 0
+    big[:, first:first + r] = lin
+    return big[:, first:first + r] if layout == "unaligned" else \
+        big[:, :rp][:, :r]
+
+
+@pytest.mark.parametrize("r", [1, 21, 32])
+@pytest.mark.parametrize("k", [1, 2, 8, 40])
+@pytest.mark.parametrize("layout", ["padded", "contiguous", "unaligned",
+                                    "columns"])
+def test_classify_lca_ranks_and_layouts(cuda, r, k, layout):
+    """classify_lca, both forms, against the plain versions at R = 1, 21
+    and 32 ranks, K up to 40 (five turns of 8), 1,000 reads (a part-filled
+    block), on lineage tables read in place at their row stride (copied
+    only where the ranks are not adjacent); one launch a call."""
+    from metacache_tpu_torch.ops import pipeline as P
+    d = {n: torch.from_numpy(a).to(cuda)
+         for n, a in lca_case(r * 100 + k, 1000, k, r=r).items()}
+    lin = _lineage_layout(d["lin"], layout)
+    assert torch.equal(lin, d["lin"])
+    for merge_rank, highest in ((0, r - 1), (min(4, r - 1), r - 1), (r, r),
+                                (0, 0)):
+        for hits_min, frac in LCA_PARAMS:
+            args = (hits_min, frac, highest, merge_rank)
+            before = kernels.CLASSIFY_LCA.launches
+            got = P.classify_candidates(d["tgt"], d["tax"], d["hits"], lin,
+                                        *args)
+            tax, cls = P.classify_with_taxa(d["tgt"], d["hits"],
+                                            d["merge_tax"], lin, *args)
+            assert kernels.CLASSIFY_LCA.launches == before + 2
+            want = P.classify_candidates_plain(d["tgt"], d["tax"],
+                                               d["hits"], d["lin"], *args)
+            assert torch.equal(got, want) and torch.equal(cls, want)
+            assert torch.equal(tax, d["tax"])
+
+
+def test_classify_lca_in_a_cuda_graph(cuda):
+    """classify_lca, a programmatic dependent launch, inside a CUDA graph
+    after a kernel that writes its candidates: each replay equals the
+    plain version on the inputs of that replay."""
+    from metacache_tpu_torch.ops import pipeline as P
+    d = {n: torch.from_numpy(a).to(cuda)
+         for n, a in lca_case(77, 8192, 2).items()}
+    lin = _lineage_layout(d["lin"], "padded")
+    src = d["hits"].clone()
+    hits = torch.empty_like(src)
+    args = (5, 1.0, 19, 0)
+    P.classify_with_taxa(d["tgt"], src, d["merge_tax"], lin, *args)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        torch.add(src, 1, out=hits)
+        tax, cls = P.classify_with_taxa(d["tgt"], hits, d["merge_tax"], lin,
+                                        *args)
+    for step in range(4):
+        src.copy_(d["hits"] + 3 * step)
+        g.replay()
+        torch.cuda.synchronize()
+        want = P.classify_with_taxa_plain(d["tgt"], src + 1, d["merge_tax"],
+                                          d["lin"], *args)
+        assert torch.equal(tax, want[0]) and torch.equal(cls, want[1])
+
+
+def _hist_on(cuda, seed, m, nt=300, off=0):
+    cls, ids, ranks, over = hist_case(seed, m + off, nt)
+    t = [torch.from_numpy(a).to(cuda) for a in (cls, ids, ranks, over)]
+    return t[0][off:], t[1], t[2], t[3]
+
+
+@pytest.mark.parametrize("m,off,nt", [
+    (0, 0, 300), (1, 0, 300), (1, 3, 300), (5, 1, 300), (4099, 2, 300),
+    (262147, 3, 1023), (262144, 1, 5000), (70000, 0, 300000)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_rank_hist_edges_match_plain(cuda, m, off, nt, masked):
+    """rank_hist against rank_histogram_plain: empty, one read, ragged
+    sizes, views starting 1-3 ints past the 16-byte grid, tables above
+    the shared-memory cap (pivots); one launch a call, every bin
+    written."""
+    from metacache_tpu_torch.classify import runner as R
+    cls, ids, ranks, over = _hist_on(cuda, m + nt, m, nt, off)
+    over = over if masked else None
+    n = max(m - 100, m // 2)
+    before = kernels.RANK_HIST.launches
+    got = R.rank_histogram(cls, n, ids, ranks, over_bits=over)
+    assert kernels.RANK_HIST.launches == before + 1
+    want = R.rank_histogram_plain(cls, n, ids, ranks, over_bits=over)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_rank_hist_of_a_large_taxonomy(cuda, masked):
+    """nt = 2^20 taxa from a seed (the search's last levels in device
+    memory) on a 262,144-read stack, against the plain version."""
+    from metacache_tpu_torch.classify import runner as R
+    cls, ids, ranks, over = _hist_on(cuda, 20, 262144, 1 << 20)
+    over = over if masked else None
+    got = R.rank_histogram(cls, 200000, ids, ranks, over_bits=over)
+    want = R.rank_histogram_plain(cls, 200000, ids, ranks, over_bits=over)
+    assert torch.equal(got, want) and int(want[:NUM_RANKS].sum()) > 50000
+
+
+def test_rank_hist_many_calls_in_a_row(cuda):
+    """Forty calls in a row on one stream, stacks of changing size (so
+    changing grids), none synchronised, each launched right after the
+    one before as its programmatic dependent: each equals its plain
+    version, so no launch leaves sums or a ticket behind for the next."""
+    from metacache_tpu_torch.classify import runner as R
+    cases = [_hist_on(cuda, 300 + i, m, off=i % 4)
+             for i, m in enumerate((262144, 17, 5000, 131075, 1, 65536))]
+    outs = []
+    for i in range(40):
+        cls, ids, ranks, over = cases[i % len(cases)]
+        outs.append(R.rank_histogram(cls, cls.numel() - i, ids, ranks,
+                                     over_bits=over if i % 3 else None))
+    wants = []
+    for i in range(40):
+        cls, ids, ranks, over = cases[i % len(cases)]
+        wants.append(R.rank_histogram_plain(
+            cls, cls.numel() - i, ids, ranks,
+            over_bits=over if i % 3 else None))
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        assert torch.equal(got, want)
+
+
+def test_rank_hist_on_two_streams_at_once(cuda):
+    """Two streams launch rank_hist at the same time, twenty calls each
+    on their own stacks: each result equals its plain version (a scratch
+    a stream)."""
+    from metacache_tpu_torch.classify import runner as R
+    a = _hist_on(cuda, 41, 262144, 1023)
+    b = _hist_on(cuda, 42, 262147, 1023, off=1)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = {0: [], 1: []}
+    for i in range(20):
+        for s, (cls, ids, ranks, over) in enumerate((a, b)):
+            with torch.cuda.stream(streams[s]):
+                outs[s].append(R.rank_histogram(cls, 250000 - i, ids, ranks,
+                                                over_bits=over))
+    torch.cuda.synchronize()
+    for s, (cls, ids, ranks, over) in enumerate((a, b)):
+        for i, got in enumerate(outs[s]):
+            assert torch.equal(got, R.rank_histogram_plain(
+                cls, 250000 - i, ids, ranks, over_bits=over))
+    keys = {(cuda.index or 0, st.cuda_stream) for st in streams}
+    assert len({R._hist_scratch[k] for k in keys}) == 2
+
+
+def test_rank_hist_in_a_cuda_graph(cuda):
+    """rank_hist captured in a CUDA graph (the capture takes a scratch of
+    its own, zeroed before the capture): every replay equals the plain
+    version of that replay's stack."""
+    from metacache_tpu_torch.classify import runner as R
+    cls, ids, ranks, over = _hist_on(cuda, 50, 262144, 1023)
+    R.rank_histogram(cls, 1000, ids, ranks)
+    stack = cls.clone()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = R.rank_histogram(stack, 250000, ids, ranks, over_bits=over)
+    for step in range(3):
+        stack.copy_(torch.roll(cls, 4099 * step))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, R.rank_histogram_plain(
+            stack, 250000, ids, ranks, over_bits=over))
+
+
+def test_rank_hist_graphs_replayed_at_once(cuda):
+    """Two graphs captured on the same capture stream (torch.cuda.graph's
+    default), each with rank_hist, replayed at the same time on two
+    streams, ten times: each replay equals the plain version of its own
+    stack, so the two captures share no scratch."""
+    from metacache_tpu_torch.classify import runner as R
+    cases = [_hist_on(cuda, 70 + i, 262144 + 3 * i, 1023, off=i)
+             for i in range(2)]
+    stacks = [c[0].clone() for c in cases]
+    R.rank_histogram(stacks[0], 1000, cases[0][1], cases[0][2])
+    torch.cuda.synchronize()
+    graphs, outs = [], []
+    for (cls, ids, ranks, over), stack in zip(cases, stacks):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            outs.append(R.rank_histogram(stack, 250000, ids, ranks,
+                                         over_bits=over))
+        graphs.append(g)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for step in range(10):
+        for (cls, *_), stack in zip(cases, stacks):
+            stack.copy_(torch.roll(cls, 4099 * step))
+        torch.cuda.synchronize()
+        for g, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                g.replay()
+        torch.cuda.synchronize()
+        for (cls, ids, ranks, over), stack, got in zip(cases, stacks, outs):
+            assert torch.equal(got, R.rank_histogram_plain(
+                stack, 250000, ids, ranks, over_bits=over))
+
+
+def test_rank_histogram_is_one_kernel(cuda):
+    """A rank_histogram call on CUDA tensors launches exactly one kernel,
+    rank_hist's, in a torch.profiler trace: no fill of the output or of
+    any scratch."""
+    from torch.profiler import ProfilerActivity, profile
+    from metacache_tpu_torch.classify import runner as R
+    cls, ids, ranks, over = _hist_on(cuda, 60, 262144, 1023)
+    R.rank_histogram(cls, 250000, ids, ranks, over_bits=over)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = R.rank_histogram(cls, 250000, ids, ranks, over_bits=over)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(dev) == 1 and "rank_hist" in dev[0].name, \
+        [e.name for e in dev]
+    assert torch.equal(got, R.rank_histogram_plain(cls, 250000, ids, ranks,
+                                                   over_bits=over))
+
+
+def test_launch_floor_runs(cuda):
+    """The empty kernel of each of the tail's grids launches and counts
+    no kernel's launch."""
+    before = (kernels.CLASSIFY_LCA.launches, kernels.RANK_HIST.launches)
+    for kind, n in ((0, 8192), (0, 1), (1, 262144), (1, 0)):
+        kernels.launch_floor(kind, n)
+    torch.cuda.synchronize()
+    assert (kernels.CLASSIFY_LCA.launches,
+            kernels.RANK_HIST.launches) == before

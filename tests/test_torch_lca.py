@@ -11,6 +11,9 @@ against the plain versions; and the whole scan step, fused and
 non-fused, against JAX's. Inputs come from numpy with a seed
 (test_torch_cuda.lca_case and hist_case); tolerance 0 (integer outputs;
 the threshold is float32 on every side)."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -25,10 +28,14 @@ from metacache_tpu_torch.classify import runner as trunner
 from metacache_tpu_torch.db.state import tables_from_numpy
 from metacache_tpu_torch.ops import pipeline as P
 from metacache_tpu_torch.ops import rows as trows
-from test_torch_cuda import LCA_PARAMS, hist_case, lca_case, pack_2bit
+from test_torch_cuda import (LCA_PARAMS, hist_case, lca_case,
+                             lca_lineages, pack_2bit)
 from test_torch_rows import _layout, _reads, strain_db  # noqa: F401
 
 torch.set_num_threads(2)
+CLASSIFY_CU = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "metacache_tpu_torch", "csrc",
+    "classify.cu")
 RANK_PAIRS = ((0, 20), (0, 0), (4, 4), (4, 19), (6, 20), (19, 20))
 
 
@@ -103,57 +110,159 @@ def test_lca_case_covers_its_edges():
     assert (over & ~rounds).any() and (h0 - 5 > 2**24).any()
 
 
-def _lca_model(tgt, hits, tax, lin, hits_min, frac, highest, merge_rank):
-    """classify_lca's algorithm, one read at a time (one warp a read):
-    the walk over the candidates in order, which stops at the first one
-    left out; candidate 0's lineage and the agreement a rank (a lane);
-    r0 and the LCA rank as the first set bit of a mask (the ballots)."""
-    b, k = tgt.shape
+def _source_int(name):
+    """An integer constant of csrc/classify.cu (``2 * kX`` read too)."""
+    src = open(CLASSIFY_CU).read()
+    m = re.search(rf"constexpr int {name} = (?:(\d+) \* )?(\w+);", src)
+    mult, val = m.group(1), m.group(2)
+    val = int(val) if val.isdigit() else _source_int(val)
+    return val * (int(mult) if mult else 1)
+
+
+def _store(lin, padded, rng):
+    """-> (flat storage, row stride) of a (T, R) table: contiguous, or
+    with its rows padded to a multiple of 4 ints whose padding holds
+    garbage (the kernel reads the rows in place at their stride and
+    must read none of it)."""
     t, r = lin.shape
-    ranks = np.arange(r)
+    if not padded:
+        return lin.ravel(), r
+    rp = -(-r // 4) * 4
+    full = rng.integers(-9, 10, (t, rp)).astype(np.int32)
+    full[:, :r] = lin
+    return full.ravel(), rp
+
+
+def _lca_model(tgt, hits, tax, store, stride, nlin, r, hits_min, frac,
+               highest, merge_rank):
+    """classify_lca's algorithm (csrc/classify.cu::lca_kernel), read by
+    read: a group of kGroup lanes, lane g holding ranks 4g .. 4g + 3; the
+    candidates in turns of kTurn, each turn's loads all made before its
+    walk (targets, hits and taxa, then every candidate's lineage chunk,
+    the lane's own ints of the clamped row of ``store`` at ``stride``
+    ints a row); the walk in
+    order, stopped at the first candidate left out; agreement a bit a
+    rank; r0 and the LCA rank the first set bits of the group's 32-bit
+    masks, each lane's nibble shifted to 4g."""
+    G, T = _source_int("kGroup"), _source_int("kTurn")
+    b, k = tgt.shape
+    lanes = np.arange(G)
+    left = r - 4 * lanes
+    ok = np.where(left >= 4, 15, np.where(left > 0, (1 << np.maximum(
+        left, 0)) - 1, 0))
+    q = np.arange(4)
     out = np.zeros(b, np.int32)
     for i in range(b):
         inc, valid0, thr = True, False, np.float32(0)
-        lin0 = np.zeros(r, np.int32)
-        agree = np.zeros(r, bool)
-        for j in range(k):
-            e = tax[i, j] != 0
-            h = int(hits[i, j])
-            if j == 0:
-                valid0 = e and h >= hits_min
-                thr = np.float32(np.float32(h - hits_min) * np.float32(
-                    frac)) if h > hits_min else np.float32(0)
-                inc = e
-            else:
-                inc = e and np.float32(h) > thr
-            if not inc:
-                break
-            lj = lin[min(max(int(tgt[i, j]), 0), t - 1)]
-            if j == 0:
-                lin0, agree = lj, lj != 0
-            else:
-                agree = agree & (lj == lin0)
-        e0 = np.flatnonzero((lin0 != 0) & (ranks >= merge_rank))
-        r0 = e0[0] if len(e0) else r
-        el = np.flatnonzero(agree & (ranks >= r0))
-        if valid0 and len(el) and el[0] <= highest:
-            out[i] = lin0[el[0]]
+        lin0 = np.zeros((G, 4), np.int64)
+        agree = np.zeros(G, np.int64)
+        for base in range(0, k, T):
+            m = min(k - base, T)
+            t, h, x = (a[i, base:base + m] for a in (tgt, hits, tax))
+            chunks = np.zeros((m, G, 4), np.int64)
+            if inc:            # round two, before any decision
+                rows = np.clip(np.maximum(t, 0), 0, nlin - 1)
+                off = rows[:, None, None] * stride + 4 * lanes[None, :, None] \
+                    + q[None, None, :]
+                inside = q[None, :] < left[:, None]
+                chunks = np.where(inside[None], store[np.where(
+                    inside[None], off, 0)], 0)
+            for j in range(m):
+                if not inc:
+                    break
+                e, hj = x[j] != 0, int(h[j])
+                if base + j == 0:
+                    valid0 = e and hj >= hits_min
+                    thr = np.float32(np.float32(hj - hits_min) * np.float32(
+                        frac)) if hj > hits_min else np.float32(0)
+                    inc = e
+                    if inc:
+                        lin0 = chunks[j]
+                        agree = ((lin0 != 0) << q).sum(axis=1) & ok
+                else:
+                    inc = e and np.float32(hj) > thr
+                    if inc:
+                        agree &= ((chunks[j] == lin0) << q).sum(axis=1)
+        rank = 4 * lanes[:, None] + q[None, :]
+        nib0 = ((lin0 != 0) & (rank >= merge_rank)) << q
+        e0 = int(((nib0.sum(axis=1) & ok) << (4 * lanes)).sum())
+        ea = int((agree << (4 * lanes)).sum())
+        r0 = (e0 & -e0).bit_length() - 1 if e0 else r
+        el = ea & (0xFFFFFFFF << r0) & 0xFFFFFFFF if r0 < 32 else 0
+        lca = (el & -el).bit_length() - 1 if el else r
+        at = min(lca, r - 1)
+        if valid0 and el and lca <= highest:
+            out[i] = lin0[at >> 2, at & 3]
     return out
 
 
 @pytest.mark.parametrize("k", [1, 2, 8, 40])
-def test_lca_model_matches_plain(k):
+@pytest.mark.parametrize("r,padded", [(21, True), (21, False), (1, True),
+                                      (32, False)])
+def test_lca_model_matches_plain(k, r, padded):
     """The kernel's algorithm, modelled in numpy, equals the plain
-    version, K = 40 included (the kernel's two turns of 32)."""
-    d = lca_case(120 + k, 256, k)
+    version: K = 40 in five turns of 8, R = 1, 21 and 32, rows read in
+    place from a table with padded rows (garbage in the padding) or from
+    a contiguous one."""
+    d = lca_case(120 + k, 256, k, r=r)
     t = _t(d)
-    for merge_rank, highest in RANK_PAIRS[::2]:
+    store, stride = _store(d["lin"], padded, np.random.default_rng(k))
+    for merge_rank, highest in RANK_PAIRS[::2] + ((r, r), (r - 1, r - 1)):
         for hits_min, frac in LCA_PARAMS:
-            args = (hits_min, frac, highest, merge_rank)
+            args = (hits_min, frac, min(highest, r - 1),
+                    min(merge_rank, r))
             want = P.classify_candidates_plain(t["tgt"], t["tax"],
                                                t["hits"], t["lin"], *args)
-            got = _lca_model(d["tgt"], d["hits"], d["tax"], d["lin"], *args)
+            got = _lca_model(d["tgt"], d["hits"], d["tax"], store, stride,
+                             len(d["lin"]), r, *args)
             np.testing.assert_array_equal(got, want.numpy())
+
+
+def _lineage_view(lin, view):
+    """The (T, R) table ``lin`` as a contiguous tensor, as the (T, R)
+    view of rows padded to a multiple of 4 ints (garbage in the
+    padding), or as the transpose of an (R, T) table (ranks not
+    adjacent)."""
+    t, r = lin.shape
+    if view == "contiguous":
+        return lin
+    if view == "columns":
+        return lin.t().contiguous().t()
+    full = torch.full((t, -(-r // 4) * 4), -7, dtype=lin.dtype)
+    full[:, :r] = lin
+    return full[:, :r]
+
+
+@pytest.mark.parametrize("r", [1, 21, 32])
+@pytest.mark.parametrize("view", ["padded", "contiguous", "columns"])
+def test_classify_candidates_ranks_match_jax(r, view):
+    """At R = 1, 21 and 32, with the lineages given as a padded-stride
+    view, a contiguous table and a view whose ranks are not adjacent:
+    both forms, plain and through the wrappers on CPU tensors, equal
+    JAX's classify_candidates (and its lookup), merge_rank past the last
+    rank included."""
+    d = lca_case(200 + r, 384, 8, r=r)
+    t = _t(d)
+    lin = _lineage_view(t["lin"], view)
+    assert torch.equal(lin, t["lin"]) and lin.stride(0) == {
+        "padded": -(-r // 4) * 4, "contiguous": r, "columns": 1}[view]
+    jt = jnp.asarray(d["tgt"])
+    jtax = _jax_lookup(jt, jnp.asarray(d["merge_tax"]))
+    for merge_rank, highest in ((0, r - 1), (min(4, r - 1), r - 1), (r, r),
+                                (0, 0)):
+        for hits_min, frac in LCA_PARAMS:
+            args = (hits_min, frac, highest, merge_rank)
+            want = np.asarray(jpipe.classify_candidates(
+                jt, jtax, jnp.asarray(d["hits"]), jnp.asarray(d["lin"]),
+                *args))
+            for fn in (P.classify_candidates_plain, P.classify_candidates):
+                np.testing.assert_array_equal(fn(
+                    t["tgt"], t["tax"], t["hits"], lin, *args).numpy(), want)
+            tax, cls = P.classify_with_taxa(t["tgt"], t["hits"],
+                                            t["merge_tax"], lin, *args)
+            np.testing.assert_array_equal(tax.numpy(), np.asarray(jtax))
+            np.testing.assert_array_equal(cls.numpy(), want)
+    assert (want != 0).sum() > 30
 
 
 @pytest.mark.parametrize("bad", ["ranks", "empty", "dtype", "shape"])
@@ -205,43 +314,145 @@ def test_rank_histogram_matches_jax(m, n, masked):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-def _hist_model(cls, n, ids, ranks, over, num_ranks=21):
-    """rank_hist's algorithm: a lower-bound search a read, clamped to the
-    last id, and bins of num_ranks + 2 of which the first num_ranks + 1
-    are returned."""
-    bins = np.zeros(num_ranks + 2, np.int64)
-    for i, c in enumerate(cls):
-        if i >= n or (over is not None and
-                      (int(over.view(np.uint32)[i >> 5]) >> (i & 31)) & 1):
-            bins[num_ranks + 1] += 1
-            continue
-        lo, hi = 0, len(ids)
-        while lo < hi:
-            mid = (lo + hi) >> 1
-            if ids[mid] < c:
-                lo = mid + 1
-            else:
-                hi = mid
-        pos = min(lo, len(ids) - 1)
-        b = ranks[pos] if c != 0 and ids[pos] == c else num_ranks
-        if b < num_ranks + 2:
-            bins[b] += 1
-    return bins[:num_ranks + 1]
+def _lift(lt, n):
+    """The count of the n sorted values below c, ``lt(i)`` telling
+    value i < c: binary lifting from the largest power of two <= n, as
+    the kernel's lockstep search does."""
+    top = 1
+    while top <= n // 2:
+        top *= 2
+    p, s = 0, top
+    while s:
+        if p + s <= n and lt(p + s - 1):
+            p += s
+        s >>= 1
+    return p
+
+
+def _hist_search(c, ids, ranks, shift, smem_taxa):
+    """The kernel's search (hist_bins4): the lower bound of c in the
+    whole table (shift < 0), or first among every 2^shift-th id (the
+    pivots) and then in the 2^shift - 1 ids after the pivot found, each
+    by binary lifting; -> (position, id, rank)."""
+    nt = len(ids)
+    if shift < 0:
+        assert nt <= smem_taxa
+        lo = _lift(lambda i: ids[i] < c, nt)
+    else:
+        piv = ids[::1 << shift]
+        q = _lift(lambda i: piv[i] < c, len(piv))
+        j = ((q - 1) << shift) if q else -1
+        lim = min(q << shift, nt)
+        s = 1 << (shift - 1) if shift else 0
+        while s:
+            if j >= 0 and j + s < lim and ids[j + s] < c:
+                j += s
+            s >>= 1
+        lo = j + 1
+    assert lo == np.searchsorted(ids, c)
+    pos = min(lo, nt - 1)
+    return pos, ids[pos], ranks[pos]
+
+
+def _hist_model(store, head, m, n, ids, ranks, over, num_ranks=21,
+                threads=None, max_blocks=None, smem_taxa=None,
+                pivots=None):
+    """rank_hist (csrc/classify.cu): the m taxa start
+    ``head`` ints into a 16-byte-aligned ``store``; quad q holds reads
+    4q - head .. 4q - head + 3; a grid of min(ceil(quads / threads),
+    max_blocks) blocks takes ``threads`` quads a turn; a warp's 128 reads
+    see at most 5 overflow words, one a lane, picked by shuffle; the
+    search on the whole table (nt <= smem_taxa) or on pivots (at most
+    ``pivots``); each block's bins, then their sums (the scratch's).
+    Constants default to the source's."""
+    threads = threads or _source_int("kHistThreads")
+    max_blocks = max_blocks or _source_int("kMaxHistBlocks")
+    smem_taxa = smem_taxa or _source_int("kSmemTaxa")
+    pivots = pivots or _source_int("kPivots")
+    nt = len(ids)
+    shift = -1
+    if nt > smem_taxa:
+        shift = 0
+        while ((nt - 1) >> shift) + 1 > pivots:
+            shift += 1
+    nq = (m + head + 3) >> 2
+    grid = min(max(-(-((m + 6) // 4) // threads), 1), max_blocks)
+    words = None if over is None else over.view(np.uint32)
+    nbins = num_ranks + 2
+    parts = np.zeros((grid, nbins), np.int64)
+    for blk in range(grid):
+        for q0 in range(blk * threads, nq, grid * threads):
+            for q in range(q0, min(q0 + threads, nq)):
+                wbase = (4 * (q - (q - q0) % 32) - head) >> 5
+                for p in range(4 * q - head, 4 * q - head + 4):
+                    if not 0 <= p < m:
+                        continue
+                    assert 0 <= (p >> 5) - wbase < 5
+                    if p >= n or (words is not None and
+                                  (int(words[p >> 5]) >> (p & 31)) & 1):
+                        b = num_ranks + 1
+                    else:
+                        c = store[head + p]
+                        _pos, i, rk = _hist_search(c, ids, ranks, shift,
+                                                   smem_taxa)
+                        b = rk if c != 0 and i == c else num_ranks
+                    if 0 <= b < nbins:
+                        parts[blk, b] += 1
+    return parts.sum(axis=0)[:num_ranks + 1]
 
 
 @pytest.mark.parametrize("masked", [False, True])
-def test_rank_hist_model_matches_plain(masked):
+@pytest.mark.parametrize("head,m,nt,small", [
+    (0, 3000, 300, False), (1, 3001, 300, True), (3, 1, 300, False),
+    (2, 4099, 5000, False), (1, 2999, 20000, False), (3, 2001, 700, True)])
+def test_rank_hist_model_matches_plain(masked, head, m, nt, small):
     """The kernel's algorithm, modelled in numpy, equals the plain
-    version on a stack whose size is no multiple of 32."""
-    m, n = 3000, 2900
-    cls, ids, ranks, over = hist_case(7, m)
+    version: stacks no multiple of 4 (or 32) starting 0-3 ints past the
+    16-byte grid, one read, tables above the shared-memory cap (pivots
+    every 2^s ids), and, with small blocks and caps (16 quads, 3 blocks,
+    64 taxa, 32 pivots: s up to 5), many blocks in grid-stride turns
+    combined."""
+    n = m - m // 10
+    cls, ids, ranks, over = hist_case(7 + head, m, nt)
     over = over if masked else None
+    store = np.concatenate([np.full(head, 77, np.int32), cls])
+    kw = dict(threads=16, max_blocks=3, smem_taxa=64, pivots=32) \
+        if small else {}
     want = trunner.rank_histogram_plain(
         torch.from_numpy(cls), n, torch.from_numpy(ids),
         torch.from_numpy(ranks),
         over_bits=None if over is None else torch.from_numpy(over))
-    np.testing.assert_array_equal(_hist_model(cls, n, ids, ranks, over),
-                                  want.numpy())
+    np.testing.assert_array_equal(
+        _hist_model(store, head, m, n, ids, ranks, over, **kw),
+        want.numpy())
+
+
+@pytest.mark.parametrize("case", ["one", "ragged", "offset", "pivots"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_rank_histogram_edges_match_jax(case, masked):
+    """rank_histogram_plain, and the wrapper on CPU tensors, equal JAX's
+    _rank_hist_jit and _rank_hist_masked_jit at one read, at a stack no
+    multiple of 4, on a view starting 1-3 ints past the 16-byte grid, and
+    with more taxa than the kernel stages whole (kSmemTaxa)."""
+    m, nt, off = {"one": (1, 300, 0), "ragged": (4099, 300, 0),
+                  "offset": (4093, 300, 3),
+                  "pivots": (4096, _source_int("kSmemTaxa") + 904, 1)}[case]
+    cls, ids, ranks, over = hist_case(40 + m, m + off, nt)
+    n = m - 7 if m > 7 else m
+    tc = torch.from_numpy(cls)[off:]
+    over = over if masked else None
+    to = None if over is None else torch.from_numpy(over)
+    # JAX's masked form takes 32 reads a word; reads past n count in no
+    # bin returned, so the stack padded to a multiple of 32 is the same
+    m32 = -(-m // 32) * 32
+    want = _jax_hist(np.pad(cls[off:], (0, m32 - m)).reshape(1, -1), n, ids,
+                     ranks, None if over is None else over[:m32 // 32])
+    for fn in (trunner.rank_histogram_plain, trunner.rank_histogram):
+        got = fn(tc.reshape(1, -1), n, torch.from_numpy(ids),
+                 torch.from_numpy(ranks), over_bits=to)
+        np.testing.assert_array_equal(got.numpy(), want)
+    if over is None:
+        assert want.sum() == n
 
 
 def test_rank_histogram_refuses_bad_tables():

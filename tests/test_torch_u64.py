@@ -403,6 +403,31 @@ def test_u64_layout_budget_counts_the_bucket_index():
         layout(ib)
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_u64_collision_width_matches_jax(seed):
+    """On features whose low 32 bits collide (a few thousand, low 32 bits
+    from a small range, distinct ones apart in their top 13-16 bits):
+    collision_free_bits64 is the least width at which JAX's
+    make_bucket_index64 takes the table (from its least, 12), and the
+    port's index equals JAX's at that width and refuses the table one bit
+    below, as JAX's does."""
+    rng = np.random.default_rng(seed)
+    n, k = int(rng.integers(500, 4000)), 13 + seed % 4
+    top = rng.integers(0, 2**k, n).astype(np.uint64) << np.uint64(64 - k)
+    low = rng.integers(0, 2**int(rng.integers(6, 12)), n).astype(np.uint64)
+    f = np.unique(top | low)
+    b = tprobe.collision_free_bits64(f)
+    assert 0 < b <= k
+    b = max(b, 12)
+    want = jprobe.make_bucket_index64(f, b)
+    got = tprobe.make_bucket_index64(f, b)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1] == b
+    if b > 12:
+        assert jprobe.make_bucket_index64(f, b - 1) is None
+        assert tprobe.make_bucket_index64(f, b - 1) is None
+
+
 def test_u64_bucket_index_widens_past_a_collision():
     """Two features of one 12-bit bucket with equal low 32 bits, apart in
     the 13th bit: JAX's index refuses the table (its runner then takes
