@@ -2003,10 +2003,13 @@ def phase_parity_probe(results, rng, dev):
     """B9 and B8 at the main path's 131,072 probes (8192 reads x 16
     features) on a 2 M-feature table built on the card by the device
     builder (pair-packed bucket rows and head rows, 512 MB of head rows),
-    with 29% misses and 1% sentinels, against their plain versions; then
-    the builder on the card against the builder on CPU tensors, on the
-    first 300,000 features of the stream: the two-tier rows and the
-    size-classed cells staged from their CSR, arrays equal."""
+    with 29% misses and 1% sentinels, against their plain versions (B8
+    on index and feature views off the 16-byte grid too, and beside its
+    launch floor); then the builder on the card against the builder on
+    CPU tensors, on the first 300,000 features of the stream: the
+    two-tier rows and the size-classed cells staged from their CSR,
+    arrays equal."""
+    from metacache_tpu_torch import kernels
     from metacache_tpu_torch.ops import probe_decode as D
     from metacache_tpu_torch.ops import table_device as T
     n = 131072
@@ -2054,26 +2057,33 @@ def phase_parity_probe(results, rng, dev):
     ovf = dt.ovf
     idx = torch.clamp(idx, 0, dt.nf - 1)
     oidx = D.oidx_decode(head, idx, flat)
-    errs = [check_equal("B8", oidx, D.oidx_decode_plain(head, idx, flat))]
-    errs.append(check_equal(
+    errs = {"rows": check_equal("B8", oidx,
+                                D.oidx_decode_plain(head, idx, flat))}
+    # n - 3 probes from index and feature views 4 bytes past the grid
+    vi, vf = idx[1:n - 2], flat[1:n - 2]
+    errs["views_n-3"] = check_equal("B8 views", D.oidx_decode(head, vi, vf),
+                                    D.oidx_decode_plain(head, vi, vf))
+    errs["B7_with_B8"] = check_equal(
         "B7 with B8's oidx", D.full_decode(head, ovf, idx, flat, 61, dt.spf,
                                            128, 16, oidx),
-        D.full_decode_plain(head, ovf, idx, flat, 61, dt.spf, 128, 16)))
+        D.full_decode_plain(head, ovf, idx, flat, 61, dt.spf, 128, 16))
     ms = cuda_ms(lambda: D.oidx_decode(head, idx, flat))
     dms = kernel_ms(lambda: D.oidx_decode(head, idx, flat))
+    floor = kernel_ms(lambda: kernels.launch_floor(2, n))
     pms = cuda_ms(lambda: D.oidx_decode_plain(head, idx, flat))
     # per probe: its row index and feature, head lanes 0 and 2, oidx
     hus = host_us(lambda: D.oidx_decode(head, idx, flat))
-    b_ms, by = _record(results, "oidx_decode", err=max(errs), ms=ms,
-                       plain_ms=pms, device_ms=dms, host_us=hus,
+    b_ms, by = _record(results, "oidx_decode", err=max(errs.values()),
+                       ms=ms, plain_ms=pms, device_ms=dms, host_us=hus,
                        nbytes=n * (4 + 4 + 8 + 4),
                        nops=n * 4, shape="131072 probes, pair-packed head "
                                          "rows, 2 M-feature table")
-    say("parity-B8", probes=n, tolerance=0, max_abs_err=max(errs), ms=ms,
-        kernel_device_ms=dms, host_us_per_call=hus, plain_ms=pms,
-        bound_ms=b_ms, bound_by=by,
+    say("parity-B8", probes=n, tolerance=0, max_abs_err=max(errs.values()),
+        cases=errs, ms=ms, kernel_device_ms=dms, floor_ms=floor,
+        host_us_per_call=hus, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+        bound_share=round(b_ms / dms, 4),
         deep_share=round(float((oidx > 0).float().mean()), 4))
-    del dt, head, ovf, flat, idx, oidx, found
+    del dt, head, ovf, flat, idx, oidx, found, vi, vf
     torch.cuda.empty_cache()
 
     # the builder on the card and on CPU tensors

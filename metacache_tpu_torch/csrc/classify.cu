@@ -64,6 +64,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -80,11 +82,6 @@ constexpr int kScratchWords = kTicketWords + 2 * kMaxBins;
 
 __device__ __forceinline__ int64_t clamp_row(int64_t r, int64_t nrows) {
   return r < 0 ? 0 : (r >= nrows ? nrows - 1 : r);
-}
-
-// wait for the grids this one depends on
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 // with a strong write after it a release, with a strong read before it
@@ -392,8 +389,6 @@ rank_hist_kernel(HistArgs a, unsigned* __restrict__ scratch,
   if (lane == 0) scratch[0] = 0;    // the ticket, for the next launch
 }
 
-__global__ void empty_kernel() {}
-
 unsigned lca_blocks(int64_t b) {
   return (unsigned)((b * kGroup + kLcaThreads - 1) / kLcaThreads);
 }
@@ -403,28 +398,6 @@ unsigned hist_blocks(int64_t m) {
   int64_t blocks = (nq + kHistThreads - 1) / kHistThreads;
   return (unsigned)(blocks < 1 ? 1 : blocks > kMaxHistBlocks
                                          ? kMaxHistBlocks : blocks);
-}
-
-// a launch of ``blocks`` x ``threads`` on the stream as a programmatic
-// dependent of the stream's previous kernel
-template <typename... E, typename... A>
-cudaError_t launch_dependent(unsigned blocks, int threads, void* stream,
-                             void (*kernel)(E...), A... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err;
-  if constexpr (sizeof...(A) == 0)
-    err = cudaLaunchKernelExC(&cfg, (const void*)kernel, nullptr);
-  else
-    err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace

@@ -45,19 +45,29 @@
 // probe's overflow row id from head lane 2, or from B8's output when it
 // is given one.
 //
-// B8: one thread per probe reads lanes 0 and 2 of its head row (two
-// loads of one 32-byte sector) and writes one int. B9, the bucket probe
-// of every index (JAX's probe_bucket and probe_bucket64 too): one warp
-// per probe reads its bucket row in chunks of 64 logical lanes, one
-// 8-byte load a lane where the width is even (the pair-packed rows and
-// the host's 64 lanes: one chunk, 256 bytes), two 4-byte loads a lane
-// where it is odd (the host's 65 or 1 + 2^k lanes), matches the feature
-// (u64: its low 32 bits) with a ballot (__any_sync) and sums the matching
-// lanes' ranks with a shuffle reduction; lane 0's first load is the
-// row's start, broadcast; the clamp into the feature table is folded in.
-// Both are bound by device-memory bytes: B9's row a probe is nearly all
-// of its traffic, B8's row sector and its 12 bytes of index, feature and
-// output a probe are all of its.
+// B8: one thread a probe reads its index and feature, then its row's
+// lanes 0 and 2 by 4-byte loads (one sector), and writes one int. It
+// launches as a programmatic dependent (its launch overlaps the kernel
+// before it) and waits for that kernel before its first read. Bound:
+// device-memory bytes, 20 a probe (index, feature, lanes 0 and 2,
+// output; 2.6 MB at 131,072 probes), about the launch floor on this
+// card; what it pays is its chain of round trips and, on a table past
+// the TLB's reach, the translation of its random rows
+// (tools/torch_b9_ab.py's footprints).
+// Two or four probes a thread, with 16-byte index, feature and output
+// loads and stores, timed 2-5% slower; one 16-byte load of lanes 0-3
+// timed within the spread of the turns.
+//
+// B9, the bucket probe of every index (JAX's probe_bucket and
+// probe_bucket64 too): one warp per probe reads its bucket row in chunks
+// of 64 logical lanes, one 8-byte load a lane where the width is even
+// (the pair-packed rows and the host's 64 lanes: one chunk, 256 bytes),
+// two 4-byte loads a lane where it is odd (the host's 65 or 1 + 2^k
+// lanes), matches the feature (u64: its low 32 bits) with a ballot
+// (__any_sync) and sums the matching lanes' ranks with a shuffle
+// reduction; lane 0's first load is the row's start, broadcast; the
+// clamp into the feature table is folded in. Bound: device-memory
+// bytes, the row a probe nearly all of them.
 //
 // classed_bucket and classed_decode: the size-classed layout's probe,
 // which JAX leaves to XLA (metacache_tpu/ops/probe.py:167-212,
@@ -127,6 +137,8 @@
 // reversed.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -309,16 +321,27 @@ full_decode_kernel(const int32_t* __restrict__ head, int64_t nf, int hw,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// B8's threads a block (tools/torch_b9_ab.py times other counts)
+constexpr int kOidxThreads = 256;
+
+// B8: one probe a thread. After the wait for the kernel before it, it
+// reads its index and feature and its row's lanes 0 and 2, then writes
+// its result.
+__global__ void __launch_bounds__(kOidxThreads)
 oidx_decode_kernel(const int32_t* __restrict__ head, int64_t nf, int hw,
                    const int32_t* __restrict__ idx,
                    const int32_t* __restrict__ flat, int64_t n,
                    int32_t* __restrict__ oidx) {
-  const int64_t probe = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t probe = (int64_t)blockIdx.x * kOidxThreads + threadIdx.x;
+  grid_dependency_wait();
   if (probe >= n) return;
   const int32_t* row = head + clamp_row(idx[probe], nf) * hw;
   const int32_t fv = flat[probe];
   oidx[probe] = (row[0] == fv && fv != -1) ? row[2] : 0;
+}
+
+unsigned oidx_blocks(int64_t n) {
+  return (unsigned)((n + kOidxThreads - 1) / kOidxThreads);
 }
 
 // B9 on logical rows of L lanes (the pair-packed index: L = 64): lane 0
@@ -882,16 +905,22 @@ extern "C" int mc_full_decode(const void* head, int64_t nf, int hw,
   return (int)cudaGetLastError();
 }
 
+// a programmatic dependent launch
 extern "C" int mc_oidx_decode(const void* head, int64_t nf, int hw,
                               const void* idx, const void* flat, int64_t n,
                               void* oidx, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (nf <= 0 || hw < 3) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  oidx_decode_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)head, nf, hw, (const int32_t*)idx,
-      (const int32_t*)flat, n, (int32_t*)oidx);
-  return (int)cudaGetLastError();
+  return (int)launch_dependent(oidx_blocks(n), kOidxThreads, stream,
+                               oidx_decode_kernel, (const int32_t*)head, nf,
+                               hw, (const int32_t*)idx, (const int32_t*)flat,
+                               n, (int32_t*)oidx);
+}
+
+// B8's launch floor: an empty kernel launched as B8 is at n probes
+extern "C" int mc_oidx_launch_floor(int64_t n, void* stream) {
+  return (int)launch_dependent(oidx_blocks(n < 1 ? 1 : n), kOidxThreads,
+                               stream, empty_kernel);
 }
 
 extern "C" int mc_bucket_decode(const void* brows, int64_t nrows, int L,

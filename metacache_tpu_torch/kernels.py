@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("sketch.cu", "candidates.cu", "candidates_unpacked.cu",
            "candidates_wide.cu", "probe_decode.cu", "classify.cu")
-HEADERS = ("block.cuh", "row_sort.cuh")
+HEADERS = ("block.cuh", "row_sort.cuh", "launch.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "metacache_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC")
@@ -141,6 +141,7 @@ def _load():
             lib.mc_rank_hist_scratch_bytes.argtypes = []
             lib.mc_rank_hist_scratch_bytes.restype = i64
             lib.mc_launch_floor.argtypes = [i, i64, p]
+            lib.mc_oidx_launch_floor.argtypes = [i64, p]
             for fn in (lib.mc_sketch_windows, lib.mc_sketch_windows_long,
                        lib.mc_sketch_windows64, lib.mc_sort_packed,
                        lib.mc_candidates_packed,
@@ -151,7 +152,8 @@ def _load():
                        lib.mc_bucket_decode, lib.mc_classed_bucket,
                        lib.mc_classed_decode, lib.mc_csr_decode,
                        lib.mc_dense_decode, lib.mc_classify_lca,
-                       lib.mc_rank_hist, lib.mc_launch_floor):
+                       lib.mc_rank_hist, lib.mc_launch_floor,
+                       lib.mc_oidx_launch_floor):
                 fn.restype = ctypes.c_int
             lib.mc_error_string.argtypes = [i]
             lib.mc_error_string.restype = ctypes.c_char_p
@@ -279,15 +281,17 @@ def rank_hist_scratch_bytes() -> int:
 
 def launch_floor(kind: int, n: int) -> None:
     """Launch an empty kernel on the current stream as classify_lca
-    (kind 0) or rank_hist (1) at ``n`` reads is launched, the same grid
-    and launch attributes: the launch floor of each kernel. Counts no
-    launch of any kernel."""
+    (kind 0) or rank_hist (1) at ``n`` reads, or B8 (2, oidx_decode) at
+    ``n`` probes, is launched, the same grid and launch attributes: the
+    launch floor of each kernel. Counts no launch of any kernel."""
     import torch
     dev = torch.cuda.current_device()
-    err = _load().mc_launch_floor(int(kind), int(n),
-                                  torch._C._cuda_getCurrentRawStream(dev))
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    lib = _load()
+    err = (lib.mc_oidx_launch_floor(int(n), stream) if kind == 2 else
+           lib.mc_launch_floor(int(kind), int(n), stream))
     if err != 0:
-        raise RuntimeError(f"mc_launch_floor failed: CUDA error {err} "
+        raise RuntimeError(f"launch floor {kind} failed: CUDA error {err} "
                            f"({_lib.mc_error_string(err).decode()})")
 
 

@@ -268,7 +268,7 @@ def sharded_query_step_rows(windows, valid, mwir, st: ShardedRowTable,
     windows (B, Wq, W) u8, valid (B, Wq), mwir (B,) on any device, B a
     multiple of the grid's positions. Each position sketches its 1/P of
     its group's rows, the sketches are gathered, each position probes
-    its shard (dense (tgt, win) rows: torch gathers; two-tier: B7) for
+    its shard (dense rows: dense_decode; two-tier: B7) for
     the group's whole batch, the exchange trades slot columns for row
     blocks, and each position classifies its block. -> QueryResults of
     the (data, table) blocks in order (``merge_blocks`` joins them)."""

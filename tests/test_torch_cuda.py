@@ -10,7 +10,9 @@ database through B2 against the CPU run; a k = 18 database through the
 batch split into launches by the free memory; the multi-part step on
 random tables against the same step on the CPU; the CSR layout through
 csr_decode against the goldens; dense_decode on the dense and two-tier
-lane rows (u32 and u64 features) against its plain version; B9 on every
+lane rows (u32 and u64 features) against its plain version; B8 on head
+widths 3 to 65, on views off the 16-byte grid and in a CUDA graph right
+after the kernel that writes its indices; B9 on every
 bucket-index width (u32 and u64), classed_bucket and classed_decode
 (full depth and head only; probes of every cell class and kind at even
 and odd indices, counts that leave a warp part-filled, and the head
@@ -1252,6 +1254,74 @@ def test_oidx_decode_kernel_matches_plain(cuda):
                                                  254, 256, 16))
 
 
+def _oidx_views(cuda, layout, n):
+    """B8's inputs on the card in one of its layouts -> (head, idx,
+    flat): the 64-lane rows; heads 63, 3 and 65 lanes wide; idx and flat
+    views 1 and 3 ints past the 16-byte grid."""
+    head, _ovf, _idx, _flat = (t.to(cuda) for t in _two_tier_case(
+        np.random.default_rng(41 + n), n=n + 3))
+    idx, flat = _idx[:n], _flat[:n]
+    if layout in ("w63", "w3", "w65"):
+        w = int(layout[1:])
+        head = torch.cat([head, head[:, 3:4]], dim=1)[:, :w].contiguous()
+    elif layout == "views":
+        idx = torch.empty(n + 4, dtype=torch.int32, device=cuda)[1:n + 1]
+        flat = torch.empty(n + 4, dtype=torch.int32, device=cuda)[3:n + 3]
+        idx.copy_(_idx[:n])
+        flat.copy_(_flat[:n])
+        assert n == 0 or (idx.data_ptr() % 16 == 4 and
+                          flat.data_ptr() % 16 == 12)
+    return head, idx, flat
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 4099, 4096 + 17, 131072 + 2])
+@pytest.mark.parametrize("layout", ["w64", "w63", "w3", "w65", "views"])
+def test_oidx_decode_layouts_match_plain(cuda, layout, n):
+    """B8 bit-equal to its plain version on the 64-lane rows and on
+    widths 63, 3 and 65, on idx and flat views off the 16-byte grid, on
+    counts that fill no whole block and on none; one launch a call with
+    probes, none without."""
+    head, idx, flat = _oidx_views(cuda, layout, n)
+    before = kernels.OIDX_DECODE.launches
+    got = D.oidx_decode(head, idx, flat)
+    want = D.oidx_decode_plain(head, idx, flat)
+    torch.cuda.synchronize()
+    assert kernels.OIDX_DECODE.launches == before + (n > 0)
+    assert got.shape == (n,) and torch.equal(got, want)
+    if n > 1000:
+        assert bool((got > 0).any()) and bool((got == 0).any())
+
+
+def test_oidx_decode_in_a_cuda_graph(cuda):
+    """B8, a programmatic dependent launch, captured in one CUDA graph
+    right after the kernel that rewrites its indices on every replay:
+    the next rows (no feature found) on odd replays, the rows of the
+    features on even ones, so an index read before that kernel ends
+    gives another result. Each replay equals the plain version on that
+    replay's indices."""
+    head, _ovf, base, _ = (t.to(cuda) for t in _two_tier_case(
+        np.random.default_rng(47), n=1 << 20))
+    nf = head.shape[0]
+    base = torch.clamp(base, 0, nf - 1)
+    flat = head[base.long(), 0].clone()
+    parity = torch.zeros((), dtype=torch.int32, device=cuda)
+    idx = torch.empty_like(base)
+    D.oidx_decode(head, base, flat)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        parity.bitwise_xor_(1)
+        torch.remainder(base + parity, nf, out=idx)
+        oidx = D.oidx_decode(head, idx, flat)
+    for replay in range(1, 7):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(idx, torch.remainder(base + replay % 2, nf))
+        want = D.oidx_decode_plain(head, idx, flat)
+        assert torch.equal(oidx, want)
+        assert bool(want.any()) == (replay % 2 == 0)
+
+
 @pytest.mark.parametrize("rl", [256, 512])
 def test_full_decode_takes_over_oidx_decode_on_the_card(cuda, rl):
     """B8 folded into B7 on the card: B7 without oidx equals B8 then B7
@@ -2458,11 +2528,12 @@ def test_rank_histogram_is_one_kernel(cuda):
 
 
 def test_launch_floor_runs(cuda):
-    """The empty kernel of each of the tail's grids launches and counts
-    no kernel's launch."""
-    before = (kernels.CLASSIFY_LCA.launches, kernels.RANK_HIST.launches)
-    for kind, n in ((0, 8192), (0, 1), (1, 262144), (1, 0)):
+    """The empty kernel of each of the tail's grids and of B8's launches
+    and counts no kernel's launch."""
+    ks = (kernels.CLASSIFY_LCA, kernels.RANK_HIST, kernels.OIDX_DECODE)
+    before = [k.launches for k in ks]
+    for kind, n in ((0, 8192), (0, 1), (1, 262144), (1, 0), (2, 131072),
+                    (2, 0)):
         kernels.launch_floor(kind, n)
     torch.cuda.synchronize()
-    assert (kernels.CLASSIFY_LCA.launches,
-            kernels.RANK_HIST.launches) == before
+    assert [k.launches for k in ks] == before

@@ -235,6 +235,73 @@ def test_oidx_decode_plain_matches_pallas(layout):
     assert (idx & 1).any() and not (idx & 1).all()
 
 
+def _oidx_probes(d, rng, n):
+    """n probes of the layout's rows: indices into the table, their
+    features, 30% misses and every 13th a sentinel."""
+    nf = len(d["feats"])
+    idx = rng.integers(0, nf, n)
+    flat = d["feats"][idx].view(np.int32).copy()
+    miss = rng.random(n) < 0.3
+    flat[miss] = rng.integers(1, 2**31 - 1, int(miss.sum()))
+    flat[::13] = -1
+    return idx.astype(np.int32), flat
+
+
+@pytest.mark.parametrize("case", ["n1", "n3", "n5", "n4099", "sentinels",
+                                  "idx_out_of_range", "views", "w3", "w63",
+                                  "w65"])
+def test_oidx_decode_cases(layout, case):
+    """B8 (oidx_decode) on counts that fill no whole block of the
+    kernel's (n 1, 3, 5, 4099), features all the sentinel, indices
+    below 0 and at or past the row count, and head, index and feature
+    views 1 and 3 ints past their storage's start, against JAX's
+    oidx_decode in interpret mode on the pair-packed rows at the clipped
+    index (XLA's gather clamps); on heads 3, 63 and 65 lanes wide, which
+    have no pair-packed form, against a numpy statement of the rule:
+    lane 2 of the clamped row where its lane 0 is the feature and the
+    feature is not -1, else 0."""
+    d = layout
+    nf = len(d["feats"])
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n = int(case[1:]) if case[0] == "n" else 4096 + 17
+    idx, flat = _oidx_probes(d, rng, n)
+    if case == "sentinels":
+        flat[:] = -1
+    elif case == "idx_out_of_range":
+        idx[::3] = -1 - rng.integers(0, 2**20, len(idx[::3]))
+        idx[1::3] = nf + rng.integers(0, 2**20, len(idx[1::3]))
+        idx[5::97] = nf
+        idx[7::97] = -2**31
+    elif case[0] == "w":
+        idx[::11] = nf + 3
+        idx[4::11] = -7
+    ci = np.clip(idx, 0, nf - 1)
+    if case[0] == "w":
+        w = int(case[1:])
+        hl = np.concatenate([d["hl"], d["hl"][:, 3:4]], axis=1)[:, :w]
+        rows = hl[ci]
+        want = np.where((rows[:, 0] == flat) & (flat != -1), rows[:, 2], 0)
+    else:
+        hl = d["hl"]
+        want = np.asarray(jpp.oidx_decode(
+            _pairpack(hl)[ci >> 1], jnp.asarray(ci & 1),
+            jnp.asarray(flat.view(np.uint32)), tile=64 if n < 512 else 512))
+    th, ti, tf = _t(hl), _t(idx), _t(flat)
+    if case == "views":
+        th = torch.cat([th.new_zeros(1), th.reshape(-1)])[1:].view(th.shape)
+        ti = torch.cat([ti.new_zeros(1), ti])[1:]
+        tf = torch.cat([tf.new_zeros(3), tf])[3:]
+        assert th.storage_offset() == ti.storage_offset() == 1
+        assert tf.storage_offset() == 3
+    got = D.oidx_decode(th, ti, tf).numpy()
+    assert got.dtype == np.int32 and got.shape == (n,)
+    np.testing.assert_array_equal(got, want)
+    if case == "sentinels":
+        assert not got.any()
+    elif n > 100:
+        assert (got > 0).any() and (got == 0).any()
+
+
 @pytest.mark.parametrize("rl", [256, 512])
 def test_full_decode_takes_over_oidx_decode(layout, rl):
     """B8 folded into B7: B7 given no oidx (reading head lane 2 itself)

@@ -59,42 +59,50 @@ VARIANTS = {
 }
 
 
-def sources(base: str) -> dict:
+def sources(base: str, variants: dict = VARIANTS,
+            prefix: str = "classed") -> dict:
     """name -> the source to build: the base, and this checkout's
-    probe_decode.cu copied and patched once for each variant."""
+    probe_decode.cu copied and patched once for each variant (a (text,
+    replacement) pair)."""
     own = os.path.join(kernels.CSRC, "probe_decode.cu")
     with open(own) as f:
         text = f.read()
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     out = {"base": base}
-    for name, (old, new) in VARIANTS.items():
+    for name, (old, new) in variants.items():
         if text.count(old) != 1:
             raise RuntimeError(f"{name}: {old!r} is not in {own} once")
-        path = os.path.join(kernels.BUILD_DIR, f"classed_{name}.cu")
+        path = os.path.join(kernels.BUILD_DIR, f"{prefix}_{name}.cu")
         with open(path, "w") as f:
             f.write(text.replace(old, new))
         out[name] = path
     return out
 
 
-def build(srcs: dict) -> dict:
-    """Each source built as kernels.py builds the port's, one nvcc each,
-    in parallel -> name -> library with the two entry points' argument
-    types set."""
+def bind_classed(lib) -> None:
+    """Set the classed entry points' argument types."""
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.mc_classed_bucket.argtypes = [p, i64, i, p, i64, p, p, p]
+    lib.mc_classed_decode.argtypes = [p, i64, p, i64, i, p, p, i64, i, i, i,
+                                      i, i, i, i, p, p, p, p]
+
+
+def build(srcs: dict, prefix: str = "classed", bind=bind_classed) -> dict:
+    """Each source built alone as kernels.py builds the port's (its
+    headers from this checkout's csrc/), one nvcc each, in parallel ->
+    name -> library, passed to ``bind`` (which sets argument types)."""
     procs = {name: subprocess.Popen(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", src, "-o",
-         os.path.join(kernels.BUILD_DIR, f"classed_{name}.so")])
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC,
+         "-shared", src, "-o",
+         os.path.join(kernels.BUILD_DIR, f"{prefix}_{name}.so")])
         for name, src in srcs.items()}
     libs = {}
     for name, proc in procs.items():
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc failed on the {name} build")
         lib = ctypes.CDLL(os.path.join(kernels.BUILD_DIR,
-                                       f"classed_{name}.so"))
-        lib.mc_classed_bucket.argtypes = [p, i64, i, p, i64, p, p, p]
-        lib.mc_classed_decode.argtypes = [p, i64, p, i64, i, p, p, i64, i,
-                                          i, i, i, i, i, i, p, p, p, p]
+                                       f"{prefix}_{name}.so"))
+        bind(lib)
         libs[name] = lib
     return libs
 
